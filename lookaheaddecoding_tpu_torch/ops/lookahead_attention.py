@@ -1,0 +1,151 @@
+"""Composite-mask lookahead attention: the mask arithmetic, the plain
+PyTorch version and the wrapper of the hand-written CUDA kernel
+(``csrc/lookahead_attention.cu``).
+
+Query rows are [lst + window levels + guess n-grams] of the composite step
+(core/layout.py). A committed key slot (< kv_len) is visible to every row;
+the S speculative slots [kv_len, kv_len + S) follow the within-composite
+mask, which ``_spec_visible`` derives from index arithmetic. Causal mode
+(prefill and the AR baseline) sees every slot up to its own.
+
+On a CUDA tensor :func:`lookahead_attention` launches the kernel, or raises
+on an input it does not take; on a CPU tensor it runs
+:func:`lookahead_attention_ref`. ``counts`` records both.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..models.llama import attention_dense
+
+# Launches of the CUDA kernel and calls of the plain version, for showing
+# which one a run went through. Reset with ``counts.update(kernel=0, plain=0)``.
+counts = {"kernel": 0, "plain": 0}
+
+KERNEL_HEAD_DIMS = (64, 128)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _spec_visible(qi, rj, *, level, window, guess_size):
+    """Within-composite visibility of key ``rj`` (relative to kv_len) from
+    composite row ``qi``; integer tensors of one shape. Equals
+    core/layout.py:_build_spec_mask. ``//`` and ``%`` on tensors floor, as
+    in the JAX package; the guess-region terms of window ids are negative
+    and masked out."""
+    n, w, gs = level, window, guess_size
+    nw = (n - 1) * w
+    q_in_win, k_in_win = qi < nw, rj < nw
+    lvl_q, pos_q = qi // w, qi % w
+    lvl_k, pos_k = rj // w, rj % w
+    win_win = q_in_win & k_in_win & (
+        ((lvl_k == 0) & (pos_k <= pos_q))
+        | ((lvl_k >= 1) & (lvl_k <= lvl_q) & (pos_k == pos_q)))
+    g_q, i_q = (qi - nw) // gs, (qi - nw) % gs
+    g_k, i_k = (rj - nw) // gs, (rj - nw) % gs
+    guess_q = (~q_in_win) & (
+        (rj == 0) | ((~k_in_win) & (g_k == g_q) & (i_k <= i_q)))
+    return win_win | guess_q
+
+
+def _rel_pos(qi, *, level, window, guess_size):
+    """Position of composite row ``qi`` relative to the last confirmed
+    token (core/layout.py rel_pos)."""
+    nw = (level - 1) * window
+    return torch.where(qi < nw, qi // window + qi % window,
+                       1 + (qi - nw) % guess_size)
+
+
+def _block_mask(kv_len, m, *, s_len, level, window, guess_size, causal,
+                sliding_window, device):
+    """[S, M] bool visibility over the whole cache for a device scalar
+    ``kv_len`` (no host read)."""
+    col = torch.arange(m, device=device)[None, :]
+    qi = torch.arange(s_len, device=device)[:, None]
+    kv_len = kv_len.reshape(()).long()
+    if causal:
+        visible = col <= kv_len + qi
+        if sliding_window:
+            visible = visible & (col > kv_len + qi - sliding_window)
+        return visible
+    rel = col - kv_len
+    committed = col < kv_len
+    if sliding_window:
+        q_pos = kv_len + _rel_pos(qi, level=level, window=window,
+                                  guess_size=guess_size)
+        committed = committed & (col > q_pos - sliding_window)
+    return committed | ((rel >= 0) & (rel < s_len) & _spec_visible(
+        qi, rel, level=level, window=window, guess_size=guess_size))
+
+
+def lookahead_attention_ref(q, k, v, kv_len, *, level, window, guess_size,
+                            causal=False, sliding_window=0):
+    """Plain version: the [S, M] visibility of :func:`_block_mask` through
+    ``models/llama.py:attention_dense``. Returns [S, Hq*D] in q's dtype."""
+    vis = _block_mask(kv_len, k.shape[1], s_len=q.shape[0], level=level,
+                      window=window, guess_size=guess_size, causal=causal,
+                      sliding_window=sliding_window, device=q.device)
+    mask = torch.zeros(vis.shape, dtype=torch.float32, device=q.device)
+    mask.masked_fill_(~vis, float("-inf"))
+    return attention_dense(q, k, v, mask).to(q.dtype)
+
+
+def _check_kernel_inputs(q, k, v, kv_len):
+    if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
+        raise ValueError(f"need q [S, Hq, D] and k, v [Hkv, M, D]; got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    s_len, hq, d = q.shape
+    hkv, _, dk = k.shape
+    if dk != d or hq % hkv:
+        raise ValueError(f"head dims {d}/{dk} or heads {hq}/{hkv} mismatch")
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"kernel takes head_dim in {KERNEL_HEAD_DIMS}, got {d}")
+    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"kernel takes float32 or bfloat16 q/k/v of one "
+                         f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("kernel takes contiguous q, k, v")
+    if not (isinstance(kv_len, torch.Tensor) and kv_len.dtype == torch.int32
+            and kv_len.numel() == 1):
+        raise ValueError("kv_len must be a one-element int32 tensor")
+    if len({t.device for t in (q, k, v, kv_len)}) != 1:
+        raise ValueError("q, k, v and kv_len must be on one device")
+    if q.device.index != torch.cuda.current_device():
+        raise ValueError(f"tensors on {q.device}, but the current CUDA "
+                         f"device is {torch.cuda.current_device()}")
+    if s_len < 1:
+        raise ValueError("need at least one query row")
+
+
+def lookahead_attention(q, k, v, kv_len, *, level, window, guess_size,
+                        causal=False, sliding_window=0, spec_mask=None):
+    """Composite-mask attention, [S, Hq*D] in q's dtype.
+
+    q [S, Hq, D]; k, v [Hkv, M, D] (one layer of the KV-head-major cache);
+    ``kv_len`` a one-element int32 tensor on q's device, read by the kernel
+    itself, so launching needs no host read. ``spec_mask`` is accepted for
+    the JAX signature; both versions derive that mask from index
+    arithmetic."""
+    if q.device.type == "cpu":
+        counts["plain"] += 1
+        return lookahead_attention_ref(
+            q, k, v, kv_len, level=level, window=window,
+            guess_size=guess_size, causal=causal,
+            sliding_window=sliding_window)
+    if q.device.type != "cuda":
+        raise ValueError(f"no attention kernel for device {q.device}")
+    _check_kernel_inputs(q, k, v, kv_len)
+    from ._build import load
+    s_len, hq, d = q.shape
+    hkv, m, _ = k.shape
+    out = torch.empty((s_len, hq * d), dtype=q.dtype, device=q.device)
+    err = load("lookahead_attention").lookahead_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
+        out.data_ptr(), _DTYPE_CODES[q.dtype], s_len, hq, hkv, m, d,
+        level, window, guess_size, int(causal), int(sliding_window),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"lookahead_attention kernel launch failed: "
+                           f"CUDA error {err}")
+    counts["kernel"] += 1
+    return out
