@@ -105,9 +105,6 @@ class LookaheadEngine:
                 f"got {model_cfg.head_dim}; pass attention_impl='dense' to "
                 f"run the plain version on the card")
         e = self.ecfg
-        if e.kv_quant is not None or e.fuse_projections:
-            raise NotImplementedError(
-                "kv_quant and fuse_projections are not ported yet")
         if max(e.tp, e.la, e.dp, e.pp) > 1:
             raise NotImplementedError("parallel meshes are not ported yet")
         self.layout: Layout = build_layout(self.lcfg)
@@ -122,6 +119,8 @@ class LookaheadEngine:
             raise ValueError(
                 "composite step size exceeds the model's sliding window; "
                 "reduce level/window_size/guess_set_size")
+        if e.fuse_projections:
+            self.params = llama.fuse_params(self.params)
         self._fns = build_step_fns(model_cfg, self.lcfg, e, self.layout,
                                    self.device)
 
@@ -162,7 +161,7 @@ class LookaheadEngine:
         """Caches, pool, window seeding, prompt fill and prefill."""
         dev = self.device
         k_cache, v_cache = llama.make_kv_cache(
-            self.mcfg, self.ecfg.max_seq_len, dev)
+            self.mcfg, self.ecfg.max_seq_len, dev, quant=self.ecfg.kv_quant)
         pool = pool_init(
             pool_table_rows(self.mcfg.vocab_size, self.lcfg.pool_key_len,
                             self.lcfg.pool_hash_size),

@@ -16,8 +16,8 @@ from .pool import PoolState
 
 @dataclasses.dataclass
 class DecodeState:
-    k_cache: torch.Tensor      # [L, Hkv, M, D], updated in place
-    v_cache: torch.Tensor      # [L, Hkv, M, D], updated in place
+    k_cache: object            # [L, Hkv, M, D] tensor or int8 {"q", "s"}
+    v_cache: object            # dict of tensors; updated in place
     kv_len: torch.Tensor       # int32: committed cache slots
     window: torch.Tensor       # [n_window] int32 flattened lookahead levels
     pool: PoolState

@@ -319,8 +319,10 @@ def build_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
             src = (kv_len + layout.guess_start + winner * GS).long().clamp(
                 0, M - GS) + ar
             dst = (kv_len + 1).long().clamp(0, M - GS) + ar
-            for cache in (k_cache, v_cache):
-                cache.index_copy_(2, dst, cache.index_select(2, src))
+            for cache in (k_cache, v_cache):   # plain or int8 {"q", "s"}
+                for buf in (cache.values() if isinstance(cache, dict)
+                            else (cache,)):
+                    buf.index_copy_(2, dst, buf.index_select(2, src))
         return _keep_if_finished(state, updates)
 
     def decode_loop(params, state: DecodeState, max_new: int, eos_id):

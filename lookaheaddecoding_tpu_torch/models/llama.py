@@ -6,7 +6,12 @@ The same model and the same data formats as
 - parameters are a dict of tensors with every per-layer weight stacked on a
   leading ``L`` axis, projections in ``[in, out]`` orientation (``x @ W``);
 - the KV cache is a preallocated KV-head-major ``[L, Hkv, M, D]`` buffer
-  per K and V, written in place at the slots of each call's tokens;
+  per K and V, written in place at the slots of each call's tokens; the
+  int8 cache is a ``{"q": int8 [L, Hkv, M, D], "s": f32 [L, Hkv, M, 1]}``
+  dict per K and V, quantized per slot and KV head as it is written;
+- a projection may be a quantized dict (``ops/quant.py``) in place of a
+  tensor, and q/k/v and gate/up may be fused into ``wqkv`` / ``w_gate_up``
+  (``fuse_params``); every projection goes through ``ops/quant.py:qmatmul``;
 - RMSNorm statistics, rotary tables, attention logits and softmax are fp32.
 
 Parameter tree (``L`` layers):
@@ -86,11 +91,19 @@ def _to_tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
 def params_from_numpy(tree: Dict, cfg: LlamaConfig, device="cuda") -> Dict:
     """The port's parameters from a tree of numpy arrays with the JAX
     package's names and layouts (what ``jax.device_get(init_params(...))``
-    returns). Every leaf is copied as it is, cast to ``cfg.dtype``."""
-    out = {k: _to_tensor(v, cfg.dtype, device)
-           for k, v in tree.items() if k != "layers"}
-    out["layers"] = {k: _to_tensor(v, cfg.dtype, device)
-                     for k, v in tree["layers"].items()}
+    returns, quantized or fused or not). Floating leaves are cast to
+    ``cfg.dtype``; inside a quantized dict every leaf keeps its type (int8
+    values, float32 scales, the zero-element ``q4_pad`` sentinel)."""
+    keep = {"int8": torch.int8, "float32": torch.float32}
+
+    def weight(v):
+        if isinstance(v, dict):
+            return {k: _to_tensor(a, keep[np.asarray(a).dtype.name], device)
+                    for k, a in v.items()}
+        return _to_tensor(v, cfg.dtype, device)
+
+    out = {k: weight(v) for k, v in tree.items() if k != "layers"}
+    out["layers"] = {k: weight(v) for k, v in tree["layers"].items()}
     return out
 
 
@@ -189,20 +202,29 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     return (xf * cos[:, None, :] + rot * sin[:, None, :]).to(x.dtype)
 
 
-def attention_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    mask: torch.Tensor) -> torch.Tensor:
+def attention_dense(q: torch.Tensor, k, v, mask: torch.Tensor) -> torch.Tensor:
     """Dense masked attention over the whole cache. q [T, Hq, D]; k, v
-    [Hkv, M, D]; mask [T, M] additive fp32 (0 or -inf). GQA through the
-    reshape q -> [Hkv, rep*T, D]. Logits and softmax in fp32; the
-    probabilities are cast to v's dtype before the PV product, whose sum is
-    fp32 (the JAX ``attention_xla`` contract). Returns [T, Hq*D] fp32."""
+    [Hkv, M, D] tensors or int8 ``{"q", "s"}`` dicts; mask [T, M] additive
+    fp32 (0 or -inf). GQA through the reshape q -> [Hkv, rep*T, D]. Logits
+    and softmax in fp32; the probabilities are cast to v's dtype (q's for
+    an int8 v) before the PV product, whose sum is fp32 (the JAX
+    ``attention_xla`` contract). The int8 cache's per-slot scales multiply
+    the scores and the probabilities, so no dequantized copy of the cache
+    is made. Returns [T, Hq*D] fp32."""
+    k, ks = (k["q"], k["s"]) if isinstance(k, dict) else (k, None)
+    v, vs = (v["q"], v["s"]) if isinstance(v, dict) else (v, None)
     t, hq, d = q.shape
     hkv, m, _ = k.shape
     rep = hq // hkv
     qh = q.transpose(0, 1).reshape(hkv, rep * t, d)
     scores = torch.matmul(qh.float(), k.float().transpose(1, 2)) / math.sqrt(d)
+    if ks is not None:
+        scores = scores * ks[:, None, :, 0]                  # [Hkv, 1, M]
     scores = scores.view(hkv, rep, t, m) + mask[None, None]
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    probs = torch.softmax(scores, dim=-1)
+    if vs is not None:
+        probs = probs * vs[:, None, None, :, 0]              # [Hkv, 1, 1, M]
+    probs = probs.to(q.dtype if v.dtype == torch.int8 else v.dtype)
     out = torch.matmul(probs.float(), v.float()[:, None])   # [Hkv, rep, T, D]
     return out.permute(2, 0, 1, 3).reshape(t, hq * d)
 
@@ -218,10 +240,21 @@ def write_slots(start, t: int, m: int):
     return start.clamp(0, m - t) + torch.arange(t, device=start.device)
 
 
-def kv_cache_write(cache: torch.Tensor, new: torch.Tensor,
-                   slots) -> torch.Tensor:
+def kv_cache_write(cache, new: torch.Tensor, slots):
     """Write [T, Hkv, D] values into a KV-head-major [Hkv, M, D] buffer in
-    place, at ``slots`` from :func:`write_slots`. Returns the buffer."""
+    place, at ``slots`` from :func:`write_slots`. An int8 cache dict takes
+    the values quantized per slot and KV head (symmetric: scale
+    ``max(amax * float32(1 / 127), 1e-8)``, as XLA compiles the JAX
+    package's ``amax / 127.0`` inside its jitted step; a true division
+    ``new / scale``, round half to even, clip to +-127) and their scales.
+    Returns the buffer."""
+    if isinstance(cache, dict):
+        nf = new.float()
+        s = (nf.abs().amax(dim=-1, keepdim=True) * (1.0 / 127.0)).clamp_min(1e-8)
+        qv = torch.round(nf / s).clamp_(-127, 127).to(torch.int8)
+        kv_cache_write(cache["q"], qv, slots)
+        kv_cache_write(cache["s"], s, slots)
+        return cache
     if isinstance(slots, int):
         cache[:, slots:slots + new.shape[0]] = new.transpose(0, 1)
     else:
@@ -231,13 +264,65 @@ def kv_cache_write(cache: torch.Tensor, new: torch.Tensor,
 
 def make_kv_cache(cfg: LlamaConfig, max_seq: int, device="cuda",
                   quant: Optional[str] = None):
-    """Zeroed KV-head-major cache buffers [L, Hkv, M, D] for K and V."""
-    if quant is not None:
-        raise NotImplementedError("quantized KV caches are not ported yet")
+    """Zeroed KV-head-major cache buffers [L, Hkv, M, D] for K and V;
+    ``quant="int8"`` gives int8 values with float32 scales [L, Hkv, M, 1]
+    (filled with 1e-8) for each."""
     shape = (cfg.num_hidden_layers, cfg.num_key_value_heads, max_seq,
              cfg.head_dim)
-    return (torch.zeros(shape, dtype=cfg.dtype, device=device),
-            torch.zeros(shape, dtype=cfg.dtype, device=device))
+    if quant is None:
+        return (torch.zeros(shape, dtype=cfg.dtype, device=device),
+                torch.zeros(shape, dtype=cfg.dtype, device=device))
+    if quant != "int8":
+        raise ValueError(f"unsupported kv quantization: {quant}")
+
+    def make():
+        return {"q": torch.zeros(shape, dtype=torch.int8, device=device),
+                "s": torch.full(shape[:-1] + (1,), 1e-8,
+                                dtype=torch.float32, device=device)}
+    return make(), make()
+
+
+def fuse_params(params: Dict, qkv: bool = True, gate_up: bool = True) -> Dict:
+    """Fuse the per-layer q/k/v and/or gate/up projections into single wide
+    products (``wqkv``, ``bqkv``, ``w_gate_up``), for plain tensors and
+    for quantized dicts alike: a concatenation of output channels commutes
+    with per-output-channel quantization. A mix of plain and quantized
+    parts stays unfused."""
+    lp = params["layers"]
+
+    def cat(ws):
+        if not isinstance(ws[0], dict):
+            if any(isinstance(w, dict) for w in ws):
+                return None
+            return torch.cat(ws, dim=-1)
+        qkey = "q" if "q" in ws[0] else "q4"
+        if not all(isinstance(w, dict) and qkey in w for w in ws):
+            return None
+        out = {qkey: torch.cat([w[qkey] for w in ws], dim=-1),
+               "scale": torch.cat([w["scale"] for w in ws], dim=-1)}
+        if all("q4_pad" in w for w in ws):
+            # same K, same pad rows: the concatenation of the zero-element
+            # sentinels also checks that their shapes agree
+            out["q4_pad"] = torch.cat([w["q4_pad"] for w in ws], dim=-1)
+        return out
+
+    new_lp = dict(lp)
+    if qkv and "wqkv" not in lp:
+        wqkv = cat([lp["wq"], lp["wk"], lp["wv"]])
+        if wqkv is not None:
+            for k in ("wq", "wk", "wv", "bq", "bk", "bv"):
+                new_lp.pop(k, None)
+            new_lp["wqkv"] = wqkv
+            if "bq" in lp:
+                new_lp["bqkv"] = torch.cat([lp["bq"], lp["bk"], lp["bv"]],
+                                           dim=-1)
+    if gate_up and "w_gate_up" not in lp:
+        w_gate_up = cat([lp["w_gate"], lp["w_up"]])
+        if w_gate_up is not None:
+            for k in ("w_gate", "w_up"):
+                new_lp.pop(k, None)
+            new_lp["w_gate_up"] = w_gate_up
+    return {**params, "layers": new_lp}
 
 
 # ---------------------------------------------------------------------------
@@ -249,8 +334,8 @@ def forward(
     cfg: LlamaConfig,
     tokens: torch.Tensor,        # [T] int composite / prefill chunk
     positions: torch.Tensor,     # [T] int absolute positions
-    k_cache: torch.Tensor,       # [L, Hkv, M, D], written in place
-    v_cache: torch.Tensor,       # [L, Hkv, M, D], written in place
+    k_cache,                     # [L, Hkv, M, D] or an int8 {"q", "s"}
+    v_cache,                     # dict; written in place
     write_start,                 # host int or device scalar: slot of tokens[0]
     rope_cos: torch.Tensor,      # [M, D] fp32
     rope_sin: torch.Tensor,
@@ -267,10 +352,18 @@ def forward(
     (``attn_impl="kernel"``). Returns (fp32 logits, k_cache, v_cache)."""
     from ..ops.lookahead_attention import (lookahead_attention,
                                            lookahead_attention_ref)
+    from ..ops.quant import qmatmul
 
     hq, hkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    inter = cfg.intermediate_size
     t = tokens.shape[0]
-    m = k_cache.shape[2]
+    m = (k_cache["q"] if isinstance(k_cache, dict) else k_cache).shape[2]
+
+    def layer(tree, li):
+        """Layer ``li`` of a stacked tensor, or of every leaf of a dict."""
+        if isinstance(tree, dict):
+            return {name: leaf[li] for name, leaf in tree.items()}
+        return tree[li]
 
     x = params["embed"][tokens]                              # [T, H]
     if cfg.scale_embeddings:
@@ -290,24 +383,40 @@ def forward(
     for li in range(cfg.num_hidden_layers):
         y = rms_norm(x, lp["input_norm"][li], cfg.rms_norm_eps,
                      cfg.rms_norm_offset)
-        q, k, vv = y @ lp["wq"][li], y @ lp["wk"][li], y @ lp["wv"][li]
-        if cfg.attention_bias:
-            q, k, vv = q + lp["bq"][li], k + lp["bk"][li], vv + lp["bv"][li]
-        q = apply_rope(q.view(t, hq, d), cos, sin)
-        k = apply_rope(k.view(t, hkv, d), cos, sin)
-        kc = kv_cache_write(k_cache[li], k, slots)
-        vc = kv_cache_write(v_cache[li], vv.view(t, hkv, d), slots)
+        if "wqkv" in lp:         # fused projections (fuse_params)
+            qkv = qmatmul(y, layer(lp["wqkv"], li))
+            if cfg.attention_bias:
+                qkv = qkv + lp["bqkv"][li]
+            q, k, vv = qkv.split((hq * d, hkv * d, hkv * d), dim=1)
+        else:
+            q = qmatmul(y, layer(lp["wq"], li))
+            k = qmatmul(y, layer(lp["wk"], li))
+            vv = qmatmul(y, layer(lp["wv"], li))
+            if cfg.attention_bias:
+                q, k, vv = q + lp["bq"][li], k + lp["bk"][li], vv + lp["bv"][li]
+        # the fused split hands out column slices; the kernel takes a
+        # contiguous q (a no-op for the unfused layout)
+        q = apply_rope(q.reshape(t, hq, d), cos, sin).contiguous()
+        k = apply_rope(k.reshape(t, hkv, d), cos, sin)
+        kc = kv_cache_write(layer(k_cache, li), k, slots)
+        vc = kv_cache_write(layer(v_cache, li), vv.reshape(t, hkv, d), slots)
         attn = attend(q, kc, vc, kv_len, **meta)
-        x = x + attn.to(cfg.dtype) @ lp["wo"][li]
+        x = x + qmatmul(attn.to(cfg.dtype), layer(lp["wo"], li))
         y = rms_norm(x, lp["post_norm"][li], cfg.rms_norm_eps,
                      cfg.rms_norm_offset)
-        gate = act((y @ lp["w_gate"][li]).float()).to(cfg.dtype)
-        x = x + (gate * (y @ lp["w_up"][li])) @ lp["w_down"][li]
+        if "w_gate_up" in lp:
+            gate_in, up = qmatmul(y, layer(lp["w_gate_up"], li)).split(
+                (inter, inter), dim=1)
+        else:
+            gate_in = qmatmul(y, layer(lp["w_gate"], li))
+            up = qmatmul(y, layer(lp["w_up"], li))
+        gate = act(gate_in.float()).to(cfg.dtype)
+        x = x + qmatmul(gate * up, layer(lp["w_down"], li))
 
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps,
                  cfg.rms_norm_offset)
     if logits_rows is not None:
         x = x[logits_rows]
     head = params.get("lm_head")
-    logits = x @ (params["embed"].T if head is None else head)
+    logits = x @ params["embed"].T if head is None else qmatmul(x, head)
     return logits.float(), k_cache, v_cache

@@ -1,6 +1,8 @@
-"""Attention kernel (CUDA C++ under csrc/), its plain version and build.
+"""The port's kernels (CUDA C++ under csrc/), their wrappers and plain
+versions, the weight quantizer, and the build.
 
-The kernel wrapper is ``ops.lookahead_attention.lookahead_attention``; the
-submodule is not shadowed by a package-level name, so its launch counts
-stay reachable as ``ops.lookahead_attention.counts``.
+The wrappers are ``ops.lookahead_attention.lookahead_attention`` and
+``ops.quant_matmul.int8_matmul`` / ``int4_matmul``; the submodules are not
+shadowed by package-level names, so their launch counts stay reachable as
+``ops.lookahead_attention.counts`` and ``ops.quant_matmul.counts``.
 """

@@ -30,9 +30,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "lookahead_attention": (
         "lookahead_attention_launch",
-        # q, k, v, kv_len, out, dtype, s_len, hq, hkv, m, d, level, window,
-        # guess_size, causal, sliding_window, stream
-        [_P, _P, _P, _P, _P] + [_I] * 11 + [_P]),
+        # q, k, v, k_scale, v_scale, kv_len, out, dtype, kv_int8, s_len, hq,
+        # hkv, m, d, level, window, guess_size, causal, sliding_window, stream
+        [_P] * 7 + [_I] * 12 + [_P]),
+    "quant_matmul": (
+        "quant_matmul_launch",
+        # x, w, scale, out, mode, dtype, t, k, n, w_rows, k2, stream
+        [_P] * 4 + [_I] * 7 + [_P]),
 }
 
 _libs: dict = {}       # name -> loaded ctypes.CDLL (one load per process)

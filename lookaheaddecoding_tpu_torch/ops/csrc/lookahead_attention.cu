@@ -11,6 +11,12 @@
 // over visible c) . v[g,c], with GQA head h -> KV head g = h / rep, fp32
 // accumulation, the probabilities rounded to the input type before the PV
 // product (as the TPU kernel does), output in the input type.
+// int8-KV mode (the cache of models/llama.py:make_kv_cache(quant="int8")):
+// k and v are int8 with one float32 scale a slot and KV head, [Hkv, M]. The
+// bytes are converted in shared memory; the score is multiplied by
+// k_scale[g, c] after the QK product, the denominator sums the unscaled p,
+// and p is multiplied by v_scale[g, c] and then rounded to q's type before
+// the PV product, so no dequantized copy of the cache exists anywhere.
 // Visibility (the TPU kernel's _block_mask):
 //   composite mode: committed slots c < kv_len are visible to every row
 //     (with a sliding window sw only when c > kv_len + rel_pos(s) - sw);
@@ -42,6 +48,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int BR = 64;         // query rows (GQA rows of one KV head) a block
@@ -57,6 +65,8 @@ template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+
+template <> __device__ __forceinline__ float to_f<signed char>(signed char x) { return (float)x; }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
@@ -108,12 +118,15 @@ __device__ __forceinline__ bool visible(int s, int c, int kv_len, const Geometry
 
 // Grid (row tiles, KV heads). Block: NT threads, BR GQA rows t = s*rep + r
 // of KV head blockIdx.y; thread (ty, tx) owns rows ty*RPT + i and, in each
-// KV tile, key columns tx + TX*j and output dims tx + TX*j.
-template <typename T, int D>
+// KV tile, key columns tx + TX*j and output dims tx + TX*j. KV is T, or
+// signed char in int8-KV mode (then k_scale and v_scale are read).
+template <typename T, typename KV, int D>
 __global__ void __launch_bounds__(NT)
-lookahead_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, const int* __restrict__ kv_len_ptr,
-                           T* __restrict__ out, Geometry g) {
+lookahead_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k,
+                           const KV* __restrict__ v, const float* __restrict__ k_scale,
+                           const float* __restrict__ v_scale,
+                           const int* __restrict__ kv_len_ptr, T* __restrict__ out, Geometry g) {
+  constexpr bool QUANT = !std::is_same<T, KV>::value;
   constexpr int DPT = D / TX;  // output dims a thread
   constexpr int QS = D + 1;    // padded row strides: no bank conflicts
   constexpr int PS = BK + 1;
@@ -122,14 +135,16 @@ lookahead_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* sk = sq + BR * QS;     // [BK][QS]
   float* sv = sk + BK * QS;     // [BK][D]
   float* sp = sv + BK * D;      // [BR][PS]
+  float* sks = sp + BR * PS;    // [BK] k scales of the tile (int8-KV mode)
+  float* svs = sks + BK;        // [BK] v scales
 
   const int tid = threadIdx.x, ty = tid / TX, tx = tid % TX;
   const int head_kv = blockIdx.y;
   const int n_rows = g.s_len * g.rep;
   const int t0 = blockIdx.x * BR;
   const int kv_len = *kv_len_ptr;
-  const T* kh = k + (size_t)head_kv * g.m * D;
-  const T* vh = v + (size_t)head_kv * g.m * D;
+  const KV* kh = k + (size_t)head_kv * g.m * D;
+  const KV* vh = v + (size_t)head_kv * g.m * D;
 
   for (int idx = tid; idx < BR * D; idx += NT) {
     const int row = idx / D, d = idx % D, t = t0 + row;
@@ -169,8 +184,15 @@ lookahead_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int idx = tid; idx < BK * D; idx += NT) {
       const int kk = idx / D, d = idx % D, c = c0 + kk;
       const bool ok = c < g.m;
-      sk[kk * QS + d] = ok ? to_f<T>(kh[(size_t)c * D + d]) : 0.f;
-      sv[kk * D + d] = ok ? to_f<T>(vh[(size_t)c * D + d]) : 0.f;
+      sk[kk * QS + d] = ok ? to_f<KV>(kh[(size_t)c * D + d]) : 0.f;
+      sv[kk * D + d] = ok ? to_f<KV>(vh[(size_t)c * D + d]) : 0.f;
+    }
+    if (QUANT) {
+      for (int kk = tid; kk < BK; kk += NT) {
+        const int c = c0 + kk;
+        sks[kk] = c < g.m ? k_scale[(size_t)head_kv * g.m + c] : 0.f;
+        svs[kk] = c < g.m ? v_scale[(size_t)head_kv * g.m + c] : 0.f;
+      }
     }
     __syncthreads();
 
@@ -202,7 +224,9 @@ lookahead_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < CPT; ++j) {
         const int c = c0 + tx + TX * j;
         const bool vis = t < n_rows && c < g.m && visible(s, c, kv_len, g);
-        sc[i][j] = vis ? sc[i][j] * g.scale_log2 : -INFINITY;
+        const float scaled = QUANT ? sc[i][j] * g.scale_log2 * sks[tx + TX * j]
+                                   : sc[i][j] * g.scale_log2;
+        sc[i][j] = vis ? scaled : -INFINITY;
         mx = fmaxf(mx, sc[i][j]);
       }
 #pragma unroll
@@ -217,7 +241,8 @@ lookahead_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < CPT; ++j) {
         const float p = exp2f(sc[i][j] - m_use);
         psum += p;
-        sp[row * PS + tx + TX * j] = to_f<T>(from_f<T>(p));
+        const float pv = QUANT ? p * svs[tx + TX * j] : p;
+        sp[row * PS + tx + TX * j] = to_f<T>(from_f<T>(pv));
       }
 #pragma unroll
       for (int off = TX / 2; off > 0; off >>= 1)
@@ -255,45 +280,62 @@ lookahead_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* kv_len,
-                   void* out, int hkv, const Geometry& g, cudaStream_t stream) {
-  constexpr int smem = (BR * (D + 1) + BK * (D + 1) + BK * D + BR * (BK + 1)) * sizeof(float);
+struct Pointers {
+  const void *q, *k, *v, *k_scale, *v_scale, *kv_len;
+  void* out;
+};
+
+template <typename T, typename KV, int D>
+cudaError_t launch(const Pointers& a, int hkv, const Geometry& g, cudaStream_t stream) {
+  constexpr int smem =
+      (BR * (D + 1) + BK * (D + 1) + BK * D + BR * (BK + 1) + 2 * BK) * sizeof(float);
   static bool configured = false;
   if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(lookahead_attention_kernel<T, D>,
+    cudaError_t e = cudaFuncSetAttribute(lookahead_attention_kernel<T, KV, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     configured = true;
   }
   const dim3 grid((g.s_len * g.rep + BR - 1) / BR, hkv);
-  lookahead_attention_kernel<T, D><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(kv_len), static_cast<T*>(out), g);
+  lookahead_attention_kernel<T, KV, D><<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const KV*>(a.k), static_cast<const KV*>(a.v),
+      static_cast<const float*>(a.k_scale), static_cast<const float*>(a.v_scale),
+      static_cast<const int*>(a.kv_len), static_cast<T*>(a.out), g);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_d(int d, const void* q, const void* k, const void* v, const void* kv_len,
-                     void* out, int hkv, const Geometry& g, cudaStream_t stream) {
+template <typename T, typename KV>
+cudaError_t launch_d(int d, const Pointers& a, int hkv, const Geometry& g, cudaStream_t stream) {
   switch (d) {
-    case 64: return launch<T, 64>(q, k, v, kv_len, out, hkv, g, stream);
-    case 128: return launch<T, 128>(q, k, v, kv_len, out, hkv, g, stream);
+    case 64: return launch<T, KV, 64>(a, hkv, g, stream);
+    case 128: return launch<T, KV, 128>(a, hkv, g, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
+template <typename T>
+cudaError_t launch_kv(int kv_int8, int d, const Pointers& a, int hkv, const Geometry& g,
+                      cudaStream_t stream) {
+  if (kv_int8) return launch_d<T, signed char>(d, a, hkv, g, stream);
+  return launch_d<T, T>(d, a, hkv, g, stream);
+}
+
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16. q [S, Hq, D], k/v [Hkv, M, D], kv_len one
-// int32 on the device, out [S, Hq*D]; all contiguous. Returns the CUDA
-// error code of the launch (0 on success).
+// dtype (of q and out): 0 float32, 1 bfloat16. q [S, Hq, D]; k/v [Hkv, M, D]
+// of q's type, or int8 with float32 k_scale/v_scale [Hkv, M] when kv_int8
+// is 1 (the scales are not read otherwise); kv_len one int32 on the device;
+// out [S, Hq*D]; all contiguous. Returns the CUDA error code of the launch
+// (0 on success).
 extern "C" int lookahead_attention_launch(const void* q, const void* k, const void* v,
+                                          const void* k_scale, const void* v_scale,
                                           const void* kv_len, void* out, int dtype,
-                                          int s_len, int hq, int hkv, int m, int d,
-                                          int level, int window, int guess_size,
+                                          int kv_int8, int s_len, int hq, int hkv, int m,
+                                          int d, int level, int window, int guess_size,
                                           int causal, int sliding_window, void* stream) {
   if (s_len <= 0 || hkv <= 0 || hq % hkv != 0) return (int)cudaErrorInvalidValue;
+  if (kv_int8 && (k_scale == nullptr || v_scale == nullptr)) return (int)cudaErrorInvalidValue;
+  const Pointers a = {q, k, v, k_scale, v_scale, kv_len, out};
   Geometry g;
   g.s_len = s_len;
   g.rep = hq / hkv;
@@ -308,8 +350,8 @@ extern "C" int lookahead_attention_launch(const void* q, const void* k, const vo
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (dtype) {
-    case 0: e = launch_d<float>(d, q, k, v, kv_len, out, hkv, g, st); break;
-    case 1: e = launch_d<__nv_bfloat16>(d, q, k, v, kv_len, out, hkv, g, st); break;
+    case 0: e = launch_kv<float>(kv_int8, d, a, hkv, g, st); break;
+    case 1: e = launch_kv<__nv_bfloat16>(kv_int8, d, a, hkv, g, st); break;
     default: e = cudaErrorInvalidValue;
   }
   return (int)e;

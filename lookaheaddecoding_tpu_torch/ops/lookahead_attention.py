@@ -8,6 +8,11 @@ the S speculative slots [kv_len, kv_len + S) follow the within-composite
 mask, which ``_spec_visible`` derives from index arithmetic. Causal mode
 (prefill and the AR baseline) sees every slot up to its own.
 
+K and V are one layer of the cache: plain ``[Hkv, M, D]`` tensors of q's
+dtype, or the int8 cache's ``{"q": int8 [Hkv, M, D], "s": f32 [Hkv, M, 1]}``
+dicts, whose per-slot scales are applied to the scores and to the
+probabilities, never to a dequantized copy of the cache.
+
 On a CUDA tensor :func:`lookahead_attention` launches the kernel, or raises
 on an input it does not take; on a CPU tensor it runs
 :func:`lookahead_attention_ref`. ``counts`` records both.
@@ -81,8 +86,10 @@ def _block_mask(kv_len, m, *, s_len, level, window, guess_size, causal,
 def lookahead_attention_ref(q, k, v, kv_len, *, level, window, guess_size,
                             causal=False, sliding_window=0):
     """Plain version: the [S, M] visibility of :func:`_block_mask` through
-    ``models/llama.py:attention_dense``. Returns [S, Hq*D] in q's dtype."""
-    vis = _block_mask(kv_len, k.shape[1], s_len=q.shape[0], level=level,
+    ``models/llama.py:attention_dense`` (plain or int8 cache). Returns
+    [S, Hq*D] in q's dtype."""
+    m = (k["q"] if isinstance(k, dict) else k).shape[1]
+    vis = _block_mask(kv_len, m, s_len=q.shape[0], level=level,
                       window=window, guess_size=guess_size, causal=causal,
                       sliding_window=sliding_window, device=q.device)
     mask = torch.zeros(vis.shape, dtype=torch.float32, device=q.device)
@@ -90,7 +97,18 @@ def lookahead_attention_ref(q, k, v, kv_len, *, level, window, guess_size,
     return attention_dense(q, k, v, mask).to(q.dtype)
 
 
+def _split_kv(k, v):
+    """(k values, v values, k scales, v scales) of one layer of the cache;
+    the scales are None for a plain cache."""
+    if isinstance(k, dict) != isinstance(v, dict):
+        raise ValueError("k and v must both be plain or both be int8 caches")
+    if isinstance(k, dict):
+        return k["q"], v["q"], k["s"], v["s"]
+    return k, v, None, None
+
+
 def _check_kernel_inputs(q, k, v, kv_len):
+    k, v, ks, vs = _split_kv(k, v)
     if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
         raise ValueError(f"need q [S, Hq, D] and k, v [Hkv, M, D]; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -100,16 +118,24 @@ def _check_kernel_inputs(q, k, v, kv_len):
         raise ValueError(f"head dims {d}/{dk} or heads {hq}/{hkv} mismatch")
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"kernel takes head_dim in {KERNEL_HEAD_DIMS}, got {d}")
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"kernel takes float32 or bfloat16 q/k/v of one "
-                         f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("kernel takes contiguous q, k, v")
+    kv_dtype = q.dtype if ks is None else torch.int8
+    if q.dtype not in _DTYPE_CODES or k.dtype != kv_dtype or v.dtype != kv_dtype:
+        raise ValueError(f"kernel takes float32 or bfloat16 q with k/v of "
+                         f"the same dtype, or int8 k/v with scales; got "
+                         f"{q.dtype}/{k.dtype}/{v.dtype}")
+    scales = () if ks is None else (ks, vs)
+    for s in scales:
+        if s.dtype != torch.float32 or tuple(s.shape) != (hkv, k.shape[1], 1):
+            raise ValueError(f"int8 cache scales must be float32 "
+                             f"[{hkv}, {k.shape[1]}, 1], got {s.dtype} "
+                             f"{tuple(s.shape)}")
+    if not all(t.is_contiguous() for t in (q, k, v, *scales)):
+        raise ValueError("kernel takes contiguous q, k, v and scales")
     if not (isinstance(kv_len, torch.Tensor) and kv_len.dtype == torch.int32
             and kv_len.numel() == 1):
         raise ValueError("kv_len must be a one-element int32 tensor")
-    if len({t.device for t in (q, k, v, kv_len)}) != 1:
-        raise ValueError("q, k, v and kv_len must be on one device")
+    if len({t.device for t in (q, k, v, kv_len, *scales)}) != 1:
+        raise ValueError("q, k, v, scales and kv_len must be on one device")
     if q.device.index != torch.cuda.current_device():
         raise ValueError(f"tensors on {q.device}, but the current CUDA "
                          f"device is {torch.cuda.current_device()}")
@@ -121,7 +147,8 @@ def lookahead_attention(q, k, v, kv_len, *, level, window, guess_size,
                         causal=False, sliding_window=0, spec_mask=None):
     """Composite-mask attention, [S, Hq*D] in q's dtype.
 
-    q [S, Hq, D]; k, v [Hkv, M, D] (one layer of the KV-head-major cache);
+    q [S, Hq, D]; k, v [Hkv, M, D] (one layer of the KV-head-major cache,
+    plain or ``{"q", "s"}`` int8 dicts);
     ``kv_len`` a one-element int32 tensor on q's device, read by the kernel
     itself, so launching needs no host read. ``spec_mask`` is accepted for
     the JAX signature; both versions derive that mask from index
@@ -136,12 +163,16 @@ def lookahead_attention(q, k, v, kv_len, *, level, window, guess_size,
         raise ValueError(f"no attention kernel for device {q.device}")
     _check_kernel_inputs(q, k, v, kv_len)
     from ._build import load
+    k, v, ks, vs = _split_kv(k, v)
     s_len, hq, d = q.shape
     hkv, m, _ = k.shape
     out = torch.empty((s_len, hq * d), dtype=q.dtype, device=q.device)
     err = load("lookahead_attention").lookahead_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-        out.data_ptr(), _DTYPE_CODES[q.dtype], s_len, hq, hkv, m, d,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if ks is None else ks.data_ptr(),
+        None if vs is None else vs.data_ptr(), kv_len.data_ptr(),
+        out.data_ptr(), _DTYPE_CODES[q.dtype], int(ks is not None),
+        s_len, hq, hkv, m, d,
         level, window, guess_size, int(causal), int(sliding_window),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
