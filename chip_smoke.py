@@ -17,11 +17,19 @@ target). It imports no JAX. Phases, each printed as it runs:
    library call (a yardstick the port never calls): the attention kernel
    on a plain and on an int8 KV cache, and the int8, int4 and pipelined
    int4 matrix products (the pipelined one also bit-equal to the int4 one);
+   the paged attention call on a shared page pool with shuffled tables
+   (plain and int8 pool, page sizes 128 and 48, lanes of different
+   ``kv_len``), also bit-equal, lane by lane, to the flat call on the
+   contiguous cache; and the int4 product's two micro-benchmark variants
+   (shift decode: bit-equal to the int4 kernel; K-outer: a row alone equal
+   to the same row among others), then ``scripts/torch_int4_micro.py``'s
+   timing loop, the path that launches them;
 4. main path: the headline configuration, a synthetic TinyLlama-1.1B
    model at full width (random weights from a seed, with an embedding and
    head that make greedy decoding follow a token cycle), greedy lookahead
    ``generate`` and AR ``generate_baseline`` (64-token prompt, 256 new
-   tokens), first in bfloat16, then quantized on the card by the port's
+   tokens in bfloat16, 128 in the quantized configurations), first in
+   bfloat16, then quantized on the card by the port's
    ``quantize_params``: ``int8_weights``, ``int4_weights`` (fused
    projections, int8 LM head), ``int8_weights_int8_kv``, and
    ``int4_weights_pipelined`` (the int4 engine with
@@ -31,7 +39,16 @@ target). It imports no JAX. Phases, each printed as it runs:
    plain-version calls 0);
 5. profile: lookahead and AR runs under ``torch.profiler``, for the
    device's busy and idle share and the kernels that take the most time
-   (bfloat16, and the lookahead run of ``int8_weights``).
+   (bfloat16, and the lookahead run of ``int8_weights``);
+6. paged serving: ``PagedServingEngine`` on the same model (4 lanes, pages
+   of 128 slots, 24 data pages, 4 steps between host reads), ``paged_bf16``
+   with ten requests (shared prefixes with a partial tail page and ending
+   on a page boundary, conversation carry, streaming, an interactive
+   request) and ``paged_int8_weights_int8_kv`` with four. Every result
+   must equal the flat ``generate`` on the same prompt, admission must have
+   waited for pages at least once, every page must be free at the end, and
+   the path must have gone through the paged attention kernel with no
+   plain-version call; then a profile of the batched step.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``. Any failed phase
@@ -75,6 +92,7 @@ MM_TOL = {"float32": dict(atol=2e-4, rtol=2e-4),
           "bfloat16": dict(atol=1e-3, rtol=2.0 ** -7)}
 TPU_KERNELS = ("lookaheaddecoding_tpu/ops/lookahead_attention.py:128, "
                "lookaheaddecoding_tpu/ops/lookahead_attention.py:201")
+TPU_PAGED_KERNEL = "lookaheaddecoding_tpu/ops/lookahead_attention.py:281"
 CSRC = "lookaheaddecoding_tpu_torch/ops/csrc/"
 
 # headline configuration (bench.py): TinyLlama-1.1B widths, L7/W20/G20
@@ -87,7 +105,11 @@ LEVEL, WINDOW, GUESS = 7, 20, 20
 S_COMP = (LEVEL - 1) * WINDOW + GUESS * (LEVEL - 1)        # 240
 LOGITS_ROWS = 1 + WINDOW + GUESS * (LEVEL - 1)             # 141
 MAX_SEQ, PREFILL_CHUNK, PROMPT_LEN, N_NEW = 1024, 128, 64, 256
+N_NEW_QUANT = 128     # new tokens of the four quantized flat configurations
 WARM_NEW = 32         # tokens of the untimed warm-up pass of each path
+# paged serving: lanes, slots a page, data pages (fewer than the flat
+# engine's 4 * 8 = 32, so admission has to wait), steps between host reads
+LANES, PAGE, N_PAGES, STEPS_PER_SYNC, PAGED_NEW = 4, 128, 24, 4, 128
 PROFILE_NEW = 64      # tokens a profiled run: the trace grows with the steps
 
 
@@ -244,6 +266,215 @@ def check_attention(device):
                             bound_ms=bound, bound_by=by, library_ms=lib_ms)
                 log(line)
     return dict(headline[False], int8_kv=headline[True])
+
+
+def check_paged_attention(device):
+    """The paged attention call against its plain version and, lane by
+    lane and bit for bit, against the flat call on the contiguous cache:
+    bfloat16 and float32, a plain and an int8 pool, composite and causal,
+    with and without a sliding window, four lanes whose ``kv_len`` are 0,
+    one past a page boundary, 512 and the capacity less S, shuffled
+    tables, pages of 128 and of 48 slots. Then its time at the headline
+    shape (four lanes at kv_len 512) beside the plain version's, the bound
+    and one library call on the gathered cache. Returns the headline
+    numbers, plain pool and int8 pool."""
+    import torch
+    import torch.nn.functional as F
+    from lookaheaddecoding_tpu_torch.core.paged import (paged_gather,
+                                                        paged_write)
+    from lookaheaddecoding_tpu_torch.ops.lookahead_attention import (
+        _block_mask, lookahead_attention, paged_lookahead_attention,
+        paged_lookahead_attention_ref)
+
+    rng = np.random.default_rng(2)
+    hq, hkv, d, lanes = 32, 4, 64, LANES
+    geo = dict(level=LEVEL, window=WINDOW, guess_size=LEVEL - 1)
+    headline = {}
+
+    def lane_of(tree, b):
+        if isinstance(tree, dict):
+            return {n: leaf[b].contiguous() for n, leaf in tree.items()}
+        return tree[b].contiguous()
+
+    def make(page, nb, dtype, int8_kv, s, kv_lens):
+        """q, the pool filled through shuffled tables, tables, kv_lens."""
+        def mk(*shape):
+            x = rng.standard_normal(shape, dtype=np.float32)
+            return torch.from_numpy(x).to(device, dtype)
+        n_pages = lanes * nb + lanes
+        slots_total = n_pages * page
+        tables = torch.from_numpy(
+            lanes + rng.permutation(lanes * nb)).to(device).int().view(
+                lanes, nb).contiguous()
+
+        def pool():
+            if int8_kv:
+                buf = {"q": torch.zeros((hkv, slots_total, d),
+                                        dtype=torch.int8, device=device),
+                       "s": torch.full((hkv, slots_total, 1), 1e-8,
+                                       device=device)}
+            else:
+                buf = torch.zeros((hkv, slots_total, d), dtype=dtype,
+                                  device=device)
+            slots = (tables.long()[:, :, None] * page
+                     + torch.arange(page, device=device)).reshape(-1)
+            return paged_write(buf, slots, mk(lanes * nb * page, hkv, d))
+        return (mk(lanes, s, hq, d), pool(), pool(), tables,
+                torch.tensor(kv_lens, dtype=torch.int32, device=device))
+
+    for page, nb in ((128, 8), (48, 22)):
+        mlog = page * nb
+        for int8_kv in (False, True):
+            for dtype in (torch.bfloat16, torch.float32):
+                dname = str(dtype).split(".")[1]
+                for causal, sw, s in ((False, 0, S_COMP),
+                                      (True, 0, PREFILL_CHUNK),
+                                      (False, 300, S_COMP),
+                                      (True, 300, PREFILL_CHUNK)):
+                    q, k, v, tables, kv_lens = make(
+                        page, nb, dtype, int8_kv, s,
+                        [0, page + 1, 512, mlog - s])
+                    kw = dict(geo, causal=causal, sliding_window=sw)
+                    got = paged_lookahead_attention(
+                        q, k, v, kv_lens, tables, page_size=page, **kw)
+                    want = paged_lookahead_attention_ref(
+                        q, k, v, kv_lens, tables, page_size=page, **kw)
+                    torch.cuda.synchronize()
+                    err = (got.float() - want.float()).abs().max().item()
+                    where = (f"{'int8-KV ' if int8_kv else ''}{dname} "
+                             f"page={page} S={s} "
+                             f"{'causal' if causal else 'composite'} sw={sw}")
+                    if not torch.allclose(got.float(), want.float(),
+                                          **TOL[dname]):
+                        raise AssertionError(
+                            f"paged kernel disagrees with its plain "
+                            f"version: {where} max_abs_err={err:.3e}")
+                    kg = paged_gather(k, tables, page)
+                    vg = paged_gather(v, tables, page)
+                    for b in range(lanes):
+                        flat = lookahead_attention(
+                            q[b], lane_of(kg, b), lane_of(vg, b),
+                            kv_lens[b:b + 1], **kw)
+                        if not torch.equal(flat, got[b]):
+                            raise AssertionError(
+                                f"paged kernel, lane {b}, differs from the "
+                                f"flat kernel on the contiguous cache: "
+                                f"{where}")
+                    log(f"  {where}: max_abs_err={err:.3e} ok, every lane == "
+                        f"the flat kernel bit for bit")
+
+    # times at the headline shape: four lanes at kv_len 512, pages of 128
+    for int8_kv in (False, True):
+        dtype = torch.bfloat16
+        q, k, v, tables, kv_lens = make(PAGE, MAX_SEQ // PAGE, dtype, int8_kv,
+                                        S_COMP, [512] * lanes)
+        kw = dict(geo, causal=False, sliding_window=0)
+        args = (q, k, v, kv_lens, tables)
+        got = paged_lookahead_attention(*args, page_size=PAGE, **kw)
+        want = paged_lookahead_attention_ref(*args, page_size=PAGE, **kw)
+        err = (got.float() - want.float()).abs().max().item()
+        assert torch.allclose(got.float(), want.float(), **TOL["bfloat16"])
+        ms = time_ms(lambda: paged_lookahead_attention(
+            *args, page_size=PAGE, **kw))
+        plain_ms = time_ms(lambda: paged_lookahead_attention_ref(
+            *args, page_size=PAGE, **kw), reps=10)
+        vis = torch.stack([_block_mask(
+            kv_lens[b], MAX_SEQ, s_len=S_COMP, causal=False,
+            sliding_window=0, device=device, **geo) for b in range(lanes)])
+
+        def gathered():
+            kd, vd = (paged_gather(c, tables, PAGE) for c in (k, v))
+            if int8_kv:
+                kd, vd = ((c["q"].float() * c["s"]).to(dtype)
+                          for c in (kd, vd))
+            return kd, vd
+        kd, vd = gathered()
+        q4 = q.transpose(1, 2)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q4, kd, vd, attn_mask=vis[:, None], enable_gqa=True))
+        gather_ms = time_ms(gathered, reps=10)
+        per_lane = [attention_bound(vis[b], hq, hkv, d, "bfloat16", int8_kv)
+                    for b in range(lanes)]
+        bound = sum(t for t, _ in per_lane)
+        by = per_lane[0][1]
+        log(f"  {'int8-KV ' if int8_kv else ''}bfloat16 B={lanes} S={S_COMP} "
+            f"kv_len=512 page={PAGE}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, sdpa on the gathered cache {lib_ms:.4f} ms "
+            f"(+ {gather_ms:.4f} ms to gather"
+            f"{' and dequantize' if int8_kv else ''}), bound {bound:.5f} ms "
+            f"({by})")
+        headline[int8_kv] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                 bound_ms=bound, bound_by=by,
+                                 library_ms=lib_ms, gather_ms=gather_ms)
+    return headline
+
+
+def load_int4_micro():
+    """The micro-benchmark script, ``scripts/torch_int4_micro.py``, as a
+    module."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parent / "scripts" / "torch_int4_micro.py"
+    spec = importlib.util.spec_from_file_location("torch_int4_micro", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def check_int4_micro(device):
+    """The int4 product's two variants: held against their plain versions
+    and the int4 kernel by the micro-benchmark's own checks on its four
+    shapes at T = 1, 8 and 240 (and one padded Llama-2-7B shape), then the
+    micro-benchmark's timing loop, counted as the path that launches them.
+    Returns each variant's numbers at T = 8 on (2048, 5632) and its
+    launches in the timing loop."""
+    import torch
+    from lookaheaddecoding_tpu_torch.ops import int4_micro as im
+    from lookaheaddecoding_tpu_torch.ops import quant
+    from lookaheaddecoding_tpu_torch.ops import quant_matmul as qm
+
+    micro = load_int4_micro()
+    rng = np.random.default_rng(3)
+    rows = (1, 8, S_COMP)
+    worst = {"shift": 0.0, "kouter": 0.0}
+    for k, n in micro.SHAPES + [(11008, 4096)]:
+        w = torch.from_numpy(
+            rng.standard_normal((k, n), dtype=np.float32) * 0.02).to(device)
+        wq = quant.quantize_weight(w, 4)
+        for dtype in (torch.bfloat16, torch.float32):
+            for t in rows:
+                x = torch.from_numpy(rng.standard_normal(
+                    (t, k), dtype=np.float32)).to(device, dtype)
+                b4 = qm.int4_matmul(x, wq["q4"], wq["scale"],
+                                    logical_k2=quant.logical_packed_rows(wq))
+                errs = micro.check_variants(x, wq, b4)
+                if dtype == torch.bfloat16:
+                    for name, err in errs.items():
+                        worst[name] = max(worst[name], err)
+        log(f"  int4 variants K={k:5d} N={n:5d} T in {rows}, bfloat16 and "
+            f"float32: shift == int4 kernel bit for bit, K-outer within "
+            f"tolerance of its plain version and of the int4 kernel, a row "
+            f"alone == the same row among T: ok")
+        del w, wq
+
+    # the micro-benchmark's timing loop is the path that launches them
+    im.counts.update(dict.fromkeys(im.counts, 0))
+    results = micro.run(device, rows=rows, log=lambda line: log("  " + line),
+                        check=False)
+    launches = dict(im.counts)
+    assert launches["shift"] > 0 and launches["kouter"] > 0, launches
+    assert launches["plain"] == 0, launches
+    head = next(r for r in results if (r["k"], r["n"], r["t"])
+                == (2048, 5632, 8))["us"]
+    bound, by = matmul_bound(8, 2048, 5632, 4, "bfloat16")
+    out = {}
+    for name in ("shift", "kouter"):
+        out[name] = dict(
+            max_abs_err=worst[name], ms=head[f"int4_{name}"] / 1e3,
+            plain_ms=head[f"{name}_plain"] / 1e3, bound_ms=bound,
+            bound_by=by, library_ms=head["bf16"] / 1e3,
+            launches=launches[name])
+    return out
 
 
 def matmul_bound(t, k, n, bits, dtype_name):
@@ -461,12 +692,12 @@ def build_engine(mcfg, params, kv_quant=None):
     return eng
 
 
-def main_path(name, eng, prompt, nxt, card, matmul_kernels):
+def main_path(name, eng, prompt, nxt, card, matmul_kernels, n_new=N_NEW):
     """One configuration's ``generate`` and ``generate_baseline``: token
     exactness, the cycle, and for each path alone the kernels' launches
     (every kernel named in ``matmul_kernels`` and the attention kernel
     > 0, every other kernel and both plain versions 0). One warm-up pass of
-    WARM_NEW tokens, then one timed run of each path."""
+    WARM_NEW tokens, then one timed run of ``n_new`` tokens of each path."""
     import torch
     from lookaheaddecoding_tpu_torch.ops import lookahead_attention as la
     from lookaheaddecoding_tpu_torch.ops import quant_matmul as qm
@@ -481,7 +712,7 @@ def main_path(name, eng, prompt, nxt, card, matmul_kernels):
                       ("ar_baseline", eng.generate_baseline)):
         la.counts.update(kernel=0, plain=0)
         qm.counts.update(dict.fromkeys(qm.counts, 0))
-        runs[path] = gen(prompt, N_NEW)
+        runs[path] = gen(prompt, n_new)
         got = dict(qm.counts, attention=la.counts["kernel"],
                    plain=qm.counts["plain"] + la.counts["plain"])
         launches[path] = got
@@ -514,7 +745,7 @@ def main_path(name, eng, prompt, nxt, card, matmul_kernels):
         f"{launches['ar_baseline']}, weights {weights_mb:.0f} MiB, peak "
         f"device memory {peak_mb:.0f} MiB (with every configuration's "
         f"weights resident)")
-    assert r.num_generated == N_NEW and rb.num_generated == N_NEW
+    assert r.num_generated == n_new and rb.num_generated == n_new
     assert exact, f"{name}: lookahead output != AR output"
     assert fidelity > 0.95, f"{name}: synthetic model degenerated ({fidelity})"
     return (launches, r.tokens,
@@ -564,6 +795,176 @@ def profile_path(name, eng, prompt, card, step_s, paths):
             log(f"    {ms / r.steps:9.4f} ms a step  {kname[:90]}")
 
 
+def paged_path(name, mcfg, params, flat, nxt, card, kv_quant, full):
+    """One configuration of ``PagedServingEngine``: requests through shared
+    prefixes (a partial tail page; a prefix that ends on a page boundary
+    and is the whole prompt), a conversation carried over, a streaming and
+    an interactive request, all of PAGED_NEW new tokens (ten requests when
+    ``full``, else four). Every result must equal ``flat.generate`` on the
+    same prompt. Returns (launches, stats)."""
+    import torch
+    import lookaheaddecoding_tpu_torch as lt
+    from lookaheaddecoding_tpu_torch.ops import lookahead_attention as la
+    from lookaheaddecoding_tpu_torch.ops import quant_matmul as qm
+
+    eng = lt.PagedServingEngine(
+        mcfg, params,
+        lt.LookaheadConfig(level=LEVEL, window_size=WINDOW,
+                           guess_set_size=GUESS, pool_from_prompt=True),
+        lt.EngineConfig(max_seq_len=MAX_SEQ, prefill_chunk=PREFILL_CHUNK,
+                        kv_quant=kv_quant),
+        num_lanes=LANES, page_size=PAGE, n_pages=N_PAGES,
+        steps_per_sync=STEPS_PER_SYNC)
+    assert eng.lcfg.attention_impl == "kernel", eng.lcfg.attention_impl
+
+    def prompt(start, n):
+        return make_prompt(nxt, start=start, n=n)
+
+    def more(p, n):                 # p continued along the cycle
+        return p + make_prompt(nxt, start=p[-1], n=n)
+
+    # warm-up: one request through admission, the step and the harvest
+    eng.generate(prompt(1, 48), WARM_NEW)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    la.counts.update(kernel=0, plain=0)
+    la.paged_counts.update(kernel=0, plain=0)
+    qm.counts.update(dict.fromkeys(qm.counts, 0))
+    eng.admission_waits = eng.steps_run = 0
+    t0 = time.perf_counter()
+
+    px_tail = eng.precompute_prefix(prompt(3, 200))     # 1 page + 72 slots
+    px_edge = eng.precompute_prefix(prompt(5, 2 * PAGE))  # exactly 2 pages
+    streamed = []
+    results, prompts = {}, {}
+
+    def submit(rid, p, **kw):
+        prompts[rid] = p
+        eng.submit(lt.Request(prompt=p, max_new_tokens=PAGED_NEW,
+                              request_id=rid, **kw))
+
+    def drain():
+        low = eng.pages_free
+        while eng.step():
+            low = min(low, eng.pages_free)
+        for r in eng._results:
+            results[r.request_id] = r
+        eng._results = []
+        return low
+
+    # first the turn whose KV is carried over: its pages stay held, so the
+    # requests after it find the pool two pages smaller
+    submit("carry", prompt(7, 40), return_prefix=True)
+    low = drain()
+    carried = results["carry"].prefix
+    assert carried is not None and carried.pool is not None
+    if full:
+        submit("stream", prompt(9, 200), on_tokens=streamed.append)
+        submit("plain", prompt(11, 200))
+        submit("tail0", more(list(px_tail.tokens), 8), prefix=px_tail)
+        submit("tail1", more(list(px_tail.tokens), 24), prefix=px_tail)
+        submit("tail2", more(list(px_tail.tokens), 40), prefix=px_tail)
+        submit("edge0", list(px_edge.tokens), prefix=px_edge)
+        submit("edge1", list(px_edge.tokens), prefix=px_edge)
+        submit("turn2", more(list(carried.tokens), 8), prefix=carried)
+        submit("chat", prompt(13, 180), interactive=True)
+    else:
+        submit("stream", prompt(9, 200), on_tokens=streamed.append)
+        submit("tail0", more(list(px_tail.tokens), 8), prefix=px_tail)
+        submit("edge0", list(px_edge.tokens), prefix=px_edge)
+    eng.step()
+    active = {m["req"].request_id for m in eng._meta.values()}
+    if full:
+        assert "chat" in active, active     # it jumped the queue
+    low = min(low, eng.pages_free, drain())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = eng.memory_stats()
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+
+    got = dict(qm.counts, paged_attention=la.paged_counts["kernel"],
+               flat_attention=la.counts["kernel"],
+               plain=(qm.counts["plain"] + la.counts["plain"]
+                      + la.paged_counts["plain"]))
+    assert got["paged_attention"] > 0 and got["plain"] == 0, (name, got)
+    assert len(results) == (10 if full else 4), sorted(results)
+    assert all(r.error is None for r in results.values())
+    if full:
+        # a lane was free and the pool could not serve the next request
+        assert eng.admission_waits > 0, "admission never waited for pages"
+    steps_run, waits = eng.steps_run, eng.admission_waits
+    for px in (px_tail, px_edge, carried):
+        eng.release_prefix(px)
+    assert eng.pages_free == N_PAGES, eng.memory_stats()
+
+    tokens = sum(r.num_generated for r in results.values())
+    assert all(r.num_generated == PAGED_NEW for r in results.values())
+    np.testing.assert_array_equal(
+        np.concatenate([prompts["stream"]] + streamed),
+        results["stream"].tokens)
+    assert len(streamed) > 1
+    # token exactness: the flat engine's generate on each prompt (its
+    # launches are not the paged path's: the counts were read above)
+    for rid, r in results.items():
+        single = flat.generate(prompts[rid], PAGED_NEW)
+        assert np.array_equal(r.tokens, single.tokens), \
+            f"{name}: request {rid} differs from the flat generate"
+    log(f"  [{card}] {name}: {len(results)} requests, {tokens} tokens in "
+        f"{steps_run} batched steps, {tokens / wall:.1f} tok/s summed over "
+        f"{LANES} lanes (prefix prefills, admissions and host reads "
+        f"included), wall {1e3 * wall / steps_run:.2f} ms a batched step; "
+        f"admission waited {waits} times, fewest free pages {low}; every "
+        f"request == flat generate; launches {got}; memory {stats}; peak "
+        f"device memory {peak_mb:.0f} MiB")
+    return got, dict(step_s=wall / steps_run, engine=eng)
+
+
+def profile_paged(name, eng, nxt, card, step_s):
+    """The batched paged step under torch.profiler: four lanes admitted and
+    warmed by one untimed ``step``, then three profiled ones (12 decode
+    steps, no admission)."""
+    import torch
+    import lookaheaddecoding_tpu_torch as lt
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(LANES):
+        eng.submit(lt.Request(prompt=make_prompt(nxt, start=20 + i, n=64),
+                              max_new_tokens=PAGED_NEW, request_id=i))
+    eng.step()
+    torch.cuda.synchronize()
+    n_steps = 3 * STEPS_PER_SYNC
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    while eng.step():
+        pass
+    eng._results = []
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        log(f"  [{card}] {name} paged step: device time not measured (the "
+            f"profiler recorded no kernel)")
+        return
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + \
+            e.time_range.elapsed_us() / 1e3
+    step_ms = 1e3 * step_s
+    log(f"  [{card}] {name} paged step, {LANES} lanes live: {len(kernels)} "
+        f"kernels in {n_steps} steps ({len(kernels) / n_steps:.0f} a step); "
+        f"device busy {busy_ms / n_steps:.3f} ms a step, idle "
+        f"{1 - busy_ms / wall_ms:.3f} of {wall_ms / n_steps:.2f} ms a step "
+        f"under the profiler (the unprofiled run, admissions included, took "
+        f"{step_ms:.2f} ms a step)")
+    for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"    {ms / n_steps:9.4f} ms a step  {kname[:90]}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -598,6 +999,13 @@ def main() -> int:
     att = check_attention(device)
     log(f"[kernels] quantized matmuls vs plain versions ({card})")
     mm = check_matmuls(device)
+    log(f"[kernels] paged lookahead_attention vs plain version and vs the "
+        f"flat kernel ({card})")
+    patt = check_paged_attention(device)
+    log(f"[kernels] int4 micro-benchmark variants vs plain versions and the "
+        f"int4 kernel, then the micro-benchmark ({card}; us a call, "
+        f"bfloat16, weight cold in L2)")
+    micro = check_int4_micro(device)
 
     log(f"[main path] ({card}); one timed run a path after a warm-up pass")
     mcfg, params, prompt, nxt = build_headline(device)
@@ -622,7 +1030,8 @@ def main() -> int:
         quant.INT4_PIPELINE = name == "int4_weights_pipelined"
         try:
             launches[name], tokens[name], step_s[name] = main_path(
-                name, eng, prompt, nxt, card, kernels)
+                name, eng, prompt, nxt, card, kernels,
+                N_NEW if name == "bf16" else N_NEW_QUANT)
         finally:
             quant.INT4_PIPELINE = False
     # the pipelined kernel gives the int4 kernel's bits, hence its tokens
@@ -635,6 +1044,28 @@ def main() -> int:
     profile_path("int8_weights", configs["int8_weights"][0], prompt, card,
                  step_s["int8_weights"], ("lookahead",))
 
+    log(f"[paged serving] ({card}); {LANES} lanes, pages of {PAGE}, "
+        f"{N_PAGES} data pages, {STEPS_PER_SYNC} steps between host reads")
+    paged_launches, paged_stats = {}, {}
+    for name, tree, kvq, flat_name, full in (
+            ("paged_bf16", params, None, "bf16", True),
+            ("paged_int8_weights_int8_kv", q8, "int8",
+             "int8_weights_int8_kv", False)):
+        paged_launches[name], paged_stats[name] = paged_path(
+            name, mcfg, tree, configs[flat_name][0], nxt, card, kvq, full)
+    assert paged_launches["paged_int8_weights_int8_kv"]["int8"] > 0
+    log(f"[profile, paged] ({card})")
+    for name, st in paged_stats.items():
+        profile_paged(name, st["engine"], nxt, card, st["step_s"])
+
+    def on_paged_path(int8_kv):
+        by_path = {name: got["paged_attention"]
+                   for name, got in paged_launches.items()
+                   if name.endswith("int8_kv") == int8_kv}
+        total = sum(by_path.values())
+        assert total > 0, "the paged path never launched its kernel"
+        return dict(launches=total, launches_by_path=by_path)
+
     def on_main_path(kernel):
         by_path = {name: {path: got[kernel] for path, got in paths.items()}
                    for name, paths in launches.items()}
@@ -646,14 +1077,36 @@ def main() -> int:
     log(json.dumps({"kernels": [
         dict(name="lookahead_attention", route="cuda",
              source=CSRC + "lookahead_attention.cu", replaces=TPU_KERNELS,
+             main_path="generate and generate_baseline, every configuration",
              **on_main_path("attention"), **att),
         dict(name="int8_matmul", route="cuda", source=CSRC + "quant_matmul.cu",
-             replaces=tpu_mm + ":274", **on_main_path("int8"), **mm["int8"]),
+             replaces=tpu_mm + ":274", main_path="int8_weights, "
+             "int8_weights_int8_kv, the int4 configurations' LM head",
+             **on_main_path("int8"), **mm["int8"]),
         dict(name="int4_matmul", route="cuda", source=CSRC + "quant_matmul.cu",
-             replaces=tpu_mm + ":32", **on_main_path("int4"), **mm["int4"]),
+             replaces=tpu_mm + ":32", main_path="int4_weights",
+             **on_main_path("int4"), **mm["int4"]),
         dict(name="int4_matmul_pipe", route="cuda",
              source=CSRC + "quant_matmul.cu", replaces=tpu_mm + ":69",
+             main_path="int4_weights_pipelined",
              **on_main_path("int4_pipe"), **mm["int4_pipe"]),
+        dict(name="paged_lookahead_attention", route="cuda",
+             source=CSRC + "lookahead_attention.cu",
+             replaces=TPU_PAGED_KERNEL, main_path="paged_bf16",
+             **on_paged_path(False), **patt[False]),
+        dict(name="paged_lookahead_attention_int8_kv", route="cuda",
+             source=CSRC + "lookahead_attention.cu",
+             replaces=TPU_PAGED_KERNEL,
+             main_path="paged_int8_weights_int8_kv",
+             **on_paged_path(True), **patt[True]),
+        dict(name="int4_matmul_shift", route="cuda",
+             source=CSRC + "int4_micro.cu", replaces="scripts/int4_micro.py:53",
+             main_path="scripts/torch_int4_micro.py (micro-benchmark only)",
+             **micro["shift"]),
+        dict(name="int4_matmul_kouter", route="cuda",
+             source=CSRC + "int4_micro.cu", replaces="scripts/int4_micro.py:90",
+             main_path="scripts/torch_int4_micro.py (micro-benchmark only)",
+             **micro["kouter"]),
     ]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -55,6 +55,16 @@ class GenerationResult:
     prompt_len: int
     steps: int
     wall_time_s: float = 0.0
+    request_id: object = None    # set by the serving scheduler
+    error: Optional[str] = None  # set when a request fails admission
+    # serving latency (set by the serving scheduler): time from submit to
+    # the first confirmed new token, and to completion
+    ttft_s: Optional[float] = None
+    latency_s: Optional[float] = None
+    # a PagedPrefix over this result's confirmed tokens, when the request
+    # asked for it (``return_prefix``): the next turn of a conversation
+    # prefills only the new message
+    prefix: Optional[object] = None
 
     @property
     def new_tokens(self) -> np.ndarray:

@@ -24,6 +24,7 @@ baseline's whatever the window seeding.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -38,24 +39,31 @@ from .state import DecodeState
 
 def _append(buf: torch.Tensor, start: torch.Tensor, vals: torch.Tensor,
             skip: torch.Tensor) -> torch.Tensor:
-    """Write ``vals`` at buf[start:start+len(vals)] in place unless
-    ``skip``. The start is clamped as ``lax.dynamic_update_slice`` clamps
-    it (an index past the buffer would be a device-side assert)."""
-    n = vals.shape[0]
-    idx = (start.long().clamp(0, buf.shape[0] - n)
+    """Write ``vals`` at buf[..., start:start+n] in place unless ``skip``
+    (one start and one skip a row for a [B, len] buffer and [B, n] values).
+    The start is clamped as ``lax.dynamic_update_slice`` clamps it (an
+    index past the buffer would be a device-side assert)."""
+    n = vals.shape[-1]
+    idx = (start.long().clamp(0, buf.shape[-1] - n)[..., None]
            + torch.arange(n, device=buf.device))
-    buf[idx] = torch.where(skip, buf[idx], vals)
+    buf.scatter_(-1, idx, torch.where(skip[..., None], buf.gather(-1, idx),
+                                      vals))
     return buf
 
 
 def make_post_forward(mcfg, lcfg: LookaheadConfig, layout: Layout, device):
     """What a greedy step does after the model forward and before the KV
     commit: longest-prefix verification, EOS truncation, output append,
-    pool harvest and window slide. Returns ``post(state, logits, guesses,
-    guess_valid, lst, prev, max_new, eos_id, cap) -> (updates, winner,
-    max_hit)``; ``updates`` holds the new bookkeeping fields (not yet
-    selected against ``finished``), while the output buffer and the pool
-    are written in place, masked when the state is finished."""
+    pool harvest and window slide, for B lanes at once. Returns
+    ``post(state, logits, guesses, guess_valid, lst, prev, max_new, eos_id,
+    cap) -> (updates, winner, max_hit)``. Every tensor has a leading lane
+    axis: ``state`` holds [B]-shaped scalars, a [B, n_window] window, a
+    [B, len] output buffer, a stacked pool and a list of B generators
+    (``PagedLaneState``, or :func:`_as_lanes` of one ``DecodeState``);
+    logits [B, rows, V]; lst, prev [B]; eos_id [B, n_eos]; ``max_new`` and
+    ``cap`` ints or [B] tensors. ``updates`` holds the new bookkeeping
+    fields (not yet selected against ``finished``), while the output buffer
+    and the pool are written in place, masked for finished lanes."""
     W, N = layout.window, layout.level
     G, GS, S = layout.guess_set_size, layout.guess_size, layout.seq_len
     n_window = layout.n_window
@@ -75,36 +83,40 @@ def make_post_forward(mcfg, lcfg: LookaheadConfig, layout: Layout, device):
                            + [np.full(W, (W - 1) + lv * W)
                               for lv in range(N - 2)])))
 
-    def post(state: DecodeState, logits, guesses, guess_valid, lst, prev,
-             max_new: int, eos_id, cap: int):
+    def post(state, logits, guesses, guess_valid, lst, prev, max_new, eos_id,
+             cap):
         dev = logits.device
+        b = logits.shape[0]
         fin = state.finished
-        new_results = logits[inp_rows].argmax(dim=-1).int()       # [W]
-        next_token = logits[0].argmax().int().view(1)
+        new_results = logits[:, inp_rows].argmax(dim=-1).int()    # [B, W]
+        next_token = logits[:, 0].argmax(dim=-1).int()[:, None]   # [B, 1]
         # torch.argmax, like jnp.argmax, returns the first maximum
         if G > 0:
-            guess_results = logits[guess_rows].argmax(dim=-1).int().view(G, GS)
-            correct = torch.cat(
-                [next_token.expand(G, 1), guess_results[:, :GS - 1]], dim=1)
-            m0 = (guesses == correct).int().cumprod(dim=1).sum(dim=1)
+            guess_results = logits[:, guess_rows].argmax(dim=-1).int().view(
+                b, G, GS)
+            correct = torch.cat([next_token[:, None].expand(b, G, 1),
+                                 guess_results[..., :GS - 1]], dim=2)
+            m0 = (guesses == correct).int().cumprod(dim=2).sum(dim=2)
             # acceptance is capped at GS tokens a step, as the reference's
             # scan index stops at GS-1 even on a full match
             m = torch.where(guess_valid, m0.clamp(max=GS - 1), -1)
-            max_hit = m.max().clamp(min=0)
-            winner = m.argmax()
-            hits = torch.cat([next_token, guess_results.index_select(
-                0, winner.view(1))[0, :GS - 1]])
+            max_hit = m.amax(dim=1).clamp(min=0)
+            winner = m.argmax(dim=1)
+            won = guess_results.gather(
+                1, winner[:, None, None].expand(b, 1, GS))[:, 0]
+            hits = torch.cat([next_token, won[:, :GS - 1]], dim=1)
         else:
-            max_hit = torch.zeros((), dtype=torch.int32, device=dev)
-            winner = torch.zeros((), dtype=torch.long, device=dev)
-            hits = next_token.expand(GS)
+            max_hit = torch.zeros(b, dtype=torch.int32, device=dev)
+            winner = torch.zeros(b, dtype=torch.long, device=dev)
+            hits = next_token.expand(b, GS)
 
         # EOS truncation: any listed id (pad slots are -1) ends the output
         hit_pos = torch.arange(GS, device=dev)
-        is_eos = ((hits[:, None] == eos_id[None, :]).any(dim=1)
-                  & (hit_pos <= max_hit))
-        has_eos = is_eos.any()
-        max_hit = torch.where(has_eos, is_eos.int().argmax(), max_hit).int()
+        is_eos = ((hits[:, :, None] == eos_id[:, None, :]).any(dim=2)
+                  & (hit_pos <= max_hit[:, None]))
+        has_eos = is_eos.any(dim=1)
+        max_hit = torch.where(has_eos, is_eos.int().argmax(dim=1),
+                              max_hit).int()
 
         # output append (fixed-size write; the tail is overwritten later)
         out_buf = _append(state.out_buf, state.n_confirmed, hits, fin)
@@ -113,12 +125,14 @@ def make_post_forward(mcfg, lcfg: LookaheadConfig, layout: Layout, device):
 
         # pool harvest: key ``lst`` takes window column 0, key L0[i-1]
         # column i of the trajectory; bigram keys use the preceding pair
-        key1 = torch.cat([lst, state.window[:W - 1]])
-        traj = state.window[W - 1:].view(N - 2, W)                 # levels 1..
-        harvest_tups = torch.cat([traj.T, new_results[:, None]], dim=1)
-        harvest_valid = (state.step_idx >= N - 2).expand(W)
+        key1 = torch.cat([lst[:, None], state.window[:, :W - 1]], dim=1)
+        traj = state.window[:, W - 1:].view(b, N - 2, W)           # levels 1..
+        harvest_tups = torch.cat([traj.transpose(1, 2),
+                                  new_results[:, :, None]], dim=2)
+        harvest_valid = (state.step_idx >= N - 2)[:, None].expand(b, W)
         if lcfg.pool_key_len == 2:
-            key0 = torch.cat([prev, lst, state.window[:W - 2]])
+            key0 = torch.cat([prev[:, None], lst[:, None],
+                              state.window[:, :W - 2]], dim=1)
             harvest_keys = bigram_key(key0, key1, rows)
         else:
             harvest_keys = key1
@@ -126,39 +140,44 @@ def make_post_forward(mcfg, lcfg: LookaheadConfig, layout: Layout, device):
             # n-grams ending at each newly accepted token; lanes whose start
             # is negative are invalid, and their gathers are clamped into
             # the buffer (a JAX gather clamps, a CUDA index would assert)
-            starts = (state.n_confirmed.long() - GS
-                      + torch.arange(GS, device=dev))
-            last = out_buf.shape[0] - 1
-            gidx = (starts[:, None] + 1
-                    + torch.arange(GS, device=dev)[None, :]).clamp(0, last)
-            gen_tups = out_buf[gidx]
+            starts = (state.n_confirmed.long()[:, None] - GS
+                      + torch.arange(GS, device=dev))              # [B, GS]
+            last = out_buf.shape[1] - 1
+            gidx = (starts[:, :, None] + 1
+                    + torch.arange(GS, device=dev)).clamp(0, last)
+            gen_tups = out_buf.gather(1, gidx.view(b, GS * GS)).view(
+                b, GS, GS)
+            live = hit_pos <= max_hit[:, None]
             if lcfg.pool_key_len == 2:
-                gen_keys = bigram_key(out_buf[(starts - 1).clamp(0, last)],
-                                      out_buf[starts.clamp(0, last)], rows)
-                gen_valid = (hit_pos <= max_hit) & (starts >= 1)
+                gen_keys = bigram_key(
+                    out_buf.gather(1, (starts - 1).clamp(0, last)),
+                    out_buf.gather(1, starts.clamp(0, last)), rows)
+                gen_valid = live & (starts >= 1)
             else:
-                gen_keys = out_buf[starts.clamp(0, last)]
-                gen_valid = (hit_pos <= max_hit) & (starts >= 0)
-            harvest_keys = torch.cat([harvest_keys, gen_keys])
-            harvest_tups = torch.cat([harvest_tups, gen_tups])
-            harvest_valid = torch.cat([harvest_valid, gen_valid])
+                gen_keys = out_buf.gather(1, starts.clamp(0, last))
+                gen_valid = live & (starts >= 0)
+            harvest_keys = torch.cat([harvest_keys, gen_keys], dim=1)
+            harvest_tups = torch.cat([harvest_tups, gen_tups], dim=1)
+            harvest_valid = torch.cat([harvest_valid, gen_valid], dim=1)
         clock = state.pool.clock
         pool = pool_update(state.pool, harvest_keys, harvest_tups,
-                           harvest_valid & ~fin)
+                           harvest_valid & ~fin[:, None])
         pool.clock = torch.where(fin, clock, pool.clock)
 
         # window slide (always_fwd_one): L0 <- L1[1:], Lk <- Lk+1, newest
         # level <- this step's argmax at the newest level's rows
-        window = torch.cat([state.window[W:], new_results])
+        window = torch.cat([state.window[:, W:], new_results], dim=1)
         if not lcfg.always_fwd_one:
             # every level also advances by the accepted span; the vacated
             # tail takes random copies of confirmed tokens
-            shifted = j_in + max_hit
+            shifted = j_in + max_hit[:, None]
             idx = seg_start + torch.minimum(shifted, width - 1)
-            u = torch.rand(n_window, generator=state.rng, device=dev)
-            ridx = torch.minimum((u * n_confirmed).long(),
-                                 n_confirmed.long() - 1)
-            window = torch.where(shifted < width, window[idx], out_buf[ridx])
+            u = torch.stack([torch.rand(n_window, generator=g, device=dev)
+                             for g in state.rng])
+            ridx = torch.minimum((u * n_confirmed[:, None]).long(),
+                                 n_confirmed.long()[:, None] - 1)
+            window = torch.where(shifted < width, window.gather(1, idx),
+                                 out_buf.gather(1, ridx))
 
         finished = (fin | has_eos
                     | (n_confirmed - state.init_len >= max_new)
@@ -169,6 +188,18 @@ def make_post_forward(mcfg, lcfg: LookaheadConfig, layout: Layout, device):
         return updates, winner, max_hit
 
     return post
+
+
+def _as_lanes(state: DecodeState) -> SimpleNamespace:
+    """One ``DecodeState`` as the one-lane batch that ``post`` takes: views
+    with a leading axis of 1, so the in-place writes land in the state."""
+    pool = PoolState(state.pool.values[None], state.pool.age[None],
+                     state.pool.clock.view(1))
+    return SimpleNamespace(
+        pool=pool, rng=[state.rng], out_buf=state.out_buf[None],
+        window=state.window[None],
+        **{name: getattr(state, name).view(1) for name in (
+            "kv_len", "n_confirmed", "init_len", "step_idx", "finished")})
 
 
 def _keep_if_finished(state: DecodeState, updates: dict) -> DecodeState:
@@ -307,8 +338,13 @@ def build_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
             kv_len, rope_cos, rope_sin, dict(meta, kv_len=kv_len.view(1)),
             logits_rows=logits_rows, attn_impl=impl)
 
-        updates, winner, max_hit = post(state, logits, guesses, guess_valid,
-                                        lst, prev, max_new, eos_id, M)
+        lanes = _as_lanes(state)
+        updates, winner, max_hit = post(
+            lanes, logits[None], guesses[None], guess_valid[None], lst, prev,
+            max_new, eos_id[None], M)
+        state.pool.clock = lanes.pool.clock[0]
+        updates = {name: new[0] for name, new in updates.items()}
+        winner = winner[0]
 
         # KV commit: the winning n-gram's K/V move from the verification
         # region to the slots right after lst's. Fixed-size copy; slots

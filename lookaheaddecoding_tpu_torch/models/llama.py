@@ -1,4 +1,4 @@
-"""LLaMA-family decoder in PyTorch (flat KV cache, no gradients).
+"""LLaMA-family decoder in PyTorch (flat or paged KV cache, no gradients).
 
 The same model and the same data formats as
 ``lookaheaddecoding_tpu.models.llama``:
@@ -352,19 +352,9 @@ def forward(
     (``attn_impl="kernel"``). Returns (fp32 logits, k_cache, v_cache)."""
     from ..ops.lookahead_attention import (lookahead_attention,
                                            lookahead_attention_ref)
-    from ..ops.quant import qmatmul
 
-    hq, hkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-    inter = cfg.intermediate_size
     t = tokens.shape[0]
     m = (k_cache["q"] if isinstance(k_cache, dict) else k_cache).shape[2]
-
-    def layer(tree, li):
-        """Layer ``li`` of a stacked tensor, or of every leaf of a dict."""
-        if isinstance(tree, dict):
-            return {name: leaf[li] for name, leaf in tree.items()}
-        return tree[li]
-
     x = params["embed"][tokens]                              # [T, H]
     if cfg.scale_embeddings:
         x = x * torch.tensor(math.sqrt(cfg.hidden_size), dtype=cfg.dtype)
@@ -373,50 +363,153 @@ def forward(
     pos = positions.clamp(0, rope_cos.shape[0] - 1)
     cos, sin = rope_cos[pos], rope_sin[pos]
     slots = write_slots(write_start, t, m)
-    lp = params["layers"]
-    act = act_fn(cfg)
     attend = lookahead_attention if attn_impl == "kernel" \
         else lookahead_attention_ref
     meta = dict(attn_meta)
     kv_len = meta.pop("kv_len")
 
+    def attention(li, q, k, vv):
+        kc = kv_cache_write(_layer(k_cache, li), k, slots)
+        vc = kv_cache_write(_layer(v_cache, li), vv, slots)
+        return attend(q, kc, vc, kv_len, **meta)
+
+    x = _decoder_layers(params, cfg, x, cos, sin, attention)
+    return _logits(params, cfg, x, logits_rows), k_cache, v_cache
+
+
+def _layer(tree, li):
+    """Layer ``li`` of a stacked tensor, or of every leaf of a dict."""
+    if isinstance(tree, dict):
+        return {name: leaf[li] for name, leaf in tree.items()}
+    return tree[li]
+
+
+def _decoder_layers(params, cfg: LlamaConfig, x, cos, sin, attention):
+    """The layer stack on rows x [R, H] with rotary tables cos/sin [R, D].
+    ``attention(li, q [R, Hq, D], k [R, Hkv, D], v [R, Hkv, D])`` writes the
+    rows' K and V into layer ``li`` of the cache and returns the attention
+    output [R, Hq*D]; the flat and the paged forward differ only there."""
+    from ..ops.quant import qmatmul
+
+    hq, hkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    inter = cfg.intermediate_size
+    t = x.shape[0]
+    lp = params["layers"]
+    act = act_fn(cfg)
     for li in range(cfg.num_hidden_layers):
         y = rms_norm(x, lp["input_norm"][li], cfg.rms_norm_eps,
                      cfg.rms_norm_offset)
         if "wqkv" in lp:         # fused projections (fuse_params)
-            qkv = qmatmul(y, layer(lp["wqkv"], li))
+            qkv = qmatmul(y, _layer(lp["wqkv"], li))
             if cfg.attention_bias:
                 qkv = qkv + lp["bqkv"][li]
             q, k, vv = qkv.split((hq * d, hkv * d, hkv * d), dim=1)
         else:
-            q = qmatmul(y, layer(lp["wq"], li))
-            k = qmatmul(y, layer(lp["wk"], li))
-            vv = qmatmul(y, layer(lp["wv"], li))
+            q = qmatmul(y, _layer(lp["wq"], li))
+            k = qmatmul(y, _layer(lp["wk"], li))
+            vv = qmatmul(y, _layer(lp["wv"], li))
             if cfg.attention_bias:
                 q, k, vv = q + lp["bq"][li], k + lp["bk"][li], vv + lp["bv"][li]
         # the fused split hands out column slices; the kernel takes a
         # contiguous q (a no-op for the unfused layout)
         q = apply_rope(q.reshape(t, hq, d), cos, sin).contiguous()
         k = apply_rope(k.reshape(t, hkv, d), cos, sin)
-        kc = kv_cache_write(layer(k_cache, li), k, slots)
-        vc = kv_cache_write(layer(v_cache, li), vv.reshape(t, hkv, d), slots)
-        attn = attend(q, kc, vc, kv_len, **meta)
-        x = x + qmatmul(attn.to(cfg.dtype), layer(lp["wo"], li))
+        attn = attention(li, q, k, vv.reshape(t, hkv, d))
+        x = x + qmatmul(attn.to(cfg.dtype), _layer(lp["wo"], li))
         y = rms_norm(x, lp["post_norm"][li], cfg.rms_norm_eps,
                      cfg.rms_norm_offset)
         if "w_gate_up" in lp:
-            gate_in, up = qmatmul(y, layer(lp["w_gate_up"], li)).split(
+            gate_in, up = qmatmul(y, _layer(lp["w_gate_up"], li)).split(
                 (inter, inter), dim=1)
         else:
-            gate_in = qmatmul(y, layer(lp["w_gate"], li))
-            up = qmatmul(y, layer(lp["w_up"], li))
+            gate_in = qmatmul(y, _layer(lp["w_gate"], li))
+            up = qmatmul(y, _layer(lp["w_up"], li))
         gate = act(gate_in.float()).to(cfg.dtype)
-        x = x + qmatmul(gate * up, layer(lp["w_down"], li))
+        x = x + qmatmul(gate * up, _layer(lp["w_down"], li))
+    return rms_norm(x, params["final_norm"], cfg.rms_norm_eps,
+                    cfg.rms_norm_offset)
 
-    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps,
-                 cfg.rms_norm_offset)
-    if logits_rows is not None:
-        x = x[logits_rows]
+
+def _logits(params, cfg: LlamaConfig, x, rows):
+    """fp32 logits of the normed rows x [R, H] (or [B, T, H]), gathered at
+    ``rows`` of the second-to-last axis first when given."""
+    from ..ops.quant import qmatmul
+
+    if rows is not None:
+        x = x.index_select(x.dim() - 2, rows)
     head = params.get("lm_head")
-    logits = x @ params["embed"].T if head is None else qmatmul(x, head)
-    return logits.float(), k_cache, v_cache
+    if head is None:
+        return (x @ params["embed"].T).float()
+    lead = x.shape[:-1]
+    return qmatmul(x.reshape(-1, x.shape[-1]), head).float().view(
+        *lead, cfg.vocab_size)
+
+
+def forward_paged(
+    params: Dict,
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,        # [B, T] int composite / prefill chunk
+    positions: torch.Tensor,     # [B, T] int absolute positions per lane
+    k_pool,                      # [L, Hkv, P, D] shared pool or an int8
+    v_pool,                      # {"q", "s"} dict; written in place
+    tables: torch.Tensor,        # [B, NB] int32 logical -> physical page
+    write_start: torch.Tensor,   # [B] logical cache slot of tokens[b, 0]
+    page_size: int,
+    rope_cos: torch.Tensor,
+    rope_sin: torch.Tensor,
+    attn_meta: Dict,             # kv_lens [B], level, window, guess_size
+                                 # [, causal, sliding_window]
+    logits_rows: Optional[torch.Tensor] = None,
+    attn_impl: str = "dense",
+    write_limit: Optional[torch.Tensor] = None,  # [B]: rows at logical slots
+    trash_slot: Optional[torch.Tensor] = None,   # >= limit, or outside the
+                                                 # table, write to the lane's
+                                                 # trash page
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Lane-batched forward over the shared paged KV pool (core/paged.py).
+
+    B lanes write disjoint physical slots of one pool (scatters through
+    each lane's page table) and attention reads each lane's logical view:
+    in place through the table in the kernel (``attn_impl="kernel"``,
+    ``ops/lookahead_attention.py:paged_lookahead_attention``), gathered in
+    the plain version (``"dense"``). Everything else is :func:`forward`'s
+    arithmetic on the B*T rows. With ``write_limit`` the rows of a padded
+    prefill chunk past the prompt go to the lane's trash page (their
+    logical pages may not be allocated); their outputs are discarded and no
+    real row sees their columns. Returns (fp32 logits [B, R, V], k_pool,
+    v_pool); a call that reads no logits row (prefill) gets [B, 0, V]."""
+    from ..core.paged import paged_write, phys_slots
+    from ..ops.lookahead_attention import (paged_lookahead_attention,
+                                           paged_lookahead_attention_ref)
+
+    hq, d = cfg.num_attention_heads, cfg.head_dim
+    b, t = tokens.shape
+    x = params["embed"][tokens.reshape(-1)]                  # [B*T, H]
+    if cfg.scale_embeddings:
+        x = x * torch.tensor(math.sqrt(cfg.hidden_size), dtype=cfg.dtype)
+    pos = positions.reshape(-1).clamp(0, rope_cos.shape[0] - 1)
+    cos, sin = rope_cos[pos], rope_sin[pos]
+
+    slots = phys_slots(tables, write_start, t, page_size, trash=trash_slot)
+    if write_limit is not None:
+        m = write_start.long()[:, None] + torch.arange(t, device=x.device)
+        slots = torch.where(m >= write_limit[:, None],
+                            trash_slot.long()[:, None] + m % page_size, slots)
+    slots = slots.reshape(-1)
+    attend = paged_lookahead_attention if attn_impl == "kernel" \
+        else paged_lookahead_attention_ref
+    meta = dict(attn_meta)
+    kv_lens = meta.pop("kv_lens")
+
+    def attention(li, q, k, vv):
+        kc = paged_write(_layer(k_pool, li), slots, k)
+        vc = paged_write(_layer(v_pool, li), slots, vv)
+        return attend(q.view(b, t, hq, d), kc, vc, kv_lens, tables,
+                      page_size=page_size, **meta).reshape(b * t, hq * d)
+
+    x = _decoder_layers(params, cfg, x, cos, sin, attention)
+    x = x.view(b, t, -1)
+    if logits_rows is not None and logits_rows.numel() == 0:
+        return (torch.zeros((b, 0, cfg.vocab_size), dtype=torch.float32,
+                            device=x.device), k_pool, v_pool)
+    return _logits(params, cfg, x, logits_rows), k_pool, v_pool

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 Each ``csrc/<name>.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface and loaded with ``ctypes``. The
-build runs at first use, into ``build/kernels/`` at the repository root
+shared library with a plain C interface and loaded with ``ctypes``
+(``csrc/*.cuh`` are headers that the sources share). The build runs at
+first use, into ``build/kernels/`` at the repository root
 (or the directory ``LADE_KERNEL_BUILD_DIR`` names, for an installed
 package), keyed on a hash of the source and the flags, so a fresh checkout
 builds once and later processes load the cached library. Nothing here
@@ -30,13 +31,19 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "lookahead_attention": (
         "lookahead_attention_launch",
-        # q, k, v, k_scale, v_scale, kv_len, out, dtype, kv_int8, s_len, hq,
-        # hkv, m, d, level, window, guess_size, causal, sliding_window, stream
-        [_P] * 7 + [_I] * 12 + [_P]),
+        # q, k, v, k_scale, v_scale, kv_lens, tables, out, dtype, kv_int8,
+        # lanes, s_len, hq, hkv, m, pool_slots, page_size, nb, d, level,
+        # window, guess_size, causal, sliding_window, stream
+        [_P] * 8 + [_I] * 16 + [_P]),
     "quant_matmul": (
         "quant_matmul_launch",
         # x, w, scale, out, mode, dtype, t, k, n, w_rows, k2, stream
         [_P] * 4 + [_I] * 7 + [_P]),
+    "int4_micro": (
+        "int4_micro_launch",
+        # x, w, scale, out, part, variant, dtype, t, k, n, w_rows, k2,
+        # slab_rows, stream
+        [_P] * 5 + [_I] * 8 + [_P]),
 }
 
 _libs: dict = {}       # name -> loaded ctypes.CDLL (one load per process)
@@ -55,7 +62,9 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the source and every header beside it (a source may include any)
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{key}.so"
 

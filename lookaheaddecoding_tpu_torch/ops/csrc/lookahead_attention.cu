@@ -1,11 +1,20 @@
 // Composite-mask lookahead attention for Hopper (sm_90a), CUDA C++.
 //
-// Replaces the two Pallas bodies behind
-// lookaheaddecoding_tpu/ops/lookahead_attention.py:lookahead_attention:
-//   - _kernel_single (whole cache in one KV block, direct softmax), and
-//   - _kernel (online softmax over KV blocks with live-block skipping).
-// One kernel covers both: the split was a TPU choice about per-program
-// overhead, not a different function.
+// Replaces the three Pallas bodies of
+// lookaheaddecoding_tpu/ops/lookahead_attention.py:
+//   - _kernel_single (lookahead_attention: whole cache in one KV block,
+//     direct softmax),
+//   - _kernel (lookahead_attention: online softmax over KV blocks with
+//     live-block skipping), and
+//   - _paged_kernel (paged_lookahead_attention: the same function for B
+//     lanes whose K/V lie in one shared page pool, each lane with its own
+//     kv_len and logical -> physical page table).
+// One __global__ covers all three. The split of the first two was a TPU
+// choice about per-program overhead, not a different function; the paged
+// call is the flat call with a lane axis on the grid and one address
+// translation where a key row is loaded, so the flat call is the case of
+// one lane and no table, and a lane of the paged call gives the flat
+// call's bits on the same logical cache (same tiles, same order).
 //
 // What it computes: out[s, h*D:(h+1)*D] = softmax_c(q[s,h].k[g,c] / sqrt(D)
 // over visible c) . v[g,c], with GQA head h -> KV head g = h / rep, fp32
@@ -17,7 +26,17 @@
 // k_scale[g, c] after the QK product, the denominator sums the unscaled p,
 // and p is multiplied by v_scale[g, c] and then rounded to q's type before
 // the PV product, so no dequantized copy of the cache exists anywhere.
-// Visibility (the TPU kernel's _block_mask):
+// Paged mode: logical key column c of lane b lies at pool slot
+//   tables[b, c / page_size] * page_size + c % page_size.
+// The TPU kernel walks whole pages (its key block is a page, hence its
+// page_size % 128 rule); here the key tile stays BK columns whatever the
+// page size, and every key row of a tile is translated on its own, so any
+// page_size works and the tile order is the flat call's. A block reads its
+// lane's kv_len and table row itself. It loads nothing past the last live
+// column of its rows (kv_len + S at most), so the table entries of logical
+// pages a lane does not own (they point at its trash page) are not
+// followed for any row that counts.
+// Visibility (the TPU kernel's _block_mask), in logical columns:
 //   composite mode: committed slots c < kv_len are visible to every row
 //     (with a sliding window sw only when c > kv_len + rel_pos(s) - sw);
 //     slots kv_len + rj, rj in [0, S), follow the within-composite mask
@@ -30,7 +49,8 @@
 // ~= 2.7 MB (~0.8 us). Its rows see 124,980 (row, key) pairs (240*512
 // committed, 2,100 of the sparse within-composite mask), so it does
 // 4*64*32*124,980 ~= 1.02 GFLOP (~1.04 us): compute-bound at ~1.04 us a
-// call, 22 calls a decode step.
+// call, 22 calls a decode step. The paged call of four lanes does four
+// times that work on four times the bytes.
 //
 // What this design does about that bound: this first version is the simple
 // correct kernel, not a fast one. It never reads a KV tile past the last
@@ -78,7 +98,10 @@ struct Geometry {
   int s_len;           // S query positions
   int rep;             // query heads per KV head
   int hq;              // query heads
-  int m;               // cache capacity M
+  int m;               // logical cache capacity M (paged: NB * page_size)
+  int pool_slots;      // slots a KV head in k/v (flat: M)
+  int page_size;       // 0: flat cache, column c lies at slot c
+  int nb;              // table entries a lane
   int level, window, guess_size;
   int causal;          // 1: prefill / AR mode
   int sliding_window;  // 0: full attention
@@ -116,7 +139,7 @@ __device__ __forceinline__ bool visible(int s, int c, int kv_len, const Geometry
   return rj < g.s_len && spec_visible(s, rj, g);
 }
 
-// Grid (row tiles, KV heads). Block: NT threads, BR GQA rows t = s*rep + r
+// Grid (row tiles, KV heads, lanes). Block: NT threads, BR GQA rows t = s*rep + r
 // of KV head blockIdx.y; thread (ty, tx) owns rows ty*RPT + i and, in each
 // KV tile, key columns tx + TX*j and output dims tx + TX*j. KV is T, or
 // signed char in int8-KV mode (then k_scale and v_scale are read).
@@ -125,7 +148,8 @@ __global__ void __launch_bounds__(NT)
 lookahead_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k,
                            const KV* __restrict__ v, const float* __restrict__ k_scale,
                            const float* __restrict__ v_scale,
-                           const int* __restrict__ kv_len_ptr, T* __restrict__ out, Geometry g) {
+                           const int* __restrict__ kv_len_ptr, const int* __restrict__ tables,
+                           T* __restrict__ out, Geometry g) {
   constexpr bool QUANT = !std::is_same<T, KV>::value;
   constexpr int DPT = D / TX;  // output dims a thread
   constexpr int QS = D + 1;    // padded row strides: no bank conflicts
@@ -137,14 +161,19 @@ lookahead_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k,
   float* sp = sv + BK * D;      // [BR][PS]
   float* sks = sp + BR * PS;    // [BK] k scales of the tile (int8-KV mode)
   float* svs = sks + BK;        // [BK] v scales
+  int* sslot = reinterpret_cast<int*>(svs + BK);  // [BK] pool slot of each key, -1: not loaded
 
   const int tid = threadIdx.x, ty = tid / TX, tx = tid % TX;
   const int head_kv = blockIdx.y;
   const int n_rows = g.s_len * g.rep;
   const int t0 = blockIdx.x * BR;
-  const int kv_len = *kv_len_ptr;
-  const KV* kh = k + (size_t)head_kv * g.m * D;
-  const KV* vh = v + (size_t)head_kv * g.m * D;
+  const int lane = blockIdx.z;
+  const int kv_len = kv_len_ptr[lane];
+  const int* table = g.page_size ? tables + (size_t)lane * g.nb : nullptr;
+  const KV* kh = k + (size_t)head_kv * g.pool_slots * D;
+  const KV* vh = v + (size_t)head_kv * g.pool_slots * D;
+  q += (size_t)lane * g.s_len * g.hq * D;
+  out += (size_t)lane * g.s_len * g.hq * D;
 
   for (int idx = tid; idx < BR * D; idx += NT) {
     const int row = idx / D, d = idx % D, t = t0 + row;
@@ -181,17 +210,40 @@ lookahead_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k,
   for (int tile = tile_begin; tile < tile_end; ++tile) {
     const int c0 = tile * BK;
     __syncthreads();  // the previous tile's K/V/P reads are done
-    for (int idx = tid; idx < BK * D; idx += NT) {
-      const int kk = idx / D, d = idx % D, c = c0 + kk;
-      const bool ok = c < g.m;
-      sk[kk * QS + d] = ok ? to_f<KV>(kh[(size_t)c * D + d]) : 0.f;
-      sv[kk * D + d] = ok ? to_f<KV>(vh[(size_t)c * D + d]) : 0.f;
-    }
-    if (QUANT) {
+    if (table == nullptr) {
+      // flat cache: column c lies at slot c. Columns past the last live one
+      // are not loaded.
+      for (int idx = tid; idx < BK * D; idx += NT) {
+        const int kk = idx / D, d = idx % D, c = c0 + kk;
+        const bool ok = c < col_end;
+        sk[kk * QS + d] = ok ? to_f<KV>(kh[(size_t)c * D + d]) : 0.f;
+        sv[kk * D + d] = ok ? to_f<KV>(vh[(size_t)c * D + d]) : 0.f;
+      }
+      if (QUANT) {
+        for (int kk = tid; kk < BK; kk += NT) {
+          const int c = c0 + kk;
+          sks[kk] = c < col_end ? k_scale[(size_t)head_kv * g.pool_slots + c] : 0.f;
+          svs[kk] = c < col_end ? v_scale[(size_t)head_kv * g.pool_slots + c] : 0.f;
+        }
+      }
+    } else {
+      // paged cache: the pool slot of each key column of the tile, through
+      // the lane's table. Columns past the last live one are not loaded
+      // (their table entry may belong to no page).
       for (int kk = tid; kk < BK; kk += NT) {
         const int c = c0 + kk;
-        sks[kk] = c < g.m ? k_scale[(size_t)head_kv * g.m + c] : 0.f;
-        svs[kk] = c < g.m ? v_scale[(size_t)head_kv * g.m + c] : 0.f;
+        const int slot = c < col_end ? table[c / g.page_size] * g.page_size + c % g.page_size : -1;
+        sslot[kk] = slot;
+        if (QUANT) {
+          sks[kk] = slot >= 0 ? k_scale[(size_t)head_kv * g.pool_slots + slot] : 0.f;
+          svs[kk] = slot >= 0 ? v_scale[(size_t)head_kv * g.pool_slots + slot] : 0.f;
+        }
+      }
+      __syncthreads();
+      for (int idx = tid; idx < BK * D; idx += NT) {
+        const int kk = idx / D, d = idx % D, slot = sslot[kk];
+        sk[kk * QS + d] = slot >= 0 ? to_f<KV>(kh[(size_t)slot * D + d]) : 0.f;
+        sv[kk * D + d] = slot >= 0 ? to_f<KV>(vh[(size_t)slot * D + d]) : 0.f;
       }
     }
     __syncthreads();
@@ -281,14 +333,15 @@ lookahead_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k,
 }
 
 struct Pointers {
-  const void *q, *k, *v, *k_scale, *v_scale, *kv_len;
+  const void *q, *k, *v, *k_scale, *v_scale, *kv_len, *tables;
   void* out;
 };
 
 template <typename T, typename KV, int D>
-cudaError_t launch(const Pointers& a, int hkv, const Geometry& g, cudaStream_t stream) {
+cudaError_t launch(const Pointers& a, int lanes, int hkv, const Geometry& g, cudaStream_t stream) {
   constexpr int smem =
-      (BR * (D + 1) + BK * (D + 1) + BK * D + BR * (BK + 1) + 2 * BK) * sizeof(float);
+      (BR * (D + 1) + BK * (D + 1) + BK * D + BR * (BK + 1) + 2 * BK) * sizeof(float) +
+      BK * sizeof(int);
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(lookahead_attention_kernel<T, KV, D>,
@@ -296,51 +349,63 @@ cudaError_t launch(const Pointers& a, int hkv, const Geometry& g, cudaStream_t s
     if (e != cudaSuccess) return e;
     configured = true;
   }
-  const dim3 grid((g.s_len * g.rep + BR - 1) / BR, hkv);
+  const dim3 grid((g.s_len * g.rep + BR - 1) / BR, hkv, lanes);
   lookahead_attention_kernel<T, KV, D><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const KV*>(a.k), static_cast<const KV*>(a.v),
       static_cast<const float*>(a.k_scale), static_cast<const float*>(a.v_scale),
-      static_cast<const int*>(a.kv_len), static_cast<T*>(a.out), g);
+      static_cast<const int*>(a.kv_len), static_cast<const int*>(a.tables),
+      static_cast<T*>(a.out), g);
   return cudaGetLastError();
 }
 
 template <typename T, typename KV>
-cudaError_t launch_d(int d, const Pointers& a, int hkv, const Geometry& g, cudaStream_t stream) {
+cudaError_t launch_d(int d, const Pointers& a, int lanes, int hkv, const Geometry& g,
+                     cudaStream_t stream) {
   switch (d) {
-    case 64: return launch<T, KV, 64>(a, hkv, g, stream);
-    case 128: return launch<T, KV, 128>(a, hkv, g, stream);
+    case 64: return launch<T, KV, 64>(a, lanes, hkv, g, stream);
+    case 128: return launch<T, KV, 128>(a, lanes, hkv, g, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
-cudaError_t launch_kv(int kv_int8, int d, const Pointers& a, int hkv, const Geometry& g,
-                      cudaStream_t stream) {
-  if (kv_int8) return launch_d<T, signed char>(d, a, hkv, g, stream);
-  return launch_d<T, T>(d, a, hkv, g, stream);
+cudaError_t launch_kv(int kv_int8, int d, const Pointers& a, int lanes, int hkv,
+                      const Geometry& g, cudaStream_t stream) {
+  if (kv_int8) return launch_d<T, signed char>(d, a, lanes, hkv, g, stream);
+  return launch_d<T, T>(d, a, lanes, hkv, g, stream);
 }
 
 }  // namespace
 
-// dtype (of q and out): 0 float32, 1 bfloat16. q [S, Hq, D]; k/v [Hkv, M, D]
-// of q's type, or int8 with float32 k_scale/v_scale [Hkv, M] when kv_int8
-// is 1 (the scales are not read otherwise); kv_len one int32 on the device;
-// out [S, Hq*D]; all contiguous. Returns the CUDA error code of the launch
-// (0 on success).
+// dtype (of q and out): 0 float32, 1 bfloat16. q [lanes, S, Hq, D]; k/v
+// [Hkv, pool_slots, D] of q's type, or int8 with float32 k_scale/v_scale
+// [Hkv, pool_slots] when kv_int8 is 1 (the scales are not read otherwise);
+// kv_len [lanes] int32 on the device; out [lanes, S, Hq*D]; all contiguous.
+// Flat call: lanes 1, tables null, page_size 0, nb 0, m = pool_slots = M.
+// Paged call: tables [lanes, nb] int32 on the device, m = nb * page_size
+// logical columns, pool_slots a multiple of page_size. Returns the CUDA
+// error code of the launch (0 on success).
 extern "C" int lookahead_attention_launch(const void* q, const void* k, const void* v,
                                           const void* k_scale, const void* v_scale,
-                                          const void* kv_len, void* out, int dtype,
-                                          int kv_int8, int s_len, int hq, int hkv, int m,
+                                          const void* kv_len, const void* tables, void* out,
+                                          int dtype, int kv_int8, int lanes, int s_len, int hq,
+                                          int hkv, int m, int pool_slots, int page_size, int nb,
                                           int d, int level, int window, int guess_size,
                                           int causal, int sliding_window, void* stream) {
-  if (s_len <= 0 || hkv <= 0 || hq % hkv != 0) return (int)cudaErrorInvalidValue;
+  if (lanes <= 0 || s_len <= 0 || hkv <= 0 || hq % hkv != 0) return (int)cudaErrorInvalidValue;
   if (kv_int8 && (k_scale == nullptr || v_scale == nullptr)) return (int)cudaErrorInvalidValue;
-  const Pointers a = {q, k, v, k_scale, v_scale, kv_len, out};
+  if (page_size < 0 || (page_size > 0 && (tables == nullptr || nb <= 0 || m != nb * page_size)))
+    return (int)cudaErrorInvalidValue;
+  if (page_size == 0 && (lanes != 1 || m != pool_slots)) return (int)cudaErrorInvalidValue;
+  const Pointers a = {q, k, v, k_scale, v_scale, kv_len, tables, out};
   Geometry g;
   g.s_len = s_len;
   g.rep = hq / hkv;
   g.hq = hq;
   g.m = m;
+  g.pool_slots = pool_slots;
+  g.page_size = page_size;
+  g.nb = nb;
   g.level = level;
   g.window = window;
   g.guess_size = guess_size;
@@ -350,8 +415,8 @@ extern "C" int lookahead_attention_launch(const void* q, const void* k, const vo
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (dtype) {
-    case 0: e = launch_kv<float>(kv_int8, d, a, hkv, g, st); break;
-    case 1: e = launch_kv<__nv_bfloat16>(kv_int8, d, a, hkv, g, st); break;
+    case 0: e = launch_kv<float>(kv_int8, d, a, lanes, hkv, g, st); break;
+    case 1: e = launch_kv<__nv_bfloat16>(kv_int8, d, a, lanes, hkv, g, st); break;
     default: e = cudaErrorInvalidValue;
   }
   return (int)e;

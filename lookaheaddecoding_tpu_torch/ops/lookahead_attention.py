@@ -13,9 +13,18 @@ dtype, or the int8 cache's ``{"q": int8 [Hkv, M, D], "s": f32 [Hkv, M, 1]}``
 dicts, whose per-slot scales are applied to the scores and to the
 probabilities, never to a dequantized copy of the cache.
 
-On a CUDA tensor :func:`lookahead_attention` launches the kernel, or raises
-on an input it does not take; on a CPU tensor it runs
-:func:`lookahead_attention_ref`. ``counts`` records both.
+The paged call (:func:`paged_lookahead_attention`) is the same function for
+B lanes whose K and V lie in one shared page pool ``[Hkv, P, D]``
+(core/paged.py), each lane with its own ``kv_len`` and page table; the
+mask is evaluated in logical columns.
+
+On a CUDA tensor :func:`lookahead_attention` and
+:func:`paged_lookahead_attention` launch the kernel (one ``__global__`` for
+both: the flat call is one lane with no table), or raise on an input it
+does not take, with one set of checks and messages
+(:func:`_check_kernel_inputs`); on a CPU tensor they run
+:func:`lookahead_attention_ref` and :func:`paged_lookahead_attention_ref`.
+``counts`` and ``paged_counts`` record which.
 """
 
 from __future__ import annotations
@@ -25,8 +34,11 @@ import torch
 from ..models.llama import attention_dense
 
 # Launches of the CUDA kernel and calls of the plain version, for showing
-# which one a run went through. Reset with ``counts.update(kernel=0, plain=0)``.
+# which one a run went through: ``counts`` by the flat wrapper,
+# ``paged_counts`` by the paged one. Reset with
+# ``counts.update(kernel=0, plain=0)``.
 counts = {"kernel": 0, "plain": 0}
+paged_counts = {"kernel": 0, "plain": 0}
 
 KERNEL_HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -107,12 +119,19 @@ def _split_kv(k, v):
     return k, v, None, None
 
 
-def _check_kernel_inputs(q, k, v, kv_len):
+def _check_kernel_inputs(q, k, v, lens, tables=None, page_size=0):
+    """What the CUDA kernel needs of its inputs, for the flat call (q
+    [S, Hq, D], one ``kv_len``) and the paged call (q [B, S, Hq, D],
+    ``kv_lens`` [B], ``tables`` [B, NB]) alike: the same fault raises the
+    same message in both."""
+    paged = tables is not None
     k, v, ks, vs = _split_kv(k, v)
-    if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
-        raise ValueError(f"need q [S, Hq, D] and k, v [Hkv, M, D]; got "
+    q_dims = "[B, S, Hq, D]" if paged else "[S, Hq, D]"
+    if q.dim() != 3 + paged or k.dim() != 3 or v.shape != k.shape:
+        raise ValueError(f"need q {q_dims} and k, v [Hkv, M, D]; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    s_len, hq, d = q.shape
+    s_len, hq, d = q.shape[-3:]
+    lanes = q.shape[0] if paged else 1
     hkv, _, dk = k.shape
     if dk != d or hq % hkv:
         raise ValueError(f"head dims {d}/{dk} or heads {hq}/{hkv} mismatch")
@@ -129,18 +148,57 @@ def _check_kernel_inputs(q, k, v, kv_len):
             raise ValueError(f"int8 cache scales must be float32 "
                              f"[{hkv}, {k.shape[1]}, 1], got {s.dtype} "
                              f"{tuple(s.shape)}")
-    if not all(t.is_contiguous() for t in (q, k, v, *scales)):
-        raise ValueError("kernel takes contiguous q, k, v and scales")
-    if not (isinstance(kv_len, torch.Tensor) and kv_len.dtype == torch.int32
-            and kv_len.numel() == 1):
-        raise ValueError("kv_len must be a one-element int32 tensor")
-    if len({t.device for t in (q, k, v, kv_len, *scales)}) != 1:
-        raise ValueError("q, k, v, scales and kv_len must be on one device")
+    if not (isinstance(lens, torch.Tensor) and lens.dtype == torch.int32
+            and lens.numel() == lanes):
+        raise ValueError(f"kv_len must be an int32 tensor of {lanes} "
+                         f"element(s), one a lane")
+    index = (lens,)
+    if paged:
+        if (tables.dtype != torch.int32 or tables.dim() != 2
+                or tables.shape[0] != lanes):
+            raise ValueError(f"tables must be int32 [{lanes}, NB], got "
+                             f"{tables.dtype} {tuple(tables.shape)}")
+        if page_size < 1 or k.shape[1] % page_size:
+            raise ValueError(f"the pool's {k.shape[1]} slots are not whole "
+                             f"pages of {page_size}")
+        index = (lens, tables)
+    if not all(t.is_contiguous() for t in (q, k, v, *scales, *index)):
+        raise ValueError("kernel takes contiguous q, k, v, scales, kv_len "
+                         "and tables")
+    if len({t.device for t in (q, k, v, *scales, *index)}) != 1:
+        raise ValueError("q, k, v, scales, kv_len and tables must be on one "
+                         "device")
     if q.device.index != torch.cuda.current_device():
         raise ValueError(f"tensors on {q.device}, but the current CUDA "
                          f"device is {torch.cuda.current_device()}")
-    if s_len < 1:
+    if s_len < 1 or lanes < 1:
         raise ValueError("need at least one query row")
+
+
+def _launch(q, k, v, lens, tables, page_size, geometry):
+    """Launch the kernel on checked inputs: q [B, S, Hq, D] (B = 1 and no
+    table for the flat call). Returns [B, S, Hq*D]."""
+    from ._build import load
+    k, v, ks, vs = _split_kv(k, v)
+    lanes, s_len, hq, d = q.shape
+    hkv, slots, _ = k.shape
+    nb = 0 if tables is None else tables.shape[1]
+    out = torch.empty((lanes, s_len, hq * d), dtype=q.dtype, device=q.device)
+    err = load("lookahead_attention").lookahead_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if ks is None else ks.data_ptr(),
+        None if vs is None else vs.data_ptr(), lens.data_ptr(),
+        None if tables is None else tables.data_ptr(),
+        out.data_ptr(), _DTYPE_CODES[q.dtype], int(ks is not None),
+        lanes, s_len, hq, hkv, nb * page_size if nb else slots, slots,
+        page_size if nb else 0, nb, d,
+        geometry["level"], geometry["window"], geometry["guess_size"],
+        int(geometry["causal"]), int(geometry["sliding_window"]),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"lookahead_attention kernel launch failed: "
+                           f"CUDA error {err}")
+    return out
 
 
 def lookahead_attention(q, k, v, kv_len, *, level, window, guess_size,
@@ -162,21 +220,62 @@ def lookahead_attention(q, k, v, kv_len, *, level, window, guess_size,
     if q.device.type != "cuda":
         raise ValueError(f"no attention kernel for device {q.device}")
     _check_kernel_inputs(q, k, v, kv_len)
-    from ._build import load
-    k, v, ks, vs = _split_kv(k, v)
-    s_len, hq, d = q.shape
-    hkv, m, _ = k.shape
-    out = torch.empty((s_len, hq * d), dtype=q.dtype, device=q.device)
-    err = load("lookahead_attention").lookahead_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if ks is None else ks.data_ptr(),
-        None if vs is None else vs.data_ptr(), kv_len.data_ptr(),
-        out.data_ptr(), _DTYPE_CODES[q.dtype], int(ks is not None),
-        s_len, hq, hkv, m, d,
-        level, window, guess_size, int(causal), int(sliding_window),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"lookahead_attention kernel launch failed: "
-                           f"CUDA error {err}")
+    out = _launch(q[None], k, v, kv_len, None, 0, dict(
+        level=level, window=window, guess_size=guess_size, causal=causal,
+        sliding_window=sliding_window))[0]
     counts["kernel"] += 1
+    return out
+
+
+def paged_lookahead_attention_ref(q, k, v, kv_lens, tables, *, level, window,
+                                  guess_size, page_size, causal=False,
+                                  sliding_window=0):
+    """Plain version of the paged call: each lane's logical view gathered
+    from the pool (``core/paged.py:paged_gather``), then that lane's
+    :func:`lookahead_attention_ref`. Returns [B, S, Hq*D] in q's dtype."""
+    from ..core.paged import paged_gather
+    kg = paged_gather(k, tables, page_size)
+    vg = paged_gather(v, tables, page_size)
+
+    def lane(tree, b):
+        if isinstance(tree, dict):
+            return {name: leaf[b] for name, leaf in tree.items()}
+        return tree[b]
+    return torch.stack([
+        lookahead_attention_ref(
+            q[b], lane(kg, b), lane(vg, b), kv_lens[b], level=level,
+            window=window, guess_size=guess_size, causal=causal,
+            sliding_window=sliding_window)
+        for b in range(q.shape[0])])
+
+
+def paged_lookahead_attention(q, k, v, kv_lens, tables, *, level, window,
+                              guess_size, page_size, causal=False,
+                              sliding_window=0):
+    """Composite-mask attention of B lanes over the shared page pool,
+    [B, S, Hq*D] in q's dtype.
+
+    q [B, S, Hq, D]; k, v [Hkv, P, D] (one layer of the pool, plain or
+    ``{"q", "s"}`` int8 dicts, P a multiple of ``page_size``); ``kv_lens``
+    [B] and ``tables`` [B, NB] int32 on q's device, both read by the kernel
+    itself. Logical key column c of lane b lies at pool slot
+    ``tables[b, c // page_size] * page_size + c % page_size``; the mask is
+    that of :func:`lookahead_attention` in logical columns. The kernel
+    translates each key row as it loads it, so any ``page_size`` is taken,
+    and it reads nothing past ``kv_len + S`` (nor below the sliding
+    window), so table entries of pages a lane does not own are never
+    followed for a row that counts."""
+    if q.device.type == "cpu":
+        paged_counts["plain"] += 1
+        return paged_lookahead_attention_ref(
+            q, k, v, kv_lens, tables, level=level, window=window,
+            guess_size=guess_size, page_size=page_size, causal=causal,
+            sliding_window=sliding_window)
+    if q.device.type != "cuda":
+        raise ValueError(f"no attention kernel for device {q.device}")
+    _check_kernel_inputs(q, k, v, kv_lens, tables, page_size)
+    out = _launch(q, k, v, kv_lens, tables, page_size, dict(
+        level=level, window=window, guess_size=guess_size, causal=causal,
+        sliding_window=sliding_window))
+    paged_counts["kernel"] += 1
     return out

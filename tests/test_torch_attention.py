@@ -95,3 +95,69 @@ def test_kernel_input_checks_raise(bad, match):
     kv_len = bad.get("kv_len", torch.tensor([3], dtype=torch.int32))
     with pytest.raises(ValueError, match=match):
         la._check_kernel_inputs(q, k, k.clone(), kv_len)
+
+
+def _kernel_inputs(paged, **bad):
+    """Arguments of ``_check_kernel_inputs`` for the flat or the paged
+    call, with one fault from ``bad``."""
+    dtype = bad.get("dtype", torch.float32)
+    q = torch.zeros(bad.get("q", (27, 8, 64)), dtype=dtype)
+    k = torch.zeros(bad.get("k", (2, 128, 64)), dtype=bad.get("kv_dtype",
+                                                              dtype))
+    v = k.clone()
+    lanes = 2 if paged else 1
+    lens = bad.get("lens", torch.zeros(lanes, dtype=torch.int32))
+    if "scales" in bad:
+        k, v = ({"q": k.to(torch.int8), "s": bad["scales"]} for _ in "kv")
+    if bad.get("strided"):
+        q = torch.zeros(q.shape[:-1] + (128,), dtype=dtype)[..., ::2]
+    if bad.get("meta"):
+        lens = lens.to("meta")
+    if not paged:
+        return (q, k, v, lens), {}
+    q = q[None].expand(2, *q.shape) if bad.get("strided") or q.dim() != 3 \
+        else torch.stack([q, q])
+    tables = bad.get("tables", torch.zeros(2, 4, dtype=torch.int32))
+    return (q, k, v, lens, tables), {"page_size": bad.get("page_size", 32)}
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["flat", "paged"])
+@pytest.mark.parametrize("bad,message", [
+    (dict(q=(8, 64)), "need q "),
+    (dict(q=(27, 8, 32), k=(2, 128, 32)), "kernel takes head_dim in (64, 128), got 32"),
+    (dict(q=(27, 5, 64)), "head dims 64/64 or heads 5/2 mismatch"),
+    (dict(dtype=torch.float16), "kernel takes float32 or bfloat16 q with k/v of the same dtype"),
+    (dict(kv_dtype=torch.float64), "kernel takes float32 or bfloat16 q with k/v of the same dtype"),
+    (dict(scales=torch.ones(2, 128)), "int8 cache scales must be float32 [2, 128, 1]"),
+    (dict(lens=torch.zeros(5, dtype=torch.int32)), "kv_len must be an int32 tensor of"),
+    (dict(lens=torch.zeros(2, dtype=torch.int64)), "kv_len must be an int32 tensor of"),
+    (dict(strided=True), "kernel takes contiguous q, k, v, scales, kv_len and tables"),
+    (dict(meta=True), "q, k, v, scales, kv_len and tables must be on one device"),
+])
+def test_flat_and_paged_wrappers_refuse_with_one_message(paged, bad, message):
+    """The two wrappers share their input checks: the same fault (shape,
+    head_dim, heads, dtype, scales, kv_len, contiguity, device) raises the
+    same message from both."""
+    args, kw = _kernel_inputs(paged, **bad)
+    with pytest.raises(ValueError) as err:
+        la._check_kernel_inputs(*args, **kw)
+    assert message in str(err.value)
+
+
+def test_wrong_current_device_is_refused_by_both(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+    for paged in (False, True):
+        args, kw = _kernel_inputs(paged)
+        with pytest.raises(ValueError, match="current CUDA device is 1"):
+            la._check_kernel_inputs(*args, **kw)
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(tables=torch.zeros(2, 4, dtype=torch.int64)), "tables must be int32"),
+    (dict(tables=torch.zeros(3, 4, dtype=torch.int32)), "tables must be int32"),
+    (dict(page_size=48), "not whole pages of 48"),
+])
+def test_paged_only_checks_raise(bad, match):
+    args, kw = _kernel_inputs(True, **bad)
+    with pytest.raises(ValueError, match=match):
+        la._check_kernel_inputs(*args, **kw)
