@@ -16,7 +16,9 @@ target). It imports no JAX. Phases, each printed as it runs:
    time beside the plain version's, the bound of the card and one
    library call (a yardstick the port never calls): the attention kernel
    on a plain and on an int8 KV cache, and the int8, int4 and pipelined
-   int4 matrix products (the pipelined one also bit-equal to the int4 one);
+   int4 matrix products (int4 on the tensor cores in bfloat16; the
+   pipelined one bit-equal to the int4 one, a row alone bit-equal to the
+   same row among 240; timed also on the device alone);
    the paged attention call on a shared page pool with shuffled tables
    (plain and int8 pool, page sizes 128 and 48, lanes of different
    ``kv_len``), also bit-equal, lane by lane, to the flat call on the
@@ -39,7 +41,8 @@ target). It imports no JAX. Phases, each printed as it runs:
    plain-version calls 0);
 5. profile: lookahead and AR runs under ``torch.profiler``, for the
    device's busy and idle share and the kernels that take the most time
-   (bfloat16, and the lookahead run of ``int8_weights``);
+   (bfloat16, and the lookahead runs of ``int8_weights`` and
+   ``int4_weights``);
 6. paged serving: ``PagedServingEngine`` on the same model (4 lanes, pages
    of 128 slots, 24 data pages, 4 steps between host reads), ``paged_bf16``
    with ten requests (shared prefixes with a partial tail page and ending
@@ -124,19 +127,50 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps=50, warm=5) -> float:
+def time_ms(fn, reps=50, warm=5, rounds=3) -> float:
+    """Milliseconds a call of ``fn`` launched from Python in a loop: the
+    device's time, or the host's where the call's Python is the slower.
+    The fastest of ``rounds`` loops: the card's host is shared, and a stall
+    there can hold up one loop of calls that the device would not."""
     import torch
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    best = float("inf")
+    for _ in range(rounds):
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / reps)
+    return best
+
+
+def graph_ms(enqueue, calls=20, replays=5) -> float:
+    """Milliseconds a call on the device alone: ``enqueue(i)`` puts call i
+    on the current stream; ``calls`` of them are captured in one CUDA graph
+    (so no Python between them), replayed."""
+    import torch
+    for i in range(3):
+        enqueue(i)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(calls):
+            enqueue(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    for _ in range(replays):
+        graph.replay()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / (calls * replays)
 
 
 # ---------------------------------------------------------------------------
@@ -494,6 +528,9 @@ def check_matmuls(device):
     versions at the main path's shapes and row counts (the AR row, a
     ragged count, the prefill chunk, the logits rows, the composite) and at
     one padded Llama-2-7B shape and one stacked weight, then their times.
+    In bfloat16 the int4 products run on the tensor cores (counted apart
+    from the float32 FMA kernels). Times: a Python loop of calls
+    (``time_ms``) and the device alone (a CUDA graph of the same calls).
     Returns each kernel's numbers for the composite call (T=240) on the
     gate/up shape."""
     import torch
@@ -604,27 +641,35 @@ def check_matmuls(device):
 
                 def rotate(fn, ws):
                     return lambda: fn(x, ws[next(turn) % copies])
+
+                def rotate_i(fn, ws):
+                    return lambda i: fn(x, ws[i % copies])
                 lib_ms = time_ms(rotate(torch.matmul, dense))
+                lib_dev = graph_ms(rotate_i(torch.matmul, dense))
                 bound, by = matmul_bound(t, k, n, bits, "bfloat16")
                 for mode in (("int8",) if bits == 8
                              else ("int4", "int4_pipe")):
                     ms = time_ms(rotate(lambda x, w: run(mode, x, w), wqs))
+                    dev_ms = graph_ms(rotate_i(
+                        lambda x, w: run(mode, x, w), wqs))
                     plain_ms = time_ms(
                         rotate(lambda x, w: ref(mode, x, w), wqs), reps=10)
-                    nums = dict(t=t, k=k, n=n, ms=ms, plain_ms=plain_ms,
-                                bound_ms=bound, bound_by=by,
-                                library_ms=lib_ms)
+                    nums = dict(t=t, k=k, n=n, ms=ms, device_ms=dev_ms,
+                                plain_ms=plain_ms, bound_ms=bound,
+                                bound_by=by, library_ms=lib_ms,
+                                library_device_ms=lib_dev)
                     log(f"  {mode:9s} bfloat16 T={t:3d} K={k} N={n}: kernel "
-                        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul "
-                        f"on bf16 weights {lib_ms:.4f} ms, bound {bound:.5f} "
-                        f"ms ({by})")
+                        f"{ms:.4f} ms (device alone {dev_ms:.4f}), plain "
+                        f"{plain_ms:.4f} ms, torch.matmul on bf16 weights "
+                        f"{lib_ms:.4f} ms (device alone {lib_dev:.4f}), bound "
+                        f"{bound:.5f} ms ({by})")
                     entry = headline.setdefault(
                         mode, dict(max_abs_err=worst[mode], timings=[]))
                     entry["timings"].append(nums)
                     if t == s_comp and k == 2048:
                         entry.update({key: nums[key] for key in (
-                            "ms", "plain_ms", "bound_ms", "bound_by",
-                            "library_ms")})
+                            "ms", "device_ms", "plain_ms", "bound_ms",
+                            "bound_by", "library_ms", "library_device_ms")})
             del wqs, dense
     return headline
 
@@ -717,9 +762,11 @@ def main_path(name, eng, prompt, nxt, card, matmul_kernels, n_new=N_NEW):
                    plain=qm.counts["plain"] + la.counts["plain"])
         launches[path] = got
         assert got["attention"] > 0 and got["plain"] == 0, (name, path, got)
-        for kernel in ("int8", "int4", "int4_pipe"):
-            assert (got[kernel] > 0) == (kernel in matmul_kernels), \
-                (name, path, got)
+        # bf16 int4 on the tensor cores: the FMA int4 kernels never run
+        for kernel in qm.counts:
+            if kernel != "plain":
+                assert (got[kernel] > 0) == (kernel in matmul_kernels), \
+                    (name, path, got)
     r, rb = runs["lookahead"], runs["ar_baseline"]
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     leaves = [eng.params]
@@ -1020,10 +1067,10 @@ def main() -> int:
     configs = {
         "bf16": (build_engine(mcfg, params), ()),
         "int8_weights": (build_engine(mcfg, q8), ("int8",)),
-        "int4_weights": (int4_eng, ("int4", "int8")),
+        "int4_weights": (int4_eng, ("int4_mma", "int8")),
         "int8_weights_int8_kv": (build_engine(mcfg, q8, kv_quant="int8"),
                                  ("int8",)),
-        "int4_weights_pipelined": (int4_eng, ("int4_pipe", "int8")),
+        "int4_weights_pipelined": (int4_eng, ("int4_pipe_mma", "int8")),
     }
     launches, tokens, step_s = {}, {}, {}
     for name, (eng, kernels) in configs.items():
@@ -1041,8 +1088,9 @@ def main() -> int:
     log(f"[profile] ({card})")
     profile_path("bf16", configs["bf16"][0], prompt, card, step_s["bf16"],
                  ("lookahead", "ar_baseline"))
-    profile_path("int8_weights", configs["int8_weights"][0], prompt, card,
-                 step_s["int8_weights"], ("lookahead",))
+    for name in ("int8_weights", "int4_weights"):
+        profile_path(name, configs[name][0], prompt, card, step_s[name],
+                     ("lookahead",))
 
     log(f"[paged serving] ({card}); {LANES} lanes, pages of {PAGE}, "
         f"{N_PAGES} data pages, {STEPS_PER_SYNC} steps between host reads")
@@ -1085,11 +1133,11 @@ def main() -> int:
              **on_main_path("int8"), **mm["int8"]),
         dict(name="int4_matmul", route="cuda", source=CSRC + "quant_matmul.cu",
              replaces=tpu_mm + ":32", main_path="int4_weights",
-             **on_main_path("int4"), **mm["int4"]),
+             **on_main_path("int4_mma"), **mm["int4"]),
         dict(name="int4_matmul_pipe", route="cuda",
              source=CSRC + "quant_matmul.cu", replaces=tpu_mm + ":69",
              main_path="int4_weights_pipelined",
-             **on_main_path("int4_pipe"), **mm["int4_pipe"]),
+             **on_main_path("int4_pipe_mma"), **mm["int4_pipe"]),
         dict(name="paged_lookahead_attention", route="cuda",
              source=CSRC + "lookahead_attention.cu",
              replaces=TPU_PAGED_KERNEL, main_path="paged_bf16",

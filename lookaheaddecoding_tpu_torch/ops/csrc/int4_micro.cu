@@ -10,12 +10,16 @@
 // split-half packed weight of ops/quant.py, as quant_matmul.cu's int4
 // kernel does; see there for the formats.
 //
-// Shift variant: quant_matmul.cuh's product kernel, tiles and summation
-// order, with the decode of a packed 32-bit word done by shifts of the
-// word itself (each nibble moved to the top of the word, then shifted back
-// arithmetically) instead of byte extraction and ((b & 15) ^ 8) - 8. The
-// sum is the int4 kernel's chain, so the result is the int4 kernel's bit
-// for bit; the question it answers is whether the decode costs time.
+// Shift variant: the int4 kernel with the decode of a packed 32-bit word
+// done by shifts of the word itself (each nibble moved to the top of the
+// word, then shifted back arithmetically) instead of the int4 kernel's own
+// decode. In bfloat16 it is quant_matmul_mma.cuh's tensor-core kernel with
+// the shift decode policy (the int4 kernel uses the magic-number one); in
+// float32 it is quant_matmul.cuh's FMA kernel with shifts in place of byte
+// extraction and ((b & 15) ^ 8) - 8. Both decodes give the same exact
+// values into the same order of the sum, so the result is the int4
+// kernel's bit for bit in either type; the question it answers is whether
+// the decode costs time.
 //
 // K-outer variant: on the TPU the grid ran in order, so "K blocks outer"
 // meant every N block of K slab 0, then slab 1, into a [T, N] scratch. On
@@ -33,12 +37,16 @@
 // bound by the weight's bytes (K*N/2 at 3.35 TB/s: 1.7 us at (2048, 5632));
 // the K-outer variant also writes and reads slabs * T * N * 4 bytes of
 // partial sums. The split is what lets a one-row call fill the card: the
-// int4 kernel runs N/64 blocks, this one slabs times as many.
+// int4 kernel's float32 design runs N/64 blocks, this one slabs times as
+// many (the bfloat16 tensor-core design narrows its tiles instead).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (lookaheaddecoding_tpu_torch/ops/_build.py).
 
+#include <type_traits>
+
 #include "quant_matmul.cuh"
+#include "quant_matmul_mma.cuh"
 
 namespace {
 
@@ -146,7 +154,12 @@ template <typename T>
 cudaError_t launch_variant(int variant, const void* x, const void* w, const void* scale,
                            void* out, float* part, const Problem& p, int slab_rows,
                            cudaStream_t stream) {
-  if (variant == 0) return launch_mode<T, INT4_SHIFT>(x, w, scale, out, p, stream);
+  if (variant == 0) {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value)
+      return launch_int4_mma<false, DEC_SHIFT>(x, w, scale, out, p, stream);
+    else
+      return launch_mode<T, INT4_SHIFT>(x, w, scale, out, p, stream);
+  }
   return launch_kouter<T>(x, w, scale, out, part, p, slab_rows, stream);
 }
 

@@ -12,58 +12,77 @@
 // the high nibble, zero rows from K/2 to K2p); scale float32 [1, N]; the
 // sum is float32, the scale is applied once after it, y is in x's type.
 //
-// What bounds them on an H100 SXM (3.35 TB/s; 67 TFLOP/s float32 outside
-// the tensor cores, 989 TFLOP/s bfloat16 inside them): the autoregressive
-// call (T = 1) reads every weight byte once and does two operations a
-// weight, so it is bound by bytes: (K, N) = (2048, 5632) is 11.5 MB as
-// int8 (3.4 us) and 5.8 MB as int4 (1.7 us). The composite call (T = 240)
-// does 2*240*K*N = 5.5 GFLOP on the same bytes, bound by operations for a
-// float32 x (83 us) and by bytes for a bfloat16 x on the tensor cores.
+// What bounds them on an H100 SXM (3.35 TB/s; 989 TFLOP/s bfloat16 on the
+// tensor cores, 67 TFLOP/s float32 outside them): a call with few rows
+// (T <= ~64) reads every weight byte once for 2T operations a weight, so it
+// is bound by bytes: (K, N) = (2048, 11264) is 11.5 MB as int4 (3.5 us at
+// T = 1). The composite call (T = 240) does 2*240*K*N = 11.1 GFLOP on the
+// same bytes: bound by operations, 11 us on the tensor cores in bfloat16,
+// 166 us for a float32 x outside them.
 //
-// What this design does about that: it is the simple correct version. The
-// TPU grid ran in order and carried the sum from one K step to the next;
-// here a block owns an output tile [BT, 64], loops over K inside the block,
-// keeps the float32 sum in registers and applies scale[n] at the end.
-// Weight tiles are read once a block with 16-byte loads along N, converted
-// (int8) or unpacked (int4: low nibble ((b & 15) ^ 8) - 8, high nibble by
-// an arithmetic shift of the signed byte) into float32 tiles in shared
-// memory, and the products are per-thread float32 FMAs from there. They
-// never reach the tensor cores, so a bfloat16 composite call stays far
-// above its bound; mma/wgmma tiles and TMA loads are later work.
+// bfloat16 int4 (quant_matmul_mma.cuh): the product runs on the tensor
+// cores, mma.sync m16n8k16 bf16 x bf16 -> f32, as the TPU body's two
+// dot_generals with preferred_element_type=float32 ran on its matrix unit.
+// A nibble is exact in bf16 (-8..7), so every product is exact in float32.
+// The packed bytes and both halves of x come through a ring of shared
+// memory by cp.async, 16-byte pieces zero-filled past K/2 and N (x element
+// by element where K/2 is not a multiple of 8), so the ring holds bytes,
+// not float32 expansions; x rows are swizzled rather than padded. int4
+// (B4) turns each warp's B fragments into bf16 pairs in registers with the
+// magic-number decode; the same byte feeds the lo-plane mma (against x's
+// first half) and the hi-plane mma (against the second). Pipelined int4
+// (B5) decodes packed tile k+1 into one of two bf16 plane buffers, in B4's
+// column order, while the mma of tile k read the other by ldmatrix.trans:
+// the TPU body's double buffer. K is cut into chunks of 32 packed rows,
+// dealt out to the KS blocks of a thread-block cluster (KS = 4 for K/2 >=
+// 2048, else 1: K alone), whose partial sums are added in rank order
+// through distributed shared memory, 16 bytes a thread: a one-row call of
+// a long K gets KS times the blocks, and a composite call reads x no more
+// often than one block would. Tile shapes follow T and N: T <= 16 tiles of
+// 16 rows; larger T [64, 128] ([48, 128] where K is split), 4 warps of
+// 64 (48) x 32 outputs, so each decoded B fragment feeds four (three) m16
+// tiles, or [64, 64] where those give too few blocks. The output leaves as 16-byte stores of 8 columns.
 //
-// Every output element is one chain acc = fmaf(x[t, k], w[k, n], acc) over
-// ascending k (int4: packed row r gives the low-nibble term, then the
-// high-nibble term), whatever T and whatever the tile shape: the one-row
-// autoregressive call and a row of the composite call give the same bits,
-// and the pipelined int4 kernel gives the plain int4 kernel's bits. There
-// is no split over K, so a one-row call runs N/64 blocks and is bound by
-// the length of that chain, not by the card's memory rate.
+// The order of the sum is fixed by K alone: within each cluster block,
+// every output element takes, per k16 step of its chunks in ascending k,
+// the lo-plane product and then the hi-plane product; the blocks' sums are
+// then added in rank order. T, the tile shape and the ring depth choose
+// none of it. So a row alone gives the bits of the same row among 240, and
+// B5 gives B4's bits. y = bf16(sum * scale[n]), rounded once.
 //
-// Two tile shapes: T <= 8 runs [4 rows, 64 columns] tiles with one output a
-// thread (one chain a thread, deep K tiles); larger T runs [64, 64] tiles
-// with 4 x 4 outputs a thread. In the one-row variant the threads of rows
-// past T fill the tiles with the others and skip the FMAs: at T = 1 their
-// shared-memory reads were as much of the time as the chain itself.
-//
-// The pipelined variant moves packed tiles through a two-stage ring in
-// shared memory filled by cp.async: while the FMAs of tile k run, tile k+1
-// is unpacked into the second set of float32 tiles and tile k+2 is in
-// flight.
+// float32 x (quant_matmul.cuh, the parity dtype): on the tensor cores it
+// would go through TF32, so int4 and int8 stay float32 FMAs from shared
+// memory, one chain acc = fmaf(x[t, k], w[k, n], acc) over ascending k
+// (int4: the low-nibble term, then the high-nibble term, of packed row r).
+// bfloat16 int8 (B3) stays on that design too, for now. Two tile shapes:
+// T <= 8 [4, 64] with one output a thread (threads of rows past T skip the
+// FMAs), larger T [64, 64] with 4 x 4 outputs a thread; the pipelined int4
+// variant moves packed tiles through a two-stage cp.async ring.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (lookaheaddecoding_tpu_torch/ops/_build.py).
 
+#include <type_traits>
+
 #include "quant_matmul.cuh"
+#include "quant_matmul_mma.cuh"
 
 namespace {
 
+// float32 x: the FMA kernels, every mode; bfloat16 x: int4 and pipelined
+// int4 on the tensor cores, int8 on the FMA kernel.
 template <typename T>
 cudaError_t launch_dtype(int mode, const void* x, const void* w, const void* scale, void* out,
                          const Problem& p, cudaStream_t stream) {
+  constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
   switch (mode) {
     case INT8: return launch_mode<T, INT8>(x, w, scale, out, p, stream);
-    case INT4: return launch_mode<T, INT4>(x, w, scale, out, p, stream);
-    case INT4_PIPE: return launch_mode<T, INT4_PIPE>(x, w, scale, out, p, stream);
+    case INT4:
+      if constexpr (BF16) return launch_int4_mma<false, DEC_MAGIC>(x, w, scale, out, p, stream);
+      else return launch_mode<T, INT4>(x, w, scale, out, p, stream);
+    case INT4_PIPE:
+      if constexpr (BF16) return launch_int4_mma<true, DEC_MAGIC>(x, w, scale, out, p, stream);
+      else return launch_mode<T, INT4_PIPE>(x, w, scale, out, p, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -3,8 +3,10 @@
 kernels in ``csrc/int4_micro.cu`` and their plain PyTorch versions.
 
     int4_matmul_shift(x, q4, scale)    the product of ``int4_matmul`` with
-                                       the nibbles decoded by 32-bit shifts;
-                                       bit-equal to ``int4_matmul``
+                                       the nibbles decoded by 32-bit shifts
+                                       (bfloat16: its tensor-core kernel,
+                                       float32: its FMA kernel); bit-equal
+                                       to ``int4_matmul``
     int4_matmul_kouter(x, q4, scale)   the same product split over K: one
                                        partial sum a slab of KOUTER_SLAB
                                        packed rows, the slabs added in slab

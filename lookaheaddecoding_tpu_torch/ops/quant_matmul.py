@@ -5,8 +5,9 @@ kernels in ``csrc/quant_matmul.cu`` and their plain PyTorch versions.
     int4_matmul(x, q4, scale)         y = (x[:, :K/2] @ lo + x[:, K/2:] @ hi)
                                           * scale
     int4_matmul(..., pipeline=True)   the same product through the kernel
-                                      whose packed tiles ride a two-stage
-                                      cp.async ring
+                                      that decodes the next packed tile
+                                      into a second buffer while the
+                                      current one is multiplied
 
 ``x`` is ``[T, K]`` float32 or bfloat16, ``q`` int8 ``[K, N]``, ``q4`` the
 split-half packed int8 ``[K2p, N]`` of ``ops/quant.py`` (K2p >= K/2, zero
@@ -15,7 +16,11 @@ is applied once after it, and the result is ``[T, N]`` in x's dtype.
 
 On a CUDA tensor a wrapper launches its kernel, or raises on an input the
 kernel does not take; on a CPU tensor it runs the plain version.
-``counts`` records both.
+``counts`` records both. The int4 products have two designs, chosen by
+x's dtype: bfloat16 runs on the tensor cores (``int4_mma``,
+``int4_pipe_mma``), float32 on float32 FMAs (``int4_fma``,
+``int4_pipe_fma``), which keep every bit of x; the int8 product is one
+FMA design for both.
 """
 
 from __future__ import annotations
@@ -28,7 +33,8 @@ from .quant import unpack_int4
 
 # Launches of each CUDA kernel and calls of the plain versions. Reset with
 # ``counts.update(dict.fromkeys(counts, 0))``.
-counts = {"int8": 0, "int4": 0, "int4_pipe": 0, "plain": 0}
+counts = {"int8": 0, "int4_mma": 0, "int4_pipe_mma": 0, "int4_fma": 0,
+          "int4_pipe_fma": 0, "plain": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MODES = {"int8": 0, "int4": 1, "int4_pipe": 2}
@@ -120,8 +126,16 @@ def _launch(mode: str, x, w, scale, k2: int):
     if err != 0:
         raise RuntimeError(f"{mode} matmul kernel launch failed: "
                            f"CUDA error {err}")
-    counts[mode] += 1
+    counts[count_key(mode, x.dtype)] += 1
     return out
+
+
+def count_key(mode: str, dtype: torch.dtype) -> str:
+    """The ``counts`` key of a launch of kernel ``mode`` ("int8", "int4"
+    or "int4_pipe") on an x of ``dtype``."""
+    if mode == "int8":
+        return mode
+    return mode + ("_mma" if dtype == torch.bfloat16 else "_fma")
 
 
 def int8_matmul(x: torch.Tensor, q: torch.Tensor,

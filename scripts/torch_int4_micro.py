@@ -9,11 +9,15 @@ shapes at the decode row counts, with the weight cold in L2 (the calls
 rotate over more copies of the weight than the 50 MB L2 holds), comparing
 
   - ``torch.matmul`` on the bf16 weight (the library's product),
-  - the int8 kernel and the int4 kernel of ``ops/quant_matmul.py``,
-  - the int4 kernel with the shift decode (``ops/int4_micro.py``; bit-equal
-    to the int4 kernel, so its time says what the decode costs),
-  - the K-outer int4 variant (a split over K summed in slab order; its
-    time says what a one-row call gains from more blocks).
+  - the int8 kernel and the int4 kernel of ``ops/quant_matmul.py`` (in
+    bfloat16 the int4 kernel runs on the tensor cores),
+  - the int4 kernel with the shift decode (``ops/int4_micro.py``; in
+    bfloat16 the same tensor-core kernel with the shift decode policy,
+    bit-equal to the int4 kernel, so its time says what the decode costs),
+  - the K-outer int4 variant (a split over K summed in slab order, on the
+    float32-FMA tiles in either type; its time says what a one-row call
+    gains from more blocks, beside the int4 kernel's own split of K over
+    the blocks of a cluster).
 
 The first line is ``nvidia-smi``'s card name and power limit; then one row
 a (shape, T) in microseconds a call, with the least time the card could

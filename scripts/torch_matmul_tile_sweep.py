@@ -2,29 +2,44 @@
 """Time the PyTorch/CUDA port's quantized matmul kernels under other tile
 knobs, on one CUDA card.
 
-    python3 scripts/torch_matmul_tile_sweep.py
+    python3 scripts/torch_matmul_tile_sweep.py [--group fma|mma|all]
 
-``lookaheaddecoding_tpu_torch/ops/csrc/quant_matmul.cu`` has two
-compile-time knobs: ``QM_ROW_BN``, the output columns a block owns in the
-one-row variant (T <= 8; the block is [256 / QM_ROW_BN, QM_ROW_BN]), and
-``QM_SKIP_DEAD_ROWS``, whether threads whose rows lie past T skip the FMAs
-(0 nowhere, 1 in the one-row variant, 2 in the [64, 64] variant as well).
-This script builds the source once for each setting below (all ``nvcc``
-runs started together), checks that every build gives the default build's
-bits, and times each kernel in bfloat16 on the decode path's two large
-shapes, with the weight cold in L2 (the calls rotate over more copies of
-the weight than the 50 MB L2 holds). It answers what holds the one-row call
-(T = 1) far above its byte bound: too few blocks (narrower tiles give
-4x as many) or the work inside a block. No setting changes the order of
-any sum, so a row's result is the same in all of them.
+``lookaheaddecoding_tpu_torch/ops/csrc/quant_matmul.cu`` has compile-time
+knobs of two kernel designs, each reached by the rows of its group:
 
-Prints one line a (kernel, shape, T) with every variant's time in ms, then
+- ``mma``: the tensor-core int4 and pipelined int4 kernels that bfloat16
+  x runs (``quant_matmul_mma.cuh``): the ring's packed rows a stage and
+  its stages for T <= 16 (``QM_MMA_SMALL_BK2``, ``QM_MMA_SMALL_STAGES``),
+  its stages for larger T (``QM_MMA_STAGES``), the rows of the large tile
+  where K is not split (``QM_MMA_BIG_BM``) and the fewest blocks for which
+  the large tile is taken over the [64, 64] one
+  (``QM_MMA_BIG_MIN_BLOCKS``). Rows: int4 and
+  int4_pipe.
+- ``fma``: the float32-FMA kernels (``quant_matmul.cuh``), which bfloat16
+  x reaches only through the int8 product: ``QM_ROW_BN``, the output
+  columns a block owns in the one-row variant (T <= 8), and
+  ``QM_SKIP_DEAD_ROWS``, whether threads whose rows lie past T skip the
+  FMAs (0 nowhere, 1 in the one-row variant, 2 in the [64, 64] variant as
+  well). Rows: int8. (Its int4 rows went with the int4 kernels' move to
+  the tensor cores: in bfloat16 these knobs no longer reach them.)
+
+The script builds the source once for each setting of the chosen groups
+(all ``nvcc`` runs started together), checks that every build gives the
+default build's bits, and times each kernel in bfloat16 on the decode
+path's two large shapes with the weight cold in L2 (the calls rotate over
+more copies of the weight than the 50 MB L2 holds). Times are of the
+device alone: 20 calls captured in a CUDA graph and replayed, so the
+Python wrapper's time is not in them. No setting changes the order of any
+sum, so a row's result is the same in all of them.
+
+Prints one line a (kernel, shape, T) with every setting's time in ms, then
 ``nvidia-smi``'s name and power limit. Exits non-zero without a CUDA
-device or when a variant's output differs.
+device or when a setting's output differs.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import subprocess
 import sys
@@ -36,27 +51,44 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-# (QM_ROW_BN, QM_SKIP_DEAD_ROWS); the first is the package's build
-VARIANTS = [(64, 1), (64, 0), (64, 2), (32, 1), (32, 0), (16, 1)]
-# (mode, bits, [(K, N), ...]): the gate/up and the down projection of
-# TinyLlama-1.1B, unfused for int8 and fused for int4
-CASES = [("int8", 8, [(2048, 5632), (5632, 2048)]),
-         ("int4", 4, [(2048, 11264), (5632, 2048)]),
-         ("int4_pipe", 4, [(2048, 11264), (5632, 2048)])]
-ROWS = (1, 8, 141, 240)   # AR row, widest one-row tile, logits rows, composite
+from chip_smoke import graph_ms  # noqa: E402  (the device-alone yardstick)
+
+# (name, -D definitions); the first of each group is the package's build
+GROUPS = {
+    "mma": [("default", {}),
+            ("stages=3", {"QM_MMA_STAGES": 3}),
+            ("med-only", {"QM_MMA_BIG_MIN_BLOCKS": 1 << 30}),
+            ("big-bm=80", {"QM_MMA_BIG_BM": 80}),
+            ("small-stages=5", {"QM_MMA_SMALL_STAGES": 5}),
+            ("small-bk2=16/12", {"QM_MMA_SMALL_BK2": 16,
+                                 "QM_MMA_SMALL_STAGES": 12})],
+    "fma": [("bn64/skip1", {}),
+            ("bn64/skip0", {"QM_SKIP_DEAD_ROWS": 0}),
+            ("bn64/skip2", {"QM_SKIP_DEAD_ROWS": 2}),
+            ("bn32/skip1", {"QM_ROW_BN": 32}),
+            ("bn16/skip1", {"QM_ROW_BN": 16})],
+}
+# (mode, bits, [(K, N), ...]) a group times: the gate/up and the down
+# projection of TinyLlama-1.1B, unfused for int8 and fused for int4
+CASES = {"mma": [("int4", 4, [(2048, 11264), (5632, 2048)]),
+                 ("int4_pipe", 4, [(2048, 11264), (5632, 2048)])],
+         "fma": [("int8", 8, [(2048, 5632), (5632, 2048)])]}
+# AR row, a small composite, the prefill chunk, the logits rows, composite
+ROWS = (1, 16, 64, 128, 141, 240)
 
 
-def build_variant(bn: int, skip: int):
+def build_variant(group: str, name: str, defines: dict):
     from lookaheaddecoding_tpu_torch.ops import _build
-    out = _build.BUILD_DIR / f"libquant_matmul-sweep-bn{bn}-skip{skip}.so"
+    tag = "".join(ch if ch.isalnum() else "_" for ch in name)
+    out = _build.BUILD_DIR / f"libquant_matmul-sweep-{group}-{tag}.so"
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
-    cmd = [_build.nvcc(), *flags, f"-DQM_ROW_BN={bn}",
-           f"-DQM_SKIP_DEAD_ROWS={skip}", "-o", str(out),
-           str(_build.CSRC / "quant_matmul.cu")]
+    cmd = [_build.nvcc(), *flags,
+           *(f"-D{key}={value}" for key, value in defines.items()),
+           "-o", str(out), str(_build.CSRC / "quant_matmul.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for BN={bn} skip={skip}:\n"
+        raise RuntimeError(f"nvcc failed for {name}:\n"
                            f"{proc.stdout}{proc.stderr}")
     symbol, argtypes = _build.SIGNATURES["quant_matmul"]
     fn = getattr(ctypes.CDLL(str(out)), symbol)
@@ -66,6 +98,11 @@ def build_variant(bn: int, skip: int):
 
 def main() -> int:
     import torch
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--group", choices=("fma", "mma", "all"),
+                        default="all")
+    group_arg = parser.parse_args().group
+    groups = ["mma", "fma"] if group_arg == "all" else [group_arg]
     if not torch.cuda.is_available():
         print("torch_matmul_tile_sweep: no CUDA device", file=sys.stderr)
         return 1
@@ -77,12 +114,12 @@ def main() -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
+    jobs = [(g, name, defs) for g in groups for name, defs in GROUPS[g]]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(VARIANTS)) as ex:
-        fns = list(ex.map(lambda v: build_variant(*v), VARIANTS))
-    print(f"built {len(VARIANTS)} variants in {time.perf_counter() - t0:.1f} s",
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        fns = list(ex.map(lambda job: build_variant(*job), jobs))
+    print(f"built {len(jobs)} settings in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    stream = torch.cuda.current_stream(device).cuda_stream
     rng = np.random.default_rng(0)
 
     def randn(*shape, scale=1.0):
@@ -95,47 +132,42 @@ def main() -> int:
         err = fn(x.data_ptr(), w.data_ptr(), wq["scale"].data_ptr(),
                  out.data_ptr(), _MODES[mode], _DTYPE_CODES[x.dtype], t, k,
                  w.shape[1], w.shape[0], 0 if mode == "int8" else k // 2,
-                 stream)
+                 torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"launch failed: CUDA error {err}")
 
-    def time_ms(fn, mode, x, wqs, out, reps=50, warm=5):
-        for i in range(warm):
-            launch(fn, mode, x, wqs[i % len(wqs)], out)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for i in range(reps):
-            launch(fn, mode, x, wqs[i % len(wqs)], out)
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / reps
-
-    names = [f"bn{bn}/skip{skip}" for bn, skip in VARIANTS]
-    print("ms a call, bfloat16, weight cold in L2; variants: "
-          + ", ".join(names), flush=True)
-    for mode, bits, kns in CASES:
-        for k, n in kns:
-            copies = 1 + (64 << 20) // (k * n * bits // 8)
-            wqs = [quant.quantize_weight(randn(k, n, scale=0.02), bits)
-                   for _ in range(copies)]
-            for t in ROWS:
-                x = randn(t, k).bfloat16()
-                outs = []
-                for fn in fns:
-                    out = torch.empty((t, n), dtype=x.dtype, device=device)
-                    launch(fn, mode, x, wqs[0], out)
-                    outs.append(out)
-                torch.cuda.synchronize()
-                for name, out in zip(names, outs):
-                    if not torch.equal(out, outs[0]):
-                        raise AssertionError(
-                            f"{name} differs from {names[0]}: {mode} T={t} "
-                            f"K={k} N={n}")
-                times = [time_ms(fn, mode, x, wqs, outs[0]) for fn in fns]
-                print(f"{mode:9s} K={k:4d} N={n:5d} T={t:3d}: "
-                      + "  ".join(f"{ms:.4f}" for ms in times), flush=True)
-            del wqs
+    for group in groups:
+        chosen = [(name, fn) for (g, name, _), fn in zip(jobs, fns)
+                  if g == group]
+        names = [name for name, _ in chosen]
+        print(f"[{group}] device ms a call, bfloat16, weight cold in L2; "
+              f"settings: " + ", ".join(names), flush=True)
+        for mode, bits, kns in CASES[group]:
+            for k, n in kns:
+                copies = 1 + (64 << 20) // (k * n * bits // 8)
+                wqs = [quant.quantize_weight(randn(k, n, scale=0.02), bits)
+                       for _ in range(copies)]
+                for t in ROWS:
+                    x = randn(t, k).bfloat16()
+                    outs = []
+                    for _, fn in chosen:
+                        out = torch.empty((t, n), dtype=x.dtype,
+                                          device=device)
+                        launch(fn, mode, x, wqs[0], out)
+                        outs.append(out)
+                    torch.cuda.synchronize()
+                    for name, out in zip(names, outs):
+                        if not torch.equal(out, outs[0]):
+                            raise AssertionError(
+                                f"{name} differs from {names[0]}: {mode} "
+                                f"T={t} K={k} N={n}")
+                    times = [graph_ms(lambda i, fn=fn: launch(
+                        fn, mode, x, wqs[i % copies], outs[0]))
+                        for _, fn in chosen]
+                    print(f"{mode:9s} K={k:4d} N={n:5d} T={t:3d}: "
+                          + "  ".join(f"{ms:.4f}" for ms in times),
+                          flush=True)
+                del wqs
     print(card)
     return 0
 

@@ -1,7 +1,8 @@
 """Card-only tests of the port's CUDA kernels (the composite attention on
 a plain and on an int8 KV cache, flat and paged, the int8, int4 and
-pipelined int4 matrix products, the int4 product's two micro-benchmark
-variants), each against its plain PyTorch version. They skip without a CUDA device. This file imports no
+pipelined int4 matrix products, int4 in bfloat16 on the tensor cores, the
+int4 product's two micro-benchmark variants), each against its plain
+PyTorch version. They skip without a CUDA device. This file imports no
 JAX, so on a machine without JAX it runs without the suite's conftest:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
@@ -103,10 +104,13 @@ def test_attention_kernel_int8_kv_matches_plain_version(dtype, tol):
 @pytest.mark.parametrize("mode", ["int8", "int4", "int4_pipe"])
 def test_quant_matmul_kernel_matches_plain_version(mode, dtype, tol):
     """Each quantized product against its plain version: one row, a ragged
-    row count, both tile shapes, ragged N (not a multiple of 64), a K whose
+    row count, every tile shape, ragged N (not a multiple of 64), a K whose
     packed rows are zero-padded, and one layer of a stacked weight. A row's
     result does not depend on the rows beside it, and the pipelined int4
-    kernel gives the int4 kernel's bits."""
+    kernel gives the int4 kernel's bits. In bfloat16 the int4 products run
+    on the tensor cores, never on the FMA kernels: also at T in (1, 16, 17,
+    64, 128, 240) on the fused gate/up and the down projection, and at an
+    odd K/2 (x's second half not 16-byte aligned)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     from lookaheaddecoding_tpu_torch.ops import quant
@@ -123,23 +127,63 @@ def test_quant_matmul_kernel_matches_plain_version(mode, dtype, tol):
                               pipeline=m == "int4_pipe",
                               logical_k2=quant.logical_packed_rows(wq))
 
-    for t, k, n in [(1, 2048, 256), (8, 512, 80), (17, 2048, 2048),
-                    (240, 5632, 2048), (128, 2048, 5632), (9, 5888, 48),
-                    (141, 2048, 32000), (3, 11008, 4096)]:
+    cases = [(1, 2048, 256), (8, 512, 80), (17, 2048, 2048),
+             (240, 5632, 2048), (128, 2048, 5632), (9, 5888, 48),
+             (141, 2048, 32000), (3, 11008, 4096)]
+    if bits == 4 and dtype == torch.bfloat16:
+        cases += [(t, k, n) for k, n in ((2048, 11264), (5632, 2048))
+                  for t in (1, 16, 17, 64, 128, 240)]
+        cases += [(5, 2002, 96), (40, 2002, 4224)]      # K/2 = 1001
+    key = qm.count_key(mode, dtype)
+    other = {"int4_mma": "int4_fma", "int4_pipe_mma": "int4_pipe_fma",
+             "int4_fma": "int4_mma", "int4_pipe_fma": "int4_pipe_mma"}
+    for t, k, n in cases:
         w = torch.from_numpy(rng.randn(2, k, n).astype(np.float32) * 0.02)
         stack = quant.quantize_weight(w.to(dev), bits)
         wq = {name: leaf[1] for name, leaf in stack.items()}
         x = torch.from_numpy(rng.randn(t, k).astype(np.float32)).to(dev, dtype)
-        before = qm.counts[mode]
+        before = dict(qm.counts)
         got = run(x, wq)
-        assert qm.counts[mode] == before + 1
+        assert qm.counts[key] == before[key] + 1
+        if key in other:        # the other design of the same mode: none
+            assert qm.counts[other[key]] == before[other[key]]
         want = (qm.int8_matmul_ref(x, wq["q"], wq["scale"]) if bits == 8
                 else qm.int4_matmul_ref(x, wq["q4"], wq["scale"]))
         torch.testing.assert_close(got.float(), want.float(), **tol)
-        r = t // 2
-        assert torch.equal(run(x[r:r + 1].contiguous(), wq)[0], got[r])
+        for r in sorted({0, t // 2, t - 1}):
+            assert torch.equal(run(x[r:r + 1].contiguous(), wq)[0], got[r])
         if mode == "int4_pipe":
             assert torch.equal(got, run(x, wq, "int4"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pipeline", [False, True], ids=["int4", "int4_pipe"])
+def test_int4_mma_fragment_maps(pipeline):
+    """The tensor-core int4 kernels element by element: x is one-hot, so
+    y[t, n] is one weight nibble (of packed row r_t, low or high) times its
+    scale, exact, and every (row, column) must land where the plain version
+    puts it: on the 16 x 16, 16 x 32, 64 x 64 and 64 x 128 tiles with K
+    in one block (K/2 < 2048), and with K split over the 4 blocks of a
+    cluster (K/2 of 2048 and 2816, on the 16 x 16 and 48 x 128 tiles),
+    where the rows r_t are spread over K so that each block's partial sums
+    reach the output through the cluster's reduction."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from lookaheaddecoding_tpu_torch.ops import quant
+    from lookaheaddecoding_tpu_torch.ops import quant_matmul as qm
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(5)
+    for t, k2, n in ((16, 16, 16), (16, 16, 4224), (64, 64, 64),
+                     (128, 128, 16896), (16, 2048, 256), (64, 2816, 2048)):
+        w = torch.from_numpy(rng.randn(2 * k2, n).astype(np.float32))
+        wq = quant.quantize_weight(w.to(dev), 4)
+        rows = torch.from_numpy(rng.permutation(k2)[:t]).to(dev)
+        for half in (0, 1):
+            x = torch.zeros(t, 2 * k2, device=dev, dtype=torch.bfloat16)
+            x[torch.arange(t), half * k2 + rows] = 1
+            got = qm.int4_matmul(x, wq["q4"], wq["scale"], pipeline=pipeline)
+            want = qm.int4_matmul_ref(x, wq["q4"], wq["scale"])
+            assert torch.equal(got, want), (t, k2, n, half)
 
 
 @pytest.mark.gpu

@@ -40,7 +40,7 @@ def test_int8_matmul_matches_jax_kernel(t, k, n):
                            interpret=True)
     reset_counts()
     got = tqm.int8_matmul(torch.from_numpy(x), tq["q"], tq["scale"])
-    assert tqm.counts == {"int8": 0, "int4": 0, "int4_pipe": 0, "plain": 1}
+    assert tqm.counts == dict(dict.fromkeys(tqm.counts, 0), plain=1)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     np.testing.assert_array_equal(
         got.numpy(),
@@ -173,3 +173,16 @@ def test_kernel_only_checks_raise_before_any_launch(bad, match):
     with pytest.raises(ValueError, match=match):
         tqm._launch("int8", x, w, torch.ones(1, n), 0)
     assert tqm.counts["int8"] == 0
+
+
+@pytest.mark.parametrize("mode,dtype,key", [
+    ("int8", torch.bfloat16, "int8"), ("int8", torch.float32, "int8"),
+    ("int4", torch.bfloat16, "int4_mma"), ("int4", torch.float32, "int4_fma"),
+    ("int4_pipe", torch.bfloat16, "int4_pipe_mma"),
+    ("int4_pipe", torch.float32, "int4_pipe_fma"),
+])
+def test_count_key_tells_the_two_int4_designs_apart(mode, dtype, key):
+    """bfloat16 int4 launches count as the tensor-core kernels', float32
+    ones as the FMA kernels'; every key is one of ``counts``."""
+    assert tqm.count_key(mode, dtype) == key
+    assert key in tqm.counts
