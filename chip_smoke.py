@@ -14,11 +14,13 @@ target). It imports no JAX. Phases, each printed as it runs:
 3. kernels: each kernel against its plain PyTorch version on the card, in
    bfloat16 and float32, each with the tolerance stated below, then its
    time beside the plain version's, the bound of the card and one
-   library call (a yardstick the port never calls): the attention kernel
-   on a plain and on an int8 KV cache, and the int8, int4 and pipelined
-   int4 matrix products (int4 on the tensor cores in bfloat16; the
-   pipelined one bit-equal to the int4 one, a row alone bit-equal to the
-   same row among 240; timed also on the device alone);
+   library call (a yardstick the port never calls), from a Python loop
+   and on the device alone (a CUDA graph): the attention kernel on a plain
+   and on an int8 KV cache (bfloat16 on the tensor cores, float32 on
+   FMAs; the bfloat16 result also within its rounding limit of the
+   float32 kernel's), and the int8, int4 and pipelined int4 matrix
+   products (bfloat16 on the tensor cores; the pipelined one bit-equal to
+   the int4 one, a row alone bit-equal to the same row among 240);
    the paged attention call on a shared page pool with shuffled tables
    (plain and int8 pool, page sizes 128 and 48, lanes of different
    ``kv_len``), also bit-equal, lane by lane, to the flat call on the
@@ -37,8 +39,8 @@ target). It imports no JAX. Phases, each printed as it runs:
    ``int4_weights_pipelined`` (the int4 engine with
    ``ops.quant.INT4_PIPELINE`` set). In every configuration the tokens must
    equal its own baseline's and follow the cycle, and each path must have
-   gone through the kernels (counted for each path alone: launches > 0,
-   plain-version calls 0);
+   gone through the kernels' tensor-core designs (counted for each path
+   alone: launches > 0, FMA designs and plain-version calls 0);
 5. profile: lookahead and AR runs under ``torch.profiler``, for the
    device's busy and idle share and the kernels that take the most time
    (bfloat16, and the lookahead runs of ``int8_weights`` and
@@ -113,6 +115,7 @@ WARM_NEW = 32         # tokens of the untimed warm-up pass of each path
 # paged serving: lanes, slots a page, data pages (fewer than the flat
 # engine's 4 * 8 = 32, so admission has to wait), steps between host reads
 LANES, PAGE, N_PAGES, STEPS_PER_SYNC, PAGED_NEW = 4, 128, 24, 4, 128
+PAGED_ROWS = LANES * S_COMP   # rows of a batched paged step's products (960)
 PROFILE_NEW = 64      # tokens a profiled run: the trace grows with the steps
 
 
@@ -219,6 +222,8 @@ def check_attention(device):
              (PREFILL_CHUNK, 1024, 640, True, 0), (1, 1024, 700, True, 0)}
     headline = {}
     for int8_kv in (False, True):
+        # bf16: the worst error, every timed call, the headline call's keys
+        entry = headline[int8_kv] = dict(max_abs_err=0.0, timings=[])
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[1]
             for s, m, kv, causal, sw in cases:
@@ -255,6 +260,7 @@ def check_attention(device):
                     raise AssertionError("kernel disagrees with plain "
                                          "version:" + line)
                 if dtype == torch.bfloat16:
+                    entry["max_abs_err"] = max(entry["max_abs_err"], err)
                     if int8_kv:
                         kf, vf = k, v
                         v_abs = {"q": v["q"].abs(), "s": v["s"]}
@@ -288,16 +294,28 @@ def check_attention(device):
                         lambda: lookahead_attention_ref(q, k, v, kv_len, **kw),
                         reps=10)
                     lib_ms = time_ms(lib)
+                    dev_ms = graph_ms(lambda i: lookahead_attention(
+                        q, k, v, kv_len, **kw))
+                    lib_dev = graph_ms(lambda i: lib())
                     bound, by = attention_bound(vis, hq, hkv, d, dname,
                                                 int8_kv)
-                    line += (f" | kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-                             f"ms, sdpa {lib_ms:.4f} ms, bound {bound:.5f} "
-                             f"ms ({by})")
-                    if (dtype == torch.bfloat16 and (s, m, kv, causal, sw)
-                            == (s_comp, 1024, 512, False, 0)):
-                        headline[int8_kv] = dict(
-                            max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            bound_ms=bound, bound_by=by, library_ms=lib_ms)
+                    line += (f" | kernel {ms:.4f} ms (device alone "
+                             f"{dev_ms:.4f}), plain {plain_ms:.4f} ms, sdpa "
+                             f"{lib_ms:.4f} ms (device alone {lib_dev:.4f}), "
+                             f"bound {bound:.5f} ms ({by})")
+                    if dtype == torch.bfloat16:
+                        nums = dict(s=s, m=m, kv_len=kv, causal=causal,
+                                    ms=ms, device_ms=dev_ms,
+                                    plain_ms=plain_ms, bound_ms=bound,
+                                    bound_by=by, library_ms=lib_ms,
+                                    library_device_ms=lib_dev)
+                        entry["timings"].append(nums)
+                        if (s, m, kv, causal, sw) == (s_comp, 1024, 512,
+                                                      False, 0):
+                            entry.update({key: nums[key] for key in (
+                                "ms", "device_ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms",
+                                "library_device_ms")})
                 log(line)
     return dict(headline[False], int8_kv=headline[True])
 
@@ -424,22 +442,30 @@ def check_paged_attention(device):
             return kd, vd
         kd, vd = gathered()
         q4 = q.transpose(1, 2)
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            q4, kd, vd, attn_mask=vis[:, None], enable_gqa=True))
+        def lib():
+            return F.scaled_dot_product_attention(
+                q4, kd, vd, attn_mask=vis[:, None], enable_gqa=True)
+        lib_ms = time_ms(lib)
+        lib_dev = graph_ms(lambda i: lib())
+        dev_ms = graph_ms(lambda i: paged_lookahead_attention(
+            *args, page_size=PAGE, **kw))
         gather_ms = time_ms(gathered, reps=10)
         per_lane = [attention_bound(vis[b], hq, hkv, d, "bfloat16", int8_kv)
                     for b in range(lanes)]
         bound = sum(t for t, _ in per_lane)
         by = per_lane[0][1]
         log(f"  {'int8-KV ' if int8_kv else ''}bfloat16 B={lanes} S={S_COMP} "
-            f"kv_len=512 page={PAGE}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, sdpa on the gathered cache {lib_ms:.4f} ms "
-            f"(+ {gather_ms:.4f} ms to gather"
+            f"kv_len=512 page={PAGE}: kernel {ms:.4f} ms (device alone "
+            f"{dev_ms:.4f}), plain {plain_ms:.4f} ms, sdpa on the gathered "
+            f"cache {lib_ms:.4f} ms (device alone {lib_dev:.4f}; "
+            f"+ {gather_ms:.4f} ms to gather"
             f"{' and dequantize' if int8_kv else ''}), bound {bound:.5f} ms "
             f"({by})")
-        headline[int8_kv] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                 bound_ms=bound, bound_by=by,
-                                 library_ms=lib_ms, gather_ms=gather_ms)
+        headline[int8_kv] = dict(max_abs_err=err, ms=ms, device_ms=dev_ms,
+                                 plain_ms=plain_ms, bound_ms=bound,
+                                 bound_by=by, library_ms=lib_ms,
+                                 library_device_ms=lib_dev,
+                                 gather_ms=gather_ms)
     return headline
 
 
@@ -526,11 +552,12 @@ def matmul_bound(t, k, n, bits, dtype_name):
 def check_matmuls(device):
     """The int8, int4 and pipelined int4 products against their plain
     versions at the main path's shapes and row counts (the AR row, a
-    ragged count, the prefill chunk, the logits rows, the composite) and at
-    one padded Llama-2-7B shape and one stacked weight, then their times.
-    In bfloat16 the int4 products run on the tensor cores (counted apart
-    from the float32 FMA kernels). Times: a Python loop of calls
-    (``time_ms``) and the device alone (a CUDA graph of the same calls).
+    ragged count, the prefill chunk, the logits rows, the composite; int8
+    also the paged step's four lanes) and at one padded Llama-2-7B shape
+    and one stacked weight, then their times. In bfloat16 every product
+    runs on the tensor cores (counted apart from the float32 FMA kernels).
+    Times: a Python loop of calls (``time_ms``) and the device alone (a
+    CUDA graph of the same calls).
     Returns each kernel's numbers for the composite call (T=240) on the
     gate/up shape."""
     import torch
@@ -567,13 +594,15 @@ def check_matmuls(device):
     worst = dict.fromkeys(("int8", "int4", "int4_pipe"), 0.0)
     for bits, kns in shapes.items():
         for k, n in kns:
+            # int8 also at the paged step's four lanes of composite rows
+            t_rows = rows + ((PAGED_ROWS,) if bits == 8 else ())
             wq = quant.quantize_weight(randn(k, n, scale=0.02), bits)
             if (bits, k) == (4, 11008):
                 assert wq["q4"].shape[0] == 5632, wq["q4"].shape
             for dtype in (torch.bfloat16, torch.float32):
                 dname = str(dtype).split(".")[1]
                 errs = []
-                for t in rows:
+                for t in t_rows:
                     x = randn(t, k).to(dtype)
                     outs = {}
                     for mode in (("int8",) if bits == 8
@@ -605,7 +634,7 @@ def check_matmuls(device):
                                     f"{mode}: a row alone differs from the "
                                     f"same row among {t}: {dname} K={k} N={n}")
                 log(f"  int{bits} {dname:8s} K={k:5d} N={n:5d} "
-                    f"T in {rows}: max_abs_err="
+                    f"T in {t_rows}: max_abs_err="
                     f"{max(errs):.3e} ok"
                     + (", pipelined == plain bit for bit" if bits == 4 else ""))
             del wq
@@ -634,8 +663,12 @@ def check_matmuls(device):
             wqs = [quant.quantize_weight(randn(k, n, scale=0.02), bits)
                    for _ in range(copies)]
             dense = [quant.dequantize_weight(w, torch.bfloat16) for w in wqs]
-            # the LM head multiplies the AR row or the logits rows
-            for t in (1, LOGITS_ROWS if n == 32000 else s_comp):
+            # the LM head multiplies the AR row or the logits rows; the
+            # paged int8 step multiplies four lanes' composite rows
+            ts = (1, LOGITS_ROWS) if n == 32000 else (1, s_comp)
+            if (bits, k, n) == (8, 2048, 5632):
+                ts += (PAGED_ROWS,)
+            for t in ts:
                 x = randn(t, k).bfloat16()
                 turn = iter(range(10 ** 9))
 
@@ -740,9 +773,10 @@ def build_engine(mcfg, params, kv_quant=None):
 def main_path(name, eng, prompt, nxt, card, matmul_kernels, n_new=N_NEW):
     """One configuration's ``generate`` and ``generate_baseline``: token
     exactness, the cycle, and for each path alone the kernels' launches
-    (every kernel named in ``matmul_kernels`` and the attention kernel
-    > 0, every other kernel and both plain versions 0). One warm-up pass of
-    WARM_NEW tokens, then one timed run of ``n_new`` tokens of each path."""
+    (every kernel named in ``matmul_kernels`` and the attention kernel's
+    tensor-core design > 0, every other kernel, the attention's FMA design
+    and both plain versions 0). One warm-up pass of WARM_NEW tokens, then
+    one timed run of ``n_new`` tokens of each path."""
     import torch
     from lookaheaddecoding_tpu_torch.ops import lookahead_attention as la
     from lookaheaddecoding_tpu_torch.ops import quant_matmul as qm
@@ -755,14 +789,17 @@ def main_path(name, eng, prompt, nxt, card, matmul_kernels, n_new=N_NEW):
     # each path's launches are counted alone: reset just before, read after
     for path, gen in (("lookahead", eng.generate),
                       ("ar_baseline", eng.generate_baseline)):
-        la.counts.update(kernel=0, plain=0)
+        la.counts.update(dict.fromkeys(la.counts, 0))
         qm.counts.update(dict.fromkeys(qm.counts, 0))
         runs[path] = gen(prompt, n_new)
-        got = dict(qm.counts, attention=la.counts["kernel"],
+        got = dict(qm.counts, attention_mma=la.counts["mma"],
+                   attention_fma=la.counts["fma"],
                    plain=qm.counts["plain"] + la.counts["plain"])
         launches[path] = got
-        assert got["attention"] > 0 and got["plain"] == 0, (name, path, got)
-        # bf16 int4 on the tensor cores: the FMA int4 kernels never run
+        assert got["attention_mma"] > 0 and got["attention_fma"] == 0, \
+            (name, path, got)
+        assert got["plain"] == 0, (name, path, got)
+        # bf16 on the tensor cores: the FMA matmul kernels never run
         for kernel in qm.counts:
             if kernel != "plain":
                 assert (got[kernel] > 0) == (kernel in matmul_kernels), \
@@ -798,6 +835,18 @@ def main_path(name, eng, prompt, nxt, card, matmul_kernels, n_new=N_NEW):
     return (launches, r.tokens,
             {"lookahead": r.wall_time_s / r.steps,
              "ar_baseline": rb.wall_time_s / rb.steps})
+
+
+# the port's kernels, by the name of their __global__ in a profile
+FAMILIES = (("attention", "attention_mma_kernel"),
+            ("quantized products", "quant_mma_kernel"))
+
+
+def family_line(by_name, steps):
+    """Device ms a step of each of the port's kernel families."""
+    return ", ".join(
+        f"{label} {sum(ms for k, ms in by_name.items() if key in k) / steps:.4f}"
+        for label, key in FAMILIES)
 
 
 def profile_path(name, eng, prompt, card, step_s, paths):
@@ -838,6 +887,8 @@ def profile_path(name, eng, prompt, card, step_s, paths):
             f"{1 - busy_ms / r.steps / step_ms:.3f} of the unprofiled "
             f"{step_ms:.2f} ms wall a step (idle {1 - busy_ms / wall_ms:.3f} "
             f"of {wall_ms:.1f} ms under the profiler)")
+        log(f"    the port's kernels, device ms a step: "
+            f"{family_line(by_name, r.steps)}")
         for kname, ms in top:
             log(f"    {ms / r.steps:9.4f} ms a step  {kname[:90]}")
 
@@ -874,8 +925,8 @@ def paged_path(name, mcfg, params, flat, nxt, card, kv_quant, full):
     eng.generate(prompt(1, 48), WARM_NEW)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    la.counts.update(kernel=0, plain=0)
-    la.paged_counts.update(kernel=0, plain=0)
+    la.counts.update(dict.fromkeys(la.counts, 0))
+    la.paged_counts.update(dict.fromkeys(la.paged_counts, 0))
     qm.counts.update(dict.fromkeys(qm.counts, 0))
     eng.admission_waits = eng.steps_run = 0
     t0 = time.perf_counter()
@@ -929,11 +980,16 @@ def paged_path(name, mcfg, params, flat, nxt, card, kv_quant, full):
     stats = eng.memory_stats()
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
 
-    got = dict(qm.counts, paged_attention=la.paged_counts["kernel"],
-               flat_attention=la.counts["kernel"],
+    got = dict(qm.counts, paged_attention=la.paged_counts["mma"],
+               flat_attention=la.counts["mma"],
+               attention_fma=la.counts["fma"] + la.paged_counts["fma"],
                plain=(qm.counts["plain"] + la.counts["plain"]
                       + la.paged_counts["plain"]))
     assert got["paged_attention"] > 0 and got["plain"] == 0, (name, got)
+    # bf16 on the tensor cores: no FMA kernel of any product runs
+    assert got["attention_fma"] == 0, (name, got)
+    assert all(n == 0 for key, n in qm.counts.items()
+               if key.endswith("_fma")), (name, got)
     assert len(results) == (10 if full else 4), sorted(results)
     assert all(r.error is None for r in results.values())
     if full:
@@ -1008,6 +1064,8 @@ def profile_paged(name, eng, nxt, card, step_s):
         f"{1 - busy_ms / wall_ms:.3f} of {wall_ms / n_steps:.2f} ms a step "
         f"under the profiler (the unprofiled run, admissions included, took "
         f"{step_ms:.2f} ms a step)")
+    log(f"    the port's kernels, device ms a step: "
+        f"{family_line(by_name, n_steps)}")
     for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
         log(f"    {ms / n_steps:9.4f} ms a step  {kname[:90]}")
 
@@ -1066,11 +1124,11 @@ def main() -> int:
     int4_eng = build_engine(mcfg, q4)
     configs = {
         "bf16": (build_engine(mcfg, params), ()),
-        "int8_weights": (build_engine(mcfg, q8), ("int8",)),
-        "int4_weights": (int4_eng, ("int4_mma", "int8")),
+        "int8_weights": (build_engine(mcfg, q8), ("int8_mma",)),
+        "int4_weights": (int4_eng, ("int4_mma", "int8_mma")),
         "int8_weights_int8_kv": (build_engine(mcfg, q8, kv_quant="int8"),
-                                 ("int8",)),
-        "int4_weights_pipelined": (int4_eng, ("int4_pipe_mma", "int8")),
+                                 ("int8_mma",)),
+        "int4_weights_pipelined": (int4_eng, ("int4_pipe_mma", "int8_mma")),
     }
     launches, tokens, step_s = {}, {}, {}
     for name, (eng, kernels) in configs.items():
@@ -1101,7 +1159,7 @@ def main() -> int:
              "int8_weights_int8_kv", False)):
         paged_launches[name], paged_stats[name] = paged_path(
             name, mcfg, tree, configs[flat_name][0], nxt, card, kvq, full)
-    assert paged_launches["paged_int8_weights_int8_kv"]["int8"] > 0
+    assert paged_launches["paged_int8_weights_int8_kv"]["int8_mma"] > 0
     log(f"[profile, paged] ({card})")
     for name, st in paged_stats.items():
         profile_paged(name, st["engine"], nxt, card, st["step_s"])
@@ -1126,11 +1184,11 @@ def main() -> int:
         dict(name="lookahead_attention", route="cuda",
              source=CSRC + "lookahead_attention.cu", replaces=TPU_KERNELS,
              main_path="generate and generate_baseline, every configuration",
-             **on_main_path("attention"), **att),
+             **on_main_path("attention_mma"), **att),
         dict(name="int8_matmul", route="cuda", source=CSRC + "quant_matmul.cu",
              replaces=tpu_mm + ":274", main_path="int8_weights, "
              "int8_weights_int8_kv, the int4 configurations' LM head",
-             **on_main_path("int8"), **mm["int8"]),
+             **on_main_path("int8_mma"), **mm["int8"]),
         dict(name="int4_matmul", route="cuda", source=CSRC + "quant_matmul.cu",
              replaces=tpu_mm + ":32", main_path="int4_weights",
              **on_main_path("int4_mma"), **mm["int4"]),

@@ -156,7 +156,7 @@ cudaError_t launch_variant(int variant, const void* x, const void* w, const void
                            cudaStream_t stream) {
   if (variant == 0) {
     if constexpr (std::is_same<T, __nv_bfloat16>::value)
-      return launch_int4_mma<false, DEC_SHIFT>(x, w, scale, out, p, stream);
+      return launch_mma<false, DEC_SHIFT>(x, w, scale, out, p, stream);
     else
       return launch_mode<T, INT4_SHIFT>(x, w, scale, out, p, stream);
   }

@@ -52,14 +52,23 @@
 // call, 22 calls a decode step. The paged call of four lanes does four
 // times that work on four times the bytes.
 //
-// What this design does about that bound: this first version is the simple
-// correct kernel, not a fast one. It never reads a KV tile past the last
-// live column of its rows (nor below the sliding window), so its work and
-// traffic follow the live context and not the cache capacity; K/V tiles
-// are read once per block of 64 query rows. The products are per-thread
-// fp32 FMAs from shared memory (4 rows x 8 columns per thread), which
-// reach a small share of the tensor-core bound; mma/wgmma tiles, TMA loads
-// and a split over KV for single-row calls are later work.
+// What the design does about that bound. Both kernels below never read a
+// KV tile past the last live column of their rows (nor below the sliding
+// window), so work and traffic follow the live context, not the cache
+// capacity; K/V tiles are read once per block of 64 query rows. They are
+// chosen by q's dtype:
+//   - bfloat16 q (attention_mma_kernel): FlashAttention-2 on the tensor
+//     cores, mma.sync m16n8k16 bf16 x bf16 -> f32 for Q K^T and P V, the
+//     online softmax on the accumulators, P kept in registers, K/V tiles
+//     double-buffered by cp.async (an int8 tile converted exactly to bf16
+//     once in shared memory), two partial softmax states a row (even and
+//     odd key tiles) so that a call of few row tiles can run them in two
+//     key groups of warps. See the kernel for the details.
+//   - float32 q (lookahead_attention_kernel), the parity dtype: per-thread
+//     fp32 FMAs from shared memory (4 rows x 8 columns a thread), which on
+//     the tensor cores would go through TF32.
+// wgmma, TMA loads and a split over KV for the one-row call are later
+// work.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (lookaheaddecoding_tpu_torch/ops/_build.py).
@@ -69,6 +78,8 @@
 #include <math.h>
 
 #include <type_traits>
+
+#include "mma_sync.cuh"
 
 namespace {
 
@@ -82,17 +93,10 @@ constexpr int NT = TX * TY;    // threads a block (128)
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
 template <> __device__ __forceinline__ float to_f<signed char>(signed char x) { return (float)x; }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as a TPU astype
-}
 
 struct Geometry {
   int s_len;           // S query positions
@@ -139,10 +143,11 @@ __device__ __forceinline__ bool visible(int s, int c, int kv_len, const Geometry
   return rj < g.s_len && spec_visible(s, rj, g);
 }
 
-// Grid (row tiles, KV heads, lanes). Block: NT threads, BR GQA rows t = s*rep + r
-// of KV head blockIdx.y; thread (ty, tx) owns rows ty*RPT + i and, in each
-// KV tile, key columns tx + TX*j and output dims tx + TX*j. KV is T, or
-// signed char in int8-KV mode (then k_scale and v_scale are read).
+// float32 q (T = float). Grid (row tiles, KV heads, lanes). Block: NT
+// threads, BR GQA rows t = s*rep + r of KV head blockIdx.y; thread (ty, tx)
+// owns rows ty*RPT + i and, in each KV tile, key columns tx + TX*j and
+// output dims tx + TX*j. KV is T, or signed char in int8-KV mode (then
+// k_scale and v_scale are read).
 template <typename T, typename KV, int D>
 __global__ void __launch_bounds__(NT)
 lookahead_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k,
@@ -332,13 +337,395 @@ lookahead_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16 q: FlashAttention-2 on mma.sync (m16n8k16, bf16 x bf16 -> f32).
+// ---------------------------------------------------------------------------
+
+constexpr int MW = 4;          // warps of a key group: 16 GQA rows each (one m16 tile)
+constexpr int MBR = 16 * MW;   // GQA rows a block
+constexpr int GNT = 32 * MW;   // threads of a key group
+
+// Shared memory of one block of G key groups: the Q tile; for each group
+// two stages of K/V tiles as they arrive (bf16 rows padded by 16 bytes, so
+// the eight rows of an ldmatrix matrix fall on eight different groups of
+// four banks; int8 rows as bytes, with the tile's k and v scales) and, in
+// int8-KV mode, the stage's K and V converted to bf16; then the composite
+// mask words. After the key loop the stages hold group 1's partial state.
+template <typename KV, int D, int G>
+struct MmaLayout {
+  static constexpr bool QUANT = std::is_same<KV, signed char>::value;
+  static constexpr int RS = D + 8;                    // bf16 tile row stride (elements)
+  static constexpr int Q_BYTES = MBR * RS * 2;
+  static constexpr int TILE_BYTES = BK * RS * 2;      // one bf16 K or V tile
+  static constexpr int RAW_ROW = QUANT ? D : RS * 2;  // row stride of a tile as it arrives (bytes)
+  static constexpr int RAW_BYTES = BK * RAW_ROW;
+  static constexpr int STAGE_BYTES = 2 * RAW_BYTES + (QUANT ? 2 * BK * 4 : 0);
+  static constexpr int CONV_BYTES = QUANT ? 2 * TILE_BYTES : 0;
+  static constexpr int GROUP_BYTES = 2 * STAGE_BYTES + CONV_BYTES;
+  static constexpr int FIXED_BYTES = Q_BYTES + G * GROUP_BYTES;
+  static constexpr int PART_FLOATS = 4 + D / 2;       // a thread's m, l (two rows) and O
+  static_assert(RAW_BYTES % 16 == 0 && STAGE_BYTES % 16 == 0, "16-byte aligned tiles");
+  static_assert(G == 1 || PART_FLOATS * GNT * 4 <= G * GROUP_BYTES, "the partials fit");
+};
+
+__device__ __forceinline__ void group_sync(int kg) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + kg), "n"(GNT) : "memory");
+}
+
+// Grid (row tiles, KV heads, lanes), as the FMA kernel's. Warp w of a key
+// group owns the 16 GQA rows t0 + 16 w + [0, 16) (t = s * rep + r) of KV
+// head blockIdx.y; lane (gq, qq) holds rows gq and gq + 8 of them.
+//
+// Every row keeps two partial softmax states, one over the live key tiles
+// of even index and one over those of odd index, merged at the end (even
+// state first, a state that saw no key weighted by an exact 0). With G = 2
+// a block has two key groups of four warps, one a state, each walking its
+// tiles with its own double-buffered cp.async stages and barrier: an
+// S = 240 call has only 120 row tiles for 132 SMs, and one group of four
+// warps would leave each SM waiting on its loads. With G = 1 (a grid with
+// more blocks than SMs, as the paged call of four lanes) one group walks
+// every tile and holds both states. The two give the same bits: the same
+// operations in the same order on each state (the arithmetic is written
+// with explicit roundings, so no contraction differs between them).
+//
+// Per tile: S = Q K^T on the tensor cores, the mask and the online softmax
+// on the accumulators (row max and sum across the lane quad by two xor
+// shuffles), P repacked in registers as the A operand of O += P V (the C
+// layout of the first product is the A layout of the second), V's B
+// fragments by ldmatrix.trans. spec_words: 32-bit words a composite row's
+// mask takes.
+template <typename KV, int D, int G>
+__global__ void __launch_bounds__(GNT * G)
+attention_mma_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict__ k,
+                     const KV* __restrict__ v, const float* __restrict__ k_scale,
+                     const float* __restrict__ v_scale, const int* __restrict__ kv_len_ptr,
+                     const int* __restrict__ tables, __nv_bfloat16* __restrict__ out,
+                     Geometry g, int spec_words) {
+  using L = MmaLayout<KV, D, G>;
+  constexpr bool QUANT = L::QUANT;
+  constexpr int NT_ = GNT * G;  // threads a block
+  constexpr int NS = 3 - G;     // partial states a thread holds
+  constexpr int KD = D / 16;    // k16 steps of Q K^T
+  constexpr int ND = D / 8;     // n8 tiles of the output
+  constexpr int NK = BK / 8;    // n8 tiles of a key tile
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(mma_smem);
+  unsigned* spec = reinterpret_cast<unsigned*>(mma_smem + L::FIXED_BYTES);
+
+  const int tid = threadIdx.x, kg = G == 2 ? tid / GNT : 0, gtid = tid % GNT;
+  const int warp = gtid / 32, lane = tid % 32, gq = lane >> 2, qq = lane & 3;
+  unsigned char* stages = mma_smem + L::Q_BYTES + kg * L::GROUP_BYTES;
+  __nv_bfloat16* conv = reinterpret_cast<__nv_bfloat16*>(stages + 2 * L::STAGE_BYTES);
+  const int head_kv = blockIdx.y, b = blockIdx.z;
+  const int n_rows = g.s_len * g.rep, t0 = blockIdx.x * MBR;
+  const int kv_len = kv_len_ptr[b];
+  const int* table = g.page_size ? tables + (size_t)b * g.nb : nullptr;
+  const unsigned char* kh =
+      reinterpret_cast<const unsigned char*>(k + (size_t)head_kv * g.pool_slots * D);
+  const unsigned char* vh =
+      reinterpret_cast<const unsigned char*>(v + (size_t)head_kv * g.pool_slots * D);
+  q += (size_t)b * g.s_len * g.hq * D;
+  out += (size_t)b * g.s_len * g.hq * D;
+
+  // Live columns of this block's rows, as in the FMA kernel.
+  const int s_lo = t0 / g.rep;
+  const int s_hi = (min(t0 + MBR, n_rows) - 1) / g.rep;
+  const int col_end = min(kv_len + s_hi + 1, g.m);
+  int col_begin = 0;
+  if (g.sliding_window) col_begin = max(kv_len + (g.causal ? s_lo : 0) - g.sliding_window + 1, 0);
+  const int tile_begin = col_begin / BK;
+  const int tile_end = (col_end + BK - 1) / BK;
+
+  // The Q tile, rows past n_rows zero.
+  constexpr int QCH = D / 8;  // 16-byte pieces a row
+  for (int i = tid; i < MBR * QCH; i += NT_) {
+    const int row = i / QCH, ch = i % QCH, t = t0 + row;
+    const bool live = t < n_rows;
+    const int s = live ? t / g.rep : 0, h = head_kv * g.rep + (live ? t % g.rep : 0);
+    cp_async16_zfill(sq + row * L::RS + ch * 8, q + ((size_t)s * g.hq + h) * D + ch * 8,
+                     live ? 16 : 0);
+  }
+  cp_async_commit();
+
+  // Key tile `tile` into a stage of this key group: each key row through
+  // the lane's table (paged) or at its own slot (flat); rows from col_end
+  // on, which no row of the block sees, are zero-filled and their table
+  // entries not read.
+  auto load_tile = [&](int tile, unsigned char* st) {
+    constexpr int CPR = D * (int)sizeof(KV) / 16;  // 16-byte pieces a key row
+    const int c0 = tile * BK;
+    for (int i = gtid; i < BK * CPR; i += GNT) {
+      const int r = i / CPR, ch = i % CPR, c = c0 + r;
+      const int slot = c >= col_end ? -1
+                       : table     ? table[c / g.page_size] * g.page_size + c % g.page_size
+                                   : c;
+      const size_t off = (size_t)max(slot, 0) * D * sizeof(KV) + ch * 16;
+      const int n = slot >= 0 ? 16 : 0;
+      cp_async16_zfill(st + r * L::RAW_ROW + ch * 16, kh + off, n);
+      cp_async16_zfill(st + L::RAW_BYTES + r * L::RAW_ROW + ch * 16, vh + off, n);
+    }
+    if constexpr (QUANT) {
+      float* sc = reinterpret_cast<float*>(st + 2 * L::RAW_BYTES);
+      for (int r = gtid; r < BK; r += GNT) {
+        const int c = c0 + r;
+        const int slot = c >= col_end ? -1
+                         : table     ? table[c / g.page_size] * g.page_size + c % g.page_size
+                                     : c;
+        const size_t at = (size_t)head_kv * g.pool_slots + max(slot, 0);
+        cp_async4_zfill(sc + r, k_scale + at, slot >= 0 ? 4 : 0);
+        cp_async4_zfill(sc + BK + r, v_scale + at, slot >= 0 ? 4 : 0);
+      }
+    }
+  };
+
+  // this group's tiles: first, first + G, ... below tile_end (G = 2: those
+  // of index parity kg); the first one's copy starts before the mask words
+  // are worked out
+  const int first = G == 2 ? tile_begin + (kg + 2 - tile_begin % 2) % 2 : tile_begin;
+  if (first < tile_end) load_tile(first, stages);
+  cp_async_commit();
+
+  // Composite mode: bit rj % 32 of word (s - s_lo) * spec_words + rj / 32
+  // is spec_visible(s, rj), once a block, so the tiles' masks are lookups.
+  if (!g.causal) {
+    const int words = (s_hi - s_lo + 1) * spec_words;
+    for (int i = tid; i < words; i += NT_) {
+      const int s = s_lo + i / spec_words, rj0 = (i % spec_words) * 32;
+      unsigned bits = 0;
+      for (int e = 0; e < 32; ++e)
+        if (rj0 + e < g.s_len && spec_visible(s, rj0 + e, g)) bits |= 1u << e;
+      spec[i] = bits;
+    }
+  }
+
+  // This thread's two rows (gq and gq + 8 of its warp): composite mode sees
+  // committed column c when c > lo (lo = -1 without a window) and
+  // speculative column kv_len + rj by the mask words; causal mode sees
+  // lo < c <= hi. A row past n_rows sees nothing.
+  const int wr0 = t0 + warp * 16;
+  const bool warp_live = wr0 < n_rows, warp_full = wr0 + 16 <= n_rows;
+  bool row_live[2];
+  int lo[2], hi[2], srow[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = wr0 + gq + 8 * r;
+    row_live[r] = t < n_rows;
+    const int s = row_live[r] ? t / g.rep : s_lo;
+    srow[r] = s - s_lo;
+    const int base = g.causal ? kv_len + s : kv_len + rel_pos(s, g);
+    lo[r] = g.sliding_window ? base - g.sliding_window : -1;
+    hi[r] = kv_len + s;
+  }
+
+  float o[NS][ND][4], m_run[NS][2], l_run[NS][2];
+#pragma unroll
+  for (int n = 0; n < NS; ++n) {
+#pragma unroll
+    for (int j = 0; j < ND; ++j) o[n][j][0] = o[n][j][1] = o[n][j][2] = o[n][j][3] = 0.f;
+    m_run[n][0] = m_run[n][1] = -INFINITY;
+    l_run[n][0] = l_run[n][1] = 0.f;
+  }
+
+  cp_async_wait<1>();
+  __syncthreads();  // the Q tile and the mask words are in place
+
+  // One key tile into one partial state (oo, mm, ll).
+  auto attend = [&](int c0, const __nv_bfloat16* sk, const __nv_bfloat16* sv,
+                    const float* scales, float (&oo)[ND][4], float (&mm)[2], float (&ll)[2]) {
+    // S = Q K^T: the Q fragments from the Q tile (read again each tile,
+    // which leaves their registers to the two states), an x4 ldmatrix of K
+    // rows the B fragments of two n8 key tiles (keys as columns, d as k).
+    float sc[NK][4];
+#pragma unroll
+    for (int j = 0; j < NK; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+      uint32_t qf[4];
+      ldmatrix_x4(qf, sq + (warp * 16 + (lane & 15)) * L::RS + kd * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int jp = 0; jp < NK / 2; ++jp) {
+        uint32_t bk[4];
+        ldmatrix_x4(bk, sk + (16 * jp + (lane & 7) + ((lane >> 4) << 3)) * L::RS + kd * 16 +
+                            ((lane >> 3) & 1) * 8);
+        mma_bf16(sc[2 * jp], qf, bk[0], bk[1]);
+        mma_bf16(sc[2 * jp + 1], qf, bk[2], bk[3]);
+      }
+    }
+    // A tile every row of the warp sees whole needs no mask.
+    const bool whole =
+        warp_full && g.sliding_window == 0 &&
+        (g.causal ? c0 + BK - 1 <= kv_len + wr0 / g.rep && c0 + BK <= g.m : c0 + BK <= kv_len);
+    // accumulator (j, 2 r + e) is row gq + 8 r, key column c0 + 8 j + 2 qq + e
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int cc = 8 * j + 2 * qq + e, c = c0 + cc;
+          bool vis = true;
+          if (!whole) {
+            if (!row_live[r] || c >= g.m) {
+              vis = false;
+            } else if (g.causal) {
+              vis = c > lo[r] && c <= hi[r];
+            } else if (c < kv_len) {
+              vis = c > lo[r];
+            } else {
+              const int rj = c - kv_len;
+              vis = rj < g.s_len && ((spec[srow[r] * spec_words + (rj >> 5)] >> (rj & 31)) & 1u);
+            }
+          }
+          float x = __fmul_rn(sc[j][2 * r + e], g.scale_log2);
+          if (QUANT) x = __fmul_rn(x, scales[cc]);
+          sc[j][2 * r + e] = vis ? x : -INFINITY;
+          mx = fmaxf(mx, sc[j][2 * r + e]);
+        }
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(mm[r], mx);
+      // rows with nothing visible yet: keep every exponent argument finite
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = mm[r] == -INFINITY ? 0.f : exp2f(__fsub_rn(mm[r], m_new));
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = exp2f(__fsub_rn(sc[j][2 * r + e], m_use));
+          psum = __fadd_rn(psum, p);
+          sc[j][2 * r + e] = QUANT ? __fmul_rn(p, scales[BK + 8 * j + 2 * qq + e]) : p;
+        }
+      }
+      psum = __fadd_rn(psum, __shfl_xor_sync(0xffffffffu, psum, 1));
+      psum = __fadd_rn(psum, __shfl_xor_sync(0xffffffffu, psum, 2));
+      ll[r] = __fmaf_rn(alpha, ll[r], psum);
+      mm[r] = m_new;
+#pragma unroll
+      for (int j = 0; j < ND; ++j) {
+        oo[j][2 * r] = __fmul_rn(oo[j][2 * r], alpha);
+        oo[j][2 * r + 1] = __fmul_rn(oo[j][2 * r + 1], alpha);
+      }
+    }
+    // O += P V: P rounded to bf16 (after v_scale in int8-KV mode) as the A
+    // fragments of the four k16 key steps.
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t pa[4] = {pack_bf16x2(sc[2 * kk][0], sc[2 * kk][1]),
+                              pack_bf16x2(sc[2 * kk][2], sc[2 * kk][3]),
+                              pack_bf16x2(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
+                              pack_bf16x2(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
+#pragma unroll
+      for (int jp = 0; jp < ND / 2; ++jp) {
+        uint32_t bv[4];
+        ldmatrix_x4_trans(bv, sv + (16 * kk + (lane & 15)) * L::RS + 16 * jp + (lane >> 4) * 8);
+        mma_bf16(oo[2 * jp], pa, bv[0], bv[1]);
+        mma_bf16(oo[2 * jp + 1], pa, bv[2], bv[3]);
+      }
+    }
+  };
+
+  for (int tile = first, it = 0; tile < tile_end; tile += G, ++it) {
+    unsigned char* st = stages + (it & 1) * L::STAGE_BYTES;
+    if (tile + G < tile_end) load_tile(tile + G, stages + ((it + 1) & 1) * L::STAGE_BYTES);
+    cp_async_commit();
+    cp_async_wait<1>();
+    group_sync(kg);  // this tile is in place for the whole group
+    const __nv_bfloat16 *sk, *sv;
+    const float* scales = reinterpret_cast<const float*>(st + 2 * L::RAW_BYTES);
+    if constexpr (QUANT) {
+      // the stage's int8 K and V as exact bf16, 16 bytes a thread a turn
+      constexpr int PPR = D / 16;
+      for (int i = gtid; i < 2 * BK * PPR; i += GNT) {
+        const int which = i / (BK * PPR), r = i / PPR % BK, ch = i % PPR;
+        const uint4 w = *reinterpret_cast<const uint4*>(st + which * L::RAW_BYTES + r * D + ch * 16);
+        const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+        uint32_t pairs[8];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          pairs[2 * e] = int8_pair(__byte_perm(words[e], 0, 0x0100));
+          pairs[2 * e + 1] = int8_pair(__byte_perm(words[e], 0, 0x0302));
+        }
+        uint4* dst = reinterpret_cast<uint4*>(conv + which * BK * L::RS + r * L::RS + ch * 16);
+        dst[0] = make_uint4(pairs[0], pairs[1], pairs[2], pairs[3]);
+        dst[1] = make_uint4(pairs[4], pairs[5], pairs[6], pairs[7]);
+      }
+      group_sync(kg);
+      sk = conv;
+      sv = conv + BK * L::RS;
+    } else {
+      sk = reinterpret_cast<const __nv_bfloat16*>(st);
+      sv = reinterpret_cast<const __nv_bfloat16*>(st + L::RAW_BYTES);
+    }
+    if (warp_live) {
+      if constexpr (G == 1) {
+        if (tile & 1) attend(tile * BK, sk, sv, scales, o[NS - 1], m_run[NS - 1], l_run[NS - 1]);
+        else attend(tile * BK, sk, sv, scales, o[0], m_run[0], l_run[0]);
+      } else {
+        attend(tile * BK, sk, sv, scales, o[0], m_run[0], l_run[0]);
+      }
+    }
+    group_sync(kg);  // every warp of the group is done with this stage before it is refilled
+  }
+
+  // The odd state: this thread's second state (G = 1), or group 1's, which
+  // it leaves in shared memory, field f of thread i at [f][i] (G = 2).
+  float* part = reinterpret_cast<float*>(mma_smem + L::Q_BYTES);
+  if constexpr (G == 2) {
+    cp_async_wait<0>();
+    __syncthreads();  // both groups are done with their stages
+    if (kg == 1) {
+      part[0 * GNT + gtid] = m_run[0][0];
+      part[1 * GNT + gtid] = m_run[0][1];
+      part[2 * GNT + gtid] = l_run[0][0];
+      part[3 * GNT + gtid] = l_run[0][1];
+#pragma unroll
+      for (int j = 0; j < ND; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[(4 + 4 * j + e) * GNT + gtid] = o[0][j][e];
+    }
+    __syncthreads();
+    if (kg == 1) return;
+  }
+  auto odd = [&](int f, float reg) { return G == 1 ? reg : part[f * GNT + gtid]; };
+
+  // Merge, even state first: out = (O0 a0 + O1 a1) / (l0 a0 + l1 a1), in bf16,
+  // two columns a store.
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m1 = odd(r, m_run[NS - 1][r]), l1 = odd(2 + r, l_run[NS - 1][r]);
+    const float m = fmaxf(m_run[0][r], m1);
+    const float a0 = m_run[0][r] == -INFINITY ? 0.f : exp2f(__fsub_rn(m_run[0][r], m));
+    const float a1 = m1 == -INFINITY ? 0.f : exp2f(__fsub_rn(m1, m));
+    const float l = __fmaf_rn(l_run[0][r], a0, __fmul_rn(l1, a1));
+    const int t = wr0 + gq + 8 * r;
+    if (!row_live[r]) continue;
+    const int s = t / g.rep, h = head_kv * g.rep + t % g.rep;
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    uint32_t* dst = reinterpret_cast<uint32_t*>(out + ((size_t)s * g.hq + h) * D + 2 * qq);
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      float y[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float o1 = odd(4 + 4 * j + 2 * r + e, o[NS - 1][j][2 * r + e]);
+        y[e] = __fmul_rn(__fmaf_rn(o[0][j][2 * r + e], a0, __fmul_rn(o1, a1)), inv);
+      }
+      dst[4 * j] = pack_bf16x2(y[0], y[1]);
+    }
+  }
+}
+
 struct Pointers {
   const void *q, *k, *v, *k_scale, *v_scale, *kv_len, *tables;
   void* out;
 };
 
 template <typename T, typename KV, int D>
-cudaError_t launch(const Pointers& a, int lanes, int hkv, const Geometry& g, cudaStream_t stream) {
+cudaError_t launch_fma(const Pointers& a, int lanes, int hkv, const Geometry& g,
+                       cudaStream_t stream) {
   constexpr int smem =
       (BR * (D + 1) + BK * (D + 1) + BK * D + BR * (BK + 1) + 2 * BK) * sizeof(float) +
       BK * sizeof(int);
@@ -356,6 +743,50 @@ cudaError_t launch(const Pointers& a, int lanes, int hkv, const Geometry& g, cud
       static_cast<const int*>(a.kv_len), static_cast<const int*>(a.tables),
       static_cast<T*>(a.out), g);
   return cudaGetLastError();
+}
+
+template <typename KV, int D, int G>
+cudaError_t launch_mma_g(const Pointers& a, int lanes, int hkv, const Geometry& g,
+                         int spec_words, cudaStream_t stream) {
+  using L = MmaLayout<KV, D, G>;
+  // composite mode: the mask words of every query position a block's rows hold
+  const int smem = L::FIXED_BYTES + ((MBR - 1) / g.rep + 2) * spec_words * 4;
+  static int configured = 48 * 1024;
+  if (smem > configured) {
+    cudaError_t e = cudaFuncSetAttribute(attention_mma_kernel<KV, D, G>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    configured = smem;
+  }
+  const dim3 grid((g.s_len * g.rep + MBR - 1) / MBR, hkv, lanes);
+  attention_mma_kernel<KV, D, G><<<grid, GNT * G, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const KV*>(a.k),
+      static_cast<const KV*>(a.v), static_cast<const float*>(a.k_scale),
+      static_cast<const float*>(a.v_scale), static_cast<const int*>(a.kv_len),
+      static_cast<const int*>(a.tables), static_cast<__nv_bfloat16*>(a.out), g, spec_words);
+  return cudaGetLastError();
+}
+
+// Two key groups a block where the grid leaves SMs without a block (the
+// flat calls), one where it does not (the paged call of several lanes):
+// the same bits either way.
+template <typename KV, int D>
+cudaError_t launch_mma(const Pointers& a, int lanes, int hkv, const Geometry& g,
+                       cudaStream_t stream) {
+  const int spec_words = g.causal ? 0 : (g.s_len + 31) / 32;
+  int sms = 0;
+  const cudaError_t e = sm_count(&sms);
+  if (e != cudaSuccess) return e;
+  const long long blocks = (long long)((g.s_len * g.rep + MBR - 1) / MBR) * hkv * lanes;
+  if (blocks <= sms) return launch_mma_g<KV, D, 2>(a, lanes, hkv, g, spec_words, stream);
+  return launch_mma_g<KV, D, 1>(a, lanes, hkv, g, spec_words, stream);
+}
+
+// float32 q: the FMA kernel; bfloat16 q: the mma kernel.
+template <typename T, typename KV, int D>
+cudaError_t launch(const Pointers& a, int lanes, int hkv, const Geometry& g, cudaStream_t stream) {
+  if constexpr (std::is_same<T, float>::value) return launch_fma<T, KV, D>(a, lanes, hkv, g, stream);
+  else return launch_mma<KV, D>(a, lanes, hkv, g, stream);
 }
 
 template <typename T, typename KV>

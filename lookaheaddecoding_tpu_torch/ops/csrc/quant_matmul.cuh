@@ -9,6 +9,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_sync.cuh"
+
 namespace {
 
 // Tile knobs of the one-row variant (T <= 8), for
@@ -49,9 +51,6 @@ struct Problem {
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");

@@ -1,7 +1,7 @@
-// The int4 product on the tensor cores, for bfloat16 x: the template of
-// quant_matmul.cu's int4 and pipelined int4 kernels in bfloat16 and of
-// int4_micro.cu's shift variant in bfloat16. See quant_matmul.cu for what
-// they compute, what bounds them and why the design is as it is.
+// The quantized products on the tensor cores, for bfloat16 x: the template
+// of quant_matmul.cu's int8, int4 and pipelined int4 kernels in bfloat16
+// and of int4_micro.cu's shift variant in bfloat16. See quant_matmul.cu for
+// what they compute, what bounds them and why the design is as it is.
 //
 // mma.sync.m16n8k16 (bf16 x bf16 -> f32) fragments, PTX ISA "Matrix
 // Fragments for mma.m16n8k16 with floating point type"; lane = 4 g + q:
@@ -10,11 +10,16 @@
 //   B [16 x 8]  col-major: b0 (k 2q..2q+1, col g), b1 (k 2q+8..2q+9, col g)
 //   C [16 x 8]           : c0, c1 (row g, cols 2q, 2q+1), c2, c3 (row g + 8)
 // The lower k of a pair is in the lower 16 bits of its register.
+//
+// A weight "row" below is one stored row of the weight: a packed int4 row
+// (two planes: input rows r and r + K/2) or an int8 row (one plane). NP is
+// the number of planes, and of the halves of x they meet.
 
 #pragma once
 
 #include <cooperative_groups.h>
 
+#include "mma_sync.cuh"
 #include "quant_matmul.cuh"
 
 namespace {
@@ -24,22 +29,28 @@ namespace {
 // is subtracted exactly; SHIFT: int4_micro.cu's decode, each nibble moved
 // to the top of the 32-bit word and shifted back arithmetically, then
 // converted. Both give the same exact values, so the same bits downstream.
-constexpr int DEC_MAGIC = 0, DEC_SHIFT = 1;
+// INT8: one signed byte a value (int8_pair), one plane.
+constexpr int DEC_MAGIC = 0, DEC_SHIFT = 1, DEC_INT8 = 2;
 
-// K is cut into chunks of CHUNK packed rows; the KS blocks of a cluster
-// split the chunks (block rank r takes chunks r, r + KS, ...), KS fixed by
-// K alone (ks_for).
-constexpr int CHUNK = 32;
+template <int DEC>
+constexpr int planes_of() { return DEC == DEC_INT8 ? 1 : 2; }
+
+// K is cut into chunks of CHUNK weight rows (MmaGeo::CHUNK: 32 packed
+// int4 rows, or 64 int8 rows, the same number of products); the KS blocks
+// of a cluster split the chunks (block rank r takes chunks r, r + KS, ...),
+// KS fixed by the weight's shape alone (ks_for).
 
 // Tile geometry. BM x BN outputs a block, WARPS_M x WARPS_N warps, each
 // owning (BM / WARPS_M) x (BN / WARPS_N) outputs as MT m16 tiles by NT8 n8
-// tiles. A ring stage holds BK2 packed weight rows ([BK2][WS] bytes) and
-// the x tiles of both halves ([2 BM][BK2] bf16, see x_at). BK2 and STAGES set only
-// how the copies are cut: the order of the sum is fixed by K alone.
-template <int BM_, int BN_, int WARPS_M_, int WARPS_N_, int BK2_, int STAGES_>
+// tiles. A ring stage holds BK2 weight rows ([BK2][WS] bytes) and the x
+// tiles of the NP halves ([NP BM][BK2] bf16, see x_at). BK2 and STAGES set
+// only how the copies are cut: the order of the sum is fixed by the
+// weight's shape alone.
+template <int BM_, int BN_, int WARPS_M_, int WARPS_N_, int BK2_, int STAGES_, int NP_ = 2>
 struct MmaGeo {
   static constexpr int BM = BM_, BN = BN_, WARPS_M = WARPS_M_, WARPS_N = WARPS_N_;
-  static constexpr int BK2 = BK2_, STAGES = STAGES_;
+  static constexpr int BK2 = BK2_, STAGES = STAGES_, NP = NP_;
+  static constexpr int CHUNK = NP == 1 ? 64 : 32;
   static constexpr int NTH = 32 * WARPS_M * WARPS_N;
   static constexpr int WTM = BM / WARPS_M, WTN = BN / WARPS_N;
   static constexpr int MT = WTM / 16, NT8 = WTN / 8;
@@ -49,7 +60,7 @@ struct MmaGeo {
                                 ? BN + 16 : BN + 32;
   static constexpr int PS = BN + 8;    // decoded bf16 plane row stride (elements)
   static constexpr int W_BYTES = BK2 * WS;
-  static constexpr int STAGE_BYTES = W_BYTES + 2 * BM * BK2 * 2;
+  static constexpr int STAGE_BYTES = W_BYTES + NP * BM * BK2 * 2;
   static constexpr int PLANE_ELEMS = BK2 * PS;
   static constexpr int RED_BYTES = BM * BN * 4;  // a block's partial sums, for the cluster
   // Output groups: accumulator (mi, j, e) of lane (g, q) is row
@@ -64,6 +75,7 @@ struct MmaGeo {
   static_assert(W_BYTES % 16 == 0 && STAGE_BYTES % 16 == 0, "16-byte aligned tiles");
   static_assert(STAGES >= 3, "a ring of at least three stages");
   static_assert(CHUNK % BK2 == 0, "a ring stage holds part of one chunk");
+  static_assert(NP == 1 || NP == 2, "one plane (int8) or two (int4)");
 };
 
 // Element kk of row R of a stage's x tiles (R = half * BM + row). The rows
@@ -76,43 +88,6 @@ __device__ __forceinline__ int x_at(int R, int kk) {
   return R * G::BK2 + (((kk >> 3) ^ (R / RPL % CPR)) << 3) + (kk & 7);
 }
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// 16-byte copy of which the first src_bytes come from gmem, the rest zero.
-__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(smem)),
-               "l"(gmem), "r"(src_bytes)
-               : "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c += a @ b on one m16n8k16 tile, float32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // d holds two packed bytes, in its bytes 0 and 2: their low nibbles as a
 // bf16 pair (lower half from byte 0) in lo, their high nibbles in hi.
 __device__ __forceinline__ void magic_pair(uint32_t d, uint32_t& lo, uint32_t& hi) {
@@ -123,11 +98,6 @@ __device__ __forceinline__ void magic_pair(uint32_t d, uint32_t& lo, uint32_t& h
   const uint32_t h = ((d >> 4) & 0x000F000Fu) ^ MAGIC;
   asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(lo) : "r"(l), "r"(ONE), "r"(MINUS_136));
   asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(hi) : "r"(h), "r"(ONE), "r"(MINUS_136));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lower, float upper) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lower, upper);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // Byte j of wa and byte j of wb (the packed rows k and k + 1 of one
@@ -144,21 +114,21 @@ __device__ __forceinline__ void decode_pair(uint32_t wa, uint32_t wb, int j, uin
   }
 }
 
-// Copies of K tiles into ring stages: the packed rows [tile * BK2, +BK2)
-// of the block's columns, and the same columns of both halves of x, by
+// Copies of K tiles into ring stages: the weight rows [tile * BK2, +BK2)
+// of the block's columns, and the same columns of the NP halves of x, by
 // cp.async in 16-byte pieces. Piece i of a thread is c = tid + i * NTH of
 // the tile, in the same place of every tile, so its source offset is
-// worked out once (an offset of -1: no piece). Rows past K/2 and columns
-// past N read as zero; a piece that straddles K/2 takes its valid elements
-// only. x rows past T are never written: row m of an mma's result depends
+// worked out once (an offset of -1: no piece). Rows past k_lim (K/2 or K)
+// and columns past N read as zero; a piece that straddles k_lim takes its
+// valid elements only. x rows past T are never written: row m of an mma's result depends
 // on row m of A alone, so they reach only output rows past T, which are
 // not stored. x_vec is false when x's rows or halves are not 16-byte
-// aligned (K/2 not a multiple of 8): x is then copied element by element,
+// aligned (k_lim not a multiple of 8): x is then copied element by element,
 // zero-filled too.
 template <typename G>
 struct Filler {
   static constexpr int WPR = G::BN / 16, WP = G::BK2 * WPR, WI = (WP + G::NTH - 1) / G::NTH;
-  static constexpr int XPR = G::BK2 / 8, XP = 2 * G::BM * XPR, XI = (XP + G::NTH - 1) / G::NTH;
+  static constexpr int XPR = G::BK2 / 8, XP = G::NP * G::BM * XPR, XI = (XP + G::NTH - 1) / G::NTH;
   static_assert(G::NTH % WPR == 0 && G::NTH % XPR == 0, "a thread's pieces share a column");
   int woff[WI];  // weight offset of the piece's first byte in tile 0
   int xoff[XI];  // x offset of the piece's first element in tile 0
@@ -220,11 +190,12 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* sx
                               s * 16 + (lane >> 4) * 8));
 }
 
-// One K tile of the chain, B decoded in registers from the packed bytes
-// (B4). n8 tile j, fragment column g of a warp is column NT8 * g + j of
-// the warp's slice, so one load of NT8 bytes (2, 4 or 8) gives a row's
-// bytes for all NT8 tiles. Every accumulator takes, per k16 step in
-// ascending k, the lo-plane product and then the hi-plane product.
+// One K tile of the chain, B decoded in registers from the weight bytes
+// (B4, and B3 with DEC_INT8). n8 tile j, fragment column g of a warp is
+// column NT8 * g + j of the warp's slice, so one load of NT8 bytes (2, 4
+// or 8) gives a row's bytes for all NT8 tiles. Every accumulator takes, per
+// k16 step in ascending k, the lo-plane product and then the hi-plane
+// product (int4), or the one product of its int8 rows.
 template <typename G, int DEC>
 __device__ __forceinline__ void mma_tile_regs(float (&acc)[G::MT][G::NT8][4],
                                               const unsigned char* st, int steps, int wm, int wn,
@@ -236,7 +207,7 @@ __device__ __forceinline__ void mma_tile_regs(float (&acc)[G::MT][G::NT8][4],
     if (s >= steps) break;
     const unsigned char* wb = st + (s * 16 + 2 * q) * G::WS + wn * G::WTN + G::NT8 * g;
     constexpr int WPR = G::NT8 == 8 ? 2 : 1;  // 32-bit words a row's bytes
-    uint32_t w[4][WPR];  // packed rows 2q, 2q+1, 2q+8, 2q+9
+    uint32_t w[4][WPR];  // weight rows 2q, 2q+1, 2q+8, 2q+9
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const unsigned char* pw = wb + ((i & 1) + 8 * (i >> 1)) * G::WS;
@@ -250,21 +221,38 @@ __device__ __forceinline__ void mma_tile_regs(float (&acc)[G::MT][G::NT8][4],
         w[i][0] = *reinterpret_cast<const uint16_t*>(pw);
       }
     }
-    uint32_t blo[G::NT8][2], bhi[G::NT8][2];
-#pragma unroll
-    for (int j = 0; j < G::NT8; ++j) {
-      decode_pair<DEC>(w[0][j / 4], w[1][j / 4], j % 4, blo[j][0], bhi[j][0]);
-      decode_pair<DEC>(w[2][j / 4], w[3][j / 4], j % 4, blo[j][1], bhi[j][1]);
-    }
-#pragma unroll
-    for (int mi = 0; mi < G::MT; ++mi) {
-      uint32_t alo[4], ahi[4];
-      load_a<G>(alo, sx, 0, wm, mi, s, lane);
-      load_a<G>(ahi, sx, 1, wm, mi, s, lane);
+    if constexpr (DEC == DEC_INT8) {
+      uint32_t b[G::NT8][2];  // rows 2q, 2q+1 (b0) and 2q+8, 2q+9 (b1) of column NT8 g + j
 #pragma unroll
       for (int j = 0; j < G::NT8; ++j) {
-        mma_bf16(acc[mi][j], alo, blo[j][0], blo[j][1]);
-        mma_bf16(acc[mi][j], ahi, bhi[j][0], bhi[j][1]);
+        const int sel = (j % 4) | ((j % 4 + 4) << 8);
+        b[j][0] = int8_pair(__byte_perm(w[0][j / 4], w[1][j / 4], sel));
+        b[j][1] = int8_pair(__byte_perm(w[2][j / 4], w[3][j / 4], sel));
+      }
+#pragma unroll
+      for (int mi = 0; mi < G::MT; ++mi) {
+        uint32_t a[4];
+        load_a<G>(a, sx, 0, wm, mi, s, lane);
+#pragma unroll
+        for (int j = 0; j < G::NT8; ++j) mma_bf16(acc[mi][j], a, b[j][0], b[j][1]);
+      }
+    } else {
+      uint32_t blo[G::NT8][2], bhi[G::NT8][2];
+#pragma unroll
+      for (int j = 0; j < G::NT8; ++j) {
+        decode_pair<DEC>(w[0][j / 4], w[1][j / 4], j % 4, blo[j][0], bhi[j][0]);
+        decode_pair<DEC>(w[2][j / 4], w[3][j / 4], j % 4, blo[j][1], bhi[j][1]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < G::MT; ++mi) {
+        uint32_t alo[4], ahi[4];
+        load_a<G>(alo, sx, 0, wm, mi, s, lane);
+        load_a<G>(ahi, sx, 1, wm, mi, s, lane);
+#pragma unroll
+        for (int j = 0; j < G::NT8; ++j) {
+          mma_bf16(acc[mi][j], alo, blo[j][0], blo[j][1]);
+          mma_bf16(acc[mi][j], ahi, bhi[j][0], bhi[j][1]);
+        }
       }
     }
   }
@@ -443,23 +431,23 @@ __device__ __forceinline__ void finish(float (&acc)[G::MT][G::NT8][4], unsigned 
 // rows) of the block's local tile lt.
 template <typename G, int KS>
 struct Walk {
-  static constexpr int TPC = CHUNK / G::BK2;  // tiles a chunk
+  static constexpr int TPC = G::CHUNK / G::BK2;  // tiles a chunk
   int rank, n_local;
   __device__ Walk(const Problem& p) {
     rank = KS > 1 ? (int)blockIdx.z : 0;
-    const int n_chunks = (p.k_lim + CHUNK - 1) / CHUNK;
+    const int n_chunks = (p.k_lim + G::CHUNK - 1) / G::CHUNK;
     n_local = (n_chunks > rank ? (n_chunks - rank + KS - 1) / KS : 0) * TPC;
   }
   __device__ int tile_of(int lt) const { return (rank + (lt / TPC) * KS) * TPC + lt % TPC; }
 };
 
-// B4 on the tensor cores. Grid (column tiles, row tiles, KS). Interval lt:
-// wait for its stage, one barrier, start the copy of local tile
-// lt + STAGES - 1 into the stage freed by lt - 1, then decode and multiply
-// from registers.
+// B4 (and B3 with DEC_INT8) on the tensor cores. Grid (column tiles, row
+// tiles, KS). Interval lt: wait for its stage, one barrier, start the copy
+// of local tile lt + STAGES - 1 into the stage freed by lt - 1, then decode
+// and multiply from registers.
 template <typename G, int DEC, int KS>
 __global__ void __launch_bounds__(G::NTH)
-int4_mma_kernel(const __nv_bfloat16* __restrict__ x, const signed char* __restrict__ w,
+quant_mma_kernel(const __nv_bfloat16* __restrict__ x, const signed char* __restrict__ w,
                 const float* __restrict__ scale, __nv_bfloat16* __restrict__ out, Problem p,
                 int x_vec) {
   extern __shared__ __align__(16) unsigned char smem_bytes[];
@@ -546,7 +534,7 @@ cudaError_t launch_mma_tile(const void* x, const void* w, const void* scale, voi
   static bool configured = false;
   auto kernel = [] {
     if constexpr (PIPE) return int4_mma_pipe_kernel<G, KS>;
-    else return int4_mma_kernel<G, DEC, KS>;
+    else return quant_mma_kernel<G, DEC, KS>;
   }();
   cudaError_t e = configure(kernel, smem, &configured);
   if (e != cudaSuccess) return e;
@@ -569,100 +557,107 @@ cudaError_t launch_mma_tile(const void* x, const void* w, const void* scale, voi
   return cudaGetLastError();
 }
 
-// Blocks a cluster for a weight of k_lim packed rows: the split of K, so
-// fixed by K alone. A long K is split 4 ways: the one-row call of a
-// 5632-wide down projection (2816 packed rows, N = 2048) has too few
-// columns to fill the card alone, and the split reads no more of x than
-// one block would (a split in 8 filled the card better at T = 1 but made
-// the composite call slower). A shorter K is not split: a 2048-wide
-// projection's one-row call has columns enough, and its composite call
-// runs in one wave without the cluster's reduction (a split in 2 took
-// longer there).
-inline int ks_for(int k_lim) { return k_lim >= 2048 ? 4 : 1; }
+// Blocks a cluster for a weight of k_lim rows of np planes and N columns:
+// the split of K, so fixed by the weight's shape alone, never by T. A long
+// K (k_lim * np >= 4096 input rows) is split 4 ways: the one-row call of a
+// 5632-wide down projection (N = 2048) has too few columns to fill the
+// card alone, and the split reads no more of x than one block would (a
+// split in 8 filled the card better at T = 1 but made the composite call
+// slower). So is a narrow weight (N <= SPLIT_N) of 1024 input rows or more:
+// the 256-wide int8 wk and wv of a 2048-wide model give a handful of
+// blocks at any T, each walking all of K (3x faster split, tile sweep).
+// Other weights are not split: a 2048-wide projection's one-row call has
+// columns enough, and its composite call runs in one wave without the
+// cluster's reduction (a split in 2 took longer there).
+#ifndef QM_MMA_SPLIT_N
+#define QM_MMA_SPLIT_N 512
+#endif
+inline int ks_for(int k_lim, int np, int n) {
+  return k_lim * np >= 4096 || (n <= QM_MMA_SPLIT_N && k_lim * np >= 1024) ? 4 : 1;
+}
 
 // Tile shapes, chosen by T and N (they never change the order of a sum).
-// T <= 16: 16 rows by 128, 64, 32 or 16 columns (a warp per 32 columns),
-// the widest that leaves at most an eighth of the SMs without a block. Larger T: the BIG tiles
-// ([BM, 128], 4 warps of BM x 32 outputs) where they give at least
-// BIG_MIN_BLOCKS blocks (counting the cluster's), else [64, 64] tiles of 4
-// warps. BM is BIG_BM where K is not split, 48 where it is (each block
-// then runs few chunks, and more, smaller blocks kept the card busier on
-// the split (5632, 2048) at T = 240, while the unsplit (2048, 11264) took
-// longer with 48). Five knobs are compile-time so that
-// scripts/torch_matmul_tile_sweep.py can build and time other values; the
-// defaults are what the package runs.
-#ifndef QM_MMA_SMALL_BK2
-#define QM_MMA_SMALL_BK2 32     // packed rows a ring stage, T <= 16 (divides CHUNK)
-#endif
+// The 16-row tiles: 16 rows by 128, 64, 32 or 16 columns (a warp per 32
+// columns), the widest that leaves at most an eighth of the SMs without a
+// block; they take T <= 16, and larger T where even the [64, 64] tiles
+// leave half the SMs without one. Otherwise the BIG tiles ([BM, 128], 4
+// warps of BM x 32 outputs) where they give at least BIG_MIN_BLOCKS blocks
+// (counting the cluster's), else [64, 64] tiles of 4 warps. Where K is
+// split BM is 48 (each block then runs few chunks, and more, smaller blocks
+// kept the card busier on the split (5632, 2048) at T = 240). Where it is
+// not, BM is 80 if that leaves fewer rows on the busiest SM than 64 and
+// still gives every SM two blocks or more (the int8 LM head at T = 141,
+// the int4 gate/up at T = 240), else 64 (with one block an SM the 80-row
+// tile was slower: the int8 gate/up at T = 240). A ring stage holds one
+// chunk of the larger tiles' K (64 int8 rows took 8-15% off the int8
+// calls at T >= 64 and 32 packed int4 rows stay faster for int4), or 32
+// rows for the 16-row tiles. These four knobs and SPLIT_N above are
+// compile-time so that scripts/torch_matmul_tile_sweep.py can build and
+// time other values; the defaults are what the package runs.
 #ifndef QM_MMA_SMALL_STAGES
 #define QM_MMA_SMALL_STAGES 8
 #endif
 #ifndef QM_MMA_BIG_BM
-#define QM_MMA_BIG_BM 64
+#define QM_MMA_BIG_BM 0         // 0: 64 or 80 as above; else that many rows
 #endif
 #ifndef QM_MMA_BIG_MIN_BLOCKS
 #define QM_MMA_BIG_MIN_BLOCKS 96
 #endif
 #ifndef QM_MMA_STAGES
-#define QM_MMA_STAGES 4         // ring stages, T > 16 (B5: one fewer, for its buffers)
+#define QM_MMA_STAGES 4         // ring stages, larger tiles (B5: one fewer, for its buffers)
 #endif
 
 template <bool PIPE, int DEC, int KS>
-cudaError_t launch_int4_mma_ks(const void* x, const void* w, const void* scale, void* out,
-                               const Problem& p, bool x_vec, int sms, cudaStream_t stream) {
-  constexpr int SS = QM_MMA_SMALL_STAGES, SB = QM_MMA_SMALL_BK2, B = 32;  // B: divides CHUNK
+cudaError_t launch_mma_ks(const void* x, const void* w, const void* scale, void* out,
+                          const Problem& p, bool x_vec, int sms, cudaStream_t stream) {
+  constexpr int NP = planes_of<DEC>();
+  constexpr int SS = QM_MMA_SMALL_STAGES, SB = 32, B = NP == 1 ? 64 : 32;
   constexpr int S = PIPE ? (QM_MMA_STAGES > 3 ? QM_MMA_STAGES - 1 : 3) : QM_MMA_STAGES;
-  using Big = MmaGeo<KS == 1 ? QM_MMA_BIG_BM : 48, 128, 1, 4, B, S>;
-  using Med = MmaGeo<64, 64, 2, 2, B, S>;
-  if (p.t <= 16) {  // the widest tile that still gives nearly every SM a block
-    auto fills = [&](int bn) { return (p.n + bn - 1) / bn * KS >= sms - sms / 8; };
+  using Big = MmaGeo<KS == 1 ? (QM_MMA_BIG_BM == 0 ? 64 : QM_MMA_BIG_BM) : 48, 128, 1, 4, B, S, NP>;
+  using Big80 = MmaGeo<80, 128, 1, 4, B, S, NP>;
+  using Med = MmaGeo<64, 64, 2, 2, B, S, NP>;
+  auto blocks = [&](int bm, int bn) { return (p.t + bm - 1) / bm * ((p.n + bn - 1) / bn) * KS; };
+  if (p.t <= 16 || blocks(Med::BM, Med::BN) < sms / 2) {
+    // the widest 16-row tile that still gives nearly every SM a block
+    auto fills = [&](int bn) { return blocks(16, bn) >= sms - sms / 8; };
     if (fills(128))
-      return launch_mma_tile<MmaGeo<16, 128, 1, 4, SB, SS>, PIPE, DEC, KS>(x, w, scale, out, p,
-                                                                           x_vec, stream);
+      return launch_mma_tile<MmaGeo<16, 128, 1, 4, SB, SS, NP>, PIPE, DEC, KS>(x, w, scale, out, p,
+                                                                               x_vec, stream);
     if (fills(64))
-      return launch_mma_tile<MmaGeo<16, 64, 1, 2, SB, SS>, PIPE, DEC, KS>(x, w, scale, out, p,
-                                                                          x_vec, stream);
+      return launch_mma_tile<MmaGeo<16, 64, 1, 2, SB, SS, NP>, PIPE, DEC, KS>(x, w, scale, out, p,
+                                                                              x_vec, stream);
     if (fills(32))
-      return launch_mma_tile<MmaGeo<16, 32, 1, 1, SB, SS>, PIPE, DEC, KS>(x, w, scale, out, p,
-                                                                          x_vec, stream);
-    return launch_mma_tile<MmaGeo<16, 16, 1, 1, SB, SS>, PIPE, DEC, KS>(x, w, scale, out, p,
-                                                                        x_vec, stream);
+      return launch_mma_tile<MmaGeo<16, 32, 1, 1, SB, SS, NP>, PIPE, DEC, KS>(x, w, scale, out, p,
+                                                                              x_vec, stream);
+    return launch_mma_tile<MmaGeo<16, 16, 1, 1, SB, SS, NP>, PIPE, DEC, KS>(x, w, scale, out, p,
+                                                                            x_vec, stream);
   }
-  if ((p.t + Big::BM - 1) / Big::BM * ((p.n + Big::BN - 1) / Big::BN) * KS >=
-      QM_MMA_BIG_MIN_BLOCKS)
+  if (blocks(Big::BM, Big::BN) >= QM_MMA_BIG_MIN_BLOCKS) {
+    // rows on the busiest SM
+    auto load = [&](int bm) { return (blocks(bm, 128) + sms - 1) / sms * bm; };
+    if (QM_MMA_BIG_BM == 0 && KS == 1 && load(80) < load(64) && blocks(80, 128) >= 2 * sms)
+      return launch_mma_tile<Big80, PIPE, DEC, KS>(x, w, scale, out, p, x_vec, stream);
     return launch_mma_tile<Big, PIPE, DEC, KS>(x, w, scale, out, p, x_vec, stream);
+  }
   return launch_mma_tile<Med, PIPE, DEC, KS>(x, w, scale, out, p, x_vec, stream);
 }
 
-// The SMs of the current device, queried once a device: the query is host
-// time that a one-row call would otherwise pay at every launch.
-inline cudaError_t sm_count(int* sms) {
-  static int cached[64] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < 64 && cached[dev] > 0) {
-    *sms = cached[dev];
-    return cudaSuccess;
-  }
-  e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess && dev < 64) cached[dev] = *sms;
-  return e;
-}
-
+// The product on the tensor cores: int4 (DEC_MAGIC or DEC_SHIFT, pipelined
+// or not) or int8 (DEC_INT8).
 template <bool PIPE, int DEC>
-cudaError_t launch_int4_mma(const void* x, const void* w, const void* scale, void* out,
-                            const Problem& p, cudaStream_t stream) {
+cudaError_t launch_mma(const void* x, const void* w, const void* scale, void* out,
+                       const Problem& p, cudaStream_t stream) {
+  static_assert(!PIPE || DEC != DEC_INT8, "the pipelined kernel is int4's");
   // the fill keeps 32-bit element offsets into x
   if ((long long)p.t * p.k >= (1LL << 31)) return cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(out) % 16 != 0) return cudaErrorMisalignedAddress;
   const bool x_vec = p.k_lim % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  int sms = 0;  // the T <= 16 tiles fill this card's SMs
+  int sms = 0;  // the 16-row tiles fill this card's SMs
   const cudaError_t e = sm_count(&sms);
   if (e != cudaSuccess) return e;
-  switch (ks_for(p.k_lim)) {
-    case 4: return launch_int4_mma_ks<PIPE, DEC, 4>(x, w, scale, out, p, x_vec, sms, stream);
-    default: return launch_int4_mma_ks<PIPE, DEC, 1>(x, w, scale, out, p, x_vec, sms, stream);
+  switch (ks_for(p.k_lim, planes_of<DEC>(), p.n)) {
+    case 4: return launch_mma_ks<PIPE, DEC, 4>(x, w, scale, out, p, x_vec, sms, stream);
+    default: return launch_mma_ks<PIPE, DEC, 1>(x, w, scale, out, p, x_vec, sms, stream);
   }
 }
 

@@ -24,7 +24,10 @@ both: the flat call is one lane with no table), or raise on an input it
 does not take, with one set of checks and messages
 (:func:`_check_kernel_inputs`); on a CPU tensor they run
 :func:`lookahead_attention_ref` and :func:`paged_lookahead_attention_ref`.
-``counts`` and ``paged_counts`` record which.
+``counts`` and ``paged_counts`` record which. The kernel has two designs,
+chosen by q's dtype: bfloat16 on the tensor cores (``"mma"``), float32 on
+float32 FMAs (``"fma"``), which keep every bit of the parity dtype;
+``"kernel"`` counts the launches of both.
 """
 
 from __future__ import annotations
@@ -33,12 +36,12 @@ import torch
 
 from ..models.llama import attention_dense
 
-# Launches of the CUDA kernel and calls of the plain version, for showing
-# which one a run went through: ``counts`` by the flat wrapper,
-# ``paged_counts`` by the paged one. Reset with
-# ``counts.update(kernel=0, plain=0)``.
-counts = {"kernel": 0, "plain": 0}
-paged_counts = {"kernel": 0, "plain": 0}
+# Launches of the CUDA kernel (in all, and by design) and calls of the
+# plain version, for showing which one a run went through: ``counts`` by
+# the flat wrapper, ``paged_counts`` by the paged one. Reset with
+# ``counts.update(dict.fromkeys(counts, 0))``.
+counts = {"kernel": 0, "mma": 0, "fma": 0, "plain": 0}
+paged_counts = {"kernel": 0, "mma": 0, "fma": 0, "plain": 0}
 
 KERNEL_HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -175,9 +178,16 @@ def _check_kernel_inputs(q, k, v, lens, tables=None, page_size=0):
         raise ValueError("need at least one query row")
 
 
-def _launch(q, k, v, lens, tables, page_size, geometry):
+def design(dtype: torch.dtype) -> str:
+    """The kernel design a q of ``dtype`` runs: "mma" (bfloat16) or "fma"
+    (float32)."""
+    return "mma" if dtype == torch.bfloat16 else "fma"
+
+
+def _launch(q, k, v, lens, tables, page_size, geometry, tally):
     """Launch the kernel on checked inputs: q [B, S, Hq, D] (B = 1 and no
-    table for the flat call). Returns [B, S, Hq*D]."""
+    table for the flat call), and count it in ``tally``. Returns
+    [B, S, Hq*D]."""
     from ._build import load
     k, v, ks, vs = _split_kv(k, v)
     lanes, s_len, hq, d = q.shape
@@ -198,6 +208,8 @@ def _launch(q, k, v, lens, tables, page_size, geometry):
     if err != 0:
         raise RuntimeError(f"lookahead_attention kernel launch failed: "
                            f"CUDA error {err}")
+    tally["kernel"] += 1
+    tally[design(q.dtype)] += 1
     return out
 
 
@@ -220,11 +232,9 @@ def lookahead_attention(q, k, v, kv_len, *, level, window, guess_size,
     if q.device.type != "cuda":
         raise ValueError(f"no attention kernel for device {q.device}")
     _check_kernel_inputs(q, k, v, kv_len)
-    out = _launch(q[None], k, v, kv_len, None, 0, dict(
+    return _launch(q[None], k, v, kv_len, None, 0, dict(
         level=level, window=window, guess_size=guess_size, causal=causal,
-        sliding_window=sliding_window))[0]
-    counts["kernel"] += 1
-    return out
+        sliding_window=sliding_window), counts)[0]
 
 
 def paged_lookahead_attention_ref(q, k, v, kv_lens, tables, *, level, window,
@@ -274,8 +284,6 @@ def paged_lookahead_attention(q, k, v, kv_lens, tables, *, level, window,
     if q.device.type != "cuda":
         raise ValueError(f"no attention kernel for device {q.device}")
     _check_kernel_inputs(q, k, v, kv_lens, tables, page_size)
-    out = _launch(q, k, v, kv_lens, tables, page_size, dict(
+    return _launch(q, k, v, kv_lens, tables, page_size, dict(
         level=level, window=window, guess_size=guess_size, causal=causal,
-        sliding_window=sliding_window))
-    paged_counts["kernel"] += 1
-    return out
+        sliding_window=sliding_window), paged_counts)

@@ -16,11 +16,10 @@ is applied once after it, and the result is ``[T, N]`` in x's dtype.
 
 On a CUDA tensor a wrapper launches its kernel, or raises on an input the
 kernel does not take; on a CPU tensor it runs the plain version.
-``counts`` records both. The int4 products have two designs, chosen by
-x's dtype: bfloat16 runs on the tensor cores (``int4_mma``,
-``int4_pipe_mma``), float32 on float32 FMAs (``int4_fma``,
-``int4_pipe_fma``), which keep every bit of x; the int8 product is one
-FMA design for both.
+``counts`` records both. Every product has two designs, chosen by x's
+dtype: bfloat16 runs on the tensor cores (``int8_mma``, ``int4_mma``,
+``int4_pipe_mma``), float32 on float32 FMAs (``int8_fma``, ``int4_fma``,
+``int4_pipe_fma``), which keep every bit of x.
 """
 
 from __future__ import annotations
@@ -33,8 +32,8 @@ from .quant import unpack_int4
 
 # Launches of each CUDA kernel and calls of the plain versions. Reset with
 # ``counts.update(dict.fromkeys(counts, 0))``.
-counts = {"int8": 0, "int4_mma": 0, "int4_pipe_mma": 0, "int4_fma": 0,
-          "int4_pipe_fma": 0, "plain": 0}
+counts = {"int8_mma": 0, "int4_mma": 0, "int4_pipe_mma": 0, "int8_fma": 0,
+          "int4_fma": 0, "int4_pipe_fma": 0, "plain": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MODES = {"int8": 0, "int4": 1, "int4_pipe": 2}
@@ -133,8 +132,6 @@ def _launch(mode: str, x, w, scale, k2: int):
 def count_key(mode: str, dtype: torch.dtype) -> str:
     """The ``counts`` key of a launch of kernel ``mode`` ("int8", "int4"
     or "int4_pipe") on an x of ``dtype``."""
-    if mode == "int8":
-        return mode
     return mode + ("_mma" if dtype == torch.bfloat16 else "_fma")
 
 

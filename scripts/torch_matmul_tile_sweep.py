@@ -7,30 +7,31 @@ knobs, on one CUDA card.
 ``lookaheaddecoding_tpu_torch/ops/csrc/quant_matmul.cu`` has compile-time
 knobs of two kernel designs, each reached by the rows of its group:
 
-- ``mma``: the tensor-core int4 and pipelined int4 kernels that bfloat16
-  x runs (``quant_matmul_mma.cuh``): the ring's packed rows a stage and
-  its stages for T <= 16 (``QM_MMA_SMALL_BK2``, ``QM_MMA_SMALL_STAGES``),
-  its stages for larger T (``QM_MMA_STAGES``), the rows of the large tile
-  where K is not split (``QM_MMA_BIG_BM``) and the fewest blocks for which
-  the large tile is taken over the [64, 64] one
-  (``QM_MMA_BIG_MIN_BLOCKS``). Rows: int4 and
-  int4_pipe.
-- ``fma``: the float32-FMA kernels (``quant_matmul.cuh``), which bfloat16
-  x reaches only through the int8 product: ``QM_ROW_BN``, the output
+- ``mma``: the tensor-core int8, int4 and pipelined int4 kernels that
+  bfloat16 x runs (``quant_matmul_mma.cuh``): the ring's stages for
+  T <= 16 (``QM_MMA_SMALL_STAGES``) and for larger T (``QM_MMA_STAGES``),
+  the rows of the large tile where K is not split (``QM_MMA_BIG_BM``, 0:
+  64 or 80 by the waves), the fewest blocks for which the large tile is
+  taken over the [64, 64] one (``QM_MMA_BIG_MIN_BLOCKS``) and the widest
+  weight whose K is split over a cluster at any K of 1024 input rows or
+  more (``QM_MMA_SPLIT_N``). Rows: int8 and int4, in bfloat16.
+- ``fma``: the float32-FMA kernels (``quant_matmul.cuh``), which only a
+  float32 x reaches: ``QM_ROW_BN``, the output
   columns a block owns in the one-row variant (T <= 8), and
   ``QM_SKIP_DEAD_ROWS``, whether threads whose rows lie past T skip the
   FMAs (0 nowhere, 1 in the one-row variant, 2 in the [64, 64] variant as
-  well). Rows: int8. (Its int4 rows went with the int4 kernels' move to
-  the tensor cores: in bfloat16 these knobs no longer reach them.)
+  well). Rows: int8, in float32 (bfloat16 x runs every product on the
+  tensor cores, which these knobs do not reach).
 
 The script builds the source once for each setting of the chosen groups
 (all ``nvcc`` runs started together), checks that every build gives the
-default build's bits, and times each kernel in bfloat16 on the decode
-path's two large shapes with the weight cold in L2 (the calls rotate over
-more copies of the weight than the 50 MB L2 holds). Times are of the
-device alone: 20 calls captured in a CUDA graph and replayed, so the
-Python wrapper's time is not in them. No setting changes the order of any
-sum, so a row's result is the same in all of them.
+default build's bits (a setting that moves the split of K: within one
+bf16 ulp) and that in every build a row alone gives the same row's bits
+among T, and times each kernel in its group's dtype on the decode path's
+shapes with the weight cold in L2 (the calls rotate over more copies of
+the weight than the 50 MB L2 holds). Times are of the device alone: 20
+calls captured in a CUDA graph and replayed, so the Python wrapper's time
+is not in them.
 
 Prints one line a (kernel, shape, T) with every setting's time in ms, then
 ``nvidia-smi``'s name and power limit. Exits non-zero without a CUDA
@@ -56,12 +57,10 @@ from chip_smoke import graph_ms  # noqa: E402  (the device-alone yardstick)
 # (name, -D definitions); the first of each group is the package's build
 GROUPS = {
     "mma": [("default", {}),
-            ("stages=3", {"QM_MMA_STAGES": 3}),
-            ("med-only", {"QM_MMA_BIG_MIN_BLOCKS": 1 << 30}),
-            ("big-bm=80", {"QM_MMA_BIG_BM": 80}),
-            ("small-stages=5", {"QM_MMA_SMALL_STAGES": 5}),
-            ("small-bk2=16/12", {"QM_MMA_SMALL_BK2": 16,
-                                 "QM_MMA_SMALL_STAGES": 12})],
+            ("stages=6", {"QM_MMA_STAGES": 6}),
+            ("bm=64", {"QM_MMA_BIG_BM": 64}),
+            ("split-n=0", {"QM_MMA_SPLIT_N": 0}),
+            ("small-stages=12", {"QM_MMA_SMALL_STAGES": 12})],
     "fma": [("bn64/skip1", {}),
             ("bn64/skip0", {"QM_SKIP_DEAD_ROWS": 0}),
             ("bn64/skip2", {"QM_SKIP_DEAD_ROWS": 2}),
@@ -70,11 +69,16 @@ GROUPS = {
 }
 # (mode, bits, [(K, N), ...]) a group times: the gate/up and the down
 # projection of TinyLlama-1.1B, unfused for int8 and fused for int4
-CASES = {"mma": [("int4", 4, [(2048, 11264), (5632, 2048)]),
-                 ("int4_pipe", 4, [(2048, 11264), (5632, 2048)])],
+CASES = {"mma": [("int8", 8, [(2048, 5632), (5632, 2048), (2048, 2048),
+                                (2048, 256), (2048, 32000)]),
+                 ("int4", 4, [(2048, 11264), (5632, 2048), (2048, 2560)])],
          "fma": [("int8", 8, [(2048, 5632), (5632, 2048)])]}
-# AR row, a small composite, the prefill chunk, the logits rows, composite
-ROWS = (1, 16, 64, 128, 141, 240)
+# AR row, a small composite, the prefill chunk, the logits rows, composite,
+# the paged step of four lanes
+ROWS = (1, 16, 64, 128, 141, 240, 960)
+# settings that move the K split (of narrow weights): still one order for
+# every T, but not the default's order
+MOVES_ORDER = ("SPLIT_N",)
 
 
 def build_variant(group: str, name: str, defines: dict):
@@ -140,7 +144,8 @@ def main() -> int:
         chosen = [(name, fn) for (g, name, _), fn in zip(jobs, fns)
                   if g == group]
         names = [name for name, _ in chosen]
-        print(f"[{group}] device ms a call, bfloat16, weight cold in L2; "
+        dtype = torch.bfloat16 if group == "mma" else torch.float32
+        print(f"[{group}] device ms a call, {dtype}, weight cold in L2; "
               f"settings: " + ", ".join(names), flush=True)
         for mode, bits, kns in CASES[group]:
             for k, n in kns:
@@ -148,7 +153,7 @@ def main() -> int:
                 wqs = [quant.quantize_weight(randn(k, n, scale=0.02), bits)
                        for _ in range(copies)]
                 for t in ROWS:
-                    x = randn(t, k).bfloat16()
+                    x = randn(t, k).to(dtype)
                     outs = []
                     for _, fn in chosen:
                         out = torch.empty((t, n), dtype=x.dtype,
@@ -156,11 +161,27 @@ def main() -> int:
                         launch(fn, mode, x, wqs[0], out)
                         outs.append(out)
                     torch.cuda.synchronize()
-                    for name, out in zip(names, outs):
-                        if not torch.equal(out, outs[0]):
+                    for (name, out), (_, _, defs) in zip(
+                            zip(names, outs),
+                            [j for j in jobs if j[0] == group]):
+                        if any(m in key for key in defs for m in MOVES_ORDER):
+                            same = torch.allclose(out.float(), outs[0].float(),
+                                                  atol=1e-3, rtol=2.0 ** -7)
+                        else:
+                            same = torch.equal(out, outs[0])
+                        if not same:
                             raise AssertionError(
                                 f"{name} differs from {names[0]}: {mode} "
                                 f"T={t} K={k} N={n}")
+                    if t > 8:   # a row alone gives the same row's bits
+                        for (name, fn), out in zip(chosen, outs):
+                            one = torch.empty((1, n), dtype=x.dtype,
+                                              device=device)
+                            launch(fn, mode, x[7:8].contiguous(), wqs[0], one)
+                            if not torch.equal(one[0], out[7]):
+                                raise AssertionError(
+                                    f"{name}: a row alone differs: {mode} "
+                                    f"T={t} K={k} N={n}")
                     times = [graph_ms(lambda i, fn=fn: launch(
                         fn, mode, x, wqs[i % copies], outs[0]))
                         for _, fn in chosen]

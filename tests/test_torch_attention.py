@@ -33,11 +33,11 @@ def both(q, k, v, kv_len, block_k=0, **kw):
     want = jax_lookahead_attention(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.int32(kv_len),
         block_k=block_k, interpret=True, **GEO, **kw)
-    la.counts.update(kernel=0, plain=0)
+    la.counts.update(dict.fromkeys(la.counts, 0))
     got = la.lookahead_attention(
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
         torch.tensor([kv_len], dtype=torch.int32), **GEO, **kw)
-    assert la.counts == {"kernel": 0, "plain": 1}
+    assert la.counts == dict(dict.fromkeys(la.counts, 0), plain=1)
     return got.numpy(), np.asarray(want)
 
 
@@ -161,3 +161,13 @@ def test_paged_only_checks_raise(bad, match):
     args, kw = _kernel_inputs(True, **bad)
     with pytest.raises(ValueError, match=match):
         la._check_kernel_inputs(*args, **kw)
+
+
+@pytest.mark.parametrize("dtype,name", [(torch.bfloat16, "mma"),
+                                        (torch.float32, "fma")])
+def test_kernel_design_follows_q_dtype(dtype, name):
+    """bfloat16 q runs the tensor-core design, float32 q the FMA design;
+    both wrappers count each launch under its design and in all."""
+    assert la.design(dtype) == name
+    for tally in (la.counts, la.paged_counts):
+        assert set(tally) == {"kernel", "mma", "fma", "plain"}

@@ -1,8 +1,8 @@
 """Card-only tests of the port's CUDA kernels (the composite attention on
-a plain and on an int8 KV cache, flat and paged, the int8, int4 and
-pipelined int4 matrix products, int4 in bfloat16 on the tensor cores, the
-int4 product's two micro-benchmark variants), each against its plain
-PyTorch version. They skip without a CUDA device. This file imports no
+a plain and on an int8 KV cache, flat and paged, in bfloat16 on the tensor
+cores and in float32 on FMAs; the int8, int4 and pipelined int4 matrix
+products, in bfloat16 on the tensor cores; the int4 product's two
+micro-benchmark variants), each against its plain PyTorch version. They skip without a CUDA device. This file imports no
 JAX, so on a machine without JAX it runs without the suite's conftest:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
@@ -51,6 +51,62 @@ def test_attention_kernel_matches_plain_version(dtype, tol):
         assert la.counts["kernel"] == before + 1
         want = la.lookahead_attention_ref(q, k, v, kv_len, **kw)
         torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8_kv", [False, True], ids=["plain", "int8_kv"])
+def test_bf16_attention_within_rounding_limit_of_float32_kernel(int8_kv):
+    """The bfloat16 design (tensor cores) against the float32 design (FMAs)
+    on the same inputs: |bf16 - bf16(f32)| <= 2**-8 sum_j p_j |v_j| (p
+    rounded to bf16: half an ulp of each term, computed by the float32
+    kernel from |v|) + 2**-7 |out| (the two outputs may land one bf16 ulp
+    apart) + 1e-4 (the float32 tolerance), chip_smoke's limit. Each call
+    counts as its own design."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from lookaheaddecoding_tpu_torch.models.llama import kv_cache_write
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(7)
+    big = dict(level=7, window=20, guess_size=6)
+    small = dict(level=4, window=5, guess_size=3)
+    cases = [(240, 32, 1024, 512, False, 0, big, 64),
+             (240, 32, 2048, 1808, False, 0, big, 64),
+             (128, 32, 1024, 640, True, 0, big, 64),
+             (240, 32, 1024, 600, False, 300, big, 64),
+             (128, 32, 1024, 600, True, 300, big, 64),
+             (1, 32, 1024, 700, True, 0, big, 64),
+             (27, 16, 256, 37, False, 16, small, 64),
+             (27, 16, 256, 100, False, 0, small, 128),
+             (128, 8, 512, 200, True, 0, big, 128)]
+    for s, hq, m, kv, causal, sw, geo, d in cases:
+        def mk(*shape):
+            return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+                dev, torch.bfloat16)
+        if int8_kv:
+            def cache():
+                c = {"q": torch.zeros(4, m, d, dtype=torch.int8, device=dev),
+                     "s": torch.full((4, m, 1), 1e-8, device=dev)}
+                return kv_cache_write(c, mk(m, 4, d), 0)
+            k, v = cache(), cache()
+            kf, vf, v_abs = k, v, {"q": v["q"].abs(), "s": v["s"]}
+        else:
+            k, v = mk(4, m, d), mk(4, m, d)
+            kf, vf = k.float(), v.float()
+            v_abs = vf.abs()
+        q = mk(s, hq, d)
+        kv_len = torch.tensor([kv], dtype=torch.int32, device=dev)
+        kw = dict(geo, causal=causal, sliding_window=sw)
+        before = dict(la.counts)
+        got = la.lookahead_attention(q, k, v, kv_len, **kw)
+        assert la.counts == dict(before, kernel=before["kernel"] + 1,
+                                 mma=before["mma"] + 1)
+        exact = la.lookahead_attention(q.float(), kf, vf, kv_len, **kw)
+        weight = la.lookahead_attention(q.float(), kf, v_abs, kv_len, **kw)
+        assert la.counts["fma"] == before["fma"] + 2
+        limit = 2.0 ** -8 * weight + 2.0 ** -7 * exact.abs() + 1e-4
+        err = (got.float() - exact.bfloat16().float()).abs()
+        assert bool((err <= limit).all()), (s, m, kv, causal, sw, d,
+                                            (err / limit).max().item())
 
 
 @pytest.mark.gpu
@@ -107,10 +163,12 @@ def test_quant_matmul_kernel_matches_plain_version(mode, dtype, tol):
     row count, every tile shape, ragged N (not a multiple of 64), a K whose
     packed rows are zero-padded, and one layer of a stacked weight. A row's
     result does not depend on the rows beside it, and the pipelined int4
-    kernel gives the int4 kernel's bits. In bfloat16 the int4 products run
-    on the tensor cores, never on the FMA kernels: also at T in (1, 16, 17,
-    64, 128, 240) on the fused gate/up and the down projection, and at an
-    odd K/2 (x's second half not 16-byte aligned)."""
+    kernel gives the int4 kernel's bits. In bfloat16 every product runs on
+    the tensor cores, never on the FMA kernels: int4 also at T in (1, 16,
+    17, 64, 128, 240) on the fused gate/up and the down projection, and at
+    an odd K/2 (x's second half not 16-byte aligned); int8 also at T in (1,
+    16, 17, 64, 128, 141, 240, 960) on the gate/up, down and wk shapes, and
+    at an odd K (x's rows not 16-byte aligned)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     from lookaheaddecoding_tpu_torch.ops import quant
@@ -134,9 +192,15 @@ def test_quant_matmul_kernel_matches_plain_version(mode, dtype, tol):
         cases += [(t, k, n) for k, n in ((2048, 11264), (5632, 2048))
                   for t in (1, 16, 17, 64, 128, 240)]
         cases += [(5, 2002, 96), (40, 2002, 4224)]      # K/2 = 1001
+    if bits == 8 and dtype == torch.bfloat16:
+        cases += [(t, k, n) for k, n in ((2048, 5632), (5632, 2048),
+                                         (2048, 256))
+                  for t in (1, 16, 17, 64, 128, 141, 240, 960)]
+        cases += [(5, 1001, 96), (40, 1001, 4224)]      # K not a multiple of 8
     key = qm.count_key(mode, dtype)
     other = {"int4_mma": "int4_fma", "int4_pipe_mma": "int4_pipe_fma",
-             "int4_fma": "int4_mma", "int4_pipe_fma": "int4_pipe_mma"}
+             "int4_fma": "int4_mma", "int4_pipe_fma": "int4_pipe_mma",
+             "int8_mma": "int8_fma", "int8_fma": "int8_mma"}
     for t, k, n in cases:
         w = torch.from_numpy(rng.randn(2, k, n).astype(np.float32) * 0.02)
         stack = quant.quantize_weight(w.to(dev), bits)
@@ -184,6 +248,39 @@ def test_int4_mma_fragment_maps(pipeline):
             got = qm.int4_matmul(x, wq["q4"], wq["scale"], pipeline=pipeline)
             want = qm.int4_matmul_ref(x, wq["q4"], wq["scale"])
             assert torch.equal(got, want), (t, k2, n, half)
+
+
+@pytest.mark.gpu
+def test_int8_mma_fragment_maps():
+    """The tensor-core int8 kernel element by element: x is one-hot, so
+    y[t, n] is one weight byte (of row r_t) times its scale, exact, and
+    every (row, column) must land where the plain version puts it: on the
+    16-row tiles (T <= 16, and T = 240 on N = 256, where even [64, 64]
+    tiles leave most SMs idle), the 64 x 64 and 64 x 128 tiles with K in one
+    block (K < 4096), and with K split over the 4 blocks of a cluster (K of
+    4096 and 5632, on the 16 x 16 and 48 x 128 tiles, and the 256-wide
+    weight, split for its width, at K = 2048), where the rows r_t
+    are spread over K so that each block's partial sums reach the output
+    through the cluster's reduction."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from lookaheaddecoding_tpu_torch.ops import quant
+    from lookaheaddecoding_tpu_torch.ops import quant_matmul as qm
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(6)
+    for t, k, n in ((16, 32, 16), (16, 32, 4224), (240, 2048, 256),
+                    (64, 128, 64), (128, 256, 16896), (16, 4096, 256),
+                    (64, 5632, 2048)):
+        w = torch.from_numpy(rng.randn(k, n).astype(np.float32))
+        wq = quant.quantize_weight(w.to(dev), 8)
+        rows = torch.from_numpy(rng.choice(k, t, replace=t > k)).to(dev)
+        x = torch.zeros(t, k, device=dev, dtype=torch.bfloat16)
+        x[torch.arange(t), rows] = 1
+        before = qm.counts["int8_mma"]
+        got = qm.int8_matmul(x, wq["q"], wq["scale"])
+        assert qm.counts["int8_mma"] == before + 1
+        want = qm.int8_matmul_ref(x, wq["q"], wq["scale"])
+        assert torch.equal(got, want), (t, k, n)
 
 
 @pytest.mark.gpu
@@ -256,10 +353,12 @@ def test_paged_attention_kernel_matches_plain_and_flat(dtype, tol, int8_kv):
             kv_lens = torch.tensor([0, page + 1, 512, page * nb - s],
                                    dtype=torch.int32, device=dev)
             kw = dict(geo, causal=causal, sliding_window=sw)
-            before = la.paged_counts["kernel"]
+            before = dict(la.paged_counts)
             got = la.paged_lookahead_attention(q, k, v, kv_lens, tables,
                                                page_size=page, **kw)
-            assert la.paged_counts["kernel"] == before + 1
+            assert la.paged_counts == dict(
+                before, kernel=before["kernel"] + 1,
+                **{la.design(dtype): before[la.design(dtype)] + 1})
             want = la.paged_lookahead_attention_ref(q, k, v, kv_lens, tables,
                                                     page_size=page, **kw)
             torch.testing.assert_close(got.float(), want.float(), **tol)

@@ -5,8 +5,8 @@ against ``quant.unpack_int4`` (and the JAX package's unpack in
 kernels run only on the card.
 
 The CUDA source is ``lookaheaddecoding_tpu_torch/ops/csrc/quant_matmul_mma.cuh``:
-``magic_pair`` (lines 103-111: the constants at 104-106), ``decode_pair``
-(lines 120-130) and ``decode_tile``'s byte selectors (lines 273-274).
+``magic_pair`` (lines 92-100: the constants at 93-95), ``decode_pair``
+(lines 104-114) and ``decode_tile``'s byte selectors (lines 290-291).
 """
 
 import jax.numpy as jnp

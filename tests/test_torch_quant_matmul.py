@@ -172,17 +172,18 @@ def test_kernel_only_checks_raise_before_any_launch(bad, match):
     reset_counts()
     with pytest.raises(ValueError, match=match):
         tqm._launch("int8", x, w, torch.ones(1, n), 0)
-    assert tqm.counts["int8"] == 0
+    assert tqm.counts["int8_fma"] == 0
 
 
 @pytest.mark.parametrize("mode,dtype,key", [
-    ("int8", torch.bfloat16, "int8"), ("int8", torch.float32, "int8"),
+    ("int8", torch.bfloat16, "int8_mma"), ("int8", torch.float32, "int8_fma"),
     ("int4", torch.bfloat16, "int4_mma"), ("int4", torch.float32, "int4_fma"),
     ("int4_pipe", torch.bfloat16, "int4_pipe_mma"),
     ("int4_pipe", torch.float32, "int4_pipe_fma"),
 ])
 def test_count_key_tells_the_two_int4_designs_apart(mode, dtype, key):
-    """bfloat16 int4 launches count as the tensor-core kernels', float32
-    ones as the FMA kernels'; every key is one of ``counts``."""
+    """bfloat16 launches of every product count as the tensor-core
+    kernels', float32 ones as the FMA kernels'; every key is one of
+    ``counts``."""
     assert tqm.count_key(mode, dtype) == key
     assert key in tqm.counts
