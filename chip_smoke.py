@@ -18,16 +18,20 @@ target). It imports no JAX. Phases, each printed as it runs:
    and on the device alone (a CUDA graph): the attention kernel on a plain
    and on an int8 KV cache (bfloat16 on the tensor cores, float32 on
    FMAs; the bfloat16 result also within its rounding limit of the
-   float32 kernel's), and the int8, int4 and pipelined int4 matrix
+   float32 kernel's), at head_dim 64 with the headline's heads and at
+   head_dim 256 with Gemma-2B's (8 query heads, 1 KV head; every case
+   timed), and the int8, int4 and pipelined int4 matrix
    products (bfloat16 on the tensor cores; the pipelined one bit-equal to
    the int4 one, a row alone bit-equal to the same row among 240);
    the paged attention call on a shared page pool with shuffled tables
    (plain and int8 pool, page sizes 128 and 48, lanes of different
-   ``kv_len``), also bit-equal, lane by lane, to the flat call on the
-   contiguous cache; and the int4 product's two micro-benchmark variants
-   (shift decode: bit-equal to the int4 kernel; K-outer: a row alone equal
-   to the same row among others), then ``scripts/torch_int4_micro.py``'s
-   timing loop, the path that launches them;
+   ``kv_len``; at head_dim 256 pages of 128), also bit-equal, lane by
+   lane, to the flat call on the contiguous cache; and the int4 product's
+   two micro-benchmark variants (shift decode: bit-equal to the int4
+   kernel; K-outer: a row alone equal to the same row among others), then
+   ``scripts/torch_int4_micro.py``'s timing loop, the path that launches
+   them (the K-outer variant through its tensor-core design alone), and
+   both on the device alone;
 4. main path: the headline configuration, a synthetic TinyLlama-1.1B
    model at full width (random weights from a seed, with an embedding and
    head that make greedy decoding follow a token cycle), greedy lookahead
@@ -38,9 +42,10 @@ target). It imports no JAX. Phases, each printed as it runs:
    projections, int8 LM head), ``int8_weights_int8_kv``, and
    ``int4_weights_pipelined`` (the int4 engine with
    ``ops.quant.INT4_PIPELINE`` set). In every configuration the tokens must
-   equal its own baseline's and follow the cycle, and each path must have
-   gone through the kernels' tensor-core designs (counted for each path
-   alone: launches > 0, FMA designs and plain-version calls 0);
+   equal its own baseline's and follow the cycle, compression must be above
+   1, and each path must have gone through the kernels' tensor-core
+   designs (counted for each path alone: launches > 0, FMA designs and
+   plain-version calls 0);
 5. profile: lookahead and AR runs under ``torch.profiler``, for the
    device's busy and idle share and the kernels that take the most time
    (bfloat16, and the lookahead runs of ``int8_weights`` and
@@ -53,12 +58,20 @@ target). It imports no JAX. Phases, each printed as it runs:
    must equal the flat ``generate`` on the same prompt, admission must have
    waited for pages at least once, every page must be free at the end, and
    the path must have gone through the paged attention kernel with no
-   plain-version call; then a profile of the batched step.
+   plain-version call; then a profile of the batched step;
+7. head_dim 256: ``bf16_head_dim_256``, the LLaMA layer at Gemma-2B's
+   published widths (hidden 2048, intermediate 16384, 18 layers, 8 query
+   heads, 1 KV head, head_dim 256; SwiGLU and a synthetic vocab of 32000
+   kept), the main path and its profile as in phases 4 and 5 (128 new
+   tokens), then four requests of 64 tokens through ``PagedServingEngine``,
+   two on one shared prefix, each equal to the flat ``generate``.
 
-The line before the last is one JSON object with every kernel's numbers;
-the last line is ``{"ok": true, "device": {...}}``. Any failed phase
-raises, so the script exits non-zero and prints no result; it also exits
-non-zero when no CUDA device is present.
+Each phase's seconds are printed as ``[seconds]`` lines.
+
+Then one JSON object with every kernel's numbers, a line with the card's
+name and power limit, and last ``{"ok": true, "device": {...}}``. Any
+failed phase raises, so the script exits non-zero and prints no result; it
+also exits non-zero when no CUDA device is present.
 """
 
 from __future__ import annotations
@@ -117,6 +130,18 @@ WARM_NEW = 32         # tokens of the untimed warm-up pass of each path
 LANES, PAGE, N_PAGES, STEPS_PER_SYNC, PAGED_NEW = 4, 128, 24, 4, 128
 PAGED_ROWS = LANES * S_COMP   # rows of a batched paged step's products (960)
 PROFILE_NEW = 64      # tokens a profiled run: the trace grows with the steps
+# bf16_head_dim_256: the port's LLaMA layer at Gemma-2B's published widths
+# (google/gemma-2b config.json: hidden 2048, intermediate 16384, 18 layers,
+# 8 query heads, 1 KV head, head_dim 256, rope_theta 10000, rms eps 1e-6),
+# full depth; SwiGLU, no norm offset or embedding scale (Gemma's GeGLU and
+# those are not ported), and the synthetic vocab of 32000 (Gemma's is
+# 256000) so that the transition cycle makes compression real
+ARCH_256 = dict(vocab_size=32000, hidden_size=2048, intermediate_size=16384,
+                num_hidden_layers=18, num_attention_heads=8,
+                num_key_value_heads=1, head_dim_override=256,
+                rope_theta=10000.0, rms_norm_eps=1e-6,
+                max_position_embeddings=8192)
+N_NEW_256, PAGED_NEW_256 = 128, 64   # new tokens: flat run, paged requests
 
 
 def log(*a):
@@ -198,28 +223,43 @@ def attention_bound(vis, hq, hkv, d, dtype_name, int8_kv=False):
                                         else "operations")
 
 
-def check_attention(device):
-    """The attention kernel on a plain cache and on an int8 cache written
-    by the port's ``kv_cache_write``. Returns the headline call's numbers
-    for each."""
+# attention cases: (S, M, kv_len, causal, sliding window); the headline's
+# heads (TinyLlama-1.1B: 32 query heads on 4 KV heads of 64) and Gemma-2B's
+# (8 query heads on one KV head of 256)
+ATT_CASES = ([(S_COMP, 1024, kv, False, 0) for kv in (0, 37, 512, 784)]
+             + [(S_COMP, 2048, kv, False, 0) for kv in (1000, 1808)]
+             + [(PREFILL_CHUNK, 1024, kv, True, 0) for kv in (0, 640)]
+             + [(S_COMP, 1024, 600, False, 300),
+                (PREFILL_CHUNK, 1024, 600, True, 300),
+                (1, 1024, 700, True, 0)])          # the AR baseline's call
+ATT_TIMED = {(S_COMP, 1024, 512, False, 0), (S_COMP, 2048, 1808, False, 0),
+             (PREFILL_CHUNK, 1024, 640, True, 0), (1, 1024, 700, True, 0)}
+HEADS_64, HEADS_256 = (32, 4, 64), (8, 1, 256)
+# head_dim 256: B1 (M=1024), B2 (M=2048), prefill, a sliding window both
+# ways and the AR call, every one timed
+ATT_CASES_256 = [(S_COMP, 1024, 512, False, 0), (S_COMP, 2048, 1808, False, 0),
+                 (PREFILL_CHUNK, 1024, 640, True, 0),
+                 (S_COMP, 1024, 600, False, 300),
+                 (PREFILL_CHUNK, 1024, 600, True, 300),
+                 (1, 1024, 700, True, 0)]
+
+
+def check_attention(device, heads=HEADS_64, cases=ATT_CASES, timed=ATT_TIMED,
+                    seed=0):
+    """The attention kernel at ``heads`` (Hq, Hkv, D) on a plain cache and
+    on an int8 cache written by the port's ``kv_cache_write``. Returns the
+    headline call's numbers (S=240, kv_len 512, M=1024) for each, with
+    every timed call's under ``timings``."""
     import torch
     import torch.nn.functional as F
     from lookaheaddecoding_tpu_torch.models.llama import kv_cache_write
     from lookaheaddecoding_tpu_torch.ops.lookahead_attention import (
         _block_mask, lookahead_attention, lookahead_attention_ref)
 
-    rng = np.random.default_rng(0)
-    hq, hkv, d = 32, 4, 64
+    rng = np.random.default_rng(seed)
+    hq, hkv, d = heads
     geo = dict(level=LEVEL, window=WINDOW, guess_size=LEVEL - 1)
     s_comp = S_COMP
-    cases = ([(s_comp, 1024, kv, False, 0) for kv in (0, 37, 512, 784)]
-             + [(s_comp, 2048, kv, False, 0) for kv in (1000, 1808)]
-             + [(PREFILL_CHUNK, 1024, kv, True, 0) for kv in (0, 640)]
-             + [(s_comp, 1024, 600, False, 300),
-                (PREFILL_CHUNK, 1024, 600, True, 300),
-                (1, 1024, 700, True, 0)])          # the AR baseline's call
-    timed = {(s_comp, 1024, 512, False, 0), (s_comp, 2048, 1808, False, 0),
-             (PREFILL_CHUNK, 1024, 640, True, 0), (1, 1024, 700, True, 0)}
     headline = {}
     for int8_kv in (False, True):
         # bf16: the worst error, every timed call, the headline call's keys
@@ -252,7 +292,7 @@ def check_attention(device):
                 torch.cuda.synchronize()
                 err = (got.float() - want.float()).abs().max().item()
                 ok = torch.allclose(got.float(), want.float(), **TOL[dname])
-                line = (f"  {'int8-KV ' if int8_kv else ''}{dname:8s} "
+                line = (f"  D={d} {'int8-KV ' if int8_kv else ''}{dname:8s} "
                         f"S={s:3d} M={m} kv_len={kv:4d} "
                         f"{'causal' if causal else 'composite'} sw={sw}: "
                         f"max_abs_err={err:.3e} {'ok' if ok else 'FAIL'}")
@@ -305,7 +345,7 @@ def check_attention(device):
                              f"bound {bound:.5f} ms ({by})")
                     if dtype == torch.bfloat16:
                         nums = dict(s=s, m=m, kv_len=kv, causal=causal,
-                                    ms=ms, device_ms=dev_ms,
+                                    sliding_window=sw, ms=ms, device_ms=dev_ms,
                                     plain_ms=plain_ms, bound_ms=bound,
                                     bound_by=by, library_ms=lib_ms,
                                     library_device_ms=lib_dev)
@@ -320,16 +360,18 @@ def check_attention(device):
     return dict(headline[False], int8_kv=headline[True])
 
 
-def check_paged_attention(device):
-    """The paged attention call against its plain version and, lane by
-    lane and bit for bit, against the flat call on the contiguous cache:
-    bfloat16 and float32, a plain and an int8 pool, composite and causal,
-    with and without a sliding window, four lanes whose ``kv_len`` are 0,
-    one past a page boundary, 512 and the capacity less S, shuffled
-    tables, pages of 128 and of 48 slots. Then its time at the headline
-    shape (four lanes at kv_len 512) beside the plain version's, the bound
-    and one library call on the gathered cache. Returns the headline
-    numbers, plain pool and int8 pool."""
+def check_paged_attention(device, heads=HEADS_64, pages=((128, 8), (48, 22)),
+                          seed=2):
+    """The paged attention call at ``heads`` (Hq, Hkv, D) against its plain
+    version and, lane by lane and bit for bit, against the flat call on
+    the contiguous cache: bfloat16 and float32, a plain and an int8 pool,
+    composite and causal, with and without a sliding window, four lanes
+    whose ``kv_len`` are 0, one past a page boundary, 512 and the capacity
+    less S, shuffled tables, ``pages`` of (slots, pages a lane). Then its
+    time at the headline shape (four lanes at kv_len 512, pages of 128)
+    beside the plain version's, the bound and one library call on the
+    gathered cache. Returns the headline numbers, plain pool and int8
+    pool."""
     import torch
     import torch.nn.functional as F
     from lookaheaddecoding_tpu_torch.core.paged import (paged_gather,
@@ -338,8 +380,8 @@ def check_paged_attention(device):
         _block_mask, lookahead_attention, paged_lookahead_attention,
         paged_lookahead_attention_ref)
 
-    rng = np.random.default_rng(2)
-    hq, hkv, d, lanes = 32, 4, 64, LANES
+    rng = np.random.default_rng(seed)
+    (hq, hkv, d), lanes = heads, LANES
     geo = dict(level=LEVEL, window=WINDOW, guess_size=LEVEL - 1)
     headline = {}
 
@@ -374,7 +416,7 @@ def check_paged_attention(device):
         return (mk(lanes, s, hq, d), pool(), pool(), tables,
                 torch.tensor(kv_lens, dtype=torch.int32, device=device))
 
-    for page, nb in ((128, 8), (48, 22)):
+    for page, nb in pages:
         mlog = page * nb
         for int8_kv in (False, True):
             for dtype in (torch.bfloat16, torch.float32):
@@ -393,7 +435,7 @@ def check_paged_attention(device):
                         q, k, v, kv_lens, tables, page_size=page, **kw)
                     torch.cuda.synchronize()
                     err = (got.float() - want.float()).abs().max().item()
-                    where = (f"{'int8-KV ' if int8_kv else ''}{dname} "
+                    where = (f"D={d} {'int8-KV ' if int8_kv else ''}{dname} "
                              f"page={page} S={s} "
                              f"{'causal' if causal else 'composite'} sw={sw}")
                     if not torch.allclose(got.float(), want.float(),
@@ -454,10 +496,10 @@ def check_paged_attention(device):
                     for b in range(lanes)]
         bound = sum(t for t, _ in per_lane)
         by = per_lane[0][1]
-        log(f"  {'int8-KV ' if int8_kv else ''}bfloat16 B={lanes} S={S_COMP} "
-            f"kv_len=512 page={PAGE}: kernel {ms:.4f} ms (device alone "
-            f"{dev_ms:.4f}), plain {plain_ms:.4f} ms, sdpa on the gathered "
-            f"cache {lib_ms:.4f} ms (device alone {lib_dev:.4f}; "
+        log(f"  D={d} {'int8-KV ' if int8_kv else ''}bfloat16 B={lanes} "
+            f"S={S_COMP} kv_len=512 page={PAGE}: kernel {ms:.4f} ms (device "
+            f"alone {dev_ms:.4f}), plain {plain_ms:.4f} ms, sdpa on the "
+            f"gathered cache {lib_ms:.4f} ms (device alone {lib_dev:.4f}; "
             f"+ {gather_ms:.4f} ms to gather"
             f"{' and dequantize' if int8_kv else ''}), bound {bound:.5f} ms "
             f"({by})")
@@ -517,23 +559,45 @@ def check_int4_micro(device):
             f"alone == the same row among T: ok")
         del w, wq
 
-    # the micro-benchmark's timing loop is the path that launches them
+    # the micro-benchmark's timing loop (bfloat16) is the path that launches
+    # them: the K-outer variant through its tensor-core design alone
     im.counts.update(dict.fromkeys(im.counts, 0))
     results = micro.run(device, rows=rows, log=lambda line: log("  " + line),
                         check=False)
-    launches = dict(im.counts)
-    assert launches["shift"] > 0 and launches["kouter"] > 0, launches
-    assert launches["plain"] == 0, launches
+    launches = dict(im.counts, kouter=im.counts["kouter_mma"])
+    assert launches["shift"] > 0 and launches["kouter_mma"] > 0, launches
+    assert launches["kouter_fma"] == 0 and launches["plain"] == 0, launches
     head = next(r for r in results if (r["k"], r["n"], r["t"])
                 == (2048, 5632, 8))["us"]
     bound, by = matmul_bound(8, 2048, 5632, 4, "bfloat16")
+
+    # the same calls on the device alone (CUDA graphs), the weight cold
+    k, n = 2048, 5632
+    copies = 1 + (64 << 20) // (k * n // 2)
+    ws = [torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32)
+                           * 0.02).to(device) for _ in range(copies)]
+    w4 = [quant.quantize_weight(w, 4) for w in ws]
+    wb = [w.bfloat16() for w in ws]
+    del ws
+    x = torch.from_numpy(rng.standard_normal((8, k), dtype=np.float32)).to(
+        device, torch.bfloat16)
+    k2 = quant.logical_packed_rows(w4[0])
+    fns = {"shift": im.int4_matmul_shift, "kouter": im.int4_matmul_kouter}
+    dev = {name: graph_ms(lambda i, fn=fn: fn(
+        x, w4[i % copies]["q4"], w4[i % copies]["scale"], logical_k2=k2))
+        for name, fn in fns.items()}
+    lib_dev = graph_ms(lambda i: torch.matmul(x, wb[i % copies]))
+    log(f"  T=8 K={k} N={n}, device alone: int4_shift {dev['shift']:.4f} ms, "
+        f"int4_kouter {dev['kouter']:.4f} ms, torch.matmul on bf16 weights "
+        f"{lib_dev:.4f} ms, bound {bound:.5f} ms ({by})")
+    del w4, wb
     out = {}
     for name in ("shift", "kouter"):
         out[name] = dict(
             max_abs_err=worst[name], ms=head[f"int4_{name}"] / 1e3,
-            plain_ms=head[f"{name}_plain"] / 1e3, bound_ms=bound,
-            bound_by=by, library_ms=head["bf16"] / 1e3,
-            launches=launches[name])
+            device_ms=dev[name], plain_ms=head[f"{name}_plain"] / 1e3,
+            bound_ms=bound, bound_by=by, library_ms=head["bf16"] / 1e3,
+            library_device_ms=lib_dev, launches=launches[name])
     return out
 
 
@@ -735,16 +799,17 @@ def make_prompt(nxt, start=0, n=PROMPT_LEN):
     return prompt
 
 
-def build_headline(device):
-    """The headline model and prompt: synthetic TinyLlama-1.1B weights in
-    bfloat16 and the transition cycle they follow."""
+def build_headline(device, arch=ARCH):
+    """A model and prompt: synthetic weights at ``arch`` (the headline's
+    TinyLlama-1.1B widths by default) in bfloat16 and the transition cycle
+    they follow."""
     import torch
     import lookaheaddecoding_tpu_torch as lt
 
     t0 = time.perf_counter()
-    mcfg = lt.LlamaConfig(**ARCH, dtype=torch.bfloat16)
+    mcfg = lt.LlamaConfig(**arch, dtype=torch.bfloat16)
     # layer weights small enough that the residual stream stays dominated
-    # by the token embedding, so the transition cycle survives 22 layers
+    # by the token embedding, so the transition cycle survives every layer
     params = lt.init_params(mcfg, seed=0, scale=0.002, device=device)
     embed, head, nxt = transition_embed_head(0, mcfg.hidden_size,
                                              mcfg.vocab_size)
@@ -831,6 +896,7 @@ def main_path(name, eng, prompt, nxt, card, matmul_kernels, n_new=N_NEW):
         f"weights resident)")
     assert r.num_generated == n_new and rb.num_generated == n_new
     assert exact, f"{name}: lookahead output != AR output"
+    assert r.compression_ratio > 1, f"{name}: no guess was ever accepted"
     assert fidelity > 0.95, f"{name}: synthetic model degenerated ({fidelity})"
     return (launches, r.tokens,
             {"lookahead": r.wall_time_s / r.steps,
@@ -1022,6 +1088,68 @@ def paged_path(name, mcfg, params, flat, nxt, card, kv_quant, full):
     return got, dict(step_s=wall / steps_run, engine=eng)
 
 
+def paged_shared_prefix(name, mcfg, params, flat, nxt, card, n_new):
+    """A short run of ``PagedServingEngine``: four requests of ``n_new``
+    tokens, two of them on one shared prefix (a partial tail page). Each
+    must equal ``flat.generate`` on the same prompt and every page must be
+    free at the end. Returns the launches of the paged run."""
+    import torch
+    import lookaheaddecoding_tpu_torch as lt
+    from lookaheaddecoding_tpu_torch.ops import lookahead_attention as la
+    from lookaheaddecoding_tpu_torch.ops import quant_matmul as qm
+
+    eng = lt.PagedServingEngine(
+        mcfg, params,
+        lt.LookaheadConfig(level=LEVEL, window_size=WINDOW,
+                           guess_set_size=GUESS, pool_from_prompt=True),
+        lt.EngineConfig(max_seq_len=MAX_SEQ, prefill_chunk=PREFILL_CHUNK),
+        num_lanes=LANES, page_size=PAGE, n_pages=N_PAGES,
+        steps_per_sync=STEPS_PER_SYNC)
+    assert eng.lcfg.attention_impl == "kernel", eng.lcfg.attention_impl
+    eng.generate(make_prompt(nxt, start=1, n=48), WARM_NEW)   # warm-up
+    torch.cuda.synchronize()
+    for tally in (la.counts, la.paged_counts, qm.counts):
+        tally.update(dict.fromkeys(tally, 0))
+    eng.steps_run = 0
+    t0 = time.perf_counter()
+    px = eng.precompute_prefix(make_prompt(nxt, start=3, n=200))
+    shared = list(px.tokens)
+    prompts = {"shared0": shared + make_prompt(nxt, start=shared[-1], n=8),
+               "shared1": shared + make_prompt(nxt, start=shared[-1], n=24),
+               "plain0": make_prompt(nxt, start=9, n=100),
+               "plain1": make_prompt(nxt, start=11, n=64)}
+    results = {r.request_id: r for r in eng.run([
+        lt.Request(prompt=p, max_new_tokens=n_new, request_id=rid,
+                   prefix=px if rid.startswith("shared") else None)
+        for rid, p in prompts.items()])}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = dict(paged_attention=la.paged_counts["mma"],
+               flat_attention=la.counts["mma"],
+               attention_fma=la.counts["fma"] + la.paged_counts["fma"],
+               plain=(qm.counts["plain"] + la.counts["plain"]
+                      + la.paged_counts["plain"]))
+    assert got["paged_attention"] > 0 and got["attention_fma"] == 0, got
+    assert got["plain"] == 0, got
+    assert sorted(results) == sorted(prompts), sorted(results)
+    assert all(r.error is None and r.num_generated == n_new
+               for r in results.values())
+    steps_run = eng.steps_run
+    eng.release_prefix(px)
+    assert eng.pages_free == N_PAGES, eng.memory_stats()
+    for rid, r in results.items():
+        single = flat.generate(prompts[rid], n_new)
+        assert np.array_equal(r.tokens, single.tokens), \
+            f"{name}: request {rid} differs from the flat generate"
+    tokens = sum(r.num_generated for r in results.values())
+    log(f"  [{card}] {name}: {len(results)} requests (two on one shared "
+        f"prefix of {len(shared)} tokens), {tokens} tokens in {steps_run} "
+        f"batched steps, {tokens / wall:.1f} tok/s summed over {LANES} lanes "
+        f"(prefix prefill and admissions included); every request == flat "
+        f"generate; every page free; launches {got}")
+    return got
+
+
 def profile_paged(name, eng, nxt, card, step_s):
     """The batched paged step under torch.profiler: four lanes admitted and
     warmed by one untimed ``step``, then three profiled ones (12 decode
@@ -1087,6 +1215,14 @@ def main() -> int:
     log(f"[device] {kind}; count {torch.cuda.device_count()}; "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}; {card}")
 
+    t_lap = [time.perf_counter()]
+
+    def lap(phase):
+        """The seconds a phase took (since the previous lap)."""
+        now = time.perf_counter()
+        log(f"[seconds] {phase}: {now - t_lap[0]:.1f}")
+        t_lap[0] = now
+
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(_build.SIGNATURES)) as ex:
         list(ex.map(_build.build, _build.SIGNATURES))
@@ -1095,6 +1231,7 @@ def main() -> int:
         info = _build.build_info[name]
         log(f"[build] {name}: {info['seconds']:.1f} s\n{info['log'].strip()}")
     log(f"[build] all kernels in {time.perf_counter() - t0:.1f} s")
+    lap("build")
 
     lay = build_layout(lt.LookaheadConfig(level=LEVEL, window_size=WINDOW,
                                           guess_set_size=GUESS))
@@ -1102,15 +1239,23 @@ def main() -> int:
             - lay.guess_start) == (S_COMP, LOGITS_ROWS), lay
     log(f"[kernels] lookahead_attention vs plain version ({card})")
     att = check_attention(device)
+    log(f"[kernels] lookahead_attention at head_dim 256, Gemma-2B's heads "
+        f"(8 query, 1 KV), vs plain version ({card})")
+    att256 = check_attention(device, HEADS_256, ATT_CASES_256,
+                             set(ATT_CASES_256), seed=4)
     log(f"[kernels] quantized matmuls vs plain versions ({card})")
     mm = check_matmuls(device)
     log(f"[kernels] paged lookahead_attention vs plain version and vs the "
         f"flat kernel ({card})")
     patt = check_paged_attention(device)
+    log(f"[kernels] paged lookahead_attention at head_dim 256 vs plain "
+        f"version and vs the flat kernel ({card})")
+    patt256 = check_paged_attention(device, HEADS_256, ((PAGE, 8),), seed=5)
     log(f"[kernels] int4 micro-benchmark variants vs plain versions and the "
         f"int4 kernel, then the micro-benchmark ({card}; us a call, "
         f"bfloat16, weight cold in L2)")
     micro = check_int4_micro(device)
+    lap("kernels")
 
     log(f"[main path] ({card}); one timed run a path after a warm-up pass")
     mcfg, params, prompt, nxt = build_headline(device)
@@ -1142,6 +1287,7 @@ def main() -> int:
     # the pipelined kernel gives the int4 kernel's bits, hence its tokens
     assert np.array_equal(tokens["int4_weights"],
                           tokens["int4_weights_pipelined"])
+    lap("main path")
 
     log(f"[profile] ({card})")
     profile_path("bf16", configs["bf16"][0], prompt, card, step_s["bf16"],
@@ -1149,6 +1295,7 @@ def main() -> int:
     for name in ("int8_weights", "int4_weights"):
         profile_path(name, configs[name][0], prompt, card, step_s[name],
                      ("lookahead",))
+    lap("profile")
 
     log(f"[paged serving] ({card}); {LANES} lanes, pages of {PAGE}, "
         f"{N_PAGES} data pages, {STEPS_PER_SYNC} steps between host reads")
@@ -1163,6 +1310,28 @@ def main() -> int:
     log(f"[profile, paged] ({card})")
     for name, st in paged_stats.items():
         profile_paged(name, st["engine"], nxt, card, st["step_s"])
+    lap("paged serving")
+
+    # head_dim 256: its own model, engines and counts (the entries below
+    # keep the headline's launches apart from these)
+    log(f"[main path, head_dim 256] ({card}); bf16_head_dim_256: the LLaMA "
+        f"layer at Gemma-2B's widths (hidden 2048, intermediate 16384, 18 "
+        f"layers, 8 query heads, 1 KV head, head_dim 256), reduced: vocab "
+        f"32000 (Gemma's 256000), SwiGLU for GeGLU, no norm offset or "
+        f"embedding scale; L7/W20/G20, M={MAX_SEQ}, {PROMPT_LEN}-token "
+        f"prompt, {N_NEW_256} new tokens")
+    mcfg256, params256, prompt256, nxt256 = build_headline(device, ARCH_256)
+    eng256 = build_engine(mcfg256, params256)
+    launches256, _, step_s256 = main_path(
+        "bf16_head_dim_256", eng256, prompt256, nxt256, card, (), N_NEW_256)
+    profile_path("bf16_head_dim_256", eng256, prompt256, card, step_s256,
+                 ("lookahead", "ar_baseline"))
+    log(f"[paged serving, head_dim 256] ({card}); {LANES} lanes, pages of "
+        f"{PAGE}, {N_PAGES} data pages, {PAGED_NEW_256} new tokens a request")
+    paged256 = paged_shared_prefix("paged_bf16_head_dim_256", mcfg256,
+                                   params256, eng256, nxt256, card,
+                                   PAGED_NEW_256)
+    lap("head_dim 256 paths")
 
     def on_paged_path(int8_kv):
         by_path = {name: got["paged_attention"]
@@ -1172,9 +1341,9 @@ def main() -> int:
         assert total > 0, "the paged path never launched its kernel"
         return dict(launches=total, launches_by_path=by_path)
 
-    def on_main_path(kernel):
+    def on_main_path(kernel, runs=launches):
         by_path = {name: {path: got[kernel] for path, got in paths.items()}
-                   for name, paths in launches.items()}
+                   for name, paths in runs.items()}
         total = sum(n for paths in by_path.values() for n in paths.values())
         assert total > 0, f"the main path never launched {kernel}"
         return dict(launches=total, launches_by_path=by_path)
@@ -1205,6 +1374,17 @@ def main() -> int:
              replaces=TPU_PAGED_KERNEL,
              main_path="paged_int8_weights_int8_kv",
              **on_paged_path(True), **patt[True]),
+        dict(name="lookahead_attention_head_dim_256", route="cuda",
+             source=CSRC + "lookahead_attention.cu", replaces=TPU_KERNELS,
+             main_path="bf16_head_dim_256 generate and generate_baseline",
+             **on_main_path("attention_mma",
+                            {"bf16_head_dim_256": launches256}),
+             **att256),
+        dict(name="paged_lookahead_attention_head_dim_256", route="cuda",
+             source=CSRC + "lookahead_attention.cu",
+             replaces=TPU_PAGED_KERNEL, main_path="paged_bf16_head_dim_256",
+             launches=paged256["paged_attention"], **patt256[False],
+             int8_kv=patt256[True]),
         dict(name="int4_matmul_shift", route="cuda",
              source=CSRC + "int4_micro.cu", replaces="scripts/int4_micro.py:53",
              main_path="scripts/torch_int4_micro.py (micro-benchmark only)",

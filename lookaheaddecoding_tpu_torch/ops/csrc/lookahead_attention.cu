@@ -50,7 +50,10 @@
 // committed, 2,100 of the sparse within-composite mask), so it does
 // 4*64*32*124,980 ~= 1.02 GFLOP (~1.04 us): compute-bound at ~1.04 us a
 // call, 22 calls a decode step. The paged call of four lanes does four
-// times that work on four times the bytes.
+// times that work on four times the bytes. Head dims 64, 128 and 256 are
+// instantiated. At D=256 with Gemma-2B's heads (Hq=8, Hkv=1) the same call
+// moves the same bytes and does the same FLOPs (Hq*D is 2048 in both), but
+// its 1,920 GQA rows are only 30 row tiles.
 //
 // What the design does about that bound. Both kernels below never read a
 // KV tile past the last live column of their rows (nor below the sliding
@@ -63,7 +66,8 @@
 //     double-buffered by cp.async (an int8 tile converted exactly to bf16
 //     once in shared memory), two partial softmax states a row (even and
 //     odd key tiles) so that a call of few row tiles can run them in two
-//     key groups of warps. See the kernel for the details.
+//     key groups of warps; at D=256 key tiles of 32 and always two key
+//     groups, so that a thread holds one state. See the kernel.
 //   - float32 q (lookahead_attention_kernel), the parity dtype: per-thread
 //     fp32 FMAs from shared memory (4 rows x 8 columns a thread), which on
 //     the tensor cores would go through TF32.
@@ -351,21 +355,26 @@ constexpr int GNT = 32 * MW;   // threads of a key group
 // four banks; int8 rows as bytes, with the tile's k and v scales) and, in
 // int8-KV mode, the stage's K and V converted to bf16; then the composite
 // mask words. After the key loop the stages hold group 1's partial state.
+// A key tile is KT keys: 64 up to D = 128, 32 at D = 256, where a 64-key
+// group of two stages would take 135 KB and two groups would not fit.
 template <typename KV, int D, int G>
 struct MmaLayout {
   static constexpr bool QUANT = std::is_same<KV, signed char>::value;
+  static constexpr int KT = D > 128 ? 32 : 64;        // keys a tile
   static constexpr int RS = D + 8;                    // bf16 tile row stride (elements)
   static constexpr int Q_BYTES = MBR * RS * 2;
-  static constexpr int TILE_BYTES = BK * RS * 2;      // one bf16 K or V tile
+  static constexpr int TILE_BYTES = KT * RS * 2;      // one bf16 K or V tile
   static constexpr int RAW_ROW = QUANT ? D : RS * 2;  // row stride of a tile as it arrives (bytes)
-  static constexpr int RAW_BYTES = BK * RAW_ROW;
-  static constexpr int STAGE_BYTES = 2 * RAW_BYTES + (QUANT ? 2 * BK * 4 : 0);
+  static constexpr int RAW_BYTES = KT * RAW_ROW;
+  static constexpr int STAGE_BYTES = 2 * RAW_BYTES + (QUANT ? 2 * KT * 4 : 0);
   static constexpr int CONV_BYTES = QUANT ? 2 * TILE_BYTES : 0;
   static constexpr int GROUP_BYTES = 2 * STAGE_BYTES + CONV_BYTES;
   static constexpr int FIXED_BYTES = Q_BYTES + G * GROUP_BYTES;
   static constexpr int PART_FLOATS = 4 + D / 2;       // a thread's m, l (two rows) and O
   static_assert(RAW_BYTES % 16 == 0 && STAGE_BYTES % 16 == 0, "16-byte aligned tiles");
   static_assert(G == 1 || PART_FLOATS * GNT * 4 <= G * GROUP_BYTES, "the partials fit");
+  static_assert(D <= 128 || G == 2, "at D = 256 a thread holds one partial state");
+  static_assert(FIXED_BYTES <= 227 * 1024 - 4096, "the tiles and the mask words fit");
 };
 
 __device__ __forceinline__ void group_sync(int kg) {
@@ -386,7 +395,11 @@ __device__ __forceinline__ void group_sync(int kg) {
 // more blocks than SMs, as the paged call of four lanes) one group walks
 // every tile and holds both states. The two give the same bits: the same
 // operations in the same order on each state (the arithmetic is written
-// with explicit roundings, so no contraction differs between them).
+// with explicit roundings, so no contraction differs between them). At
+// D = 256 a state is 128 floats of O a thread, so a thread holds one: the
+// block always has two key groups (G = 2), over key tiles of 32 (MmaLayout),
+// whatever the grid; the even and odd states are then those of 32-key
+// tiles, and D = 256 has one launch, hence one set of bits.
 //
 // Per tile: S = Q K^T on the tensor cores, the mask and the online softmax
 // on the accumulators (row max and sum across the lane quad by two xor
@@ -405,9 +418,10 @@ attention_mma_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict__
   constexpr bool QUANT = L::QUANT;
   constexpr int NT_ = GNT * G;  // threads a block
   constexpr int NS = 3 - G;     // partial states a thread holds
+  constexpr int KT = L::KT;     // keys a tile
   constexpr int KD = D / 16;    // k16 steps of Q K^T
   constexpr int ND = D / 8;     // n8 tiles of the output
-  constexpr int NK = BK / 8;    // n8 tiles of a key tile
+  constexpr int NK = KT / 8;    // n8 tiles of a key tile
   extern __shared__ __align__(16) unsigned char mma_smem[];
   __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(mma_smem);
   unsigned* spec = reinterpret_cast<unsigned*>(mma_smem + L::FIXED_BYTES);
@@ -433,8 +447,8 @@ attention_mma_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict__
   const int col_end = min(kv_len + s_hi + 1, g.m);
   int col_begin = 0;
   if (g.sliding_window) col_begin = max(kv_len + (g.causal ? s_lo : 0) - g.sliding_window + 1, 0);
-  const int tile_begin = col_begin / BK;
-  const int tile_end = (col_end + BK - 1) / BK;
+  const int tile_begin = col_begin / KT;
+  const int tile_end = (col_end + KT - 1) / KT;
 
   // The Q tile, rows past n_rows zero.
   constexpr int QCH = D / 8;  // 16-byte pieces a row
@@ -453,8 +467,8 @@ attention_mma_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict__
   // entries not read.
   auto load_tile = [&](int tile, unsigned char* st) {
     constexpr int CPR = D * (int)sizeof(KV) / 16;  // 16-byte pieces a key row
-    const int c0 = tile * BK;
-    for (int i = gtid; i < BK * CPR; i += GNT) {
+    const int c0 = tile * KT;
+    for (int i = gtid; i < KT * CPR; i += GNT) {
       const int r = i / CPR, ch = i % CPR, c = c0 + r;
       const int slot = c >= col_end ? -1
                        : table     ? table[c / g.page_size] * g.page_size + c % g.page_size
@@ -466,14 +480,14 @@ attention_mma_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict__
     }
     if constexpr (QUANT) {
       float* sc = reinterpret_cast<float*>(st + 2 * L::RAW_BYTES);
-      for (int r = gtid; r < BK; r += GNT) {
+      for (int r = gtid; r < KT; r += GNT) {
         const int c = c0 + r;
         const int slot = c >= col_end ? -1
                          : table     ? table[c / g.page_size] * g.page_size + c % g.page_size
                                      : c;
         const size_t at = (size_t)head_kv * g.pool_slots + max(slot, 0);
         cp_async4_zfill(sc + r, k_scale + at, slot >= 0 ? 4 : 0);
-        cp_async4_zfill(sc + BK + r, v_scale + at, slot >= 0 ? 4 : 0);
+        cp_async4_zfill(sc + KT + r, v_scale + at, slot >= 0 ? 4 : 0);
       }
     }
   };
@@ -554,7 +568,7 @@ attention_mma_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict__
     // A tile every row of the warp sees whole needs no mask.
     const bool whole =
         warp_full && g.sliding_window == 0 &&
-        (g.causal ? c0 + BK - 1 <= kv_len + wr0 / g.rep && c0 + BK <= g.m : c0 + BK <= kv_len);
+        (g.causal ? c0 + KT - 1 <= kv_len + wr0 / g.rep && c0 + KT <= g.m : c0 + KT <= kv_len);
     // accumulator (j, 2 r + e) is row gq + 8 r, key column c0 + 8 j + 2 qq + e
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -596,7 +610,7 @@ attention_mma_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict__
         for (int e = 0; e < 2; ++e) {
           const float p = exp2f(__fsub_rn(sc[j][2 * r + e], m_use));
           psum = __fadd_rn(psum, p);
-          sc[j][2 * r + e] = QUANT ? __fmul_rn(p, scales[BK + 8 * j + 2 * qq + e]) : p;
+          sc[j][2 * r + e] = QUANT ? __fmul_rn(p, scales[KT + 8 * j + 2 * qq + e]) : p;
         }
       }
       psum = __fadd_rn(psum, __shfl_xor_sync(0xffffffffu, psum, 1));
@@ -610,9 +624,9 @@ attention_mma_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict__
       }
     }
     // O += P V: P rounded to bf16 (after v_scale in int8-KV mode) as the A
-    // fragments of the four k16 key steps.
+    // fragments of the KT / 16 k16 key steps.
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
+    for (int kk = 0; kk < KT / 16; ++kk) {
       const uint32_t pa[4] = {pack_bf16x2(sc[2 * kk][0], sc[2 * kk][1]),
                               pack_bf16x2(sc[2 * kk][2], sc[2 * kk][3]),
                               pack_bf16x2(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
@@ -638,8 +652,8 @@ attention_mma_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict__
     if constexpr (QUANT) {
       // the stage's int8 K and V as exact bf16, 16 bytes a thread a turn
       constexpr int PPR = D / 16;
-      for (int i = gtid; i < 2 * BK * PPR; i += GNT) {
-        const int which = i / (BK * PPR), r = i / PPR % BK, ch = i % PPR;
+      for (int i = gtid; i < 2 * KT * PPR; i += GNT) {
+        const int which = i / (KT * PPR), r = i / PPR % KT, ch = i % PPR;
         const uint4 w = *reinterpret_cast<const uint4*>(st + which * L::RAW_BYTES + r * D + ch * 16);
         const uint32_t words[4] = {w.x, w.y, w.z, w.w};
         uint32_t pairs[8];
@@ -648,23 +662,23 @@ attention_mma_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict__
           pairs[2 * e] = int8_pair(__byte_perm(words[e], 0, 0x0100));
           pairs[2 * e + 1] = int8_pair(__byte_perm(words[e], 0, 0x0302));
         }
-        uint4* dst = reinterpret_cast<uint4*>(conv + which * BK * L::RS + r * L::RS + ch * 16);
+        uint4* dst = reinterpret_cast<uint4*>(conv + which * KT * L::RS + r * L::RS + ch * 16);
         dst[0] = make_uint4(pairs[0], pairs[1], pairs[2], pairs[3]);
         dst[1] = make_uint4(pairs[4], pairs[5], pairs[6], pairs[7]);
       }
       group_sync(kg);
       sk = conv;
-      sv = conv + BK * L::RS;
+      sv = conv + KT * L::RS;
     } else {
       sk = reinterpret_cast<const __nv_bfloat16*>(st);
       sv = reinterpret_cast<const __nv_bfloat16*>(st + L::RAW_BYTES);
     }
     if (warp_live) {
       if constexpr (G == 1) {
-        if (tile & 1) attend(tile * BK, sk, sv, scales, o[NS - 1], m_run[NS - 1], l_run[NS - 1]);
-        else attend(tile * BK, sk, sv, scales, o[0], m_run[0], l_run[0]);
+        if (tile & 1) attend(tile * KT, sk, sv, scales, o[NS - 1], m_run[NS - 1], l_run[NS - 1]);
+        else attend(tile * KT, sk, sv, scales, o[0], m_run[0], l_run[0]);
       } else {
-        attend(tile * BK, sk, sv, scales, o[0], m_run[0], l_run[0]);
+        attend(tile * KT, sk, sv, scales, o[0], m_run[0], l_run[0]);
       }
     }
     group_sync(kg);  // every warp of the group is done with this stage before it is refilled
@@ -769,17 +783,21 @@ cudaError_t launch_mma_g(const Pointers& a, int lanes, int hkv, const Geometry& 
 
 // Two key groups a block where the grid leaves SMs without a block (the
 // flat calls), one where it does not (the paged call of several lanes):
-// the same bits either way.
+// the same bits either way. D = 256: always two (one state a thread).
 template <typename KV, int D>
 cudaError_t launch_mma(const Pointers& a, int lanes, int hkv, const Geometry& g,
                        cudaStream_t stream) {
   const int spec_words = g.causal ? 0 : (g.s_len + 31) / 32;
-  int sms = 0;
-  const cudaError_t e = sm_count(&sms);
-  if (e != cudaSuccess) return e;
-  const long long blocks = (long long)((g.s_len * g.rep + MBR - 1) / MBR) * hkv * lanes;
-  if (blocks <= sms) return launch_mma_g<KV, D, 2>(a, lanes, hkv, g, spec_words, stream);
-  return launch_mma_g<KV, D, 1>(a, lanes, hkv, g, spec_words, stream);
+  if constexpr (D > 128) {
+    return launch_mma_g<KV, D, 2>(a, lanes, hkv, g, spec_words, stream);
+  } else {
+    int sms = 0;
+    const cudaError_t e = sm_count(&sms);
+    if (e != cudaSuccess) return e;
+    const long long blocks = (long long)((g.s_len * g.rep + MBR - 1) / MBR) * hkv * lanes;
+    if (blocks <= sms) return launch_mma_g<KV, D, 2>(a, lanes, hkv, g, spec_words, stream);
+    return launch_mma_g<KV, D, 1>(a, lanes, hkv, g, spec_words, stream);
+  }
 }
 
 // float32 q: the FMA kernel; bfloat16 q: the mma kernel.
@@ -795,6 +813,7 @@ cudaError_t launch_d(int d, const Pointers& a, int lanes, int hkv, const Geometr
   switch (d) {
     case 64: return launch<T, KV, 64>(a, lanes, hkv, g, stream);
     case 128: return launch<T, KV, 128>(a, lanes, hkv, g, stream);
+    case 256: return launch<T, KV, 256>(a, lanes, hkv, g, stream);
     default: return cudaErrorInvalidValue;
   }
 }

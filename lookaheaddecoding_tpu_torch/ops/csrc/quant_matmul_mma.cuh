@@ -526,17 +526,14 @@ int4_mma_pipe_kernel(const __nv_bfloat16* __restrict__ x, const signed char* __r
   finish<G, KS>(acc, smem_bytes, out, scale, t0, n0, wm, wn, lane, p);
 }
 
-template <typename G, bool PIPE, int DEC, int KS>
-cudaError_t launch_mma_tile(const void* x, const void* w, const void* scale, void* out,
-                            const Problem& p, bool x_vec, cudaStream_t stream) {
-  constexpr int ring = G::STAGES * G::STAGE_BYTES + (PIPE ? 4 * G::PLANE_ELEMS * 2 : 0);
-  constexpr int smem = ring > G::RED_BYTES ? ring : G::RED_BYTES;
-  static bool configured = false;
-  auto kernel = [] {
-    if constexpr (PIPE) return int4_mma_pipe_kernel<G, KS>;
-    else return quant_mma_kernel<G, DEC, KS>;
-  }();
-  cudaError_t e = configure(kernel, smem, &configured);
+// Launch `kernel` on G's tiles of p's output with KS blocks along z, one
+// cluster when KS > 1, after setting its dynamic shared memory (`smem`
+// bytes) once; args follow the kernel's x, w, scale, out and p.
+template <typename G, int KS, typename Kernel, typename... Args>
+cudaError_t launch_tiles(Kernel kernel, int smem, bool* configured, const void* x, const void* w,
+                         const void* scale, void* out, const Problem& p, cudaStream_t stream,
+                         Args... args) {
+  cudaError_t e = configure(kernel, smem, configured);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((p.n + G::BN - 1) / G::BN, (p.t + G::BM - 1) / G::BM, KS);
@@ -552,9 +549,22 @@ cudaError_t launch_mma_tile(const void* x, const void* w, const void* scale, voi
   cfg.numAttrs = KS > 1 ? 1 : 0;
   e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const __nv_bfloat16*>(x),
                          static_cast<const signed char*>(w), static_cast<const float*>(scale),
-                         static_cast<__nv_bfloat16*>(out), p, (int)x_vec);
+                         static_cast<__nv_bfloat16*>(out), p, args...);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+template <typename G, bool PIPE, int DEC, int KS>
+cudaError_t launch_mma_tile(const void* x, const void* w, const void* scale, void* out,
+                            const Problem& p, bool x_vec, cudaStream_t stream) {
+  constexpr int ring = G::STAGES * G::STAGE_BYTES + (PIPE ? 4 * G::PLANE_ELEMS * 2 : 0);
+  constexpr int smem = ring > G::RED_BYTES ? ring : G::RED_BYTES;
+  static bool configured = false;
+  auto kernel = [] {
+    if constexpr (PIPE) return int4_mma_pipe_kernel<G, KS>;
+    else return quant_mma_kernel<G, DEC, KS>;
+  }();
+  return launch_tiles<G, KS>(kernel, smem, &configured, x, w, scale, out, p, stream, (int)x_vec);
 }
 
 // Blocks a cluster for a weight of k_lim rows of np planes and N columns:

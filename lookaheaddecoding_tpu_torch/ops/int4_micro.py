@@ -9,14 +9,19 @@ kernels in ``csrc/int4_micro.cu`` and their plain PyTorch versions.
                                        to ``int4_matmul``
     int4_matmul_kouter(x, q4, scale)   the same product split over K: one
                                        partial sum a slab of KOUTER_SLAB
-                                       packed rows, the slabs added in slab
-                                       order, then the scale
+                                       packed rows, the slabs added in an
+                                       order fixed by K alone, then the
+                                       scale (bfloat16: one tensor-core
+                                       launch, no workspace; float32: FMA
+                                       partials in a workspace, then a
+                                       second launch that adds them)
 
 Inputs and result are those of ``ops/quant_matmul.py:int4_matmul``. Neither
 variant is wired into ``qmatmul``: they are measured, not used. On a CUDA
 tensor a wrapper launches its kernel, or raises on an input the kernel does
 not take; on a CPU tensor it runs the plain version. ``counts`` records
-both.
+both: ``shift``, the K-outer designs ``kouter_mma`` (bfloat16) and
+``kouter_fma`` (float32), and ``plain``.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ from .quant_matmul import _DTYPE_CODES, _check_int4
 
 # Launches of each CUDA kernel and calls of the plain versions. Reset with
 # ``counts.update(dict.fromkeys(counts, 0))``.
-counts = {"shift": 0, "kouter": 0, "plain": 0}
+counts = {"shift": 0, "kouter_mma": 0, "kouter_fma": 0, "plain": 0}
 
 # packed rows a K slab of the K-outer variant; a multiple of the kernel's
 # K tiles (64 and 32 rows), and of nothing that depends on T
@@ -58,7 +63,15 @@ def int4_matmul_shift_ref(x: torch.Tensor, q4: torch.Tensor,
 def int4_matmul_kouter_ref(x: torch.Tensor, q4: torch.Tensor,
                            scale: torch.Tensor) -> torch.Tensor:
     """Plain version of the K-outer variant: one float32 partial product a
-    slab of KOUTER_SLAB packed rows, added in slab order, then scaled."""
+    slab of KOUTER_SLAB packed rows, added in slab order, then scaled.
+
+    The kernels take the same slab partials but may group their sum
+    otherwise, by K alone: the bfloat16 design deals the slabs in
+    contiguous runs to the ranks of a cluster (as many as the largest
+    power of two up to the slab count and 8), adds a run's partials in
+    slab order and the ranks' sums in rank order (the strict fold below
+    where every rank holds one slab); the float32 design folds in slab
+    order."""
     k2 = x.shape[-1] // 2
     lo, hi = (plane.float() for plane in unpack_int4_shift(q4[:k2]))
     xf = x.float()
@@ -86,8 +99,10 @@ def _launch(variant: str, x, q4, scale):
     out = torch.empty((t, n), dtype=x.dtype, device=x.device)
     if t == 0:
         return out
+    key = variant if variant == "shift" else (
+        "kouter_mma" if x.dtype == torch.bfloat16 else "kouter_fma")
     part = None
-    if variant == "kouter":
+    if key == "kouter_fma":   # the float32 design's partial sums
         slabs = -(-(k // 2) // KOUTER_SLAB)
         part = torch.empty((slabs, t, n), dtype=torch.float32,
                            device=x.device)
@@ -100,7 +115,7 @@ def _launch(variant: str, x, q4, scale):
     if err != 0:
         raise RuntimeError(f"int4 {variant} kernel launch failed: "
                            f"CUDA error {err}")
-    counts[variant] += 1
+    counts[key] += 1
     return out
 
 

@@ -14,10 +14,11 @@ rotate over more copies of the weight than the 50 MB L2 holds), comparing
   - the int4 kernel with the shift decode (``ops/int4_micro.py``; in
     bfloat16 the same tensor-core kernel with the shift decode policy,
     bit-equal to the int4 kernel, so its time says what the decode costs),
-  - the K-outer int4 variant (a split over K summed in slab order, on the
-    float32-FMA tiles in either type; its time says what a one-row call
-    gains from more blocks, beside the int4 kernel's own split of K over
-    the blocks of a cluster).
+  - the K-outer int4 variant (a split over K in slabs of 256 packed rows,
+    summed in an order fixed by K alone; in bfloat16 on the tensor cores,
+    the slabs dealt to the blocks of a cluster in one launch; its time
+    says what a one-row call gains from a split of K by slabs, beside the
+    int4 kernel's own split of K over the blocks of a cluster).
 
 The first line is ``nvidia-smi``'s card name and power limit; then one row
 a (shape, T) in microseconds a call, with the least time the card could

@@ -13,7 +13,8 @@ import torch
 
 from lookaheaddecoding_tpu.models.llama import attention_xla
 from lookaheaddecoding_tpu.ops.lookahead_attention import (
-    lookahead_attention as jax_lookahead_attention)
+    lookahead_attention as jax_lookahead_attention,
+    paged_lookahead_attention as jax_paged_attention)
 from lookaheaddecoding_tpu_torch.models.llama import attention_dense
 from lookaheaddecoding_tpu_torch.ops import lookahead_attention as la
 
@@ -124,7 +125,7 @@ def _kernel_inputs(paged, **bad):
 @pytest.mark.parametrize("paged", [False, True], ids=["flat", "paged"])
 @pytest.mark.parametrize("bad,message", [
     (dict(q=(8, 64)), "need q "),
-    (dict(q=(27, 8, 32), k=(2, 128, 32)), "kernel takes head_dim in (64, 128), got 32"),
+    (dict(q=(27, 8, 32), k=(2, 128, 32)), "kernel takes head_dim in (64, 128, 256), got 32"),
     (dict(q=(27, 5, 64)), "head dims 64/64 or heads 5/2 mismatch"),
     (dict(dtype=torch.float16), "kernel takes float32 or bfloat16 q with k/v of the same dtype"),
     (dict(kv_dtype=torch.float64), "kernel takes float32 or bfloat16 q with k/v of the same dtype"),
@@ -171,3 +172,115 @@ def test_kernel_design_follows_q_dtype(dtype, name):
     assert la.design(dtype) == name
     for tally in (la.counts, la.paged_counts):
         assert set(tally) == {"kernel", "mma", "fma", "plain"}
+
+
+# --------------------------------------------------------------------------
+# head_dim 256 (Gemma's): 8 query heads on one KV head, as Gemma-2B
+# --------------------------------------------------------------------------
+
+def int8_rows(x):
+    """x [Hkv, M, D] quantized a row as the int8 cache stores it."""
+    s = np.maximum(np.abs(x).max(axis=-1, keepdims=True) / 127.0,
+                   1e-8).astype(np.float32)
+    return {"q": np.clip(np.round(x / s), -127, 127).astype(np.int8), "s": s}
+
+
+def as_jax(tree):
+    if isinstance(tree, dict):
+        return {n: jnp.asarray(a) for n, a in tree.items()}
+    return jnp.asarray(tree)
+
+
+def as_torch(tree):
+    if isinstance(tree, dict):
+        return {n: torch.from_numpy(a) for n, a in tree.items()}
+    return torch.from_numpy(tree)
+
+
+@pytest.mark.parametrize("m,kv_len,causal,sw,int8_kv", [
+    (256, 37, False, 0, False),      # composite, the whole cache one block
+    (1024, 700, False, 0, False),    # composite, M <= 1024
+    (2048, 1500, False, 0, False),   # composite, M > 1024: online softmax
+    (256, 100, True, 0, False),      # causal prefill
+    (2048, 1200, True, 0, False),
+    (256, 37, False, 0, True),       # int8 KV
+    (2048, 1500, False, 0, True),
+    (256, 120, False, 48, False),    # sliding window, composite and causal
+    (256, 120, True, 48, True),
+], ids=lambda v: str(v))
+def test_head_dim_256_matches_jax_kernel(m, kv_len, causal, sw, int8_kv):
+    """The port's kernel path at head_dim 256 (its plain version on the
+    CPU) against JAX's Pallas kernel in interpret mode: the composite mask
+    at M <= 1024 and M > 1024, causal prefill, an int8 cache and a sliding
+    window. Tolerance TOL."""
+    s = 24 if causal else S_COMPOSITE
+    q, k, v = inputs(m + kv_len + sw, s, 8, 1, m, d=256)
+    if int8_kv:
+        k, v = int8_rows(k), int8_rows(v)
+    kw = dict(GEO, causal=causal, sliding_window=sw)
+    want = jax_lookahead_attention(jnp.asarray(q), as_jax(k), as_jax(v),
+                                   jnp.int32(kv_len), interpret=True, **kw)
+    before = dict(la.counts)
+    got = la.lookahead_attention(torch.from_numpy(q), as_torch(k),
+                                 as_torch(v),
+                                 torch.tensor([kv_len], dtype=torch.int32),
+                                 **kw)
+    assert la.counts == dict(before, plain=before["plain"] + 1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("causal,sw,int8_kv", [
+    (False, 0, False), (True, 0, False), (False, 40, False), (False, 0, True),
+    (True, 40, True)])
+def test_head_dim_256_paged_matches_jax_kernel(causal, sw, int8_kv):
+    """The paged call at head_dim 256: two lanes of different kv_len on
+    shuffled pages of 128 (the JAX kernel's tiling rule), the port's plain
+    version against JAX's paged Pallas kernel in interpret mode. Tolerance
+    TOL."""
+    rng = np.random.RandomState(11 + sw + int8_kv)
+    lanes, page, nb, hkv, d = 2, 128, 3, 1, 256
+    s = 24 if causal else S_COMPOSITE
+    q = rng.randn(lanes, s, 8, d).astype(np.float32)
+    n_pages = lanes * nb + 1
+    tables = rng.permutation(n_pages)[:lanes * nb].reshape(lanes, nb)
+    tables = tables.astype(np.int32)
+    k = rng.randn(hkv, n_pages * page, d).astype(np.float32)
+    v = rng.randn(hkv, n_pages * page, d).astype(np.float32)
+    if int8_kv:
+        k, v = int8_rows(k), int8_rows(v)
+    kv_lens = np.array([37, page * nb - s], np.int32)
+    kw = dict(GEO, page_size=page, causal=causal, sliding_window=sw)
+    want = jax_paged_attention(jnp.asarray(q), as_jax(k), as_jax(v),
+                               jnp.asarray(kv_lens), jnp.asarray(tables),
+                               interpret=True, **kw)
+    before = dict(la.paged_counts)
+    got = la.paged_lookahead_attention(
+        torch.from_numpy(q), as_torch(k), as_torch(v),
+        torch.from_numpy(kv_lens), torch.from_numpy(tables), **kw)
+    assert la.paged_counts == dict(before, plain=before["plain"] + 1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["flat", "paged"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_kernel_input_checks_take_every_kernel_head_dim(monkeypatch, paged,
+                                                       d):
+    """head_dim 64, 128 and 256 pass the kernel's input checks, flat and
+    paged, plain and int8 cache; 32 and 80 still raise with the one
+    message. (CPU tensors stand in for the card's: the current device is
+    made theirs.)"""
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
+    for int8_kv in (False, True):
+        bad = dict(q=(27, 8, d), k=(2, 128, d))
+        if int8_kv:
+            bad["scales"] = torch.ones(2, 128, 1)
+        args, kw = _kernel_inputs(paged, **bad)
+        if paged:
+            args = (args[0].contiguous(),) + args[1:]
+        la._check_kernel_inputs(*args, **kw)
+    for other in (32, 80):
+        args, kw = _kernel_inputs(paged, q=(27, 8, other), k=(2, 128, other))
+        with pytest.raises(ValueError) as err:
+            la._check_kernel_inputs(*args, **kw)
+        assert (f"kernel takes head_dim in (64, 128, 256), got {other}"
+                in str(err.value))

@@ -177,6 +177,36 @@ def test_card_never_falls_back_to_the_dense_path(monkeypatch, impl):
                             tlt.LookaheadConfig(attention_impl=impl))
 
 
+@pytest.mark.parametrize("impls", [("xla", "dense"), ("pallas", "kernel")])
+def test_head_dim_256_matches_jax_tokens_and_steps(impls):
+    """Gemma's head_dim 256 with Hq * D (1024) unlike the hidden width
+    (64): JAX at "xla" against the port's dense path, JAX's Pallas kernel
+    in interpret mode against the port's kernel path. Equal tokens and
+    steps, some guesses accepted."""
+    jeng, teng = engines(jax_impl=impls[0], port_impl=impls[1],
+                         pool_from_prompt=True, window_init="order_copy_from",
+                         model_extra={"head_dim_override": 256})
+    p = prompt(2, 30)
+    want, got = jeng.generate(p, 64), teng.generate(p, 64)
+    np.testing.assert_array_equal(got.tokens, want.tokens)
+    assert got.steps == want.steps
+    assert got.steps < 64
+    np.testing.assert_array_equal(teng.generate_baseline(p, 64).tokens,
+                                  got.tokens)
+
+
+@pytest.mark.parametrize("impl", ["auto", "kernel"])
+def test_card_takes_head_dim_256(monkeypatch, impl):
+    """On a CUDA device head_dim 256 passes the kernel's guard: the engine
+    goes on to its first device allocation, which a CPU-only torch refuses
+    (no head_dim ValueError)."""
+    _, _, tcfg, tparams = weights(head_dim_override=256)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+        tlt.LookaheadEngine(tcfg, tparams,
+                            tlt.LookaheadConfig(attention_impl=impl))
+
+
 @pytest.mark.parametrize("ecfg,match", [
     (dict(max_seq_len=32), "max_seq_len"),
     (dict(max_seq_len=64, prefill_chunk=128), "prefill_chunk"),

@@ -2,7 +2,8 @@
 a plain and on an int8 KV cache, flat and paged, in bfloat16 on the tensor
 cores and in float32 on FMAs; the int8, int4 and pipelined int4 matrix
 products, in bfloat16 on the tensor cores; the int4 product's two
-micro-benchmark variants), each against its plain PyTorch version. They skip without a CUDA device. This file imports no
+micro-benchmark variants), each against its plain PyTorch version; the
+attention also at head_dim 256 with Gemma-2B's heads. They skip without a CUDA device. This file imports no
 JAX, so on a machine without JAX it runs without the suite's conftest:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
@@ -410,8 +411,9 @@ def test_paged_attention_refusals_on_the_card():
 def test_int4_micro_variants_match_plain_versions_and_int4_kernel(dtype, tol):
     """The shift variant equals the int4 kernel bit for bit; the K-outer
     variant is within ``tol`` of its plain version and of the int4 kernel,
-    and a row alone gives the bits of the same row among T. Both tile
-    shapes, ragged N, a K whose packed rows are zero-padded."""
+    and a row alone gives the bits of the same row among T. Every tile
+    shape, ragged N, a K whose packed rows are zero-padded; K-outer in
+    bfloat16 at 1, 4, 11 and 22 slabs (1, 4 and 8 ranks a cluster)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     from lookaheaddecoding_tpu_torch.ops import int4_micro as im
@@ -422,7 +424,7 @@ def test_int4_micro_variants_match_plain_versions_and_int4_kernel(dtype, tol):
     rng = np.random.RandomState(4)
     for t, k, n in [(1, 2048, 5632), (8, 512, 80), (8, 5632, 2048),
                     (17, 2048, 2048), (240, 2048, 5632), (3, 11008, 4096),
-                    (8, 2048, 32000)]:
+                    (8, 2048, 32000), (8, 11008, 4096), (16, 5632, 16)]:
         w = torch.from_numpy(rng.randn(k, n).astype(np.float32) * 0.02)
         wq = quant.quantize_weight(w.to(dev), 4)
         k2 = quant.logical_packed_rows(wq)
@@ -432,8 +434,10 @@ def test_int4_micro_variants_match_plain_versions_and_int4_kernel(dtype, tol):
         shift = im.int4_matmul_shift(x, wq["q4"], wq["scale"], logical_k2=k2)
         kouter = im.int4_matmul_kouter(x, wq["q4"], wq["scale"],
                                        logical_k2=k2)
+        # bfloat16 runs the tensor-core K-outer design, float32 the FMA one
+        design = "kouter_mma" if dtype == torch.bfloat16 else "kouter_fma"
         assert im.counts == dict(before, shift=before["shift"] + 1,
-                                 kouter=before["kouter"] + 1)
+                                 **{design: before[design] + 1})
         assert torch.equal(shift, b4)
         torch.testing.assert_close(
             shift.float(),
@@ -447,3 +451,163 @@ def test_int4_micro_variants_match_plain_versions_and_int4_kernel(dtype, tol):
         one = im.int4_matmul_kouter(x[r:r + 1].contiguous(), wq["q4"],
                                     wq["scale"], logical_k2=k2)
         assert torch.equal(one[0], kouter[r])
+
+
+@pytest.mark.gpu
+def test_int4_kouter_mma_fragment_maps():
+    """The tensor-core K-outer kernel element by element: x is one-hot, so
+    y[t, n] is one weight nibble of packed row r_t times its scale, exact
+    in any order of the sum, and every (row, column) must land where the
+    plain version puts it: at 1, 2, 4, 11 and 22 slabs of 256 packed rows
+    (clusters of 1, 2, 4 and 8 ranks; 11 and 22 slabs leave some ranks two
+    or three), the rows r_t spread over K so that every rank's sum reaches
+    the output, on 16-row tiles of 16 to 128 columns."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from lookaheaddecoding_tpu_torch.ops import int4_micro as im
+    from lookaheaddecoding_tpu_torch.ops import quant
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(8)
+    for t, k2, n in ((16, 128, 16), (16, 512, 4224), (16, 1024, 5632),
+                     (8, 2816, 2048), (16, 5504, 4096), (32, 5504, 256)):
+        w = torch.from_numpy(rng.randn(2 * k2, n).astype(np.float32))
+        wq = quant.quantize_weight(w.to(dev), 4)
+        k2p = quant.logical_packed_rows(wq)
+        rows = torch.from_numpy(rng.choice(k2, t, replace=False)).to(dev)
+        for half in (0, 1):
+            x = torch.zeros(t, 2 * k2, device=dev, dtype=torch.bfloat16)
+            x[torch.arange(t), half * k2 + rows] = 1
+            before = im.counts["kouter_mma"]
+            got = im.int4_matmul_kouter(x, wq["q4"], wq["scale"],
+                                        logical_k2=k2p)
+            assert im.counts["kouter_mma"] == before + 1
+            want = im.int4_matmul_kouter_ref(x, wq["q4"], wq["scale"])
+            assert torch.equal(got, want), (t, k2, n, half)
+
+
+# Gemma-2B's attention heads: 8 query heads on one KV head of 256
+GEMMA_HEADS = dict(hq=8, hkv=1, d=256)
+GEMMA_CASES = [  # s, m, kv_len, causal, sliding window, geometry
+    (240, 1024, 512, False, 0, "big"), (240, 2048, 1808, False, 0, "big"),
+    (128, 1024, 640, True, 0, "big"), (240, 1024, 600, False, 300, "big"),
+    (128, 1024, 600, True, 300, "big"), (1, 1024, 700, True, 0, "big"),
+    (27, 256, 37, False, 16, "small"), (27, 256, 0, False, 0, "small")]
+GEOMETRIES = {"big": dict(level=7, window=20, guess_size=6),
+              "small": dict(level=4, window=5, guess_size=3)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8_kv", [False, True], ids=["plain", "int8_kv"])
+@pytest.mark.parametrize("dtype,tol", [
+    (torch.float32, dict(atol=1e-4, rtol=1e-4)),
+    (torch.bfloat16, dict(atol=2e-2, rtol=2e-2)),
+])
+def test_attention_kernel_head_dim_256(dtype, tol, int8_kv):
+    """head_dim 256 at Gemma-2B's heads (rep 8): composite at M=1024 and
+    M=2048, causal prefill, a sliding window both ways, the one-row AR
+    call, a small composite; a plain and an int8 cache. Each within ``tol``
+    of its plain version (the tolerances of the D=64 tests), and in
+    bfloat16 within the rounding limit of the float32 kernel (chip_smoke's
+    limit, as in test_bf16_attention_within_rounding_limit_of_float32_kernel)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from lookaheaddecoding_tpu_torch.models.llama import kv_cache_write
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(9)
+    hq, hkv, d = GEMMA_HEADS["hq"], GEMMA_HEADS["hkv"], GEMMA_HEADS["d"]
+    for s, m, kv, causal, sw, geo in GEMMA_CASES:
+        def mk(*shape):
+            return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+                dev, dtype)
+        if int8_kv:
+            def cache():
+                c = {"q": torch.zeros(hkv, m, d, dtype=torch.int8, device=dev),
+                     "s": torch.full((hkv, m, 1), 1e-8, device=dev)}
+                return kv_cache_write(c, mk(m, hkv, d), 0)
+            k, v = cache(), cache()
+            kf, vf, v_abs = k, v, {"q": v["q"].abs(), "s": v["s"]}
+        else:
+            k, v = mk(hkv, m, d), mk(hkv, m, d)
+            kf, vf = k.float(), v.float()
+            v_abs = vf.abs()
+        q = mk(s, hq, d)
+        kv_len = torch.tensor([kv], dtype=torch.int32, device=dev)
+        kw = dict(GEOMETRIES[geo], causal=causal, sliding_window=sw)
+        before = dict(la.counts)
+        got = la.lookahead_attention(q, k, v, kv_len, **kw)
+        assert la.counts == dict(
+            before, kernel=before["kernel"] + 1,
+            **{la.design(dtype): before[la.design(dtype)] + 1})
+        want = la.lookahead_attention_ref(q, k, v, kv_len, **kw)
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        if dtype == torch.bfloat16:
+            exact = la.lookahead_attention(q.float(), kf, vf, kv_len, **kw)
+            weight = la.lookahead_attention(q.float(), kf, v_abs, kv_len,
+                                            **kw)
+            limit = 2.0 ** -8 * weight + 2.0 ** -7 * exact.abs() + 1e-4
+            err = (got.float() - exact.bfloat16().float()).abs()
+            assert bool((err <= limit).all()), (s, m, kv, causal, sw,
+                                                (err / limit).max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8_kv", [False, True], ids=["plain", "int8_kv"])
+@pytest.mark.parametrize("dtype,tol", [
+    (torch.float32, dict(atol=1e-4, rtol=1e-4)),
+    (torch.bfloat16, dict(atol=2e-2, rtol=2e-2)),
+])
+def test_paged_attention_kernel_head_dim_256(dtype, tol, int8_kv):
+    """The paged call at head_dim 256 and Gemma-2B's heads: four lanes of
+    different ``kv_len`` on shuffled pages of 128, composite and causal,
+    with and without a sliding window; within ``tol`` of its plain version
+    and each lane bit-equal to the flat kernel on its contiguous cache."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from lookaheaddecoding_tpu_torch.core.paged import (paged_gather,
+                                                        paged_write)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(10)
+    hq, hkv, d = GEMMA_HEADS["hq"], GEMMA_HEADS["hkv"], GEMMA_HEADS["d"]
+    lanes, page, nb = 4, 128, 8
+    for causal, sw, s in ((False, 0, 240), (True, 0, 128), (False, 300, 240),
+                          (True, 300, 128)):
+        def mk(*shape):
+            return torch.from_numpy(
+                rng.randn(*shape).astype(np.float32)).to(dev, dtype)
+        slots_total = (lanes * nb + lanes) * page
+        tables = torch.from_numpy(
+            lanes + rng.permutation(lanes * nb)).to(dev).int().view(
+                lanes, nb).contiguous()
+        slots = (tables.long()[:, :, None] * page
+                 + torch.arange(page, device=dev)).reshape(-1)
+
+        def pool():
+            if int8_kv:
+                buf = {"q": torch.zeros(hkv, slots_total, d, dtype=torch.int8,
+                                        device=dev),
+                       "s": torch.full((hkv, slots_total, 1), 1e-8,
+                                       device=dev)}
+            else:
+                buf = torch.zeros(hkv, slots_total, d, dtype=dtype,
+                                  device=dev)
+            return paged_write(buf, slots, mk(lanes * nb * page, hkv, d))
+        q, k, v = mk(lanes, s, hq, d), pool(), pool()
+        kv_lens = torch.tensor([0, page + 1, 512, page * nb - s],
+                               dtype=torch.int32, device=dev)
+        kw = dict(GEOMETRIES["big"], causal=causal, sliding_window=sw)
+        got = la.paged_lookahead_attention(q, k, v, kv_lens, tables,
+                                           page_size=page, **kw)
+        want = la.paged_lookahead_attention_ref(q, k, v, kv_lens, tables,
+                                                page_size=page, **kw)
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        kg, vg = (paged_gather(c, tables, page) for c in (k, v))
+        for b in range(lanes):
+            def lane(tree):
+                if isinstance(tree, dict):
+                    return {n: a[b].contiguous() for n, a in tree.items()}
+                return tree[b].contiguous()
+            flat = la.lookahead_attention(q[b], lane(kg), lane(vg),
+                                          kv_lens[b:b + 1], **kw)
+            assert torch.equal(flat, got[b]), (causal, sw, b)

@@ -103,3 +103,16 @@ def test_wrappers_check_their_inputs_like_int4_matmul():
         with pytest.raises(ValueError, match="scale"):
             fn(x, q4, scale[0])
         assert fn(x, q4, scale).shape == (4, 16)
+
+
+def test_counts_name_each_kouter_design():
+    """The K-outer variant counts its two CUDA designs apart (bfloat16 on
+    the tensor cores, float32 on FMAs), so a run can show which one it
+    launched; on the CPU only the plain version is counted."""
+    assert set(im.counts) == {"shift", "kouter_mma", "kouter_fma", "plain"}
+    x, w = case(512, 64)
+    wq = tquant.quantize_weight(torch.from_numpy(w), 4)
+    before = dict(im.counts)
+    im.int4_matmul_kouter(torch.from_numpy(x).bfloat16(), wq["q4"],
+                          wq["scale"])
+    assert im.counts == dict(before, plain=before["plain"] + 1)

@@ -485,6 +485,48 @@ def test_card_never_falls_back_to_the_dense_path(monkeypatch, impl):
                                tlt.LookaheadConfig(attention_impl=impl))
 
 
+@pytest.mark.parametrize("impl", ["auto", "kernel"])
+def test_card_takes_head_dim_256(monkeypatch, impl):
+    """head_dim 256 passes the paged engine's guard on a CUDA device: it
+    goes on to its first device allocation, which a CPU-only torch
+    refuses (no head_dim ValueError)."""
+    tcfg = tlt.LlamaConfig(**ARCH, dtype=torch.float32, head_dim_override=256)
+    tparams = tlt.init_params(tcfg, seed=0, scale=0.5, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+        tlt.PagedServingEngine(tcfg, tparams,
+                               tlt.LookaheadConfig(attention_impl=impl))
+
+
+def test_head_dim_256_requests_equal_flat_generate():
+    """Gemma's head_dim 256 (Hq * D = 1024 against a hidden width of 64)
+    through the kernel path of both engines (the paged and the flat
+    wrapper's plain versions on the CPU): two lanes, two requests on one
+    shared prefix and one without, each equal to the flat ``generate``,
+    every page free at the end."""
+    tcfg = tlt.LlamaConfig(**ARCH, dtype=torch.float32, head_dim_override=256)
+    tparams = tlt.init_params(tcfg, seed=1, scale=0.5, device="cpu")
+    lc = tlt.LookaheadConfig(attention_impl="kernel", **LCFG)
+    ec = tlt.EngineConfig(max_seq_len=256, prefill_chunk=16, dtype="float32")
+    flat = tlt.LookaheadEngine(tcfg, tparams, lc, ec, device="cpu")
+    paged = tlt.PagedServingEngine(tcfg, tparams, lc, ec, num_lanes=2,
+                                   page_size=32, device="cpu")
+    before = tla.paged_counts["plain"]
+    shared = prompts(1, sizes=(40,))[0]
+    px = paged.precompute_prefix(shared)
+    reqs = [dict(prompt=shared + [7, 9], max_new_tokens=24, request_id=0,
+                 prefix=px),
+            dict(prompt=shared + [3], max_new_tokens=24, request_id=1,
+                 prefix=px),
+            dict(prompt=prompts(1)[0], max_new_tokens=24, request_id=2)]
+    got = {r.request_id: r for r in paged.run(
+        [tlt.Request(**kw) for kw in reqs])}
+    assert tla.paged_counts["plain"] > before
+    assert_equals_flat(flat, got, reqs)
+    paged.release_prefix(px)
+    assert paged.pages_free == paged.memory_stats()["pages_total"]
+
+
 def test_kernel_path_on_the_cpu_goes_through_the_paged_wrapper():
     """``attention_impl="kernel"`` on CPU tensors runs the wrapper's plain
     version (and counts it): same tokens as the dense path."""
