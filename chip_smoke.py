@@ -64,7 +64,26 @@ target). It imports no JAX. Phases, each printed as it runs:
    heads, 1 KV head, head_dim 256; SwiGLU and a synthetic vocab of 32000
    kept), the main path and its profile as in phases 4 and 5 (128 new
    tokens), then four requests of 64 tokens through ``PagedServingEngine``,
-   two on one shared prefix, each equal to the flat ``generate``.
+   two on one shared prefix, each equal to the flat ``generate``;
+8. sampling, on the headline bfloat16 engine: (a) the SpecInfer
+   verification on the card, 20,000 lanes of one call (first-token TV <
+   0.02, conditional TV < 0.08), and ``warp_logits`` keeping the CPU's
+   support; (b) ``generate_sample`` at temperature 0.01 equal to
+   ``generate`` for seeds 0-2; (c) sampling at T*, the temperature that
+   gives the cycle token probability 0.85 (from the measured top-2
+   margin): a seed repeats its tokens, another seed differs, every token
+   lies in the top-50 support, and a profile of ``sample_step`` alone
+   (kernels, busy and idle, no device-to-host copy); (d)
+   ``generate_stream`` (sampling with ``steps_per_yield`` 1 and 4, greedy,
+   ``lookahead=False``) equal to the one-shot calls; (e) ``generate_batch``
+   of four prompts, greedy and sampling with per-lane temperatures, each
+   lane equal to its lone call; (f) a 40-token ``PrefixCache`` and a
+   ``return_prefix`` second turn equal to the full prefill, the prefixes'
+   tensors unchanged; (g) ``PagedServingEngine(sampling=...)`` with five
+   requests (a shared prefix, a request ``top_p`` on an engine at 1.0,
+   streaming), each equal to the flat ``generate_sample``, every page
+   free. Each path of b-g launches the attention kernel (the paged one
+   for e and g) and no plain version or FMA design; path a runs no model.
 
 Each phase's seconds are printed as ``[seconds]`` lines.
 
@@ -1198,6 +1217,404 @@ def profile_paged(name, eng, nxt, card, step_s):
         log(f"    {ms / n_steps:9.4f} ms a step  {kname[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: sampling
+# ---------------------------------------------------------------------------
+
+N_SAMPLE = 128        # new tokens of phase 8's b and c, and greedy d, f
+N_SAMPLE_SHORT = 64   # ... of its sampling streams and prefix runs, AR
+                      # stream, batches and paged requests: compared with
+                      # the first 64 of a 128-token run where it has one
+                      # (max_new only decides when a run stops)
+TOP_K = 50
+P_CYCLE = 0.85        # the cycle token's probability T* is chosen for
+
+
+def teacher_forced_logits(eng, tokens):
+    """float32 logits [T, V] of a causal forward over ``tokens`` on a fresh
+    cache (the attention kernel's causal mode)."""
+    import torch
+    from lookaheaddecoding_tpu_torch.models import llama
+
+    mcfg, dev = eng.mcfg, eng.device
+    m = eng.ecfg.max_seq_len
+    k, v = llama.make_kv_cache(mcfg, m, dev)
+    cos, sin = llama.rope_tables(mcfg, m, dev)
+    t = torch.tensor(np.asarray(tokens, np.int64), device=dev)
+    with torch.inference_mode():
+        logits, _, _ = llama.forward(
+            eng.params, mcfg, t, torch.arange(len(t), device=dev), k, v, 0,
+            cos, sin, dict(level=LEVEL, window=WINDOW, guess_size=LEVEL - 1,
+                           sliding_window=0, causal=True,
+                           kv_len=torch.zeros(1, dtype=torch.int32,
+                                              device=dev)),
+            attn_impl="kernel")
+    return logits.float()
+
+
+def assert_same_tokens(name, eng, got, want, temperature):
+    """Token equality; a mismatch raises with its position, both tokens and
+    both tokens' probabilities under the model at ``temperature`` (a
+    teacher-forced forward over the common prefix)."""
+    import torch
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape == want.shape and np.array_equal(got, want):
+        return
+    n = min(len(got), len(want))
+    i = int(np.argmax(got[:n] != want[:n])) if (got[:n] != want[:n]).any() \
+        else n
+    detail = f"lengths {len(got)} / {len(want)}"
+    if i < n:
+        probs = torch.softmax(teacher_forced_logits(eng, want[:i])[-1]
+                              / temperature, -1)
+        detail = (f"position {i}: token {got[i]} (p {float(probs[got[i]]):.6g})"
+                  f" against {want[i]} (p {float(probs[want[i]]):.6g}) at "
+                  f"temperature {temperature:.4g}")
+    raise AssertionError(f"{name}: tokens differ, {detail}")
+
+
+def check_sampling_function(device, card):
+    """Phase 8a: ``rejection_sample_verify`` on the card with
+    tests/test_sampling.py's setup (V=8, three candidates) as 20,000 lanes
+    of one batched call, each lane with its own generator; and
+    ``warp_logits`` on the card against the CPU on the same logits."""
+    import torch
+    from lookaheaddecoding_tpu_torch.ops import sampling as ts
+
+    V, N = 8, 20_000
+    rng = np.random.RandomState(0)
+
+    def rand_dist(peak_ix, peak):
+        p = rng.rand(V) * (1 - peak)
+        p[peak_ix] = 0
+        p = p / p.sum() * (1 - peak)
+        p[peak_ix] = peak
+        return p
+    probs_next = rand_dist(2, 0.35)
+    probs_next[3] += probs_next[4] * 0.5
+    probs_next[4] *= 0.5
+    probs_next /= probs_next.sum()
+    q2, q3 = rand_dist(5, 0.4), rand_dist(1, 0.3)
+    gp = np.zeros((3, 2, V))
+    gp[0, 0] = gp[1, 0] = q2
+    gp[2, 0] = q3
+    gp[:, 1] = 1.0 / V
+    gens = []
+    for i in range(N):
+        g = torch.Generator(device=device)
+        g.manual_seed(i)
+        gens.append(g)
+
+    def dev_t(x, dtype=torch.float32):
+        return torch.tensor(x, dtype=dtype, device=device)
+    res = ts.rejection_sample_verify(
+        dev_t(probs_next).expand(N, V), dev_t(gp).expand(N, 3, 2, V),
+        dev_t([[2, 5], [2, 6], [3, 1]], torch.int32).expand(N, 3, 2),
+        torch.ones(N, 3, dtype=torch.bool, device=device), gens)
+    hits, max_hit = res.hits.cpu().numpy(), res.max_hit.cpu().numpy()
+    tv0 = 0.5 * np.abs(np.bincount(hits[:, 0], minlength=V) / N
+                       - probs_next).sum()
+    tvs = {}
+    for tau, q in ((2, q2), (3, q3)):
+        sel = hits[:, 0] == tau
+        assert sel.sum() > 2000 and np.all(max_hit[sel] >= 1), (tau, sel.sum())
+        tvs[tau] = 0.5 * np.abs(np.bincount(hits[sel, 1], minlength=V)
+                                / sel.sum() - q).sum()
+    assert np.all(max_hit[~np.isin(hits[:, 0], [2, 3])] == 0)
+    log(f"  [{card}] rejection_sample_verify, {N} lanes of one call: "
+        f"first-token TV {tv0:.4f} (< 0.02), conditional TV after 2 "
+        f"{tvs[2]:.4f}, after 3 {tvs[3]:.4f} (< 0.08)")
+    assert tv0 < 0.02 and max(tvs.values()) < 0.08, (tv0, tvs)
+
+    # warp_logits: the same logits on the card and on the CPU. The two
+    # float32 softmax normalizers over the vocabulary differ by a few 1e-6,
+    # so a token may fall on either side of top_p where the cumulative
+    # probability before it, as each device computes it, straddles top_p
+    # (widened by 1e-6); everywhere else the supports must be equal
+    logits = torch.from_numpy(
+        np.random.RandomState(1).randn(16, ARCH["vocab_size"]).astype(
+            np.float32) * 4)
+
+    def cum_before(x, temp, top_k):
+        x = ts.warp_logits(x, temp, top_k, None)
+        srt, order = torch.sort(x, dim=-1, descending=True, stable=True)
+        pr = torch.softmax(srt, -1)
+        return torch.empty_like(pr).scatter_(1, order, pr.cumsum(-1) - pr)
+    for temp, top_k, top_p in ((0.8, 0, 0.9), (1.0, TOP_K, 0.9),
+                               (0.7, TOP_K, 1.0)):
+        want = ts.warp_logits(logits, temp, top_k, top_p)
+        got = ts.warp_logits(logits.to(device), temp, top_k, top_p).cpu()
+        c_cpu = cum_before(logits, temp, top_k)
+        c_card = cum_before(logits.to(device), temp, top_k).cpu()
+        straddle = ((torch.minimum(c_cpu, c_card) - 1e-6 <= top_p)
+                    & (top_p <= torch.maximum(c_cpu, c_card) + 1e-6)
+                    & (top_p < 1.0))
+        differ = torch.isinf(got) != torch.isinf(want)
+        assert bool((~differ | straddle).all()), (temp, top_k, top_p)
+        fin = torch.isfinite(want) & torch.isfinite(got)
+        torch.testing.assert_close(got[fin], want[fin], rtol=1e-6, atol=1e-6)
+        log(f"  [{card}] warp_logits T={temp} top_k={top_k} top_p={top_p} "
+            f"on [16, {ARCH['vocab_size']}]: card support == CPU support "
+            f"({int(torch.isfinite(want).sum())} tokens kept; "
+            f"{int(differ.sum())} differ, each with its two cum_before "
+            f"straddling top_p, of {int(straddle.sum())} that do; largest "
+            f"cum_before difference {float((c_cpu - c_card).abs().max()):.3g})")
+
+
+def sampling_path(eng, mcfg, params, prompt, nxt, card):
+    """Phase 8 b-g on the headline engine. Every path is counted alone: the
+    flat (or, for the batch and the paged engine, the paged) attention
+    kernel launches, its FMA design and every plain version do not.
+    Returns (launches by path, T*, numbers for the report)."""
+    import torch
+    import lookaheaddecoding_tpu_torch as lt
+    from torch.profiler import ProfilerActivity, profile
+    from lookaheaddecoding_tpu_torch.ops import lookahead_attention as la
+    from lookaheaddecoding_tpu_torch.ops import quant_matmul as qm
+
+    launches = {}
+
+    def counted(path, fn, paged=False):
+        for tally in (la.counts, la.paged_counts, qm.counts):
+            tally.update(dict.fromkeys(tally, 0))
+        out = fn()
+        torch.cuda.synchronize()
+        got = dict(attention_mma=la.counts["mma"],
+                   paged_attention=la.paged_counts["mma"],
+                   attention_fma=la.counts["fma"] + la.paged_counts["fma"],
+                   plain=(la.counts["plain"] + la.paged_counts["plain"]
+                          + qm.counts["plain"]))
+        key = "paged_attention" if paged else "attention_mma"
+        assert got[key] > 0 and got["attention_fma"] == 0 \
+            and got["plain"] == 0, (path, got)
+        launches[path] = got
+        return out
+
+    # T*: the temperature at which the cycle token has probability P_CYCLE
+    # on average over the prompt's positions
+    lg = teacher_forced_logits(eng, prompt)
+    top2 = lg.topk(2, dim=-1).values
+    margin = float((top2[:, 0] - top2[:, 1]).median())
+    lo, hi = 0.05, 200.0
+    for _ in range(60):
+        t = (lo * hi) ** 0.5
+        p = float(torch.softmax(lg / t, -1).amax(-1).mean())
+        lo, hi = (t, hi) if p > P_CYCLE else (lo, t)
+    t_star = (lo * hi) ** 0.5
+    p_star = float(torch.softmax(lg / t_star, -1).amax(-1).mean())
+    log(f"  [{card}] top-2 logit margin over the prompt (median) {margin:.3f};"
+        f" T* = {t_star:.4f} gives the cycle token p = {p_star:.4f}")
+    cfg = lt.SamplingConfig(temperature=t_star, top_k=TOP_K)
+
+    eng.generate_sample(prompt, WARM_NEW, cfg)              # warm-up
+    greedy = eng.generate(prompt, N_SAMPLE)
+    base = eng.generate_baseline(prompt, N_SAMPLE)
+
+    # b: near-zero temperature is greedy
+    for seed in (0, 1, 2):
+        r = counted(f"b_temperature_0.01_seed{seed}", lambda: eng.generate_sample(
+            prompt, N_SAMPLE, lt.SamplingConfig(temperature=0.01), seed=seed))
+        assert_same_tokens(f"8b seed {seed}", eng, r.tokens, greedy.tokens,
+                           0.01)
+    log(f"  [{card}] 8b: generate_sample at T=0.01 == generate for seeds "
+        f"0, 1, 2 ({N_SAMPLE} tokens)")
+
+    # c: sampling at T*
+    s0 = counted("c_sample_seed0", lambda: eng.generate_sample(
+        prompt, N_SAMPLE, cfg, seed=0))
+    s0b = eng.generate_sample(prompt, N_SAMPLE, cfg, seed=0)
+    s1 = eng.generate_sample(prompt, N_SAMPLE, cfg, seed=1)
+    assert_same_tokens("8c seed 0 twice", eng, s0b.tokens, s0.tokens, t_star)
+    assert not np.array_equal(s0.tokens, s1.tokens), "seeds 0 and 1 agree"
+    lg = teacher_forced_logits(eng, s0.tokens)
+    kth = lg.topk(TOP_K, dim=-1).values[:, -1]
+    toks = torch.tensor(s0.tokens.astype(np.int64), device=lg.device)
+    rows = torch.arange(len(prompt) - 1, len(toks) - 1, device=lg.device)
+    assert bool((lg[rows, toks[rows + 1]] >= kth[rows]).all()), \
+        "a sampled token lies outside the top-k support"
+    on_cycle = float(np.mean([s0.tokens[i + 1] == nxt[s0.tokens[i]] for i in
+                              range(len(prompt) - 1, len(s0.tokens) - 1)]))
+    accept = (s0.num_generated - s0.steps) / s0.steps
+    log(f"  [{card}] 8c: T*={t_star:.4f} top_k={TOP_K}: {s0.num_generated} "
+        f"tokens in {s0.steps} steps (compression "
+        f"{s0.compression_ratio:.3f}, mean accepted drafts a step "
+        f"{accept:.3f}), {s0.tokens_per_sec:.1f} tok/s, wall/steps "
+        f"{1e3 * s0.wall_time_s / s0.steps:.2f} ms; seed 1: "
+        f"{s1.steps} steps (compression {s1.compression_ratio:.3f}); "
+        f"tokens on the cycle {on_cycle:.3f}; every token in the top-{TOP_K} "
+        f"support; greedy generate {greedy.tokens_per_sec:.1f} tok/s "
+        f"({greedy.steps} steps), generate_baseline "
+        f"{base.tokens_per_sec:.1f} tok/s (one timed run each)")
+
+    # the sample step alone under the profiler: kernels, device busy and
+    # no device-to-host copy inside the steps
+    out_buf, n, fill = eng._host_args(prompt, N_SAMPLE)
+    warp = eng._warp(cfg)
+    eos = torch.full((4,), -1, dtype=torch.int32, device=eng.device)
+    with torch.inference_mode():
+        st = eng._prepare(out_buf, n, 0, fill)
+        st = eng._fns.sample_step(eng.params, st, N_SAMPLE, eos, *warp)
+        torch.cuda.synchronize()
+        n_steps = 8
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n_steps):
+                st = eng._fns.sample_step(eng.params, st, N_SAMPLE, eos,
+                                          *warp)
+            torch.cuda.synchronize()
+            prof_ms = 1e3 * (time.perf_counter() - t0) / n_steps
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    d2h = [e for e in events if "DtoH" in e.name or "Device -> P" in e.name
+           or "Device -> H" in e.name]
+    assert not d2h, f"device-to-host copies inside sample_step: {d2h[:3]}"
+    step_ms = 1e3 * s0.wall_time_s / s0.steps
+    prof_line = "device time not measured (the profiler recorded no kernel)"
+    if events:
+        busy = sum(e.time_range.elapsed_us() for e in events) / 1e3 / n_steps
+        prof_line = (f"{len(events) / n_steps:.0f} kernels a step, device busy "
+                     f"{busy:.3f} ms a step, idle {1 - busy / step_ms:.3f} of "
+                     f"the unprofiled {step_ms:.2f} ms wall a step (idle "
+                     f"{1 - busy / prof_ms:.3f} of {prof_ms:.2f} ms under the "
+                     f"profiler); 0 device-to-host copies in {n_steps} steps")
+    log(f"  [{card}] 8c profile, sample_step alone: {prof_line}")
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + \
+            e.time_range.elapsed_us() / 1e3
+    for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"    {ms / n_steps:9.4f} ms a step  {kname[:90]}")
+    # where the host's time goes: the operators with the most CPU time of
+    # their own
+    ops = sorted((e for e in prof.key_averages() if e.key.startswith("aten")),
+                 key=lambda e: -e.self_cpu_time_total)[:8]
+    log("    host, ms a step of the operator's own CPU time (calls a step): "
+        + ", ".join(f"{e.key} {e.self_cpu_time_total / 1e3 / n_steps:.3f} "
+                    f"({e.count / n_steps:.0f})" for e in ops))
+
+    # d: streaming
+    head = len(prompt) + N_SAMPLE_SHORT
+    for spy in (1, 4):
+        chunks = counted(f"d_stream_sample_spy{spy}", lambda: list(
+            eng.generate_stream(prompt, N_SAMPLE_SHORT, seed=0, sampling=cfg,
+                                steps_per_yield=spy)))
+        assert_same_tokens(f"8d sampling stream spy {spy}", eng,
+                           np.concatenate([prompt] + chunks),
+                           s0.tokens[:head], t_star)
+    chunks = counted("d_stream_greedy", lambda: list(
+        eng.generate_stream(prompt, N_SAMPLE, steps_per_yield=4)))
+    assert_same_tokens("8d greedy stream", eng,
+                       np.concatenate([prompt] + chunks), greedy.tokens, 1.0)
+    chunks = counted("d_stream_ar", lambda: list(
+        eng.generate_stream(prompt, N_SAMPLE_SHORT, lookahead=False)))
+    assert_same_tokens("8d AR stream", eng, np.concatenate([prompt] + chunks),
+                       base.tokens[:head], 1.0)
+    log(f"  [{card}] 8d: sampling stream ({N_SAMPLE_SHORT} tokens, "
+        f"steps_per_yield 1 and 4) == generate_sample; greedy stream "
+        f"({N_SAMPLE}) == generate; lookahead=False ({N_SAMPLE_SHORT}) == "
+        f"generate_baseline")
+
+    # e: batches of 4 prompts
+    prompts = [make_prompt(nxt, start=s, n=n)
+               for s, n in ((2, 64), (5, 48), (9, 80), (13, 40))]
+    temps = [t_star, 0.8 * t_star, 1.25 * t_star, t_star]
+    gb = counted("e_batch_greedy", lambda: eng.generate_batch(
+        prompts, N_SAMPLE_SHORT), paged=True)
+    sb = counted("e_batch_sample", lambda: eng.generate_batch(
+        prompts, N_SAMPLE_SHORT, sampling=cfg, seeds=[0, 1, 2, 3],
+        temperatures=temps), paged=True)
+    for i, p in enumerate(prompts):
+        assert_same_tokens(f"8e greedy lane {i}", eng, gb[i].tokens,
+                           eng.generate(p, N_SAMPLE_SHORT).tokens, 1.0)
+        one = eng.generate_sample(
+            p, N_SAMPLE_SHORT, lt.SamplingConfig(temps[i], TOP_K), seed=i)
+        assert_same_tokens(f"8e sampling lane {i}", eng, sb[i].tokens,
+                           one.tokens, temps[i])
+    log(f"  [{card}] 8e: generate_batch of 4 prompts, greedy and sampling "
+        f"(temperatures {[round(t, 3) for t in temps]}): every lane == its "
+        f"lone call; steps {[r.steps for r in sb]}")
+
+    # f: prefixes
+    px = eng.precompute_prefix(prompt[:40])
+    kept = [px.k_cache.clone(), px.v_cache.clone()]
+    r = counted("f_prefix_greedy", lambda: eng.generate(prompt, N_SAMPLE,
+                                                         prefix=px))
+    assert_same_tokens("8f greedy prefix", eng, r.tokens, greedy.tokens, 1.0)
+    r = counted("f_prefix_sample", lambda: eng.generate_sample(
+        prompt, N_SAMPLE_SHORT, cfg, seed=0, prefix=px))
+    assert_same_tokens("8f sampling prefix", eng, r.tokens, s0.tokens[:head],
+                       t_star)
+    chunks = counted("f_prefix_stream", lambda: list(eng.generate_stream(
+        prompt, N_SAMPLE_SHORT, seed=0, sampling=cfg, prefix=px,
+        steps_per_yield=4)))
+    assert_same_tokens("8f stream prefix", eng,
+                       np.concatenate([prompt] + chunks), s0.tokens[:head],
+                       t_star)
+    r1 = counted("f_turn1", lambda: eng.generate(prompt, N_SAMPLE_SHORT,
+                                                  return_prefix=True))
+    c1 = r1.prefix
+    kept += [c1.k_cache.clone(), c1.v_cache.clone(), c1.pool.values.clone()]
+    turn2 = list(r1.tokens) + make_prompt(nxt, start=int(r1.tokens[-1]), n=8)
+    r2 = counted("f_turn2", lambda: eng.generate(turn2, N_SAMPLE_SHORT,
+                                                  prefix=c1))
+    assert_same_tokens("8f second turn", eng, r2.tokens,
+                       eng.generate(turn2, N_SAMPLE_SHORT).tokens, 1.0)
+    for t, k in zip((px.k_cache, px.v_cache, c1.k_cache, c1.v_cache,
+                     c1.pool.values), kept):
+        assert torch.equal(t, k), "a prefix's tensors changed"
+    log(f"  [{card}] 8f: a {px.length}-token prefix: generate, "
+        f"generate_sample and generate_stream == the same calls without it; "
+        f"a second turn through return_prefix ({c1.length} tokens carried) "
+        f"== the full-prompt run; both prefixes' tensors bit-unchanged")
+
+    # g: paged sampling
+    paged = lt.PagedServingEngine(
+        mcfg, params, eng.lcfg, eng.ecfg, num_lanes=LANES, page_size=PAGE,
+        n_pages=N_PAGES, steps_per_sync=STEPS_PER_SYNC, sampling=cfg,
+        device=eng.device)
+    ppx = paged.precompute_prefix(make_prompt(nxt, start=3, n=160))
+    base_p = list(ppx.tokens)
+    streamed = []
+    reqs = {
+        "shared0": dict(prompt=base_p + make_prompt(nxt, start=base_p[-1],
+                                                    n=8), prefix=ppx),
+        "shared1": dict(prompt=base_p + make_prompt(nxt, start=base_p[-1],
+                                                    n=24), prefix=ppx),
+        "top_p": dict(prompt=make_prompt(nxt, start=7, n=64), top_p=0.9),
+        "stream": dict(prompt=make_prompt(nxt, start=9, n=100),
+                       on_tokens=streamed.append, temperature=0.8 * t_star),
+        "plain": dict(prompt=make_prompt(nxt, start=11, n=48)),
+    }
+    seeds = {rid: 20 + i for i, rid in enumerate(reqs)}
+    res = counted("g_paged_sample", lambda: {r.request_id: r for r in paged.run(
+        [lt.Request(max_new_tokens=N_SAMPLE_SHORT, request_id=rid,
+                    seed=seeds[rid], **kw) for rid, kw in reqs.items()])},
+        paged=True)
+    paged.release_prefix(ppx)
+    assert paged.pages_free == N_PAGES, paged.memory_stats()
+    assert all(r.error is None for r in res.values())
+    for rid, kw in reqs.items():
+        one = eng.generate_sample(
+            kw["prompt"], N_SAMPLE_SHORT,
+            lt.SamplingConfig(kw.get("temperature", t_star), TOP_K,
+                              kw.get("top_p", 1.0)), seed=seeds[rid])
+        assert_same_tokens(f"8g request {rid}", eng, res[rid].tokens,
+                           one.tokens, kw.get("temperature", t_star))
+    assert_same_tokens("8g streamed chunks", eng,
+                       np.concatenate([reqs["stream"]["prompt"]] + streamed),
+                       res["stream"].tokens, 0.8 * t_star)
+    log(f"  [{card}] 8g: PagedServingEngine(sampling), {LANES} lanes, pages "
+        f"of {PAGE}: 5 requests (two on a {ppx.length}-token shared prefix, "
+        f"one with top_p 0.9 on an engine at 1.0, one streaming at "
+        f"temperature {0.8 * t_star:.3f}, one plain) each == the flat "
+        f"generate_sample with its seed and warpers; every page free; "
+        f"steps {[res[rid].steps for rid in reqs]}")
+    for path, got in launches.items():
+        log(f"    launches {path}: {got}")
+    return launches, dict(t_star=t_star, margin=margin)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1333,10 +1750,27 @@ def main() -> int:
                                    PAGED_NEW_256)
     lap("head_dim 256 paths")
 
+    log(f"[sampling] ({card}); the headline bf16 engine (L{LEVEL}/W{WINDOW}/"
+        f"G{GUESS}, M={MAX_SEQ}, {PROMPT_LEN}-token prompt)")
+    check_sampling_function(device, card)
+    samp_launches, _ = sampling_path(configs["bf16"][0], mcfg, params, prompt,
+                                     nxt, card)
+    lap("sampling")
+
+    # phase 8's paths that step through the paged kernel (generate_batch
+    # and the paged engine) and those that run the flat one
+    samp_paged = {path: got for path, got in samp_launches.items()
+                  if got["paged_attention"]}
+    samp_flat = {path: got for path, got in samp_launches.items()
+                 if path not in samp_paged}
+
     def on_paged_path(int8_kv):
         by_path = {name: got["paged_attention"]
                    for name, got in paged_launches.items()
                    if name.endswith("int8_kv") == int8_kv}
+        if not int8_kv:
+            by_path.update({f"sampling {path}": got["paged_attention"]
+                            for path, got in samp_paged.items()})
         total = sum(by_path.values())
         assert total > 0, "the paged path never launched its kernel"
         return dict(launches=total, launches_by_path=by_path)
@@ -1352,8 +1786,10 @@ def main() -> int:
     log(json.dumps({"kernels": [
         dict(name="lookahead_attention", route="cuda",
              source=CSRC + "lookahead_attention.cu", replaces=TPU_KERNELS,
-             main_path="generate and generate_baseline, every configuration",
-             **on_main_path("attention_mma"), **att),
+             main_path="generate and generate_baseline, every "
+             "configuration; phase 8's sampling, stream and prefix paths",
+             **on_main_path("attention_mma",
+                            {**launches, "sampling": samp_flat}), **att),
         dict(name="int8_matmul", route="cuda", source=CSRC + "quant_matmul.cu",
              replaces=tpu_mm + ":274", main_path="int8_weights, "
              "int8_weights_int8_kv, the int4 configurations' LM head",
@@ -1367,7 +1803,8 @@ def main() -> int:
              **on_main_path("int4_pipe_mma"), **mm["int4_pipe"]),
         dict(name="paged_lookahead_attention", route="cuda",
              source=CSRC + "lookahead_attention.cu",
-             replaces=TPU_PAGED_KERNEL, main_path="paged_bf16",
+             replaces=TPU_PAGED_KERNEL, main_path="paged_bf16; phase 8's "
+             "generate_batch and paged sampling",
              **on_paged_path(False), **patt[False]),
         dict(name="paged_lookahead_attention_int8_kv", route="cuda",
              source=CSRC + "lookahead_attention.cu",

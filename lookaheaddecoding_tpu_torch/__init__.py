@@ -1,23 +1,28 @@
 """lookaheaddecoding_tpu_torch: lookahead decoding in PyTorch and CUDA.
 
 The port of ``lookaheaddecoding_tpu`` (JAX) to one NVIDIA Hopper card,
-with the same module tree and data formats. It carries greedy
-``LookaheadEngine.generate`` and its AR baseline ``generate_baseline`` on
-the flat KV cache, and greedy ``PagedServingEngine`` (lanes batched over a
-shared page pool, prefix sharing, conversation carry), with plain, int8 or
-int4 weights and a plain or int8 KV cache. The composite attention, flat
+with the same module tree and data formats. It carries
+``LookaheadEngine`` on the flat KV cache (greedy ``generate``, SpecInfer
+sampling ``generate_sample``, ``generate_stream``, ``generate_batch``,
+prefix caching with ``PrefixCache``, and the AR baseline
+``generate_baseline``), and ``PagedServingEngine`` (lanes batched over a
+shared page pool, prefix sharing, conversation carry; greedy or sampling),
+with plain, int8 or int4 weights and a plain or int8 KV cache. The composite attention, flat
 and paged, and the quantized-weight products are hand-written CUDA kernels
 (``ops/csrc/``). It imports no JAX.
 """
 
 from .config import EngineConfig, LookaheadConfig, SamplingConfig
-from .core.engine import GenerationResult, LookaheadEngine
+from .core.engine import GenerationResult, LookaheadEngine, PrefixCache
 from .core.layout import Layout, build_layout
 from .core.paged_serving import PagedPrefix, PagedServingEngine
 from .core.serving import Request
 from .models.llama import (LlamaConfig, fuse_params, init_params,
                            params_from_numpy)
 from .ops.quant import dequantize_weight, quantize_params, quantize_weight
+from .ops.sampling import (AcceptResult, rejection_sample_verify,
+                           rejection_sample_verify_core, sample_token,
+                           warp_logits)
 
 __all__ = [
     "EngineConfig",
@@ -25,6 +30,7 @@ __all__ = [
     "SamplingConfig",
     "LookaheadEngine",
     "GenerationResult",
+    "PrefixCache",
     "PagedServingEngine",
     "PagedPrefix",
     "Request",
@@ -37,4 +43,9 @@ __all__ = [
     "quantize_params",
     "quantize_weight",
     "dequantize_weight",
+    "warp_logits",
+    "AcceptResult",
+    "rejection_sample_verify",
+    "rejection_sample_verify_core",
+    "sample_token",
 ]

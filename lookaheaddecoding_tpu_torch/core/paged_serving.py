@@ -13,8 +13,9 @@ instead of the device running out of memory.
 Scheduling is the fairness lane policy: every active lane advances each
 step through one batched decode step (core/paged_step.py),
 ``steps_per_sync`` steps between host reads, with per-request streaming.
-Greedy verification only so far: sampling needs ``ops/sampling.py``, which
-is not ported yet.
+Verification is greedy, or SpecInfer sampling when the engine is built
+with a ``SamplingConfig``; a request may then set its own ``temperature``
+and ``top_p``.
 
 The engine runs on ``cuda`` unless it is given ``device="cpu"``; without a
 CUDA device it raises rather than carry on on the CPU.
@@ -30,7 +31,7 @@ from typing import Deque, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..config import EngineConfig, LookaheadConfig
+from ..config import EngineConfig, LookaheadConfig, SamplingConfig
 from ..models import llama
 from ..ops.lookahead_attention import KERNEL_HEAD_DIMS
 from .engine import MAX_EOS_IDS, GenerationResult, _eos_vec
@@ -69,14 +70,17 @@ class PagedServingEngine:
         page_size: int = 256,
         n_pages: Optional[int] = None,
         steps_per_sync: int = 4,
-        sampling=None,
+        sampling: Optional[SamplingConfig] = None,
         log=None,
         device=None,
     ):
         """``n_pages`` is the data-page budget (the memory knob; the
         per-lane trash pages come on top). Default: the flat engine's
         capacity, ``num_lanes * ceil(max_seq_len / page_size)``; the saving
-        comes from setting it to the workload's real token volume."""
+        comes from setting it to the workload's real token volume.
+        ``sampling`` switches every lane to sampling verification with its
+        warpers; a request's ``temperature`` / ``top_p`` override them for
+        that request (its ``top_p`` applies whatever the engine's is)."""
         self.device = torch.device(device if device is not None else "cuda")
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -90,10 +94,7 @@ class PagedServingEngine:
         self.num_lanes = num_lanes
         self.page_size = page_size
         self.steps_per_sync = steps_per_sync
-        if sampling is not None:
-            raise NotImplementedError(
-                "the paged engine's sampling mode needs ops/sampling.py, "
-                "which is not ported yet (ROADMAP.md queue A, item A7)")
+        self.sampling = sampling
 
         if (self.mcfg.rope_scaling is not None
                 and self.mcfg.rope_scaling[0] == "dynamic"):
@@ -168,6 +169,11 @@ class PagedServingEngine:
             rng=[torch.Generator(device=dev) for _ in range(B)])
         self._max_new = zeros(B)
         self._eos = zeros(B, MAX_EOS_IDS) - 1
+        # each lane's temperature and top_p (sampling engines), on the
+        # device for the step and top_p on the host for the sort's skip
+        self._temp = torch.ones(B, dtype=torch.float32, device=dev)
+        self._topp = torch.ones(B, dtype=torch.float32, device=dev)
+        self._topp_host = np.ones(B, np.float32)
 
         self._queue: Deque = deque()
         self._iqueue: Deque = deque()      # interactive requests go first
@@ -233,10 +239,18 @@ class PagedServingEngine:
             raise ValueError(
                 f"prompt token ids must lie in [0, {self.mcfg.vocab_size})")
         eos = _eos_vec(req.eos_token_id, self.device)
-        if req.temperature is not None or req.top_p is not None:
+        if self.sampling is None and (req.temperature is not None
+                                      or req.top_p is not None):
             raise ValueError(
                 "request sets temperature/top_p but the engine was built "
                 "without a SamplingConfig (greedy mode)")
+        temp = topp = 1.0
+        if self.sampling is not None:
+            temp = (self.sampling.temperature if req.temperature is None
+                    else req.temperature)
+            topp = self.sampling.top_p if req.top_p is None else req.top_p
+            # SamplingConfig's own validation of the request's values
+            dataclasses.replace(self.sampling, temperature=temp, top_p=topp)
         prefix = req.prefix
         if prefix is not None:
             if not isinstance(prefix, PagedPrefix):
@@ -249,7 +263,7 @@ class PagedServingEngine:
                                           np.asarray(prefix.tokens))):
                 raise ValueError(
                     "prompt does not start with the paged prefix")
-        return prompt, eos
+        return prompt, eos, temp, topp
 
     def _fail(self, req: Request, err: Exception) -> None:
         res = GenerationResult(
@@ -286,7 +300,7 @@ class PagedServingEngine:
                 continue
             req, t_submit = src[0]
             try:
-                prompt, eos = self._validate(req)
+                prompt, eos, temp, topp = self._validate(req)
             except ValueError as e:
                 src.popleft()
                 self._fail(req, e)
@@ -358,6 +372,9 @@ class PagedServingEngine:
                 lane * BS, out_buf, len(prompt), plen)
             self._max_new[lane] = req.max_new_tokens
             self._eos[lane] = eos
+            self._temp[lane] = temp
+            self._topp[lane] = topp
+            self._topp_host[lane] = topp
             self._first_tok.pop(lane, None)
             self._meta[lane] = dict(
                 req=req, priv=priv, shared=shared,
@@ -458,10 +475,17 @@ class PagedServingEngine:
             self._admit()
             if not self._meta:
                 return bool(self._queue or self._iqueue)
+            if self.sampling is None:
+                step, warp = self._fns.decode_batch, ()
+            else:
+                # the sort runs when a live request asks for top-p
+                live_topp = self._topp_host[list(self._meta)].min()
+                step, warp = self._fns.sample_batch, (
+                    self._temp, self._topp if live_topp < 1.0 else None,
+                    self.sampling.top_k)
             for _ in range(self.steps_per_sync):
-                self._fns.decode_batch(self.params, self._k_pool,
-                                       self._v_pool, self._states,
-                                       self._max_new, self._eos)
+                step(self.params, self._k_pool, self._v_pool, self._states,
+                     self._max_new, self._eos, *warp)
             self.steps_run += self.steps_per_sync
             host = self._observe()
             out_buf = self._emit_stream(host[1], host[2])
@@ -480,7 +504,8 @@ class PagedServingEngine:
     def generate(self, prompt_ids, max_new_tokens, eos_token_id=None,
                  seed: int = 0, prefix: Optional[PagedPrefix] = None,
                  return_prefix: bool = False) -> GenerationResult:
-        """One request through the lane scheduler (greedy)."""
+        """One request through the lane scheduler (greedy, or sampling
+        when the engine was built with a SamplingConfig)."""
         req = Request(prompt=prompt_ids, max_new_tokens=max_new_tokens,
                       eos_token_id=eos_token_id, seed=seed, prefix=prefix,
                       return_prefix=return_prefix)

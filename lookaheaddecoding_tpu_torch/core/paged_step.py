@@ -1,4 +1,5 @@
-"""The greedy lookahead step over the paged KV pool (core/paged.py).
+"""The lookahead step (greedy and sampling) over the paged KV pool
+(core/paged.py).
 
 The decode semantics (verification, EOS, pool harvest, window slide) are
 those of the flat-cache step: both call ``core/step.py:make_post_forward``,
@@ -55,7 +56,7 @@ class PagedStepFns(NamedTuple):
     init_lane: Callable
     prefill_from: Callable    # one lane's suffix prefill into the pool
     decode_batch: Callable    # one batched greedy step over all lanes
-    sample_batch: Callable    # one batched sampling step (not ported yet)
+    sample_batch: Callable    # one batched sampling step over all lanes
 
 
 def build_paged_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
@@ -85,7 +86,8 @@ def build_paged_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
     no_rows = torch.zeros(0, dtype=torch.long, device=device)
     meta = dict(level=N, window=W, guess_size=GS, sliding_window=SW)
     impl = "kernel" if lcfg.attention_impl == "kernel" else "dense"
-    post = make_post_forward(mcfg, lcfg, layout, device)
+    posts = {mode: make_post_forward(mcfg, lcfg, layout, device, mode)
+             for mode in ("greedy", "sample")}
     rows = pool_table_rows(mcfg.vocab_size, lcfg.pool_key_len,
                            lcfg.pool_hash_size)
 
@@ -149,10 +151,8 @@ def build_paged_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
         return max(n, 0)
 
     # ------------------------------------------------------------------
-    def decode_batch(params, k_pool, v_pool, states: PagedLaneState,
-                     max_new, eos_id) -> PagedLaneState:
-        """One lookahead step for all lanes against the shared pool.
-        ``max_new`` [B] int32; ``eos_id`` [B, n_eos] int32."""
+    def batch_step(params, k_pool, v_pool, states: PagedLaneState, max_new,
+                   eos_id, mode: str, warp: dict) -> PagedLaneState:
         kv_lens = states.kv_len
         nc = states.n_confirmed.long()
         lst = states.out_buf.gather(1, (nc - 1)[:, None])[:, 0]
@@ -175,8 +175,9 @@ def build_paged_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
             attn_impl=impl, trash_slot=states.trash)
 
         fin = states.finished
-        updates, winner, _ = post(states, logits, guesses, guess_valid, lst,
-                                  prev, max_new, eos_id, states.cap)
+        updates, winner, _ = posts[mode](
+            states, logits, guesses, guess_valid, lst, prev, max_new, eos_id,
+            states.cap, **warp)
 
         # Accept-commit on the shared pool: the winning n-gram's rows move
         # to the slots right after lst's, through the lane's table (gather,
@@ -203,10 +204,22 @@ def build_paged_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
             setattr(states, name, torch.where(keep, old, new))
         return states
 
-    def sample_batch(*args, **kwargs):
-        raise NotImplementedError(
-            "the paged engine's sampling step needs ops/sampling.py, which "
-            "is not ported yet (ROADMAP.md queue A, item A7)")
+    def decode_batch(params, k_pool, v_pool, states: PagedLaneState,
+                     max_new, eos_id) -> PagedLaneState:
+        """One greedy lookahead step for all lanes against the shared pool.
+        ``max_new`` [B] int32; ``eos_id`` [B, n_eos] int32."""
+        return batch_step(params, k_pool, v_pool, states, max_new, eos_id,
+                          "greedy", {})
+
+    def sample_batch(params, k_pool, v_pool, states: PagedLaneState,
+                     max_new, eos_id, temperature, top_p=None,
+                     top_k: int = 0) -> PagedLaneState:
+        """One sampling step for all lanes: ``decode_batch`` with SpecInfer
+        verification, ``temperature`` [B] float32, ``top_p`` [B] float32 or
+        None (no lane asks for top-p) and an int ``top_k`` (0: off)."""
+        return batch_step(params, k_pool, v_pool, states, max_new, eos_id,
+                          "sample", dict(temperature=temperature, top_p=top_p,
+                                         top_k=top_k))
 
     return PagedStepFns(init_lane=init_lane, prefill_from=prefill_from,
                         decode_batch=decode_batch, sample_batch=sample_batch)

@@ -153,6 +153,23 @@ def pool_lookup(pool: PoolState, key: torch.Tensor):
     return pool.values[idx][0], pool.age[idx][0] > 0
 
 
+def fill_pool_with_prompt(pool: PoolState, prompt: torch.Tensor,
+                          prompt_len, level: int) -> PoolState:
+    """Every n-gram of the prompt into the pool on the device, in place:
+    key prompt[i], n-gram prompt[i+1 : i+level] for each start i. ``prompt``
+    is a padded [P] int buffer whose first ``prompt_len`` entries (an int or
+    a 0-d tensor) are real tokens; the starts whose n-gram runs past them
+    are invalid lanes. The engines fill from the host
+    (:func:`host_prompt_fill`), which gives the same content."""
+    gs = level - 1
+    k = prompt.shape[0] - gs       # upper bound on (key, n-gram) pairs
+    if k <= 0:
+        return pool
+    idx = torch.arange(k, device=prompt.device)
+    tups = prompt[idx[:, None] + 1 + torch.arange(gs, device=prompt.device)]
+    return pool_update(pool, prompt[:k], tups, idx + gs < prompt_len)
+
+
 def host_prompt_fill(prompt_tokens, level: int, guess_set_size: int,
                      pad_to: int, key_len: int = 1, table_rows: int = 0):
     """Prompt-seeded pool rows computed on the host: every n-gram of the

@@ -1,4 +1,5 @@
-"""The greedy lookahead decode step, prefill and the AR baseline step.
+"""The lookahead decode step (greedy and sampling), prefill and the AR
+baseline step.
 
 One static-shape step does: guess lookup -> composite assembly -> model
 forward -> verification -> KV commit -> window slide -> pool harvest ->
@@ -18,8 +19,16 @@ The state is updated in place: the caches, the pool and the output buffer
 are written where they lie, so a step allocates no second copy of them.
 
 Exactness: window and pool content only proposes tokens; acceptance needs
-agreement with the model's own argmax, so the output equals the AR
-baseline's whatever the window seeding.
+agreement with the model's own argmax (greedy) or passes SpecInfer
+rejection sampling (``ops/sampling.py``), so greedy output equals the AR
+baseline's whatever the window seeding, and sampled output follows the
+model's warped distribution.
+
+Randomness: each lane draws its uniforms from its own generator once a
+step, a count fixed by the configuration and never by the data, in a fixed
+order: the sampling verification, then the ``always_fwd_one=False`` refill,
+then the sampling mode's EOS filter. A lane therefore draws the same
+numbers alone as in a batch.
 """
 
 from __future__ import annotations
@@ -32,6 +41,9 @@ import torch
 
 from ..config import EngineConfig, LookaheadConfig
 from ..models import llama
+from ..ops.sampling import (lane_uniforms, rejection_sample_verify_core,
+                            split_verify_noise, verify_noise_size,
+                            warp_logits)
 from .layout import Layout
 from .pool import (PoolState, bigram_key, pool_lookup, pool_table_rows,
                    pool_update)
@@ -51,26 +63,37 @@ def _append(buf: torch.Tensor, start: torch.Tensor, vals: torch.Tensor,
     return buf
 
 
-def make_post_forward(mcfg, lcfg: LookaheadConfig, layout: Layout, device):
-    """What a greedy step does after the model forward and before the KV
-    commit: longest-prefix verification, EOS truncation, output append,
-    pool harvest and window slide, for B lanes at once. Returns
-    ``post(state, logits, guesses, guess_valid, lst, prev, max_new, eos_id,
-    cap) -> (updates, winner, max_hit)``. Every tensor has a leading lane
-    axis: ``state`` holds [B]-shaped scalars, a [B, n_window] window, a
-    [B, len] output buffer, a stacked pool and a list of B generators
-    (``PagedLaneState``, or :func:`_as_lanes` of one ``DecodeState``);
-    logits [B, rows, V]; lst, prev [B]; eos_id [B, n_eos]; ``max_new`` and
-    ``cap`` ints or [B] tensors. ``updates`` holds the new bookkeeping
-    fields (not yet selected against ``finished``), while the output buffer
-    and the pool are written in place, masked for finished lanes."""
+def make_post_forward(mcfg, lcfg: LookaheadConfig, layout: Layout, device,
+                      mode: str = "greedy"):
+    """What a step does after the model forward and before the KV commit:
+    verification (greedy longest-prefix, or SpecInfer rejection sampling
+    for ``mode="sample"``), EOS truncation, output append, pool harvest and
+    window slide, for B lanes at once. Returns ``post(state, logits,
+    guesses, guess_valid, lst, prev, max_new, eos_id, cap, temperature=None,
+    top_p=None, top_k=0) -> (updates, winner, max_hit)``. Every tensor has a
+    leading lane axis: ``state`` holds [B]-shaped scalars, a [B, n_window]
+    window, a [B, len] output buffer, a stacked pool and a list of B
+    generators (``PagedLaneState``, or :func:`_as_lanes` of one
+    ``DecodeState``); logits [B, rows, V]; lst, prev [B]; eos_id
+    [B, n_eos]; ``max_new`` and ``cap`` ints or [B] tensors. The sampling
+    mode takes ``temperature`` [B], ``top_p`` [B] or None (no lane asks for
+    top-p: the sort is skipped) and an int ``top_k`` (0: off). ``updates``
+    holds the new bookkeeping fields (not yet selected against
+    ``finished``), while the output buffer and the pool are written in
+    place, masked for finished lanes."""
+    assert mode in ("greedy", "sample"), mode
     W, N = layout.window, layout.level
     G, GS, S = layout.guess_set_size, layout.guess_size, layout.seq_len
     n_window = layout.n_window
     inp_rows = slice(1, 1 + W)
     guess_rows = slice(1 + W, 1 + W + G * GS)
-    rows = (pool_table_rows(mcfg.vocab_size, 2, lcfg.pool_hash_size)
+    V = mcfg.vocab_size
+    rows = (pool_table_rows(V, 2, lcfg.pool_hash_size)
             if lcfg.pool_key_len == 2 else 0)
+    # a lane's uniforms a step, in the order they are used
+    noise_sizes = [verify_noise_size(G, GS, V) if mode == "sample" else 0,
+                   0 if lcfg.always_fwd_one else n_window,
+                   W if mode == "sample" else 0]
     if not lcfg.always_fwd_one:
         # always_fwd_one=False: level segments of the flat window, the
         # index of each entry within its level, and each level's width
@@ -84,14 +107,26 @@ def make_post_forward(mcfg, lcfg: LookaheadConfig, layout: Layout, device):
                               for lv in range(N - 2)])))
 
     def post(state, logits, guesses, guess_valid, lst, prev, max_new, eos_id,
-             cap):
+             cap, temperature=None, top_p=None, top_k=0):
         dev = logits.device
         b = logits.shape[0]
         fin = state.finished
         new_results = logits[:, inp_rows].argmax(dim=-1).int()    # [B, W]
-        next_token = logits[:, 0].argmax(dim=-1).int()[:, None]   # [B, 1]
-        # torch.argmax, like jnp.argmax, returns the first maximum
-        if G > 0:
+        u_verify, u_refill, u_filter = (
+            lane_uniforms(state.rng, sum(noise_sizes), dev).split(
+                noise_sizes, dim=1) if sum(noise_sizes) else (None,) * 3)
+        if mode == "sample":
+            probs_next = torch.softmax(warp_logits(
+                logits[:, 0], temperature, top_k, top_p), dim=-1)
+            guess_probs = torch.softmax(warp_logits(
+                logits[:, guess_rows], temperature, top_k, top_p),
+                dim=-1).view(b, G, GS, V)
+            hits, max_hit, winner = rejection_sample_verify_core(
+                probs_next, guess_probs, guesses, guess_valid,
+                *split_verify_noise(u_verify, G, GS, V))
+        elif G > 0:
+            # torch.argmax, like jnp.argmax, returns the first maximum
+            next_token = logits[:, 0].argmax(dim=-1).int()[:, None]  # [B, 1]
             guess_results = logits[:, guess_rows].argmax(dim=-1).int().view(
                 b, G, GS)
             correct = torch.cat([next_token[:, None].expand(b, G, 1),
@@ -106,6 +141,7 @@ def make_post_forward(mcfg, lcfg: LookaheadConfig, layout: Layout, device):
                 1, winner[:, None, None].expand(b, 1, GS))[:, 0]
             hits = torch.cat([next_token, won[:, :GS - 1]], dim=1)
         else:
+            next_token = logits[:, 0].argmax(dim=-1).int()[:, None]
             max_hit = torch.zeros(b, dtype=torch.int32, device=dev)
             winner = torch.zeros(b, dtype=torch.long, device=dev)
             hits = next_token.expand(b, GS)
@@ -172,12 +208,18 @@ def make_post_forward(mcfg, lcfg: LookaheadConfig, layout: Layout, device):
             # tail takes random copies of confirmed tokens
             shifted = j_in + max_hit[:, None]
             idx = seg_start + torch.minimum(shifted, width - 1)
-            u = torch.stack([torch.rand(n_window, generator=g, device=dev)
-                             for g in state.rng])
-            ridx = torch.minimum((u * n_confirmed[:, None]).long(),
-                                 n_confirmed.long()[:, None] - 1)
             window = torch.where(shifted < width, window.gather(1, idx),
-                                 out_buf.gather(1, ridx))
+                                 out_buf.gather(1, _copy_idx(u_refill,
+                                                             n_confirmed)))
+        if mode == "sample":
+            # the newest level must not propose EOS (the reference's
+            # filter_window, after the slide): such entries take random
+            # copies of confirmed tokens
+            newest = window[:, -W:]
+            hit_eos = (newest[:, :, None] == eos_id[:, None, :]).any(dim=2)
+            window = torch.cat([window[:, :-W], torch.where(
+                hit_eos, out_buf.gather(1, _copy_idx(u_filter, n_confirmed)),
+                newest)], dim=1)
 
         finished = (fin | has_eos
                     | (n_confirmed - state.init_len >= max_new)
@@ -188,6 +230,13 @@ def make_post_forward(mcfg, lcfg: LookaheadConfig, layout: Layout, device):
         return updates, winner, max_hit
 
     return post
+
+
+def _copy_idx(u: torch.Tensor, n_confirmed: torch.Tensor) -> torch.Tensor:
+    """Uniform random positions in [0, n_confirmed) a lane, from uniforms
+    [B, n]: the random copies of confirmed tokens."""
+    return torch.minimum((u * n_confirmed[:, None]).long(),
+                         n_confirmed.long()[:, None] - 1)
 
 
 def _as_lanes(state: DecodeState) -> SimpleNamespace:
@@ -214,8 +263,11 @@ class StepFns(NamedTuple):
     init_state: Callable
     prefill_chunk: Callable
     prefill_all: Callable     # whole-prompt prefill
+    prefill_from: Callable    # suffix prefill (prefix caching)
     decode_loop: Callable     # greedy lookahead generation to the end
     decode_step: Callable     # one greedy lookahead step
+    sample_loop: Callable     # sampling lookahead generation to the end
+    sample_step: Callable     # one sampling lookahead step
     baseline_loop: Callable   # autoregressive greedy generation
     baseline_step: Callable   # one AR step
 
@@ -263,7 +315,8 @@ def build_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
     # the kernel or the plain version from kv_len on the device
     meta = dict(level=N, window=W, guess_size=GS, sliding_window=SW)
     impl = "kernel" if lcfg.attention_impl == "kernel" else "dense"
-    post = make_post_forward(mcfg, lcfg, layout, device)
+    posts = {mode: make_post_forward(mcfg, lcfg, layout, device, mode)
+             for mode in ("greedy", "sample")}
 
     # ------------------------------------------------------------------
     def init_state(k_cache, v_cache, pool: PoolState, out_buf, prompt_len: int,
@@ -305,22 +358,30 @@ def build_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
                                     dtype=torch.int32, device=device)
         return state
 
-    def prefill_all(params, state: DecodeState, prompt_len: int) -> DecodeState:
-        """prompt[:-1] in C-sized chunks. The prompt length is host data, so
-        the chunk starts are host ints; the last chunk is aligned to end at
-        the prompt (start = n - C), and a prompt shorter than C pads within
+    def prefill_from(params, state: DecodeState, prompt_len: int,
+                     start0: int) -> DecodeState:
+        """prompt[start0:-1] in C-sized chunks; ``start0 > 0`` is the prefix
+        path, whose rows [0, start0) are already in the caches. The prompt
+        length is host data, so the chunk starts are host ints; the last
+        chunk is aligned to end at the prompt (start = n - C) and may
+        rewrite a few prefix rows (K/V depend on the position alone, so the
+        rewrite changes nothing), and a prompt shorter than C pads within
         [0, C), whose tail slots stay masked until overwritten."""
         n = prompt_len - 1
-        for c in range(-(-n // C) if n > 0 else 0):
-            start = min(c * C, max(n - C, 0))
+        for c in range(-(-max(n - start0, 0) // C)):
+            start = min(start0 + c * C, max(n - C, 0))
             state = prefill_chunk(params, state, state.out_buf[start:start + C],
                                   start, prompt_len)
         state.kv_len = torch.tensor(max(n, 0), dtype=torch.int32, device=device)
         return state
 
+    def prefill_all(params, state: DecodeState, prompt_len: int) -> DecodeState:
+        """The whole prompt: :func:`prefill_from` at 0."""
+        return prefill_from(params, state, prompt_len, 0)
+
     # ------------------------------------------------------------------
-    def decode_step(params, state: DecodeState, max_new: int,
-                    eos_id) -> DecodeState:
+    def step(params, state: DecodeState, max_new: int, eos_id, mode: str,
+             warp: dict) -> DecodeState:
         kv_len = state.kv_len
         lst = state.out_buf.index_select(0, (state.n_confirmed - 1).long().view(1))
         if lcfg.pool_key_len == 2:
@@ -339,9 +400,9 @@ def build_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
             logits_rows=logits_rows, attn_impl=impl)
 
         lanes = _as_lanes(state)
-        updates, winner, max_hit = post(
+        updates, winner, max_hit = posts[mode](
             lanes, logits[None], guesses[None], guess_valid[None], lst, prev,
-            max_new, eos_id[None], M)
+            max_new, eos_id[None], M, **warp)
         state.pool.clock = lanes.pool.clock[0]
         updates = {name: new[0] for name, new in updates.items()}
         winner = winner[0]
@@ -361,8 +422,26 @@ def build_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
                     buf.index_copy_(2, dst, buf.index_select(2, src))
         return _keep_if_finished(state, updates)
 
+    def decode_step(params, state: DecodeState, max_new: int,
+                    eos_id) -> DecodeState:
+        return step(params, state, max_new, eos_id, "greedy", {})
+
+    def sample_step(params, state: DecodeState, max_new: int, eos_id,
+                    temperature: torch.Tensor, top_p=None,
+                    top_k: int = 0) -> DecodeState:
+        """One sampling step: ``temperature`` a [1] tensor, ``top_p`` a [1]
+        tensor or None (off, no sort), ``top_k`` an int (0: off)."""
+        return step(params, state, max_new, eos_id, "sample",
+                    dict(temperature=temperature, top_p=top_p, top_k=top_k))
+
     def decode_loop(params, state: DecodeState, max_new: int, eos_id):
         return _run_loop(lambda s: decode_step(params, s, max_new, eos_id),
+                         state, max_new, GS)
+
+    def sample_loop(params, state: DecodeState, max_new: int, eos_id,
+                    temperature, top_p=None, top_k: int = 0):
+        return _run_loop(lambda s: sample_step(params, s, max_new, eos_id,
+                                               temperature, top_p, top_k),
                          state, max_new, GS)
 
     # ------------------------------------------------------------------
@@ -394,8 +473,11 @@ def build_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
         init_state=init_state,
         prefill_chunk=prefill_chunk,
         prefill_all=prefill_all,
+        prefill_from=prefill_from,
         decode_loop=decode_loop,
         decode_step=decode_step,
+        sample_loop=sample_loop,
+        sample_step=sample_step,
         baseline_loop=baseline_loop,
         baseline_step=baseline_step,
     )

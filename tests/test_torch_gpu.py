@@ -611,3 +611,73 @@ def test_paged_attention_kernel_head_dim_256(dtype, tol, int8_kv):
             flat = la.lookahead_attention(q[b], lane(kg), lane(vg),
                                           kv_lens[b:b + 1], **kw)
             assert torch.equal(flat, got[b]), (causal, sw, b)
+
+
+@pytest.mark.gpu
+def test_batched_verification_matches_its_cpu_result():
+    """The SpecInfer verification (plain PyTorch) on the card, 512 lanes in
+    one call, against the same call on the CPU with the same noise: equal
+    hits, max_hit and winner (float32; a uniform within rounding of its
+    threshold could flip a decision, which at 512 lanes of these
+    distributions has not been seen)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from lookaheaddecoding_tpu_torch.ops import sampling as ts
+    rng = np.random.RandomState(3)
+    B, G, GS, V = 512, 20, 6, 300
+
+    def softmax(x):
+        e = np.exp(x - x.max(-1, keepdims=True))
+        return (e / e.sum(-1, keepdims=True)).astype(np.float32)
+    probs_next = softmax(rng.randn(B, V) * 3)
+    guess_probs = softmax(rng.randn(B, G, GS, V) * 3)
+    top = np.argsort(-probs_next, axis=1)[:, :3]
+    tokens = np.take_along_axis(
+        top[:, None, :], rng.randint(0, 3, size=(B, G * GS))[:, None, :],
+        2).reshape(B, G, GS).astype(np.int32)
+    valid = rng.rand(B, G) < 0.8
+    u = rng.rand(B, ts.verify_noise_size(G, GS, V)).astype(np.float32)
+    args = [torch.from_numpy(x) for x in (probs_next, guess_probs, tokens,
+                                          valid)]
+    cpu = ts.rejection_sample_verify_core(
+        *args, *ts.split_verify_noise(torch.from_numpy(u), G, GS, V))
+    card = ts.rejection_sample_verify_core(
+        *(a.cuda() for a in args),
+        *ts.split_verify_noise(torch.from_numpy(u).cuda(), G, GS, V))
+    for name in ("hits", "max_hit", "winner"):
+        assert torch.equal(getattr(card, name).cpu(), getattr(cpu, name))
+    assert (cpu.max_hit > 0).any()
+
+
+@pytest.mark.gpu
+def test_sampling_paths_run_the_attention_kernels():
+    """generate_sample, a sampling generate_stream and a sampling
+    generate_batch on the card in bfloat16: the flat attention kernel (and
+    the paged one for the batch) launch and no plain version runs. (A
+    batch lane's tokens are held to its lone call in chip_smoke.py, on a
+    model whose margins a bf16 product of other row counts cannot flip.)"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import lookaheaddecoding_tpu_torch as lt
+    cfg = lt.LlamaConfig(vocab_size=256, hidden_size=256,
+                         intermediate_size=512, num_hidden_layers=2,
+                         num_attention_heads=4, num_key_value_heads=2,
+                         dtype=torch.bfloat16)
+    eng = lt.LookaheadEngine(
+        cfg, lt.init_params(cfg, seed=0, scale=0.5, device="cuda"),
+        lt.LookaheadConfig(level=4, window_size=5, guess_set_size=4,
+                           pool_from_prompt=True),
+        lt.EngineConfig(max_seq_len=256, prefill_chunk=16))
+    prompt = list(np.random.RandomState(0).randint(0, 256, size=20))
+    scfg = lt.SamplingConfig(temperature=0.8, top_p=0.9)
+    for tally in (la.counts, la.paged_counts):
+        tally.update(dict.fromkeys(tally, 0))
+    one = eng.generate_sample(prompt, 32, scfg, seed=1)
+    stream = list(eng.generate_stream(prompt, 32, seed=1, sampling=scfg))
+    assert la.counts["mma"] > 0 and la.counts["plain"] == 0
+    np.testing.assert_array_equal(np.concatenate(stream), one.new_tokens)
+    batch = eng.generate_batch([prompt, prompt[:9]], 32, sampling=scfg,
+                               seeds=[1, 2])
+    assert la.paged_counts["mma"] > 0 and la.paged_counts["plain"] == 0
+    assert la.counts["fma"] == la.paged_counts["fma"] == 0
+    assert all(r.num_generated == 32 for r in batch)

@@ -455,12 +455,12 @@ def test_rejected_modes_raise_as_in_jax():
     with pytest.raises(ValueError, match="more pages"):
         tlt.PagedServingEngine(tcfg, tparams, lc, ec, n_pages=0,
                                device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
-        tlt.PagedServingEngine(tcfg, tparams, lc, ec, device="cpu",
-                               sampling=tlt.SamplingConfig(temperature=0.8))
     eng = tlt.PagedServingEngine(tcfg, tparams, lc, ec, device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
-        eng._fns.sample_batch()
+    # a greedy engine refuses a request's sampling knobs, as JAX's does
+    for knob in (dict(temperature=0.8), dict(top_p=0.9)):
+        res = eng.run([tlt.Request(prompt=[1, 2, 3], max_new_tokens=4,
+                                   **knob)])
+        assert "without a SamplingConfig" in res[0].error
     with pytest.raises(ValueError, match="leaves no room"):
         eng.precompute_prefix(list(range(100)) * 3)
     with pytest.raises(ValueError, match="empty prefix"):
