@@ -18,9 +18,12 @@ target). It imports no JAX. Phases, each printed as it runs:
    and on the device alone (a CUDA graph): the attention kernel on a plain
    and on an int8 KV cache (bfloat16 on the tensor cores, float32 on
    FMAs; the bfloat16 result also within its rounding limit of the
-   float32 kernel's), at head_dim 64 with the headline's heads and at
+   float32 kernel's), at head_dim 64 with the headline's heads, at
    head_dim 256 with Gemma-2B's (8 query heads, 1 KV head; every case
-   timed), and the int8, int4 and pipelined int4 matrix
+   timed) and at head_dim 32, 80 and 96 (64, 32 and 32 query heads on 8
+   KV heads, Hq*D 2048-3072; the D=256 cases, B1, B2, prefill and AR
+   timed; flat and paged, the paged call bit-equal to the flat one lane
+   by lane), and the int8, int4 and pipelined int4 matrix
    products (bfloat16 on the tensor cores; the pipelined one bit-equal to
    the int4 one, a row alone bit-equal to the same row among 240);
    the paged attention call on a shared page pool with shuffled tables
@@ -83,7 +86,29 @@ target). It imports no JAX. Phases, each printed as it runs:
    requests (a shared prefix, a request ``top_p`` on an engine at 1.0,
    streaming), each equal to the flat ``generate_sample``, every page
    free. Each path of b-g launches the attention kernel (the paged one
-   for e and g) and no plain version or FMA design; path a runs no model.
+   for e and g) and no plain version or FMA design; path a runs no model;
+9. continuous batching, on the headline bf16 engine:
+   ``ContinuousBatchingEngine(num_lanes=4, steps_per_sync=4)`` with ten
+   requests of staggered prompts (32-104 tokens) and budgets (32-128 new
+   tokens), one of them streaming, and a bad one (a prompt longer than M)
+   that fails alone, under ``fairness``, ``throughput`` with
+   ``batch_group=2`` and ``adaptive`` (the eleven queued, one fused drain,
+   then an interactive request, which must take a lane and stream). Every
+   greedy result equals the flat ``generate``; then sampling lanes at T*
+   (per-request temperatures, a request top_p on an engine at 1.0), each
+   equal to the lone ``generate_sample``. Each objective is counted alone:
+   the lanes launch the paged kernel, the prefills and fused drains the
+   flat one, no plain version or FMA design. Prints tok/s in all, TTFT p50
+   and max, and host reads a lane step;
+10. model coverage: ``LlamaConfig.from_hf`` on Llama-3.2-1B's published
+   config fields (llama3 rope, vocab 128256) at full width and depth with
+   the transition-cycle weights (reduced: synthetic weights, an untied
+   head), ``generate`` token-exact against ``generate_baseline``; the
+   headline model with dynamic-NTK rope (max_position_embeddings 512,
+   factor 2, M=2048, a 600-token prompt), token-exact; and engines at
+   head_dim 32, 80 and 96 (4 layers), token-exact through the mma kernel,
+   with three requests each through ``ContinuousBatchingEngine`` equal to
+   the flat ``generate`` (the paged kernel at that head_dim).
 
 Each phase's seconds are printed as ``[seconds]`` lines.
 
@@ -161,6 +186,35 @@ ARCH_256 = dict(vocab_size=32000, hidden_size=2048, intermediate_size=16384,
                 rope_theta=10000.0, rms_norm_eps=1e-6,
                 max_position_embeddings=8192)
 N_NEW_256, PAGED_NEW_256 = 128, 64   # new tokens: flat run, paged requests
+# phase 9: the scheduler's lanes and steps between host reads
+CB_LANES, CB_SYNC = 4, 4
+# phase 10: Llama-3.2-1B's published config.json fields
+# (meta-llama/Llama-3.2-1B: hidden 2048, intermediate 8192, 16 layers,
+# 32 query / 8 KV heads, rope_theta 500000, llama3 rope scaling factor 32,
+# low/high frequency factors 1 and 4 over 8192 positions, rms eps 1e-5,
+# vocab 128256, tied embeddings), read by LlamaConfig.from_hf
+LLAMA32_1B = dict(
+    model_type="llama", vocab_size=128256, hidden_size=2048,
+    intermediate_size=8192, num_hidden_layers=16, num_attention_heads=32,
+    num_key_value_heads=8, rms_norm_eps=1e-5, rope_theta=500000.0,
+    max_position_embeddings=131072, tie_word_embeddings=True,
+    rope_scaling={"rope_type": "llama3", "factor": 32.0,
+                  "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+                  "original_max_position_embeddings": 8192})
+# phase 10's dynamic-NTK run: the headline model with its rotation rescaled
+# past 512 positions (factor 2), M=2048, a prompt that crosses the threshold
+DYN_MAX_POS, DYN_FACTOR, DYN_SEQ = 512, 2.0, 2048
+DYN_PROMPT, DYN_NEW = 600, 128
+# phase 10's engines at head_dim 32, 80 and 96 (the heads of phase 3), the
+# LLaMA layer at reduced depth: 4 layers, vocab 32000, SwiGLU
+ARCH_SMALL_D = {
+    32: dict(hidden_size=2048, intermediate_size=5632, num_attention_heads=64,
+             num_key_value_heads=8),
+    80: dict(hidden_size=2560, intermediate_size=8192, num_attention_heads=32,
+             num_key_value_heads=8),
+    96: dict(hidden_size=3072, intermediate_size=8192, num_attention_heads=32,
+             num_key_value_heads=8)}
+SMALL_D_LAYERS, SMALL_D_NEW = 4, 64
 
 
 def log(*a):
@@ -220,6 +274,25 @@ def graph_ms(enqueue, calls=20, replays=5) -> float:
     return start.elapsed_time(end) / (calls * replays)
 
 
+def reset_counts():
+    from lookaheaddecoding_tpu_torch.ops import lookahead_attention as la
+    from lookaheaddecoding_tpu_torch.ops import quant_matmul as qm
+    for tally in (la.counts, la.paged_counts, qm.counts):
+        tally.update(dict.fromkeys(tally, 0))
+
+
+def read_counts():
+    """The attention kernels' launches by design, and the plain versions'
+    calls, since the last ``reset_counts``."""
+    from lookaheaddecoding_tpu_torch.ops import lookahead_attention as la
+    from lookaheaddecoding_tpu_torch.ops import quant_matmul as qm
+    return dict(attention_mma=la.counts["mma"],
+                paged_attention=la.paged_counts["mma"],
+                attention_fma=la.counts["fma"] + la.paged_counts["fma"],
+                plain=(la.counts["plain"] + la.paged_counts["plain"]
+                       + qm.counts["plain"]))
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: each kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -261,6 +334,13 @@ ATT_CASES_256 = [(S_COMP, 1024, 512, False, 0), (S_COMP, 2048, 1808, False, 0),
                  (S_COMP, 1024, 600, False, 300),
                  (PREFILL_CHUNK, 1024, 600, True, 300),
                  (1, 1024, 700, True, 0)]
+
+
+# head_dim 32, 80 and 96, each at Hq * D near 2048 (2048, 2560, 3072): the
+# D=256 cases, four of them timed (B1, B2, prefill, AR)
+HEADS_SMALL = {32: (64, 8, 32), 80: (32, 8, 80), 96: (32, 8, 96)}
+ATT_TIMED_SMALL = {(S_COMP, 1024, 512, False, 0), (S_COMP, 2048, 1808, False, 0),
+                   (PREFILL_CHUNK, 1024, 640, True, 0), (1, 1024, 700, True, 0)}
 
 
 def check_attention(device, heads=HEADS_64, cases=ATT_CASES, timed=ATT_TIMED,
@@ -839,16 +919,17 @@ def build_headline(device, arch=ARCH):
     return mcfg, params, make_prompt(nxt), nxt
 
 
-def build_engine(mcfg, params, kv_quant=None):
+def build_engine(mcfg, params, kv_quant=None, max_seq=MAX_SEQ):
     """The headline engine on ``params``: L7/W20/G20, pool from the prompt,
-    M=1024, prefill chunk 128 (bench.py's)."""
+    M=1024 unless ``max_seq`` says otherwise, prefill chunk 128
+    (bench.py's)."""
     import lookaheaddecoding_tpu_torch as lt
 
     eng = lt.LookaheadEngine(
         mcfg, params,
         lt.LookaheadConfig(level=LEVEL, window_size=WINDOW,
                            guess_set_size=GUESS, pool_from_prompt=True),
-        lt.EngineConfig(max_seq_len=MAX_SEQ, prefill_chunk=PREFILL_CHUNK,
+        lt.EngineConfig(max_seq_len=max_seq, prefill_chunk=PREFILL_CHUNK,
                         kv_quant=kv_quant))
     assert eng.lcfg.attention_impl == "kernel", eng.lcfg.attention_impl
     return eng
@@ -1114,8 +1195,6 @@ def paged_shared_prefix(name, mcfg, params, flat, nxt, card, n_new):
     free at the end. Returns the launches of the paged run."""
     import torch
     import lookaheaddecoding_tpu_torch as lt
-    from lookaheaddecoding_tpu_torch.ops import lookahead_attention as la
-    from lookaheaddecoding_tpu_torch.ops import quant_matmul as qm
 
     eng = lt.PagedServingEngine(
         mcfg, params,
@@ -1127,8 +1206,7 @@ def paged_shared_prefix(name, mcfg, params, flat, nxt, card, n_new):
     assert eng.lcfg.attention_impl == "kernel", eng.lcfg.attention_impl
     eng.generate(make_prompt(nxt, start=1, n=48), WARM_NEW)   # warm-up
     torch.cuda.synchronize()
-    for tally in (la.counts, la.paged_counts, qm.counts):
-        tally.update(dict.fromkeys(tally, 0))
+    reset_counts()
     eng.steps_run = 0
     t0 = time.perf_counter()
     px = eng.precompute_prefix(make_prompt(nxt, start=3, n=200))
@@ -1143,11 +1221,7 @@ def paged_shared_prefix(name, mcfg, params, flat, nxt, card, n_new):
         for rid, p in prompts.items()])}
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    got = dict(paged_attention=la.paged_counts["mma"],
-               flat_attention=la.counts["mma"],
-               attention_fma=la.counts["fma"] + la.paged_counts["fma"],
-               plain=(qm.counts["plain"] + la.counts["plain"]
-                      + la.paged_counts["plain"]))
+    got = read_counts()
     assert got["paged_attention"] > 0 and got["attention_fma"] == 0, got
     assert got["plain"] == 0, got
     assert sorted(results) == sorted(prompts), sorted(results)
@@ -1369,21 +1443,14 @@ def sampling_path(eng, mcfg, params, prompt, nxt, card):
     import torch
     import lookaheaddecoding_tpu_torch as lt
     from torch.profiler import ProfilerActivity, profile
-    from lookaheaddecoding_tpu_torch.ops import lookahead_attention as la
-    from lookaheaddecoding_tpu_torch.ops import quant_matmul as qm
 
     launches = {}
 
     def counted(path, fn, paged=False):
-        for tally in (la.counts, la.paged_counts, qm.counts):
-            tally.update(dict.fromkeys(tally, 0))
+        reset_counts()
         out = fn()
         torch.cuda.synchronize()
-        got = dict(attention_mma=la.counts["mma"],
-                   paged_attention=la.paged_counts["mma"],
-                   attention_fma=la.counts["fma"] + la.paged_counts["fma"],
-                   plain=(la.counts["plain"] + la.paged_counts["plain"]
-                          + qm.counts["plain"]))
+        got = read_counts()
         key = "paged_attention" if paged else "attention_mma"
         assert got[key] > 0 and got["attention_fma"] == 0 \
             and got["plain"] == 0, (path, got)
@@ -1615,6 +1682,270 @@ def sampling_path(eng, mcfg, params, prompt, nxt, card):
     return launches, dict(t_star=t_star, margin=margin)
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: continuous batching
+# ---------------------------------------------------------------------------
+
+def cb_requests(nxt, n=10, new_scale=1.0):
+    """``n`` requests on the cycle with staggered prompts (32-104 tokens)
+    and budgets; neighbours share a budget, so that ``batch_group=2``
+    groups them."""
+    lens = (32, 48, 64, 80, 96, 40, 56, 72, 88, 104)
+    news = (64, 64, 128, 128, 96, 96, 32, 32, 112, 112)
+    return [dict(request_id=f"r{i}",
+                 prompt=make_prompt(nxt, start=30 + 3 * i, n=lens[i]),
+                 max_new_tokens=max(8, int(news[i] * new_scale)))
+            for i in range(n)]
+
+
+def cb_stats(results, wall):
+    ok = [r for r in results.values() if r.error is None]
+    ttft = np.array([r.ttft_s for r in ok])
+    tokens = sum(r.num_generated for r in ok)
+    return dict(requests=len(ok), tokens=tokens, wall_s=wall,
+                tok_s=tokens / wall, ttft_p50_s=float(np.median(ttft)),
+                ttft_max_s=float(ttft.max()))
+
+
+def serving_path(eng, nxt, card, t_star):
+    """Phase 9: ``ContinuousBatchingEngine`` on the headline engine, each
+    objective counted alone: ten requests and a bad one (its prompt longer
+    than M), one of them streaming, through ``fairness``, ``throughput``
+    with ``batch_group=2`` and ``adaptive`` (all eleven queued, one fused
+    drain, then an interactive request, which must take a lane). Every
+    greedy result equals the flat ``generate``; then a sampling scheduler,
+    whose requests each equal the lone ``generate_sample`` with their
+    seed, temperature and top_p. Returns (launches by path, stats)."""
+    import torch
+    import lookaheaddecoding_tpu_torch as lt
+
+    reqs = cb_requests(nxt)
+    bad = dict(request_id="bad", prompt=make_prompt(nxt, start=5,
+                                                    n=MAX_SEQ + 1),
+               max_new_tokens=32)
+    chat = dict(request_id="chat", prompt=make_prompt(nxt, start=60, n=72),
+                max_new_tokens=64, interactive=True)
+    # the flat generate of every request, before any count is reset
+    flat = {r["request_id"]: eng.generate(r["prompt"], r["max_new_tokens"])
+            for r in reqs + [chat]}
+    launches, stats = {}, {}
+    for objective, kw in (("fairness", {}),
+                          ("throughput", dict(batch_group=2)),
+                          ("adaptive", {})):
+        srv = lt.ContinuousBatchingEngine(
+            eng, num_lanes=CB_LANES, steps_per_sync=CB_SYNC,
+            objective=objective, **kw)
+        chunks = []
+        todo = [dict(r, on_tokens=chunks.append) if r["request_id"] == "r2"
+                else r for r in reqs] + [bad]
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        for r in todo:
+            srv.submit(lt.Request(**r))
+        chat_chunks = []
+        if objective == "adaptive":
+            srv.step()               # a deep backlog on idle lanes: fused
+            assert not srv._active and len(srv._results) == 1
+            srv.submit(lt.Request(**chat, on_tokens=chat_chunks.append))
+            srv.step()
+            on_lane = [q.request_id for q in srv._active.values()]
+            assert on_lane == ["chat"], on_lane
+        while srv.step():
+            pass
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_counts()
+        results = {r.request_id: r for r in srv._results}
+        srv._results = []
+        assert got["attention_fma"] == 0 and got["plain"] == 0, (objective,
+                                                                 got)
+        assert got["attention_mma"] > 0, (objective, got)   # the prefills
+        if objective != "throughput":
+            assert got["paged_attention"] > 0, (objective, got)  # the lanes
+        assert results["bad"].error and "exceeds" in results["bad"].error
+        for rid, r in results.items():
+            if rid != "bad":
+                assert r.error is None, (objective, rid, r.error)
+                assert np.array_equal(r.tokens, flat[rid].tokens), \
+                    f"phase 9 {objective}: {rid} differs from generate"
+        np.testing.assert_array_equal(
+            np.concatenate([reqs[2]["prompt"]] + chunks), results["r2"].tokens)
+        st = cb_stats(results, wall)
+        if objective == "fairness":
+            assert len(chunks) > 1, chunks          # r2 streamed from a lane
+        if objective == "adaptive":
+            # the interactive request streamed from its lane
+            assert len(chat_chunks) > 1, chat_chunks
+            np.testing.assert_array_equal(
+                np.concatenate([chat["prompt"]] + chat_chunks),
+                results["chat"].tokens)
+        if objective != "throughput":
+            st.update(lane_steps=srv.steps_run, host_reads=srv.host_reads,
+                      reads_a_step=srv.host_reads / srv.steps_run)
+        launches[objective], stats[objective] = got, st
+        log(f"  [{card}] 9 {objective}{' batch_group=2' if kw else ''}: "
+            f"{st['requests']} requests + 1 failed alone, {st['tokens']} "
+            f"tokens in {wall:.2f} s, {st['tok_s']:.1f} tok/s in all; TTFT "
+            f"p50 {st['ttft_p50_s']:.3f} s, max {st['ttft_max_s']:.3f} s"
+            + (f"; {srv.steps_run} lane steps, {srv.host_reads} host reads "
+               f"({st['reads_a_step']:.3f} a step)"
+               if objective != "throughput" else "")
+            + f"; every result == flat generate; launches {got}")
+
+    # sampling lanes: a temperature a request (None: the engine's T*) and a
+    # request top_p on an engine at 1.0
+    cfg = lt.SamplingConfig(temperature=t_star, top_k=TOP_K)
+    sreqs = [dict(r, seed=i, max_new_tokens=48, temperature=t)
+             for i, (r, t) in enumerate(zip(
+                 reqs[:5], (None, 0.8 * t_star, 1.2 * t_star, None, None)))]
+    sreqs[3]["top_p"] = 0.9
+    srv = lt.ContinuousBatchingEngine(eng, num_lanes=CB_LANES,
+                                      steps_per_sync=CB_SYNC, sampling=cfg)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    results = {r.request_id: r for r in srv.run(
+        [lt.Request(**r) for r in sreqs])}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_counts()
+    assert got["paged_attention"] > 0 and got["attention_fma"] == 0 \
+        and got["plain"] == 0, got
+    for r in sreqs:
+        temp = r["temperature"] or t_star
+        one = eng.generate_sample(
+            r["prompt"], r["max_new_tokens"],
+            lt.SamplingConfig(temp, TOP_K, r.get("top_p", 1.0)),
+            seed=r["seed"])
+        assert_same_tokens(f"9 sampling {r['request_id']}", eng,
+                           results[r["request_id"]].tokens, one.tokens, temp)
+    launches["sampling"], stats["sampling"] = got, cb_stats(results, wall)
+    log(f"  [{card}] 9 sampling lanes at T* = {t_star:.4f} (two requests at "
+        f"0.8 and 1.2 T*, one at top_p 0.9 on an engine at 1.0): 5 requests "
+        f"each == the lone generate_sample with its seed and warpers; "
+        f"{stats['sampling']['tok_s']:.1f} tok/s in all; launches {got}")
+    return launches, stats
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: model coverage
+# ---------------------------------------------------------------------------
+
+def coverage_lanes(name, eng, nxt, card, n_new):
+    """Three requests through ``ContinuousBatchingEngine`` (fairness, two
+    lanes) on ``eng``, each equal to its flat ``generate``: the paged
+    kernel at the engine's head_dim. Returns the paged launches."""
+    import torch
+    import lookaheaddecoding_tpu_torch as lt
+
+    reqs = cb_requests(nxt, n=3, new_scale=n_new / 128)
+    flat = {r["request_id"]: eng.generate(r["prompt"], r["max_new_tokens"])
+            for r in reqs}
+    reset_counts()
+    res = lt.ContinuousBatchingEngine(eng, num_lanes=2,
+                                      steps_per_sync=CB_SYNC).run(
+        [lt.Request(**r) for r in reqs])
+    torch.cuda.synchronize()
+    got = read_counts()
+    assert got["paged_attention"] > 0 and got["attention_fma"] == 0 \
+        and got["plain"] == 0, (name, got)
+    for r in res:
+        assert r.error is None and np.array_equal(
+            r.tokens, flat[r.request_id].tokens), (name, r.request_id)
+    log(f"  [{card}] {name}: 3 requests through ContinuousBatchingEngine "
+        f"(2 lanes) each == flat generate; launches {got}")
+    return got
+
+
+def build_on_card(device, mcfg, seed=0):
+    """A phase-10 model: ``build_headline``'s recipe (layer weights of
+    scale 0.002, unit embeddings scaled by sqrt(H), a head that maps each
+    cycle token to the next) drawn on the card by a torch generator seeded
+    with ``seed``, where numpy would take most of a minute at
+    Llama-3.2-1B's vocab. Returns (params, prompt, nxt)."""
+    import torch
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    h, n, inter = (mcfg.hidden_size, mcfg.num_hidden_layers,
+                   mcfg.intermediate_size)
+    hq, hkv, d = (mcfg.num_attention_heads, mcfg.num_key_value_heads,
+                  mcfg.head_dim)
+    vocab = mcfg.vocab_size
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+    shapes = {"wq": (n, h, hq * d), "wk": (n, h, hkv * d),
+              "wv": (n, h, hkv * d), "wo": (n, hq * d, h),
+              "w_gate": (n, h, inter), "w_up": (n, h, inter),
+              "w_down": (n, inter, h)}
+    layers = {name: (0.002 * normal(*shape)).to(mcfg.dtype)
+              for name, shape in shapes.items()}
+    for name in ("input_norm", "post_norm"):
+        layers[name] = torch.ones(n, h, dtype=mcfg.dtype, device=device)
+    cycle = np.random.RandomState(seed).choice(vocab, size=64, replace=False)
+    nxt = np.full(vocab, cycle[0], np.int64)
+    nxt[cycle] = np.roll(cycle, -1)
+    embed = normal(vocab, h)
+    embed /= embed.norm(dim=1, keepdim=True)
+    head = torch.zeros(h, vocab, device=device)
+    head[:, torch.from_numpy(nxt[cycle]).to(device)] = \
+        embed[torch.from_numpy(cycle).to(device)].T
+    params = {"embed": (embed * float(np.sqrt(h))).to(mcfg.dtype),
+              "lm_head": head.to(mcfg.dtype), "layers": layers,
+              "final_norm": torch.ones(h, dtype=mcfg.dtype, device=device)}
+    log(f"  model built on the card in {time.perf_counter() - t0:.1f} s")
+    return params, make_prompt(nxt), nxt
+
+
+def model_coverage(device, card, params, nxt_headline):
+    """Phase 10: Llama-3.2-1B from its config fields, the dynamic-NTK run
+    and the engines at head_dim 32, 80 and 96. Returns launches by
+    configuration (flat and paged)."""
+    import dataclasses
+    import types
+    import torch
+    import lookaheaddecoding_tpu_torch as lt
+
+    flat, paged = {}, {}
+    # Llama-3.2-1B: its config through from_hf, full width and depth;
+    # reduced: synthetic weights, and an untied head (the cycle needs one)
+    mcfg = lt.LlamaConfig.from_hf(types.SimpleNamespace(**LLAMA32_1B))
+    assert mcfg.rope_scaling == ("llama3", (32.0, 1.0, 4.0, 8192.0)), mcfg
+    mcfg = dataclasses.replace(mcfg, tie_word_embeddings=False)
+    p32, prompt32, nxt32 = build_on_card(device, mcfg)
+    eng = build_engine(mcfg, p32)
+    flat["llama3.2-1b_layer"], _, _ = main_path(
+        "llama3.2-1b_layer", eng, prompt32, nxt32, card, (), N_NEW_QUANT)
+    del eng, p32
+    torch.cuda.empty_cache()
+
+    # dynamic-NTK: the headline weights, the rotation rescaled past 512
+    dcfg = lt.LlamaConfig(**dict(ARCH, max_position_embeddings=DYN_MAX_POS),
+                          rope_scaling=("dynamic", DYN_FACTOR),
+                          dtype=torch.bfloat16)
+    eng = build_engine(dcfg, params, max_seq=DYN_SEQ)
+    prompt = make_prompt(nxt_headline, start=7, n=DYN_PROMPT)
+    flat["dynamic_ntk"], _, _ = main_path(
+        "dynamic_ntk", eng, prompt, nxt_headline, card, (), DYN_NEW)
+    del eng
+
+    for d, arch in ARCH_SMALL_D.items():
+        name = f"bf16_head_dim_{d}"
+        mc = lt.LlamaConfig(**dict(ARCH, num_hidden_layers=SMALL_D_LAYERS,
+                                   **arch), dtype=torch.bfloat16)
+        assert mc.head_dim == d, (d, mc.head_dim)
+        p, pr, nx = build_on_card(device, mc, seed=d)
+        eng = build_engine(mc, p)
+        flat[name], _, _ = main_path(name, eng, pr, nx, card, (), SMALL_D_NEW)
+        paged[name] = coverage_lanes(name, eng, nx, card, SMALL_D_NEW)
+        del eng, p
+    torch.cuda.empty_cache()
+    return flat, paged
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1668,6 +1999,15 @@ def main() -> int:
     log(f"[kernels] paged lookahead_attention at head_dim 256 vs plain "
         f"version and vs the flat kernel ({card})")
     patt256 = check_paged_attention(device, HEADS_256, ((PAGE, 8),), seed=5)
+    att_small, patt_small = {}, {}
+    for d, heads in HEADS_SMALL.items():
+        log(f"[kernels] lookahead_attention at head_dim {d} ({heads[0]} "
+            f"query, {heads[1]} KV heads), flat and paged, vs plain version "
+            f"and the paged call vs the flat kernel ({card})")
+        att_small[d] = check_attention(device, heads, ATT_CASES_256,
+                                       ATT_TIMED_SMALL, seed=10 + d)
+        patt_small[d] = check_paged_attention(device, heads, ((PAGE, 8),),
+                                              seed=11 + d)
     log(f"[kernels] int4 micro-benchmark variants vs plain versions and the "
         f"int4 kernel, then the micro-benchmark ({card}; us a call, "
         f"bfloat16, weight cold in L2)")
@@ -1753,9 +2093,27 @@ def main() -> int:
     log(f"[sampling] ({card}); the headline bf16 engine (L{LEVEL}/W{WINDOW}/"
         f"G{GUESS}, M={MAX_SEQ}, {PROMPT_LEN}-token prompt)")
     check_sampling_function(device, card)
-    samp_launches, _ = sampling_path(configs["bf16"][0], mcfg, params, prompt,
-                                     nxt, card)
+    samp_launches, samp_info = sampling_path(configs["bf16"][0], mcfg,
+                                             params, prompt, nxt, card)
     lap("sampling")
+
+    log(f"[continuous batching] ({card}); ContinuousBatchingEngine on the "
+        f"headline bf16 engine, {CB_LANES} lanes, {CB_SYNC} steps between "
+        f"host reads")
+    cb_launches, _ = serving_path(configs["bf16"][0], nxt, card,
+                                  samp_info["t_star"])
+    lap("continuous batching")
+
+    log(f"[model coverage] ({card}); Llama-3.2-1B's config through "
+        f"LlamaConfig.from_hf at full width and depth (reduced: synthetic "
+        f"weights, untied head, vocab kept), L{LEVEL}/W{WINDOW}/G{GUESS}, "
+        f"M={MAX_SEQ}, {N_NEW_QUANT} new tokens; dynamic-NTK on the headline "
+        f"model (max_position_embeddings {DYN_MAX_POS}, factor {DYN_FACTOR}, "
+        f"M={DYN_SEQ}, {DYN_PROMPT}-token prompt, {DYN_NEW} new tokens); "
+        f"head_dim 32, 80 and 96 at {SMALL_D_LAYERS} layers, {SMALL_D_NEW} "
+        f"new tokens")
+    cov_flat, cov_paged = model_coverage(device, card, params, nxt)
+    lap("model coverage")
 
     # phase 8's paths that step through the paged kernel (generate_batch
     # and the paged engine) and those that run the flat one
@@ -1771,6 +2129,9 @@ def main() -> int:
         if not int8_kv:
             by_path.update({f"sampling {path}": got["paged_attention"]
                             for path, got in samp_paged.items()})
+            by_path.update({f"continuous batching {path}":
+                            got["paged_attention"]
+                            for path, got in cb_launches.items()})
         total = sum(by_path.values())
         assert total > 0, "the paged path never launched its kernel"
         return dict(launches=total, launches_by_path=by_path)
@@ -1787,9 +2148,14 @@ def main() -> int:
         dict(name="lookahead_attention", route="cuda",
              source=CSRC + "lookahead_attention.cu", replaces=TPU_KERNELS,
              main_path="generate and generate_baseline, every "
-             "configuration; phase 8's sampling, stream and prefix paths",
-             **on_main_path("attention_mma",
-                            {**launches, "sampling": samp_flat}), **att),
+             "configuration; phase 8's sampling, stream and prefix paths; "
+             "phase 9's prefills and fused drains; phase 10's "
+             "llama3.2-1b_layer and dynamic_ntk",
+             **on_main_path("attention_mma", {
+                 **launches, "sampling": samp_flat,
+                 "continuous batching": cb_launches,
+                 **{name: cov_flat[name] for name in (
+                     "llama3.2-1b_layer", "dynamic_ntk")}}), **att),
         dict(name="int8_matmul", route="cuda", source=CSRC + "quant_matmul.cu",
              replaces=tpu_mm + ":274", main_path="int8_weights, "
              "int8_weights_int8_kv, the int4 configurations' LM head",
@@ -1822,6 +2188,23 @@ def main() -> int:
              replaces=TPU_PAGED_KERNEL, main_path="paged_bf16_head_dim_256",
              launches=paged256["paged_attention"], **patt256[False],
              int8_kv=patt256[True]),
+        *[entry for d in HEADS_SMALL for entry in (
+            dict(name=f"lookahead_attention_head_dim_{d}", route="cuda",
+                 source=CSRC + "lookahead_attention.cu",
+                 replaces=TPU_KERNELS,
+                 main_path=f"bf16_head_dim_{d} generate, generate_baseline "
+                 f"and the prefills of its ContinuousBatchingEngine run",
+                 launches=(sum(cov_flat[f"bf16_head_dim_{d}"][path][
+                     "attention_mma"] for path in ("lookahead", "ar_baseline"))
+                     + cov_paged[f"bf16_head_dim_{d}"]["attention_mma"]),
+                 **att_small[d]),
+            dict(name=f"paged_lookahead_attention_head_dim_{d}",
+                 route="cuda", source=CSRC + "lookahead_attention.cu",
+                 replaces=TPU_PAGED_KERNEL,
+                 main_path=f"bf16_head_dim_{d}'s ContinuousBatchingEngine "
+                 f"lanes",
+                 launches=cov_paged[f"bf16_head_dim_{d}"]["paged_attention"],
+                 **patt_small[d][False], int8_kv=patt_small[d][True]))],
         dict(name="int4_matmul_shift", route="cuda",
              source=CSRC + "int4_micro.cu", replaces="scripts/int4_micro.py:53",
              main_path="scripts/torch_int4_micro.py (micro-benchmark only)",

@@ -7,22 +7,30 @@ sampling ``generate_sample``, ``generate_stream``, ``generate_batch``,
 prefix caching with ``PrefixCache``, and the AR baseline
 ``generate_baseline``), and ``PagedServingEngine`` (lanes batched over a
 shared page pool, prefix sharing, conversation carry; greedy or sampling),
-with plain, int8 or int4 weights and a plain or int8 KV cache. The composite attention, flat
+and ``ContinuousBatchingEngine`` (a lane scheduler over the flat engine
+with fairness, throughput and adaptive objectives), with plain, int8 or
+int4 weights and a plain or int8 KV cache, for the LLaMA, Mistral, Qwen2
+and Gemma families (``LlamaConfig.from_hf``, ``convert_hf_model``; linear,
+dynamic-NTK, llama3 and YaRN rope scaling). The composite attention, flat
 and paged, and the quantized-weight products are hand-written CUDA kernels
-(``ops/csrc/``). It imports no JAX.
+(``ops/csrc/``). It imports no JAX, and ``transformers`` only inside
+``load_pretrained``.
 """
 
 from .config import EngineConfig, LookaheadConfig, SamplingConfig
 from .core.engine import GenerationResult, LookaheadEngine, PrefixCache
 from .core.layout import Layout, build_layout
 from .core.paged_serving import PagedPrefix, PagedServingEngine
-from .core.serving import Request
+from .core.serving import ContinuousBatchingEngine, Request
+from .models.convert import (convert_hf_model, convert_hf_state_dict,
+                             load_pretrained)
 from .models.llama import (LlamaConfig, fuse_params, init_params,
                            params_from_numpy)
 from .ops.quant import dequantize_weight, quantize_params, quantize_weight
 from .ops.sampling import (AcceptResult, rejection_sample_verify,
                            rejection_sample_verify_core, sample_token,
                            warp_logits)
+from .utils.logging import DecodeLog
 
 __all__ = [
     "EngineConfig",
@@ -33,6 +41,7 @@ __all__ = [
     "PrefixCache",
     "PagedServingEngine",
     "PagedPrefix",
+    "ContinuousBatchingEngine",
     "Request",
     "Layout",
     "build_layout",
@@ -40,6 +49,10 @@ __all__ = [
     "init_params",
     "params_from_numpy",
     "fuse_params",
+    "convert_hf_model",
+    "convert_hf_state_dict",
+    "load_pretrained",
+    "DecodeLog",
     "quantize_params",
     "quantize_weight",
     "dequantize_weight",

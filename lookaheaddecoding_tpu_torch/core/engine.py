@@ -137,8 +137,13 @@ class LookaheadEngine:
         params,
         lookahead: Optional[LookaheadConfig] = None,
         engine: Optional[EngineConfig] = None,
+        log=None,
         device=None,
     ):
+        """``log`` (a ``utils.logging.DecodeLog``, or anything with
+        ``append``) takes every result of ``generate``,
+        ``generate_sample``, ``generate_baseline`` and ``generate_batch``,
+        and those of a ``ContinuousBatchingEngine`` on this engine."""
         self.device = torch.device(device if device is not None else "cuda")
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -148,6 +153,7 @@ class LookaheadEngine:
         self.params = params
         self.lcfg = lookahead or LookaheadConfig()
         self.ecfg = engine or EngineConfig()
+        self.log = log
         if self.lcfg.attention_impl == "auto":
             # the kernel on the card, the plain version on the CPU; a card
             # never falls back to the dense path unless asked for it
@@ -206,6 +212,8 @@ class LookaheadEngine:
             # an out-of-range id would be a device-side assert on CUDA
             raise ValueError(
                 f"prompt token ids must lie in [0, {self.mcfg.vocab_size})")
+        if prefix is not None:
+            self._reject_dynamic_prefix()
         if prefix is not None and not isinstance(prefix, PrefixCache):
             raise ValueError(
                 "the flat engine needs a PrefixCache (from precompute_prefix "
@@ -227,6 +235,15 @@ class LookaheadEngine:
                 pad_to=M, key_len=self.lcfg.pool_key_len,
                 table_rows=self._pool_rows())
         return out_buf, P, fill
+
+    def _reject_dynamic_prefix(self):
+        if llama.is_dynamic_rope(self.mcfg):
+            # dynamic-NTK keys the prefill's rotation on the full prompt
+            # length: prefix rows computed at the prefix's own length would
+            # differ from a prefill from scratch past the threshold
+            raise ValueError(
+                "prefix caching is not supported with dynamic-NTK rope "
+                "scaling (the rope base depends on the full prompt length)")
 
     def _pool_rows(self) -> int:
         return pool_table_rows(self.mcfg.vocab_size, self.lcfg.pool_key_len,
@@ -273,6 +290,8 @@ class LookaheadEngine:
                                wall_time_s=time.perf_counter() - t0)
         if return_prefix:
             res.prefix = self._prefix_of(state, host[4:], kv_len, total)
+        if self.log is not None:
+            self.log.append(res)
         return res
 
     @staticmethod
@@ -303,6 +322,8 @@ class LookaheadEngine:
     def _run(self, loop, prompt_ids, max_new_tokens, eos_token_id, seed,
              prefix=None, return_prefix=False):
         t0 = time.perf_counter()
+        if return_prefix:
+            self._reject_dynamic_prefix()
         out_buf, P, fill = self._host_args(prompt_ids, max_new_tokens, prefix)
         with torch.inference_mode():
             state = self._prepare(out_buf, P, seed, fill, prefix)
@@ -315,6 +336,7 @@ class LookaheadEngine:
         """Prefill a shared prompt prefix once into fresh KV buffers; see
         :class:`PrefixCache`. K/V depend on the tokens and positions alone,
         so no seed is involved."""
+        self._reject_dynamic_prefix()
         prefix = np.asarray(prefix_ids, np.int64).reshape(-1)
         P0 = len(prefix)
         M = self.ecfg.max_seq_len
@@ -393,6 +415,8 @@ class LookaheadEngine:
         ``return_prefix=True`` the generator's ``StopIteration`` value is a
         :class:`PrefixCache` over the finished run (``pc = yield from
         eng.generate_stream(...)``)."""
+        if return_prefix:
+            self._reject_dynamic_prefix()
         if steps_per_yield < 1:
             raise ValueError("steps_per_yield must be >= 1")
         if sampling is not None and not lookahead:
@@ -549,4 +573,6 @@ class LookaheadEngine:
             out.append(GenerationResult(tokens=row[3:3 + total].copy(),
                                         prompt_len=int(row[1]),
                                         steps=int(row[2]), wall_time_s=wall))
+            if self.log is not None:
+                self.log.append(out[-1])
         return out

@@ -96,8 +96,7 @@ class PagedServingEngine:
         self.steps_per_sync = steps_per_sync
         self.sampling = sampling
 
-        if (self.mcfg.rope_scaling is not None
-                and self.mcfg.rope_scaling[0] == "dynamic"):
+        if llama.is_dynamic_rope(self.mcfg):
             raise ValueError(
                 "paged serving does not support dynamic-NTK rope scaling "
                 "(prefix sharing would key the rope base on the wrong "

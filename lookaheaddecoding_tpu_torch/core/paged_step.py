@@ -79,6 +79,9 @@ def build_paged_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
         SW = 0
 
     rope_cos, rope_sin = llama.rope_tables(mcfg, MLOG + C, device)
+    # dynamic-NTK keying as in core/step.py: the prefill on the prompt
+    # length, each decode row on its own position + 1
+    dyn = llama.is_dynamic_rope(mcfg)
     rel_pos = torch.from_numpy(layout.rel_pos).to(device)
     logits_rows = torch.from_numpy(np.concatenate([
         np.array([0]), np.arange(layout.inp_start, layout.inp_stop),
@@ -147,7 +150,7 @@ def build_paged_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
                 tables, kv_lens, page_size, rope_cos, rope_sin,
                 dict(meta, causal=True, kv_lens=kv_lens),
                 logits_rows=no_rows, attn_impl=impl, write_limit=limit,
-                trash_slot=trash_slot)
+                trash_slot=trash_slot, rope_seq_len=prompt_len)
         return max(n, 0)
 
     # ------------------------------------------------------------------
@@ -172,7 +175,8 @@ def build_paged_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
             params, mcfg, tokens, positions, k_pool, v_pool, states.table,
             kv_lens, page_size, rope_cos, rope_sin,
             dict(meta, kv_lens=kv_lens), logits_rows=logits_rows,
-            attn_impl=impl, trash_slot=states.trash)
+            attn_impl=impl, trash_slot=states.trash,
+            rope_seq_len=positions + 1 if dyn else None)
 
         fin = states.finished
         updates, winner, _ = posts[mode](

@@ -304,6 +304,11 @@ def build_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
         SW = 0
 
     rope_cos, rope_sin = llama.rope_tables(mcfg, M, device)
+    # dynamic-NTK keying (llama.rope_rows_dynamic): the prefill on the full
+    # prompt length, as HF prefills in one call; every decode row on its
+    # own position + 1, as HF's incremental decode, so that the lookahead
+    # step stays token-exact against the AR baseline
+    dyn = llama.is_dynamic_rope(mcfg)
     rel_pos = torch.from_numpy(layout.rel_pos).to(device)
     # composite rows whose logits are read: row 0 (next token), the newest
     # window level and the verification branch
@@ -353,7 +358,8 @@ def build_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
         llama.forward(params, mcfg, tokens, positions, state.k_cache,
                       state.v_cache, start, rope_cos, rope_sin,
                       dict(meta, causal=True, kv_len=kv_len),
-                      logits_rows=no_rows, attn_impl=impl)
+                      logits_rows=no_rows, attn_impl=impl,
+                      rope_seq_len=prompt_len)
         state.kv_len = torch.tensor(min(start + C, prompt_len - 1),
                                     dtype=torch.int32, device=device)
         return state
@@ -397,7 +403,8 @@ def build_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
         logits, k_cache, v_cache = llama.forward(
             params, mcfg, tokens, positions, state.k_cache, state.v_cache,
             kv_len, rope_cos, rope_sin, dict(meta, kv_len=kv_len.view(1)),
-            logits_rows=logits_rows, attn_impl=impl)
+            logits_rows=logits_rows, attn_impl=impl,
+            rope_seq_len=positions + 1 if dyn else None)
 
         lanes = _as_lanes(state)
         updates, winner, max_hit = posts[mode](
@@ -454,7 +461,7 @@ def build_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
         logits, _, _ = llama.forward(
             params, mcfg, lst, kv_len.view(1), s.k_cache, s.v_cache, kv_len,
             rope_cos, rope_sin, dict(meta, causal=True, kv_len=kv_len.view(1)),
-            attn_impl=impl)
+            attn_impl=impl, rope_seq_len=kv_len.view(1) + 1 if dyn else None)
         nxt = logits[0].argmax().int().view(1)
         _append(s.out_buf, s.n_confirmed, nxt, s.finished)
         n_confirmed = s.n_confirmed + 1

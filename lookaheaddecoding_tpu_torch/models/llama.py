@@ -44,7 +44,15 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-5
     rope_theta: float = 10000.0
     max_position_embeddings: int = 4096
-    # None or ("linear", factor); the other scalings are not ported yet
+    # rope_scaling: None, ("linear", factor), ("dynamic", factor), or the
+    # static init-time transforms
+    #   ("llama3", (factor, low_freq_factor, high_freq_factor,
+    #               original_max_position_embeddings))
+    #   ("yarn",   (factor, beta_fast, beta_slow,
+    #               original_max_position_embeddings,
+    #               attention_factor, truncate))
+    # as flat float tuples, so the frozen config stays hashable; yarn's
+    # attention_factor is resolved to a float by from_hf
     rope_scaling: Optional[Tuple[str, Any]] = None
     tie_word_embeddings: bool = False
     attention_bias: bool = False      # qkv projection biases
@@ -61,6 +69,93 @@ class LlamaConfig:
         if self.head_dim_override is not None:
             return self.head_dim_override
         return self.hidden_size // self.num_attention_heads
+
+    @classmethod
+    def from_hf(cls, hf_config, dtype=torch.bfloat16) -> "LlamaConfig":
+        """Build from a ``transformers`` config (LLaMA, Mistral, Qwen2 or
+        Gemma), or any object with its attributes: every field is read with
+        ``getattr``, so ``transformers`` is not needed."""
+        scaling = None
+        rs = getattr(hf_config, "rope_scaling", None)
+        if rs:
+            kind = rs.get("type", rs.get("rope_type", "linear"))
+            # "default" appears in some configs as an explicit no-op
+            if kind == "default":
+                scaling = None
+            elif kind in ("linear", "dynamic"):
+                scaling = (kind, float(rs["factor"]))
+            elif kind == "llama3":
+                scaling = ("llama3", (
+                    float(rs["factor"]),
+                    float(rs["low_freq_factor"]),
+                    float(rs["high_freq_factor"]),
+                    float(rs["original_max_position_embeddings"]),
+                ))
+            elif kind == "yarn":
+                factor = float(rs["factor"])
+                att = rs.get("attention_factor")
+                if att is None:
+                    # the paper's mscale; the mscale/mscale_all_dim pair
+                    # (DeepSeek-style checkpoints) folds into one float
+                    def _mscale(scale, m=1.0):
+                        return (1.0 if scale <= 1.0
+                                else 0.1 * m * math.log(scale) + 1.0)
+                    ms, msad = rs.get("mscale"), rs.get("mscale_all_dim")
+                    if ms and msad:
+                        att = _mscale(factor, ms) / _mscale(factor, msad)
+                    else:
+                        att = _mscale(factor)
+                scaling = ("yarn", (
+                    factor,
+                    float(rs.get("beta_fast") or 32.0),
+                    float(rs.get("beta_slow") or 1.0),
+                    float(rs.get("original_max_position_embeddings")
+                          or hf_config.max_position_embeddings),
+                    float(att),
+                    1.0 if rs.get("truncate", True) else 0.0,
+                ))
+            else:
+                # an ignored scaling would give plausible but wrong tokens
+                raise NotImplementedError(
+                    f"rope_scaling type '{kind}' is not implemented "
+                    "(supported: linear, dynamic, llama3, yarn)")
+        model_type = getattr(hf_config, "model_type", "")
+        is_gemma = model_type == "gemma"
+        hidden_act = "silu"
+        if is_gemma:
+            # Gemma's activation (HF GemmaMLP: hidden_activation, with a
+            # gelu_pytorch_tanh default, else hidden_act)
+            hidden_act = (getattr(hf_config, "hidden_activation", None)
+                          or getattr(hf_config, "hidden_act", None)
+                          or "gelu_pytorch_tanh")
+        head_dim = getattr(hf_config, "head_dim", None)
+        if (head_dim is not None and head_dim
+                == hf_config.hidden_size // hf_config.num_attention_heads):
+            head_dim = None               # the usual coupling: no override
+        return cls(
+            vocab_size=hf_config.vocab_size,
+            hidden_size=hf_config.hidden_size,
+            intermediate_size=hf_config.intermediate_size,
+            num_hidden_layers=hf_config.num_hidden_layers,
+            num_attention_heads=hf_config.num_attention_heads,
+            num_key_value_heads=getattr(
+                hf_config, "num_key_value_heads",
+                hf_config.num_attention_heads),
+            rms_norm_eps=hf_config.rms_norm_eps,
+            rope_theta=getattr(hf_config, "rope_theta", 10000.0),
+            max_position_embeddings=hf_config.max_position_embeddings,
+            rope_scaling=scaling,
+            tie_word_embeddings=getattr(hf_config, "tie_word_embeddings",
+                                        False),
+            attention_bias=bool(getattr(hf_config, "attention_bias", False)
+                                or model_type == "qwen2"),
+            sliding_window=getattr(hf_config, "sliding_window", None),
+            hidden_act=hidden_act,
+            rms_norm_offset=1.0 if is_gemma else 0.0,
+            scale_embeddings=is_gemma,
+            head_dim_override=head_dim,
+            dtype=dtype,
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -164,33 +259,137 @@ def act_fn(cfg: LlamaConfig):
 
 
 def _rope_kind(cfg: LlamaConfig) -> Optional[str]:
-    kind = cfg.rope_scaling[0] if cfg.rope_scaling is not None else None
-    if kind not in (None, "linear"):
-        raise NotImplementedError(
-            f"rope_scaling '{kind}' is not ported yet (supported: linear)")
-    return kind
+    return cfg.rope_scaling[0] if cfg.rope_scaling is not None else None
 
 
-def rope_inv_freq(cfg: LlamaConfig) -> np.ndarray:
-    """Inverse rotary frequencies (float32), computed in float64."""
-    _rope_kind(cfg)
+def rope_inv_freq(cfg: LlamaConfig, seq_len: Optional[int] = None
+                  ) -> np.ndarray:
+    """Inverse rotary frequencies (float32), computed in float64: the base
+    rescaled for dynamic-NTK once ``seq_len`` passes
+    ``max_position_embeddings``, and llama3's and YaRN's static transforms
+    (the JAX package's ``rope_inv_freq``, equal bit for bit)."""
     d = cfg.head_dim
-    inv = 1.0 / (cfg.rope_theta ** (np.arange(0, d, 2, dtype=np.float64) / d))
+    base = cfg.rope_theta
+    kind = _rope_kind(cfg)
+    if kind == "dynamic":
+        factor = cfg.rope_scaling[1]
+        max_pos = cfg.max_position_embeddings
+        if seq_len is not None and seq_len > max_pos:
+            base = base * ((factor * seq_len / max_pos)
+                           - (factor - 1)) ** (d / (d - 2))
+    inv = 1.0 / (base ** (np.arange(0, d, 2, dtype=np.float64) / d))
+    if kind == "llama3":
+        # wavelength bands: wavelengths past the pretraining context are
+        # interpolated by ``factor``, short ones kept, the band between
+        # blended linearly in rotations over the old context
+        factor, low_ff, high_ff, old_ctx = cfg.rope_scaling[1]
+        wavelen = 2.0 * np.pi / inv
+        rotations = old_ctx / wavelen
+        blend = (rotations - low_ff) / (high_ff - low_ff)
+        inv = np.where(
+            wavelen > old_ctx / low_ff, inv / factor,
+            np.where(wavelen < old_ctx / high_ff, inv,
+                     ((1.0 - blend) / factor + blend) * inv))
+    elif kind == "yarn":
+        # YaRN (arXiv:2309.00071): a per-dimension blend of interpolated
+        # (inv / factor) and extrapolated (inv) frequencies over a ramp
+        # bounded by the beta_fast / beta_slow rotation counts
+        factor, beta_fast, beta_slow, old_ctx, _att, trunc = \
+            cfg.rope_scaling[1]
+
+        def corr_dim(n_rot):
+            return (d * np.log(old_ctx / (n_rot * 2.0 * np.pi))
+                    ) / (2.0 * np.log(cfg.rope_theta))
+
+        low, high = corr_dim(beta_fast), corr_dim(beta_slow)
+        if trunc:
+            low, high = np.floor(low), np.ceil(high)
+        low, high = max(low, 0.0), min(high, d - 1.0)
+        if high == low:
+            high += 0.001                      # the ramp's singularity
+        ramp = np.clip((np.arange(d // 2, dtype=np.float64) - low)
+                       / (high - low), 0.0, 1.0)
+        extrap = 1.0 - ramp                    # 1: the original frequency
+        inv = inv / factor * (1.0 - extrap) + inv * extrap
     return inv.astype(np.float32)
+
+
+def rope_attention_factor(cfg: LlamaConfig) -> float:
+    """The factor on cos and sin: YaRN's attention temperature, folded into
+    the tables as HF multiplies its cached cos/sin; 1.0 for every other
+    kind."""
+    if _rope_kind(cfg) == "yarn":
+        return float(cfg.rope_scaling[1][4])
+    return 1.0
+
+
+def is_dynamic_rope(cfg: LlamaConfig) -> bool:
+    return _rope_kind(cfg) == "dynamic"
+
+
+def rope_rows_dynamic(cfg: LlamaConfig, positions: torch.Tensor,
+                      seq_len=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dynamic-NTK cos/sin rows for ``positions`` [T], computed in float32
+    from the live context length, in the JAX package's order (``base **
+    -exp``): the base is rescaled only once the context outgrows
+    ``max_position_embeddings`` (below it the factor is exactly 1).
+
+    ``seq_len`` picks the keying, as HF's call pattern does: None keys on
+    ``max(positions) + 1`` (one forward over the whole sequence); a scalar
+    is the context length of every row (the prefill keys on the full
+    prompt length); a [T] tensor keys each row on its own (``positions +
+    1``: HF's incremental decode, which makes the lookahead step
+    token-exact against the AR baseline). Returns ([T, D], [T, D])."""
+    d = cfg.head_dim
+    factor = cfg.rope_scaling[1]
+    mp = float(cfg.max_position_embeddings)
+    if seq_len is None:
+        seq_len = positions.max() + 1
+    t = torch.as_tensor(seq_len, device=positions.device).to(
+        torch.float32).expand(positions.shape).clamp(min=mp)
+    # each power is taken in float64 from its float32 operands and rounded
+    # to float32: the correctly rounded float32 power, which is what XLA's
+    # pow gives (torch's float32 pow may be an ulp off, and an ulp of the
+    # base moves cos/sin at large positions by ~1e-5)
+    scale = (factor * t / mp) - (factor - 1.0)                    # [T]
+    ex = float(np.float32(d / (d - 2.0)))
+    base = cfg.rope_theta * (scale.double() ** ex).float()        # [T]
+    exp = torch.arange(0, d, 2, dtype=torch.float32,
+                       device=positions.device) / d               # [D/2]
+    inv = (base.double()[:, None] ** -exp.double()[None, :]).float()
+    freqs = positions.to(torch.float32)[:, None] * inv
+    emb = torch.cat([freqs, freqs], dim=-1)
+    return torch.cos(emb), torch.sin(emb)
 
 
 def rope_tables(cfg: LlamaConfig, max_len: int,
                 device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
-    """[max_len, head_dim] fp32 cos/sin tables, computed in numpy exactly as
-    the JAX package computes them."""
-    inv = rope_inv_freq(cfg)
+    """[max_len, head_dim] fp32 cos/sin tables with the attention factor
+    folded in, computed in numpy exactly as the JAX package computes them.
+    A dynamic-NTK config does not read them: ``forward`` computes its rows
+    with :func:`rope_rows_dynamic`."""
+    inv = rope_inv_freq(cfg, seq_len=max_len)
     t = np.arange(max_len, dtype=np.float32)
     if _rope_kind(cfg) == "linear":
         t = t / cfg.rope_scaling[1]
     freqs = np.outer(t, inv)
     emb = np.concatenate([freqs, freqs], axis=-1)
-    return (torch.from_numpy(np.cos(emb)).to(device),
-            torch.from_numpy(np.sin(emb)).to(device))
+    att = rope_attention_factor(cfg)
+    return (torch.from_numpy(np.cos(emb) * att).to(device),
+            torch.from_numpy(np.sin(emb) * att).to(device))
+
+
+def _rope_rows(cfg: LlamaConfig, positions, rope_cos, rope_sin,
+               rope_seq_len):
+    """cos/sin rows [T, D] for ``positions`` [T]: computed for a
+    dynamic-NTK config (keyed on ``rope_seq_len``), else gathered from the
+    tables. A position past the tables occurs only on a step taken after
+    ``finished``; the gather clamps it as a JAX gather does instead of
+    asserting."""
+    if is_dynamic_rope(cfg):
+        return rope_rows_dynamic(cfg, positions, rope_seq_len)
+    pos = positions.clamp(0, rope_cos.shape[0] - 1)
+    return rope_cos[pos], rope_sin[pos]
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor,
@@ -343,13 +542,17 @@ def forward(
                                  # sliding_window]: the attention's visibility
     logits_rows: Optional[torch.Tensor] = None,  # rows gathered before lm_head
     attn_impl: str = "dense",
+    rope_seq_len=None,           # dynamic-NTK keying: None, an int or [T]
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One forward over the layer stack. The tokens' K/V are written at
     slots [write_start, write_start+T) of every layer; attention then reads
     the whole buffer under the composite or causal visibility that
     ``attn_meta`` describes (``ops/lookahead_attention.py``), through the
     plain version (``attn_impl="dense"``) or the attention kernel's wrapper
-    (``attn_impl="kernel"``). Returns (fp32 logits, k_cache, v_cache)."""
+    (``attn_impl="kernel"``). A dynamic-NTK config computes its rotary
+    rows from the positions, keyed on ``rope_seq_len``
+    (:func:`rope_rows_dynamic`); every other config gathers them from the
+    tables. Returns (fp32 logits, k_cache, v_cache)."""
     from ..ops.lookahead_attention import (lookahead_attention,
                                            lookahead_attention_ref)
 
@@ -358,10 +561,7 @@ def forward(
     x = params["embed"][tokens]                              # [T, H]
     if cfg.scale_embeddings:
         x = x * torch.tensor(math.sqrt(cfg.hidden_size), dtype=cfg.dtype)
-    # a position past the tables occurs only on a step taken after
-    # ``finished``; clamp as a JAX gather does instead of asserting
-    pos = positions.clamp(0, rope_cos.shape[0] - 1)
-    cos, sin = rope_cos[pos], rope_sin[pos]
+    cos, sin = _rope_rows(cfg, positions, rope_cos, rope_sin, rope_seq_len)
     slots = write_slots(write_start, t, m)
     attend = lookahead_attention if attn_impl == "kernel" \
         else lookahead_attention_ref
@@ -465,6 +665,7 @@ def forward_paged(
     trash_slot: Optional[torch.Tensor] = None,   # >= limit, or outside the
                                                  # table, write to the lane's
                                                  # trash page
+    rope_seq_len=None,           # dynamic-NTK keying: an int or [B, T]
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Lane-batched forward over the shared paged KV pool (core/paged.py).
 
@@ -473,7 +674,8 @@ def forward_paged(
     in place through the table in the kernel (``attn_impl="kernel"``,
     ``ops/lookahead_attention.py:paged_lookahead_attention``), gathered in
     the plain version (``"dense"``). Everything else is :func:`forward`'s
-    arithmetic on the B*T rows. With ``write_limit`` the rows of a padded
+    arithmetic on the B*T rows (``rope_seq_len`` keys each row's
+    dynamic-NTK rotation, a scalar for one lane's prefill). With ``write_limit`` the rows of a padded
     prefill chunk past the prompt go to the lane's trash page (their
     logical pages may not be allocated); their outputs are discarded and no
     real row sees their columns. Returns (fp32 logits [B, R, V], k_pool,
@@ -487,8 +689,10 @@ def forward_paged(
     x = params["embed"][tokens.reshape(-1)]                  # [B*T, H]
     if cfg.scale_embeddings:
         x = x * torch.tensor(math.sqrt(cfg.hidden_size), dtype=cfg.dtype)
-    pos = positions.reshape(-1).clamp(0, rope_cos.shape[0] - 1)
-    cos, sin = rope_cos[pos], rope_sin[pos]
+    if isinstance(rope_seq_len, torch.Tensor):
+        rope_seq_len = rope_seq_len.reshape(-1)     # one value a row
+    cos, sin = _rope_rows(cfg, positions.reshape(-1), rope_cos, rope_sin,
+                          rope_seq_len)
 
     slots = phys_slots(tables, write_start, t, page_size, trash=trash_slot)
     if write_limit is not None:

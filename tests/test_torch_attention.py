@@ -4,7 +4,8 @@ run in interpret mode on the CPU (as test_lookahead_attention.py runs it).
 On the CPU the port's wrapper runs the plain version; the CUDA kernel is
 held against that plain version on the card by test_torch_gpu.py and by
 chip_smoke.py. Tolerance f32 atol 2e-5 / rtol 2e-4, as the JAX kernel's
-own tests: the same math in another summation order."""
+own tests: the same math in another summation order. Head dims 32, 64,
+80, 96, 128 and 256, flat and paged, plain and int8 KV."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -82,7 +83,7 @@ def test_attention_dense_matches_attention_xla():
 
 
 @pytest.mark.parametrize("bad,match", [
-    (dict(q=(27, 8, 32), k=(2, 128, 32)), "head_dim"),
+    (dict(q=(27, 8, 48), k=(2, 128, 48)), "head_dim"),
     (dict(q=(27, 5, 64)), "heads"),
     (dict(k=(2, 128, 32)), "mismatch"),
     (dict(dtype=torch.float16), "dtype"),
@@ -125,7 +126,7 @@ def _kernel_inputs(paged, **bad):
 @pytest.mark.parametrize("paged", [False, True], ids=["flat", "paged"])
 @pytest.mark.parametrize("bad,message", [
     (dict(q=(8, 64)), "need q "),
-    (dict(q=(27, 8, 32), k=(2, 128, 32)), "kernel takes head_dim in (64, 128, 256), got 32"),
+    (dict(q=(27, 8, 48), k=(2, 128, 48)), "kernel takes head_dim in (32, 64, 80, 96, 128, 256), got 48"),
     (dict(q=(27, 5, 64)), "head dims 64/64 or heads 5/2 mismatch"),
     (dict(dtype=torch.float16), "kernel takes float32 or bfloat16 q with k/v of the same dtype"),
     (dict(kv_dtype=torch.float64), "kernel takes float32 or bfloat16 q with k/v of the same dtype"),
@@ -262,13 +263,13 @@ def test_head_dim_256_paged_matches_jax_kernel(causal, sw, int8_kv):
 
 
 @pytest.mark.parametrize("paged", [False, True], ids=["flat", "paged"])
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [32, 64, 80, 96, 128, 256])
 def test_kernel_input_checks_take_every_kernel_head_dim(monkeypatch, paged,
                                                        d):
-    """head_dim 64, 128 and 256 pass the kernel's input checks, flat and
-    paged, plain and int8 cache; 32 and 80 still raise with the one
-    message. (CPU tensors stand in for the card's: the current device is
-    made theirs.)"""
+    """head_dim 32, 64, 80, 96, 128 and 256 pass the kernel's input checks,
+    flat and paged, plain and int8 cache; 48 and 100 still raise with the
+    one message. (CPU tensors stand in for the card's: the current device
+    is made theirs.)"""
     monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
     for int8_kv in (False, True):
         bad = dict(q=(27, 8, d), k=(2, 128, d))
@@ -278,9 +279,121 @@ def test_kernel_input_checks_take_every_kernel_head_dim(monkeypatch, paged,
         if paged:
             args = (args[0].contiguous(),) + args[1:]
         la._check_kernel_inputs(*args, **kw)
-    for other in (32, 80):
+    for other in (48, 100):
         args, kw = _kernel_inputs(paged, q=(27, 8, other), k=(2, 128, other))
         with pytest.raises(ValueError) as err:
             la._check_kernel_inputs(*args, **kw)
-        assert (f"kernel takes head_dim in (64, 128, 256), got {other}"
-                in str(err.value))
+        assert (f"kernel takes head_dim in (32, 64, 80, 96, 128, 256), got "
+                f"{other}" in str(err.value))
+
+
+# --------------------------------------------------------------------------
+# head_dim 32, 80 and 96: multiples of 16 that are not all powers of two
+# --------------------------------------------------------------------------
+
+# (Hq, Hkv) at each head_dim: Hq * D near 2048, as chip_smoke.py times them
+SMALL_HEADS = {32: (64, 8), 80: (32, 8), 96: (32, 8)}
+
+
+@pytest.mark.parametrize("d", sorted(SMALL_HEADS))
+@pytest.mark.parametrize("m,kv_len,causal,sw,int8_kv", [
+    (256, 37, False, 0, False),      # composite, the whole cache one block
+    (2048, 1500, False, 0, False),   # composite, M > 1024: online softmax
+    (256, 100, True, 0, False),      # causal prefill
+    (256, 37, False, 0, True),       # int8 KV
+    (256, 120, False, 48, False),    # sliding window, composite and causal
+    (256, 120, True, 48, True),
+], ids=lambda v: str(v))
+def test_head_dims_32_80_96_match_jax_kernel(m, kv_len, causal, sw, int8_kv,
+                                            d):
+    """The port's kernel path at head_dim 32, 80 and 96 (its plain version
+    on the CPU) against JAX's Pallas kernel in interpret mode: composite
+    at M <= 1024 and M > 1024, causal prefill, an int8 cache and a sliding
+    window. Tolerance TOL."""
+    hq, hkv = SMALL_HEADS[d]
+    s = 24 if causal else S_COMPOSITE
+    q, k, v = inputs(d + m + kv_len + sw, s, hq, hkv, m, d=d)
+    if int8_kv:
+        k, v = int8_rows(k), int8_rows(v)
+    kw = dict(GEO, causal=causal, sliding_window=sw)
+    want = jax_lookahead_attention(jnp.asarray(q), as_jax(k), as_jax(v),
+                                   jnp.int32(kv_len), interpret=True, **kw)
+    before = dict(la.counts)
+    got = la.lookahead_attention(torch.from_numpy(q), as_torch(k),
+                                 as_torch(v),
+                                 torch.tensor([kv_len], dtype=torch.int32),
+                                 **kw)
+    assert la.counts == dict(before, plain=before["plain"] + 1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("d", sorted(SMALL_HEADS))
+@pytest.mark.parametrize("causal,sw,int8_kv", [
+    (False, 0, False), (True, 0, False), (False, 40, False), (False, 0, True),
+    (True, 40, True)])
+def test_head_dims_32_80_96_paged_match_jax_kernel(causal, sw, int8_kv, d):
+    """The paged call at head_dim 32, 80 and 96: two lanes of different
+    kv_len on shuffled pages of 128, against JAX's paged Pallas kernel in
+    interpret mode (TOL), and each lane equal to the flat call on its
+    gathered cache."""
+    from lookaheaddecoding_tpu_torch.core.paged import paged_gather
+    rng = np.random.RandomState(d + sw + int8_kv)
+    (hq, hkv), lanes, page, nb = SMALL_HEADS[d], 2, 128, 3
+    s = 24 if causal else S_COMPOSITE
+    q = rng.randn(lanes, s, hq, d).astype(np.float32)
+    n_pages = lanes * nb + 1
+    tables = rng.permutation(n_pages)[:lanes * nb].reshape(lanes, nb)
+    tables = tables.astype(np.int32)
+    k = rng.randn(hkv, n_pages * page, d).astype(np.float32)
+    v = rng.randn(hkv, n_pages * page, d).astype(np.float32)
+    if int8_kv:
+        k, v = int8_rows(k), int8_rows(v)
+    kv_lens = np.array([37, page * nb - s], np.int32)
+    kw = dict(GEO, page_size=page, causal=causal, sliding_window=sw)
+    want = jax_paged_attention(jnp.asarray(q), as_jax(k), as_jax(v),
+                               jnp.asarray(kv_lens), jnp.asarray(tables),
+                               interpret=True, **kw)
+    tk, tv, tt = as_torch(k), as_torch(v), torch.from_numpy(tables)
+    got = la.paged_lookahead_attention(
+        torch.from_numpy(q), tk, tv, torch.from_numpy(kv_lens), tt, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    kg, vg = (paged_gather(c, tt, page) for c in (tk, tv))
+    for b in range(lanes):
+        def lane(tree):
+            if isinstance(tree, dict):
+                return {n: a[b] for n, a in tree.items()}
+            return tree[b]
+        flat = la.lookahead_attention(
+            torch.from_numpy(q[b]), lane(kg), lane(vg),
+            torch.from_numpy(kv_lens[b:b + 1]), **GEO, causal=causal,
+            sliding_window=sw)
+        assert torch.equal(flat, got[b]), b
+
+
+ENGINE_ARCH = dict(vocab_size=128, hidden_size=64, intermediate_size=128,
+                   num_hidden_layers=2, num_attention_heads=4,
+                   num_key_value_heads=2, max_position_embeddings=512,
+                   dtype=torch.float32)
+
+
+@pytest.mark.parametrize("engine", ["flat", "paged"])
+@pytest.mark.parametrize("d", [32, 48, 80, 96, 100])
+def test_engines_take_the_kernel_head_dims_on_the_card(monkeypatch, engine,
+                                                       d):
+    """The engines' guard without a card (CUDA made to look available):
+    head_dim 32, 80 and 96 pass it, and the engine goes on to its first
+    device allocation, which a CPU-only torch refuses; 48 and 100 still
+    raise the head_dim ValueError (unless attention_impl="dense")."""
+    import lookaheaddecoding_tpu_torch as tlt
+    cfg = tlt.LlamaConfig(**ENGINE_ARCH, head_dim_override=d)
+    params = tlt.init_params(cfg, seed=0, device="cpu")
+    cls = tlt.LookaheadEngine if engine == "flat" else tlt.PagedServingEngine
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    lc = tlt.LookaheadConfig(level=4, window_size=5, guess_set_size=4)
+    ec = tlt.EngineConfig(max_seq_len=256, prefill_chunk=16)
+    if d in la.KERNEL_HEAD_DIMS:
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            cls(cfg, params, lc, ec)
+    else:
+        with pytest.raises(ValueError, match=f"head_dim .*got {d}"):
+            cls(cfg, params, lc, ec)

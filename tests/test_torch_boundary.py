@@ -30,6 +30,29 @@ def test_importing_the_port_loads_no_jax():
     assert out.stdout.strip() == "ok"
 
 
+def test_importing_the_port_needs_no_transformers():
+    """Every module of the port imports with ``transformers`` made
+    unimportable (the machine with the card has none); only
+    ``load_pretrained`` imports it, when called."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "sys.modules['transformers'] = None\n"
+        "import lookaheaddecoding_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "assert p.ContinuousBatchingEngine and p.DecodeLog\n"
+        "assert p.convert_hf_model and p.load_pretrained\n"
+        "try:\n"
+        "    p.load_pretrained('nowhere')\n"
+        "except ImportError:\n"
+        "    print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_no_port_source_imports_jax_or_the_jax_package():
     pattern = re.compile(
         r"^\s*(import|from)\s+\.*(jax|lookaheaddecoding_tpu)\b", re.M)
@@ -41,6 +64,8 @@ def test_no_port_source_imports_jax_or_the_jax_package():
             "lookaheaddecoding_tpu_torch/core/paged_step.py",
             "lookaheaddecoding_tpu_torch/core/paged_serving.py",
             "lookaheaddecoding_tpu_torch/core/serving.py",
+            "lookaheaddecoding_tpu_torch/models/convert.py",
+            "lookaheaddecoding_tpu_torch/utils/logging.py",
             "lookaheaddecoding_tpu_torch/ops/int4_micro.py",
             "scripts/torch_int4_micro.py",
             "scripts/torch_matmul_tile_sweep.py", "chip_smoke.py"} <= names

@@ -3,7 +3,8 @@ a plain and on an int8 KV cache, flat and paged, in bfloat16 on the tensor
 cores and in float32 on FMAs; the int8, int4 and pipelined int4 matrix
 products, in bfloat16 on the tensor cores; the int4 product's two
 micro-benchmark variants), each against its plain PyTorch version; the
-attention also at head_dim 256 with Gemma-2B's heads. They skip without a CUDA device. This file imports no
+attention also at head_dim 256 with Gemma-2B's heads and at head_dim 32,
+80 and 96; continuous batching against the flat engine. They skip without a CUDA device. This file imports no
 JAX, so on a machine without JAX it runs without the suite's conftest:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
@@ -388,9 +389,9 @@ def test_paged_attention_refusals_on_the_card():
     geo = dict(level=4, window=5, guess_size=3)
     plain = la.paged_counts["plain"]
     with pytest.raises(ValueError, match="head_dim"):
-        la.paged_lookahead_attention(q[..., :32].contiguous(),
-                                     k[..., :32].contiguous(),
-                                     k[..., :32].contiguous(), lens, tables,
+        la.paged_lookahead_attention(q[..., :48].contiguous(),
+                                     k[..., :48].contiguous(),
+                                     k[..., :48].contiguous(), lens, tables,
                                      page_size=64, **geo)
     with pytest.raises(ValueError, match="whole pages"):
         la.paged_lookahead_attention(q, k, k, lens, tables, page_size=48,
@@ -496,26 +497,16 @@ GEOMETRIES = {"big": dict(level=7, window=20, guess_size=6),
               "small": dict(level=4, window=5, guess_size=3)}
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("int8_kv", [False, True], ids=["plain", "int8_kv"])
-@pytest.mark.parametrize("dtype,tol", [
-    (torch.float32, dict(atol=1e-4, rtol=1e-4)),
-    (torch.bfloat16, dict(atol=2e-2, rtol=2e-2)),
-])
-def test_attention_kernel_head_dim_256(dtype, tol, int8_kv):
-    """head_dim 256 at Gemma-2B's heads (rep 8): composite at M=1024 and
-    M=2048, causal prefill, a sliding window both ways, the one-row AR
-    call, a small composite; a plain and an int8 cache. Each within ``tol``
-    of its plain version (the tolerances of the D=64 tests), and in
-    bfloat16 within the rounding limit of the float32 kernel (chip_smoke's
-    limit, as in test_bf16_attention_within_rounding_limit_of_float32_kernel)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+def check_flat_head_dim(dtype, tol, int8_kv, hq, hkv, d, seed):
+    """GEMMA_CASES at heads (hq, hkv, d) on a plain or an int8 cache: each
+    call within ``tol`` of its plain version (the tolerances of the D=64
+    tests), and in bfloat16 within the rounding limit of the float32
+    kernel (chip_smoke's limit, as in
+    test_bf16_attention_within_rounding_limit_of_float32_kernel)."""
     from lookaheaddecoding_tpu_torch.models.llama import kv_cache_write
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    rng = np.random.RandomState(9)
-    hq, hkv, d = GEMMA_HEADS["hq"], GEMMA_HEADS["hkv"], GEMMA_HEADS["d"]
+    rng = np.random.RandomState(seed)
     for s, m, kv, causal, sw, geo in GEMMA_CASES:
         def mk(*shape):
             return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
@@ -547,29 +538,20 @@ def test_attention_kernel_head_dim_256(dtype, tol, int8_kv):
                                             **kw)
             limit = 2.0 ** -8 * weight + 2.0 ** -7 * exact.abs() + 1e-4
             err = (got.float() - exact.bfloat16().float()).abs()
-            assert bool((err <= limit).all()), (s, m, kv, causal, sw,
+            assert bool((err <= limit).all()), (d, s, m, kv, causal, sw,
                                                 (err / limit).max().item())
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("int8_kv", [False, True], ids=["plain", "int8_kv"])
-@pytest.mark.parametrize("dtype,tol", [
-    (torch.float32, dict(atol=1e-4, rtol=1e-4)),
-    (torch.bfloat16, dict(atol=2e-2, rtol=2e-2)),
-])
-def test_paged_attention_kernel_head_dim_256(dtype, tol, int8_kv):
-    """The paged call at head_dim 256 and Gemma-2B's heads: four lanes of
-    different ``kv_len`` on shuffled pages of 128, composite and causal,
-    with and without a sliding window; within ``tol`` of its plain version
-    and each lane bit-equal to the flat kernel on its contiguous cache."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+def check_paged_head_dim(dtype, tol, int8_kv, hq, hkv, d, seed):
+    """The paged call at heads (hq, hkv, d): four lanes of different
+    ``kv_len`` on shuffled pages of 128, composite and causal, with and
+    without a sliding window; within ``tol`` of its plain version and each
+    lane bit-equal to the flat kernel on its contiguous cache."""
     from lookaheaddecoding_tpu_torch.core.paged import (paged_gather,
                                                         paged_write)
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    rng = np.random.RandomState(10)
-    hq, hkv, d = GEMMA_HEADS["hq"], GEMMA_HEADS["hkv"], GEMMA_HEADS["d"]
+    rng = np.random.RandomState(seed)
     lanes, page, nb = 4, 128, 8
     for causal, sw, s in ((False, 0, 240), (True, 0, 128), (False, 300, 240),
                           (True, 300, 128)):
@@ -610,7 +592,65 @@ def test_paged_attention_kernel_head_dim_256(dtype, tol, int8_kv):
                 return tree[b].contiguous()
             flat = la.lookahead_attention(q[b], lane(kg), lane(vg),
                                           kv_lens[b:b + 1], **kw)
-            assert torch.equal(flat, got[b]), (causal, sw, b)
+            assert torch.equal(flat, got[b]), (d, causal, sw, b)
+
+
+TOLS = [(torch.float32, dict(atol=1e-4, rtol=1e-4)),
+        (torch.bfloat16, dict(atol=2e-2, rtol=2e-2))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8_kv", [False, True], ids=["plain", "int8_kv"])
+@pytest.mark.parametrize("dtype,tol", TOLS)
+def test_attention_kernel_head_dim_256(dtype, tol, int8_kv):
+    """head_dim 256 at Gemma-2B's heads (rep 8): composite at M=1024 and
+    M=2048, causal prefill, a sliding window both ways, the one-row AR
+    call, a small composite; a plain and an int8 cache (check_flat_head_dim)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    check_flat_head_dim(dtype, tol, int8_kv, seed=9, **GEMMA_HEADS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8_kv", [False, True], ids=["plain", "int8_kv"])
+@pytest.mark.parametrize("dtype,tol", TOLS)
+def test_paged_attention_kernel_head_dim_256(dtype, tol, int8_kv):
+    """The paged call at head_dim 256 and Gemma-2B's heads
+    (check_paged_head_dim)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    check_paged_head_dim(dtype, tol, int8_kv, seed=10, **GEMMA_HEADS)
+
+
+# head_dim 32, 80 and 96, each at Hq * D near 2048: (Hq, Hkv, D)
+SMALL_HEADS = {32: (64, 8, 32), 80: (32, 8, 80), 96: (32, 8, 96)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", sorted(SMALL_HEADS))
+@pytest.mark.parametrize("int8_kv", [False, True], ids=["plain", "int8_kv"])
+@pytest.mark.parametrize("dtype,tol", TOLS)
+def test_attention_kernel_head_dims_32_80_96(dtype, tol, int8_kv, d):
+    """head_dim 32, 80 and 96 (not powers of two but multiples of 16) on
+    GEMMA_CASES: the flat call against its plain version and, in bfloat16,
+    within the float32 kernel's rounding limit (check_flat_head_dim)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    hq, hkv, _ = SMALL_HEADS[d]
+    check_flat_head_dim(dtype, tol, int8_kv, hq, hkv, d, seed=d)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", sorted(SMALL_HEADS))
+@pytest.mark.parametrize("int8_kv", [False, True], ids=["plain", "int8_kv"])
+@pytest.mark.parametrize("dtype,tol", TOLS)
+def test_paged_attention_kernel_head_dims_32_80_96(dtype, tol, int8_kv, d):
+    """The paged call at head_dim 32, 80 and 96: against its plain version
+    and each lane bit-equal to the flat kernel (check_paged_head_dim)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    hq, hkv, _ = SMALL_HEADS[d]
+    check_paged_head_dim(dtype, tol, int8_kv, hq, hkv, d, seed=d + 1)
 
 
 @pytest.mark.gpu
@@ -681,3 +721,56 @@ def test_sampling_paths_run_the_attention_kernels():
     assert la.paged_counts["mma"] > 0 and la.paged_counts["plain"] == 0
     assert la.counts["fma"] == la.paged_counts["fma"] == 0
     assert all(r.num_generated == 32 for r in batch)
+
+
+@pytest.mark.gpu
+def test_continuous_batching_lanes_equal_flat_generate():
+    """ContinuousBatchingEngine on the card in bfloat16 (fairness, two
+    lanes, five requests of staggered budgets): every result equals the
+    flat generate on its prompt, through the paged attention kernel for
+    the lanes and the flat one for the prefills, with no plain version.
+    The model follows a token cycle (unit embeddings scaled by sqrt(H), a
+    head whose columns map each token to the next), whose top-2 margins
+    no bf16 product of another row count can flip."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import lookaheaddecoding_tpu_torch as lt
+    cfg = lt.LlamaConfig(vocab_size=512, hidden_size=256,
+                         intermediate_size=512, num_hidden_layers=2,
+                         num_attention_heads=4, num_key_value_heads=2,
+                         dtype=torch.bfloat16)
+    params = lt.init_params(cfg, seed=0, scale=0.002, device="cuda")
+    rng = np.random.RandomState(0)
+    embed = rng.randn(512, 256).astype(np.float32)
+    embed /= np.linalg.norm(embed, axis=1, keepdims=True)
+    cycle = rng.choice(512, size=64, replace=False)
+    nxt = np.full(512, cycle[0])
+    nxt[cycle] = np.roll(cycle, -1)
+    head = np.zeros((256, 512), np.float32)
+    head[:, nxt[cycle]] = embed[cycle].T
+    params["embed"] = torch.from_numpy(embed * 16.0).to("cuda", cfg.dtype)
+    params["lm_head"] = torch.from_numpy(head).to("cuda", cfg.dtype)
+    eng = lt.LookaheadEngine(
+        cfg, params, lt.LookaheadConfig(level=4, window_size=5,
+                                        guess_set_size=4,
+                                        pool_from_prompt=True),
+        lt.EngineConfig(max_seq_len=256, prefill_chunk=16))
+
+    def prompt(start, n):
+        out = [int(nxt[start])]
+        while len(out) < n:
+            out.append(int(nxt[out[-1]]))
+        return out
+    reqs = [dict(prompt=prompt(3 * i, 10 + 7 * i), max_new_tokens=m,
+                 request_id=i) for i, m in enumerate((24, 40, 16, 48, 32))]
+    for tally in (la.counts, la.paged_counts):
+        tally.update(dict.fromkeys(tally, 0))
+    res = lt.ContinuousBatchingEngine(eng, num_lanes=2).run(
+        [lt.Request(**r) for r in reqs])
+    assert la.paged_counts["mma"] > 0 and la.counts["mma"] > 0
+    assert la.counts["plain"] == la.paged_counts["plain"] == 0
+    assert la.counts["fma"] == la.paged_counts["fma"] == 0
+    for r in res:
+        one = eng.generate(reqs[r.request_id]["prompt"],
+                           reqs[r.request_id]["max_new_tokens"])
+        np.testing.assert_array_equal(r.tokens, one.tokens)
