@@ -108,7 +108,22 @@ target). It imports no JAX. Phases, each printed as it runs:
    factor 2, M=2048, a 600-token prompt), token-exact; and engines at
    head_dim 32, 80 and 96 (4 layers), token-exact through the mma kernel,
    with three requests each through ``ContinuousBatchingEngine`` equal to
-   the flat ``generate`` (the paged kernel at that head_dim).
+   the flat ``generate`` (the paged kernel at that head_dim);
+11. the learned model: ``training.make_train_step`` on the card against
+   the CPU (three Adam and three SGD steps at 2 layers, float32, TF32
+   off); ``train_synthetic``'s model (vocab 2048, hidden 512, 6 layers,
+   D=64) trained in float32 on the card on the order-2 corpus over 16
+   active tokens (Adam, batch 64 x 129, up to 2,500 steps or 90 s) to a
+   loss below 1.5 nats; its bf16 checkpoint through ``save_params`` and
+   ``load_params`` (a temporary directory), every leaf equal; then
+   ``utils.tuning.autotune`` over (5,7,7), (5,15,15) and (7,20,20),
+   ``measure_ar_baseline`` and ``save_tune_artifact`` in bf16 and float32
+   (bench_learned's 128-token prompt, 256 new tokens, M=1024), each
+   candidate's tokens against ``generate_baseline`` (float32 exact, or a
+   teacher-forced top-2 margin within 1e-5 of the logit scale; bf16
+   reported), through B1 (FMA design in float32), no plain version; and
+   one lookahead and one AR ``generate`` under ``utils.profiling.trace``,
+   whose file must name the attention kernel.
 
 Each phase's seconds are printed as ``[seconds]`` lines.
 
@@ -121,12 +136,16 @@ also exits non-zero when no CUDA device is present.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+
+from lookaheaddecoding_tpu_torch.applications import synthetic
+from lookaheaddecoding_tpu_torch.applications.synthetic import make_prompt
 
 # Peaks of an H100 SXM (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_S = 3.35e12
@@ -158,9 +177,7 @@ TPU_PAGED_KERNEL = "lookaheaddecoding_tpu/ops/lookahead_attention.py:281"
 CSRC = "lookaheaddecoding_tpu_torch/ops/csrc/"
 
 # headline configuration (bench.py): TinyLlama-1.1B widths, L7/W20/G20
-ARCH = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5632,
-            num_hidden_layers=22, num_attention_heads=32,
-            num_key_value_heads=4, max_position_embeddings=2048)
+ARCH = synthetic.HEADLINE_ARCH
 LEVEL, WINDOW, GUESS = 7, 20, 20
 # composite rows a step, and those whose logits are read (row 0, the newest
 # window level, the verification branch): the LM head's row count
@@ -215,6 +232,36 @@ ARCH_SMALL_D = {
     96: dict(hidden_size=3072, intermediate_size=8192, num_attention_heads=32,
              num_key_value_heads=8)}
 SMALL_D_LAYERS, SMALL_D_NEW = 4, 64
+# phase 11: the learned model (applications/train_synthetic.py's widths:
+# vocab 2048, hidden 512, intermediate 1280, 6 layers, 8/4 heads, D=64) on
+# the order-2 Markov corpus over 16 active tokens, trained in float32 by
+# Adam at batch 64 x 129 tokens and lr 2e-3 for up to 2,500 steps or 90 s
+LEARNED_ORDER, LEARNED_ACTIVE = 2, 16
+LEARNED_BATCH, LEARNED_SEQ, LEARNED_LR = 64, 129, 2e-3
+LEARNED_STEPS, LEARNED_BUDGET_S, LEARNED_LOG_EVERY = 2500, 90.0, 250
+# the corpus floor is ~0.79 nats (0.7 of the contexts branch four ways,
+# 1.127 nats each); ln 2048 = 7.62 is the untrained model's
+LEARNED_LOSS_MAX = 1.5
+LEARNED_CANDIDATES = ((5, 7, 7), (5, 15, 15), (7, 20, 20))
+LEARNED_PROMPT, LEARNED_NEW = 128, 256   # bench_learned's prompt, new tokens
+# the train step on the card against the CPU: the config at 2 layers
+CHECK_LAYERS, CHECK_BATCH, CHECK_SEQ, CHECK_STEPS = 2, 8, 65, 3
+# Limits, card against CPU after CHECK_STEPS steps (float32, TF32 off):
+# the loss within rtol 1e-4 (the same float32 math summed in another
+# order: ~1e-6 expected); SGD's parameters within 1e-6 (a move of
+# lr * |m| ~ 1e-4 that agrees to ~1e-5 of itself; |p| ~ 0.1 has an ulp of
+# 7e-9). Adam divides each element by its own gradient's size: an element
+# whose gradient g carries a relative difference r between the two
+# reduction orders moves by ~lr * r more or less a step, and one whose
+# gradient is at the orders' noise can move anywhere within its bound,
+# lr a step (each way). So every element within 2 * lr * steps, and 99.9%
+# of them within lr * 1e-3 * steps (gradients that agree to 3 digits; a
+# gradient below 1e-3 of the typical one is that rare)
+CHECK_LOSS_RTOL, CHECK_SGD_ATOL = 1e-4, 1e-6
+# float32 token-exactness: a divergence is excused only by a teacher-forced
+# top-2 margin within float32 reduction noise, 1e-5 of the row's largest
+# |logit|
+F32_TIE = 1e-5
 
 
 def log(*a):
@@ -874,49 +921,15 @@ def check_matmuls(device):
 # Phase 4: the main path
 # ---------------------------------------------------------------------------
 
-def transition_embed_head(seed, h, vocab):
-    """Unit-vector embeddings and an LM head whose columns realize a
-    deterministic token-transition cycle (a copy of bench.py's
-    ``_transition_embed_head``)."""
-    rng = np.random.RandomState(seed)
-    embed = rng.randn(vocab, h).astype(np.float32)
-    embed /= np.linalg.norm(embed, axis=1, keepdims=True)
-    cycle = rng.choice(vocab, size=64, replace=False)
-    nxt = np.full(vocab, cycle[0], np.int64)
-    nxt[cycle] = np.roll(cycle, -1)
-    head = np.zeros((h, vocab), np.float32)
-    head[:, nxt[cycle]] = embed[cycle].T          # logits peak at nxt(token)
-    return embed, head, nxt
-
-
-def make_prompt(nxt, start=0, n=PROMPT_LEN):
-    t = int(nxt[start])
-    prompt = [t]
-    for _ in range(n - 1):
-        t = int(nxt[t])
-        prompt.append(t)
-    return prompt
-
-
 def build_headline(device, arch=ARCH):
-    """A model and prompt: synthetic weights at ``arch`` (the headline's
-    TinyLlama-1.1B widths by default) in bfloat16 and the transition cycle
-    they follow."""
-    import torch
-    import lookaheaddecoding_tpu_torch as lt
-
+    """A model and prompt: the transition-cycle recipe
+    (``applications/synthetic.py``) at ``arch`` (the headline's
+    TinyLlama-1.1B widths by default) in bfloat16, and the cycle it
+    follows."""
     t0 = time.perf_counter()
-    mcfg = lt.LlamaConfig(**arch, dtype=torch.bfloat16)
-    # layer weights small enough that the residual stream stays dominated
-    # by the token embedding, so the transition cycle survives every layer
-    params = lt.init_params(mcfg, seed=0, scale=0.002, device=device)
-    embed, head, nxt = transition_embed_head(0, mcfg.hidden_size,
-                                             mcfg.vocab_size)
-    params["embed"] = torch.from_numpy(embed * np.sqrt(mcfg.hidden_size)).to(
-        device, mcfg.dtype)
-    params["lm_head"] = torch.from_numpy(head).to(device, mcfg.dtype)
+    built = synthetic.build_headline(device, arch)
     log(f"  model built in {time.perf_counter() - t0:.1f} s")
-    return mcfg, params, make_prompt(nxt), nxt
+    return built
 
 
 def build_engine(mcfg, params, kv_quant=None, max_seq=MAX_SEQ):
@@ -1946,6 +1959,354 @@ def model_coverage(device, card, params, nxt_headline):
     return flat, paged
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the learned model
+# ---------------------------------------------------------------------------
+
+def check_train_step(device, card):
+    """Three Adam and three SGD steps of ``training.make_train_step`` on the
+    card and on the CPU from one seeded float32 parameter set (the learned
+    model's config at CHECK_LAYERS layers): the worst relative difference
+    of the losses and of the parameters, each within its limit."""
+    import dataclasses
+    import torch
+    import lookaheaddecoding_tpu_torch as lt
+    from lookaheaddecoding_tpu_torch.applications import train_synthetic
+    from lookaheaddecoding_tpu_torch.training import (init_opt_state,
+                                                      make_train_step)
+
+    mcfg = dataclasses.replace(train_synthetic.model_config(torch.float32),
+                               num_hidden_layers=CHECK_LAYERS)
+    start = lt.init_params(mcfg, seed=0, scale=0.02, device="cpu")
+    sampler = train_synthetic.make_markov_sampler(
+        mcfg.vocab_size, order=LEARNED_ORDER, active_vocab=LEARNED_ACTIVE)
+    rng = np.random.RandomState(1)
+    batches = [sampler(CHECK_BATCH, CHECK_SEQ, rng)
+               for _ in range(CHECK_STEPS)]
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for v in tree.values() for x in leaves(v)]
+        return [tree]
+
+    def on(tree, dev):
+        if isinstance(tree, dict):
+            return {k: on(v, dev) for k, v in tree.items()}
+        return tree.to(dev)
+
+    def run(dev, optimizer):
+        params = on(start, dev)
+        step = make_train_step(mcfg, CHECK_SEQ + 1, learning_rate=LEARNED_LR,
+                               optimizer=optimizer)
+        opt = init_opt_state(params, optimizer)
+        losses = []
+        for b in batches:
+            params, opt, loss = step(params, opt, b)
+            losses.append(float(loss))
+        return np.array(losses), [x.cpu() for x in leaves(params)]
+
+    for optimizer in ("adam", "sgd"):
+        (lc, pc), (lh, ph) = (run(device, optimizer),
+                              run(torch.device("cpu"), optimizer))
+        loss_rel = float(np.max(np.abs(lc - lh) / np.abs(lh)))
+        diff = torch.cat([(a - b).abs().flatten()
+                          for a, b in zip(pc, ph)]).numpy()
+        worst, q999 = float(diff.max()), float(np.quantile(diff, 0.999))
+        scale = max(float(b.abs().max()) for b in ph)
+        if optimizer == "adam":
+            limit = 2 * LEARNED_LR * CHECK_STEPS
+            q_limit = LEARNED_LR * 1e-3 * CHECK_STEPS
+        else:
+            limit = q_limit = CHECK_SGD_ATOL
+        log(f"  [{card}] train step, {optimizer}, {CHECK_STEPS} steps at "
+            f"{CHECK_LAYERS} layers, batch {CHECK_BATCH} x {CHECK_SEQ}: "
+            f"losses card {np.round(lc, 6).tolist()}, worst relative "
+            f"difference of the loss {loss_rel:.3g} (limit "
+            f"{CHECK_LOSS_RTOL:g}); parameters: worst |card - cpu| "
+            f"{worst:.3g} (limit {limit:g}; relative to max|p| "
+            f"{worst / scale:.3g}), 99.9% within {q999:.3g} (limit "
+            f"{q_limit:g}), {int((diff > 1e-6).sum())} of {diff.size} "
+            f"above 1e-6")
+        assert loss_rel <= CHECK_LOSS_RTOL, (optimizer, loss_rel)
+        assert worst <= limit and q999 <= q_limit, (optimizer, worst, q999)
+
+
+def train_learned(device, card):
+    """Train the learned model at full width and depth on the card through
+    ``train_synthetic.train``. Returns (float32 config, params)."""
+    from lookaheaddecoding_tpu_torch.applications import train_synthetic
+
+    mcfg, params, losses, done, secs = train_synthetic.train(
+        LEARNED_STEPS, LEARNED_BATCH, LEARNED_SEQ, LEARNED_LR,
+        order=LEARNED_ORDER, active_vocab=LEARNED_ACTIVE, device=device,
+        budget_s=LEARNED_BUDGET_S, log_every=LEARNED_LOG_EVERY,
+        log=lambda msg: log(f"    {msg}"))
+    last = losses[max(losses)]
+    tokens = done * LEARNED_BATCH * (LEARNED_SEQ - 1)
+    log(f"  [{card}] trained {done} steps in {secs:.1f} s: "
+        f"{1e3 * secs / done:.2f} ms a step, {tokens / secs:.0f} training "
+        f"tokens/s; loss {losses[0]:.4f} -> {last:.4f} (limit "
+        f"{LEARNED_LOSS_MAX}; corpus floor ~0.79)")
+    assert last < LEARNED_LOSS_MAX, f"learned model: loss {last}"
+    profile_train_step(mcfg, params, device, card)
+    return mcfg, params
+
+
+def roundtrip_checkpoint(mcfg, params, device, card):
+    """``save_params`` of the serving tree (bfloat16 matrices) into a
+    temporary directory, ``load_params`` back onto the card: the config and
+    every leaf equal. Returns the loaded (config, params)."""
+    import dataclasses
+    import tempfile
+    import torch
+    from lookaheaddecoding_tpu_torch.applications import train_synthetic
+    from lookaheaddecoding_tpu_torch.utils import checkpoint
+
+    cfg = dataclasses.replace(mcfg, dtype=torch.bfloat16)
+    tree = train_synthetic.serving_params(params)
+    with tempfile.TemporaryDirectory() as d:
+        checkpoint.save_params(d + "/learned", cfg, tree)
+        nbytes = os.path.getsize(d + "/learned.npz")
+        cfg2, tree2 = checkpoint.load_params(d + "/learned", device=device)
+    assert cfg2 == cfg, (cfg2, cfg)
+
+    def pairs(a, b, path=""):
+        assert isinstance(b, dict) == isinstance(a, dict), path
+        if isinstance(a, dict):
+            assert set(a) == set(b), path
+            return [p for k in a for p in pairs(a[k], b[k], f"{path}/{k}")]
+        return [(path, a, b)]
+    n = 0
+    for path, a, b in pairs(tree, tree2):
+        assert a.dtype == b.dtype and a.device == b.device, path
+        assert torch.equal(a, b), path
+        n += 1
+    log(f"  [{card}] checkpoint: {n} leaves, {nbytes / 2**20:.1f} MiB, "
+        f"saved and loaded back onto the card, every leaf equal")
+    return cfg2, tree2
+
+
+def divergence(eng, got, want, prompt_len):
+    """bench.py's forensics: the first index where lookahead and AR
+    differ, and the teacher-forced top-2 margin there (on the AR
+    prefix), with the row's largest |logit|."""
+    got, want = np.asarray(got), np.asarray(want)
+    n = min(len(got), len(want))
+    neq = np.nonzero(got[:n] != want[:n])[0]
+    if len(neq) == 0:
+        return None
+    i = int(neq[0])
+    row = teacher_forced_logits(eng, want[:i])[-1]
+    top = row.topk(2).values
+    return dict(index=i, new_token=i - prompt_len, lookahead=int(got[i]),
+                ar=int(want[i]), margin=float(top[0] - top[1]),
+                scale=float(row.abs().max()))
+
+
+def serve_learned(name, mcfg, params, card, tmpdir):
+    """autotune over LEARNED_CANDIDATES, measure_ar_baseline and
+    save_tune_artifact (read back) on the learned model; then each
+    candidate's tokens against generate_baseline's, with bench.py's
+    forensics at a divergence (float32 must be exact or a near-tie).
+    Returns (the kernels' counts of each candidate's autotune run, the AR
+    engine, the prompt, the AR result)."""
+    import torch
+    import lookaheaddecoding_tpu_torch as lt
+    from lookaheaddecoding_tpu_torch.applications import train_synthetic
+    from lookaheaddecoding_tpu_torch.utils import tuning
+
+    sampler = train_synthetic.make_markov_sampler(
+        mcfg.vocab_size, order=LEARNED_ORDER, active_vocab=LEARNED_ACTIVE)
+    prompt = sampler(1, LEARNED_PROMPT, np.random.RandomState(7))[0].tolist()
+    ecfg = lt.EngineConfig(max_seq_len=MAX_SEQ, prefill_chunk=PREFILL_CHUNK)
+    launches = {}
+
+    def progress(cand, res):
+        launches[cand] = read_counts()
+        reset_counts()
+    reset_counts()
+    _, report = tuning.autotune(mcfg, params, prompt, LEARNED_NEW,
+                                candidates=LEARNED_CANDIDATES,
+                                engine_cfg=ecfg, progress=progress)
+    assert len(report) == len(LEARNED_CANDIDATES), report
+    ar = tuning.measure_ar_baseline(mcfg, params, prompt, LEARNED_NEW, ecfg)
+    path = f"{tmpdir}/tune_{name}.json"
+    art = tuning.save_tune_artifact(path, report, ar, model=name)
+    with open(path) as f:
+        assert json.load(f) == art
+    by_cand = {(r.config.level, r.config.window_size,
+                r.config.guess_set_size): r for r in report}
+
+    ar_eng = build_learned_engine(mcfg, params, LEARNED_CANDIDATES[0])
+    rb = ar_eng.generate_baseline(prompt, LEARNED_NEW)
+    # the corpus's most likely successor of each context: the first of
+    # make_markov_sampler's order-2 table (its seed 0 draws it first)
+    succ0 = np.random.RandomState(0).randint(
+        0, LEARNED_ACTIVE, size=(LEARNED_ACTIVE,) * 2 + (4,))[..., 0]
+
+    def fidelity(toks, start):
+        return float(np.mean([
+            max(toks[t - 2], toks[t - 1]) < LEARNED_ACTIVE
+            and toks[t] == succ0[toks[t - 2], toks[t - 1]]
+            for t in range(start, len(toks))]))
+    # the same inside the positions the model was trained on (< 128): a
+    # 32-token prompt, 96 new tokens, the largest candidate
+    short = prompt[:32]
+    rs = ar_eng.generate_baseline(short, LEARNED_SEQ - 1 - len(short))
+    big = build_learned_engine(mcfg, params, LEARNED_CANDIDATES[-1])
+    ls = big.generate(short, LEARNED_SEQ - 1 - len(short))
+    log(f"  [{card}] {name} AR tokens that are the corpus's most likely "
+        f"successor of their context: {fidelity(rb.tokens, len(prompt)):.3f}"
+        f" of the {LEARNED_NEW} new tokens at positions {len(prompt)}-"
+        f"{len(rb.tokens) - 1}, past the {LEARNED_SEQ - 1} positions trained; "
+        f"{fidelity(rs.tokens, len(short)):.3f} of {rs.num_generated} from "
+        f"a {len(short)}-token prompt, inside them, where "
+        f"L{LEARNED_CANDIDATES[-1][0]}/W{LEARNED_CANDIDATES[-1][1]}/"
+        f"G{LEARNED_CANDIDATES[-1][2]} compresses {ls.compression_ratio:.3f}"
+        f" (token_exact {bool(np.array_equal(ls.tokens, rs.tokens))})")
+    design = "attention_mma" if mcfg.dtype == torch.bfloat16 \
+        else "attention_fma"
+    for cand in LEARNED_CANDIDATES:
+        got = launches[cand]
+        assert got[design] > 0 and got["plain"] == 0, (name, cand, got)
+        eng = build_learned_engine(mcfg, params, cand)
+        r = eng.generate(prompt, LEARNED_NEW)
+        forensics = divergence(eng, r.tokens, rb.tokens, len(prompt))
+        t = by_cand[cand]
+        log(f"  [{card}] {name} L{cand[0]}/W{cand[1]}/G{cand[2]}: "
+            f"{t.tokens_per_sec:.1f} tok/s (autotune median of 3), "
+            f"compression {t.compression_ratio:.3f}, speedup over AR "
+            f"{t.tokens_per_sec / ar:.3f}x, token_exact {forensics is None}, "
+            f"wall/steps {1e3 * r.wall_time_s / r.steps:.2f} ms; B1 "
+            f"launches ({design}) {got[design]}, plain {got['plain']}")
+        if forensics is not None:
+            f = forensics
+            log(f"    first divergence at new token {f['new_token']}: "
+                f"lookahead {f['lookahead']}, AR {f['ar']}; teacher-forced "
+                f"top-2 margin {f['margin']:.4g} at a logit scale "
+                f"{f['scale']:.4g} (float32 limit "
+                f"{F32_TIE * f['scale']:.4g})")
+            if mcfg.dtype == torch.float32:
+                assert f["margin"] <= F32_TIE * f["scale"], (name, cand, f)
+    log(f"  [{card}] {name} AR: {ar:.1f} tok/s (median of 3), wall/steps "
+        f"{1e3 * rb.wall_time_s / rb.steps:.2f} ms; artifact {art['results']}")
+    return launches, ar_eng, prompt, rb
+
+
+def build_learned_engine(mcfg, params, cand):
+    import lookaheaddecoding_tpu_torch as lt
+
+    level, window, guess = cand
+    eng = lt.LookaheadEngine(
+        mcfg, params,
+        lt.LookaheadConfig(level=level, window_size=window,
+                           guess_set_size=guess, pool_from_prompt=True),
+        lt.EngineConfig(max_seq_len=MAX_SEQ, prefill_chunk=PREFILL_CHUNK))
+    assert eng.lcfg.attention_impl == "kernel", eng.lcfg.attention_impl
+    return eng
+
+
+def profile_learned(eng, ar_eng, prompt, card, tmpdir):
+    """One lookahead and one AR ``generate`` of PROFILE_NEW tokens through
+    the port's ``utils.profiling.trace``: the trace file must exist and
+    name the attention kernel; kernels a step, device busy (the sum of the
+    kernels' durations) and idle against the wall a step of the same call
+    unprofiled."""
+    import glob
+    from lookaheaddecoding_tpu_torch.utils import profiling
+
+    for path, gen in (("lookahead", eng.generate),
+                      ("ar_baseline", ar_eng.generate_baseline)):
+        r0 = gen(prompt, PROFILE_NEW)           # unprofiled, same shapes
+        d = f"{tmpdir}/trace_{path}"
+        with profiling.trace(d):
+            r = gen(prompt, PROFILE_NEW)
+        files = glob.glob(f"{d}/*.pt.trace.json")
+        assert len(files) == 1, files
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        names = {e["name"] for e in kernels}
+        assert any("attention_mma_kernel" in n for n in names), \
+            sorted(names)[:20]
+        busy = sum(e["dur"] for e in kernels) / 1e3 / r.steps
+        att = sum(e["dur"] for e in kernels
+                  if "attention" in e["name"]) / 1e3 / r.steps
+        wall = 1e3 * r0.wall_time_s / r0.steps
+        log(f"  [{card}] learned bf16 {path} under profiling.trace "
+            f"({os.path.getsize(files[0]) / 2**20:.1f} MiB trace, names "
+            f"attention_mma_kernel): {r.steps} steps, "
+            f"{len(kernels) / r.steps:.0f} kernels a step, device busy "
+            f"{busy:.3f} ms a step (attention {att:.4f}), idle "
+            f"{1 - busy / wall:.3f} of the unprofiled {wall:.2f} ms wall a "
+            f"step")
+
+
+def profile_train_step(mcfg, params, device, card):
+    """Where a train step's time goes: 10 steps on one batch already on
+    the card (no corpus sampling), timed with CUDA events, then 3 under
+    torch.profiler: device busy a step and the largest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from lookaheaddecoding_tpu_torch.applications import train_synthetic
+    from lookaheaddecoding_tpu_torch.training import (init_opt_state,
+                                                      make_train_step)
+
+    sampler = train_synthetic.make_markov_sampler(
+        mcfg.vocab_size, order=LEARNED_ORDER, active_vocab=LEARNED_ACTIVE)
+    batch = torch.from_numpy(sampler(LEARNED_BATCH, LEARNED_SEQ,
+                                     np.random.RandomState(2))).to(device)
+    step = make_train_step(mcfg, LEARNED_SEQ + 1, learning_rate=LEARNED_LR)
+    opt = init_opt_state(params)
+    p = params
+    for _ in range(2):
+        p, opt, _ = step(p, opt, batch)
+    ms = time_ms(lambda: step(p, opt, batch), reps=10, warm=0, rounds=1)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            p, opt, loss = step(p, opt, batch)
+        float(loss)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + \
+            e.time_range.elapsed_us() / 3e3
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    log(f"  [{card}] train step on a batch already on the card: "
+        f"{ms:.2f} ms (CUDA events, 10 steps); {len(kernels) / 3:.0f} "
+        f"kernels a step, device busy {busy:.2f} ms a step; largest: "
+        + "; ".join(f"{v:.2f} ms {k[:60]}" for k, v in top))
+
+
+def learned_model(device, card):
+    """Phase 11: the train step card against CPU, training the learned
+    model, its checkpoint, serving it in bf16 and float32, and a profile.
+    Returns the B1 launches by dtype and candidate."""
+    import tempfile
+    import torch
+
+    check_train_step(device, card)
+    mcfg32, params32 = train_learned(device, card)
+    cfg16, params16 = roundtrip_checkpoint(mcfg32, params32, device, card)
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmpdir:
+        for name, cfg, params in (("learned_bf16", cfg16, params16),
+                                  ("learned_float32", mcfg32, params32)):
+            got, ar_eng, prompt, _ = serve_learned(name, cfg, params, card,
+                                                   tmpdir)
+            launches[name] = {f"autotune L{c[0]}/W{c[1]}/G{c[2]}": n
+                              for c, n in got.items()}
+            if name == "learned_bf16":
+                eng = build_learned_engine(cfg, params, LEARNED_CANDIDATES[0])
+                profile_learned(eng, ar_eng, prompt, card, tmpdir)
+    del params32, params16
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2115,6 +2476,17 @@ def main() -> int:
     cov_flat, cov_paged = model_coverage(device, card, params, nxt)
     lap("model coverage")
 
+    log(f"[learned model] ({card}); train_synthetic's model (vocab 2048, "
+        f"hidden 512, intermediate 1280, 6 layers, 8/4 heads, D=64) trained "
+        f"in float32 on the order-{LEARNED_ORDER} corpus over "
+        f"{LEARNED_ACTIVE} active tokens (Adam, batch {LEARNED_BATCH} x "
+        f"{LEARNED_SEQ}, lr {LEARNED_LR}, up to {LEARNED_STEPS} steps or "
+        f"{LEARNED_BUDGET_S:.0f} s); served in bf16 and float32 at "
+        f"M={MAX_SEQ}, a {LEARNED_PROMPT}-token prompt, {LEARNED_NEW} new "
+        f"tokens")
+    learned = learned_model(device, card)
+    lap("learned model")
+
     # phase 8's paths that step through the paged kernel (generate_batch
     # and the paged engine) and those that run the flat one
     samp_paged = {path: got for path, got in samp_launches.items()
@@ -2150,12 +2522,18 @@ def main() -> int:
              main_path="generate and generate_baseline, every "
              "configuration; phase 8's sampling, stream and prefix paths; "
              "phase 9's prefills and fused drains; phase 10's "
-             "llama3.2-1b_layer and dynamic_ntk",
+             "llama3.2-1b_layer and dynamic_ntk; phase 11's autotune of "
+             "the learned model in bf16 (its float32 runs launch the FMA "
+             "design: launches_float32)",
              **on_main_path("attention_mma", {
                  **launches, "sampling": samp_flat,
                  "continuous batching": cb_launches,
                  **{name: cov_flat[name] for name in (
-                     "llama3.2-1b_layer", "dynamic_ntk")}}), **att),
+                     "llama3.2-1b_layer", "dynamic_ntk")},
+                 "learned_bf16": learned["learned_bf16"]}),
+             launches_float32=sum(got["attention_fma"] for got in
+                                  learned["learned_float32"].values()),
+             **att),
         dict(name="int8_matmul", route="cuda", source=CSRC + "quant_matmul.cu",
              replaces=tpu_mm + ":274", main_path="int8_weights, "
              "int8_weights_int8_kv, the int4 configurations' LM head",

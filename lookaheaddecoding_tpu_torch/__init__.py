@@ -11,7 +11,12 @@ and ``ContinuousBatchingEngine`` (a lane scheduler over the flat engine
 with fairness, throughput and adaptive objectives), with plain, int8 or
 int4 weights and a plain or int8 KV cache, for the LLaMA, Mistral, Qwen2
 and Gemma families (``LlamaConfig.from_hf``, ``convert_hf_model``; linear,
-dynamic-NTK, llama3 and YaRN rope scaling). The composite attention, flat
+dynamic-NTK, llama3 and YaRN rope scaling). ``training`` fits a model on
+the card (``forward_train``, Adam or momentum SGD), ``utils`` saves and
+loads checkpoints in the JAX package's format, profiles and autotunes,
+``compat`` carries the reference's ``config_lade`` knobs, and
+``applications`` holds the demos, the chatbot, the evaluation harness and
+the learned-model benchmark. The composite attention, flat
 and paged, and the quantized-weight products are hand-written CUDA kernels
 (``ops/csrc/``). It imports no JAX, and ``transformers`` only inside
 ``load_pretrained``.
@@ -30,7 +35,9 @@ from .ops.quant import dequantize_weight, quantize_params, quantize_weight
 from .ops.sampling import (AcceptResult, rejection_sample_verify,
                            rejection_sample_verify_core, sample_token,
                            warp_logits)
+from .utils.checkpoint import load_params, save_params
 from .utils.logging import DecodeLog
+from .utils.tuning import TuneResult, autotune
 
 __all__ = [
     "EngineConfig",
@@ -53,6 +60,10 @@ __all__ = [
     "convert_hf_state_dict",
     "load_pretrained",
     "DecodeLog",
+    "load_params",
+    "save_params",
+    "TuneResult",
+    "autotune",
     "quantize_params",
     "quantize_weight",
     "dequantize_weight",

@@ -1,4 +1,6 @@
-"""LLaMA-family decoder in PyTorch (flat or paged KV cache, no gradients).
+"""LLaMA-family decoder in PyTorch: the flat and the paged forward on a KV
+cache (inference), and ``forward_train``, the batched causal forward
+without a cache that the training step differentiates.
 
 The same model and the same data formats as
 ``lookaheaddecoding_tpu.models.llama``:
@@ -394,7 +396,8 @@ def _rope_rows(cfg: LlamaConfig, positions, rope_cos, rope_sin,
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor,
                sin: torch.Tensor) -> torch.Tensor:
-    """x [T, n_heads, d]; cos/sin [T, d] for these positions; rotate-half."""
+    """x [T, n_heads, d], or [B, T, n_heads, d]; cos/sin [T, d] for these
+    positions; rotate-half."""
     xf = x.float()
     half = x.shape[-1] // 2
     rot = torch.cat([-xf[..., half:], xf[..., :half]], dim=-1)
@@ -643,6 +646,70 @@ def _logits(params, cfg: LlamaConfig, x, rows):
     lead = x.shape[:-1]
     return qmatmul(x.reshape(-1, x.shape[-1]), head).float().view(
         *lead, cfg.vocab_size)
+
+
+NEG_INF_F32 = -1e30   # forward_train's masked score, as JAX's
+_TRAIN_LAYER_KEYS = frozenset({"input_norm", "post_norm", "wq", "wk", "wv",
+                               "wo", "w_gate", "w_up", "w_down"})
+
+
+def forward_train(
+    params: Dict,
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,        # [B, T] int
+    rope_cos: torch.Tensor,      # [>=T, D] fp32
+    rope_sin: torch.Tensor,
+) -> torch.Tensor:
+    """Batched causal forward without a KV cache (training, teacher
+    forcing), differentiable by autograd: the JAX package's
+    ``forward_train``. Attention is plain float32 ``matmul`` and softmax
+    over a ``[B, T, Hkv, rep, D]`` query (JAX computes it with einsums
+    outside any Pallas kernel). It takes unfused, unquantized projections
+    without biases, as JAX's does, and raises on any other layer key.
+    Returns [B, T, V] fp32 logits."""
+    lp = params["layers"]
+    other = sorted(set(lp) - _TRAIN_LAYER_KEYS)
+    if other or any(isinstance(w, dict) for w in lp.values()):
+        raise ValueError(
+            "forward_train takes unfused, unquantized projections without "
+            f"biases; got layer keys {other or sorted(lp)}")
+    hq, hkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    b, t = tokens.shape
+    rep = hq // hkv
+
+    x = params["embed"][tokens]                              # [B, T, H]
+    if cfg.scale_embeddings:
+        x = x * torch.tensor(math.sqrt(cfg.hidden_size), dtype=cfg.dtype)
+    cos, sin = rope_cos[:t], rope_sin[:t]
+    causal = torch.ones(t, t, dtype=torch.bool, device=x.device).tril()
+    act = act_fn(cfg)
+
+    def att_rope(y, w, n_heads):
+        return apply_rope((y @ w).reshape(b, t, n_heads, d), cos, sin)
+
+    for li in range(cfg.num_hidden_layers):
+        y = rms_norm(x, lp["input_norm"][li], cfg.rms_norm_eps,
+                     cfg.rms_norm_offset)
+        # [B, Hkv, rep, T, D] queries against [B, Hkv, 1, T, D] keys
+        q = att_rope(y, lp["wq"][li], hq).reshape(b, t, hkv, rep, d)
+        q = q.float().permute(0, 2, 3, 1, 4)
+        k = att_rope(y, lp["wk"][li], hkv).float().permute(0, 2, 1, 3)
+        vv = (y @ lp["wv"][li]).reshape(b, t, hkv, d).float().permute(0, 2, 1, 3)
+        scores = torch.matmul(q, k[:, :, None].transpose(-1, -2)) / math.sqrt(d)
+        scores = scores.masked_fill(~causal, NEG_INF_F32)
+        attn = torch.matmul(torch.softmax(scores, dim=-1), vv[:, :, None])
+        attn = attn.permute(0, 3, 1, 2, 4).reshape(b, t, hq * d)
+        x = x + attn.to(cfg.dtype) @ lp["wo"][li]
+        y = rms_norm(x, lp["post_norm"][li], cfg.rms_norm_eps,
+                     cfg.rms_norm_offset)
+        gate = act((y @ lp["w_gate"][li]).float()).to(cfg.dtype)
+        x = x + (gate * (y @ lp["w_up"][li])) @ lp["w_down"][li]
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps,
+                 cfg.rms_norm_offset)
+    head = params.get("lm_head")
+    if head is None:
+        head = params["embed"].T
+    return (x @ head).float()
 
 
 def forward_paged(

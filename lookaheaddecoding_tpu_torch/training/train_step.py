@@ -1,0 +1,152 @@
+"""Next-token training step.
+
+The counterpart of ``lookaheaddecoding_tpu.training.train_step``: a
+functional step on a parameter tree (a dict of tensors, as the engines
+take it), used to fit benchmark models on the card to synthetic corpora
+where no pretrained weights are reachable
+(``applications/train_synthetic.py``). Gradients come from autograd through
+``models/llama.py:forward_train``.
+
+Adam is optax's ``adam`` written out in optax's order of operations (b1 0.9,
+b2 0.999, eps 1e-8, eps_root 0; bias correction by the step count), SGD the
+JAX package's momentum variant. The sharded step over a mesh is not ported
+yet: ``mesh`` raises.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..models import llama
+
+B1, B2, EPS = 0.9, 0.999, 1e-8     # optax.adam's defaults (eps_root 0)
+OPTIMIZERS = ("adam", "sgd")
+
+
+def next_token_loss(params, cfg: llama.LlamaConfig, batch: torch.Tensor,
+                    rope_cos, rope_sin) -> torch.Tensor:
+    """Mean causal cross-entropy over [B, T] token batches."""
+    logits = llama.forward_train(params, cfg, batch[:, :-1], rope_cos,
+                                 rope_sin)
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           batch[:, 1:].reshape(-1).long())
+
+
+def _leaves(tree, prefix=()) -> List[Tuple[tuple, torch.Tensor]]:
+    """(path, tensor) of every leaf, in the tree's key order."""
+    if isinstance(tree, dict):
+        return [leaf for k, v in tree.items()
+                for leaf in _leaves(v, prefix + (k,))]
+    return [(prefix, tree)]
+
+
+def _rebuild(paths, tensors) -> Dict:
+    out: Dict = {}
+    for path, t in zip(paths, tensors):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = t
+    return out
+
+
+def _check_optimizer(optimizer: str) -> None:
+    if optimizer not in OPTIMIZERS:
+        raise ValueError(f"optimizer must be one of {OPTIMIZERS}, "
+                         f"got {optimizer!r}")
+
+
+def make_train_step(
+    cfg: llama.LlamaConfig,
+    seq_len: int,
+    mesh=None,
+    learning_rate: float = 1e-3,
+    optimizer: str = "adam",
+) -> Callable:
+    """Returns ``train_step(params, opt_state, batch) -> (params,
+    opt_state, loss)``. The step is functional: it returns new tensors and
+    leaves its arguments as they were. It runs where ``params`` live (the
+    card, as ``init_params`` places them by default); ``batch`` (a [B, T]
+    integer tensor or numpy array, T <= ``seq_len``) is moved there. Adam
+    by default (plain SGD stalls on transformer attention patterns);
+    ``optimizer="sgd"`` keeps the dependency-free momentum variant."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "the sharded training step is not ported yet: pass mesh=None")
+    _check_optimizer(optimizer)
+    tables = {}      # device -> rope tables of seq_len rows
+
+    def step(params, opt_state, batch):
+        paths, leaves = zip(*_leaves(params))
+        dev = leaves[0].device
+        if dev not in tables:
+            tables[dev] = llama.rope_tables(cfg, seq_len, dev)
+        batch = torch.as_tensor(batch, device=dev)
+        live = [p.detach().requires_grad_(True) for p in leaves]
+        with torch.enable_grad():
+            loss = next_token_loss(_rebuild(paths, live), cfg, batch,
+                                   *tables[dev])
+            grads = torch.autograd.grad(loss, live)
+        with torch.no_grad():
+            update = _adam if optimizer == "adam" else _sgd
+            new, opt_state = update(paths, leaves, grads, opt_state,
+                                    learning_rate)
+        return _rebuild(paths, new), opt_state, loss.detach()
+
+    return step
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _adam(paths, params, grads, state, lr):
+    """optax.adam, leaf by leaf in optax's order of operations:
+    mu = (1-b1) g + b1 mu, nu = (1-b2) g^2 + b2 nu, count + 1,
+    u = (mu / (1 - b1^count)) / (sqrt(nu / (1 - b2^count)) + eps), and
+    p + (-lr) u in p's dtype."""
+    count = state["count"] + 1
+    c = count.float()
+    # float32 bias corrections on the device: no host read a step
+    bc1 = 1 - torch.pow(torch.tensor(B1, device=c.device), c)
+    bc2 = 1 - torch.pow(torch.tensor(B2, device=c.device), c)
+    new, mus, nus = [], [], []
+    for path, p, g in zip(paths, params, grads):
+        mu = (1 - B1) * g + B1 * _get(state["mu"], path)
+        nu = (1 - B2) * (g * g) + B2 * _get(state["nu"], path)
+        u = (mu / bc1) / (torch.sqrt(nu / bc2) + EPS)
+        new.append((p + (-lr) * u).to(p.dtype))
+        mus.append(mu)
+        nus.append(nu)
+    return new, {"count": count, "mu": _rebuild(paths, mus),
+                 "nu": _rebuild(paths, nus)}
+
+
+def _sgd(paths, params, grads, state, lr):
+    """The JAX package's momentum SGD: m = 0.9 m + g (float32), then
+    p = (p - lr m) in p's dtype."""
+    ms = [0.9 * _get(state, path) + g.float()
+          for path, g in zip(paths, grads)]
+    new = [(p - lr * m).to(p.dtype) for p, m in zip(params, ms)]
+    return new, _rebuild(paths, ms)
+
+
+def init_opt_state(params, optimizer: str = "adam",
+                   learning_rate: float = 1e-3):
+    """Adam: optax's ``ScaleByAdamState`` fields as a dict, ``count`` (an
+    int32 scalar) and ``mu`` / ``nu`` (zero trees shaped like ``params``).
+    SGD: a float32 zero tree."""
+    _check_optimizer(optimizer)
+    paths, leaves = zip(*_leaves(params))
+    if optimizer == "sgd":
+        return _rebuild(paths, [torch.zeros_like(p, dtype=torch.float32)
+                                for p in leaves])
+    return {"count": torch.zeros((), dtype=torch.int32,
+                                 device=leaves[0].device),
+            "mu": _rebuild(paths, [torch.zeros_like(p) for p in leaves]),
+            "nu": _rebuild(paths, [torch.zeros_like(p) for p in leaves])}

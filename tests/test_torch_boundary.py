@@ -1,7 +1,8 @@
 """The port's import boundary: the package, its scripts
 (``scripts/torch_*.py``) and chip_smoke.py import neither JAX nor the JAX
-package, and chip_smoke.py refuses to report a result without the port or
-a card."""
+package, the port's applications import neither of those nor the root
+``applications`` or ``bench``, and chip_smoke.py refuses to report a result
+without the port or a card."""
 
 import os
 import re
@@ -67,11 +68,59 @@ def test_no_port_source_imports_jax_or_the_jax_package():
             "lookaheaddecoding_tpu_torch/models/convert.py",
             "lookaheaddecoding_tpu_torch/utils/logging.py",
             "lookaheaddecoding_tpu_torch/ops/int4_micro.py",
+            "lookaheaddecoding_tpu_torch/compat.py",
+            "lookaheaddecoding_tpu_torch/training/train_step.py",
+            "lookaheaddecoding_tpu_torch/utils/checkpoint.py",
+            "lookaheaddecoding_tpu_torch/utils/profiling.py",
+            "lookaheaddecoding_tpu_torch/utils/tuning.py",
+            "lookaheaddecoding_tpu_torch/applications/bench_learned.py",
             "scripts/torch_int4_micro.py",
             "scripts/torch_matmul_tile_sweep.py", "chip_smoke.py"} <= names
     for path in sources:
         hits = pattern.findall(path.read_text())
         assert not hits, f"{path.relative_to(ROOT)} imports {hits}"
+
+
+APPS_PATTERN = re.compile(
+    r"^\s*(import|from)\s+(applications|bench|bench_learned)\b", re.M)
+
+
+def test_the_ports_applications_import_no_root_application_or_bench():
+    """The port's ``applications`` subpackage neither names the root
+    ``applications``, ``bench`` or ``bench_learned`` in an import, nor
+    loads them, JAX or the JAX package when each of its modules is
+    imported with ``transformers`` made unimportable."""
+    apps = sorted((PORT / "applications").glob("*.py"))
+    assert {p.name for p in apps} >= {
+        "bench_learned.py", "chatbot.py", "eval_classeval.py",
+        "eval_cnndm.py", "eval_common.py", "eval_humaneval.py",
+        "eval_mtbench.py", "eval_xsum.py", "minimal.py", "synthetic.py",
+        "train_synthetic.py"}
+    for path in apps:
+        hits = APPS_PATTERN.findall(path.read_text())
+        assert not hits, f"{path.relative_to(ROOT)} imports {hits}"
+    for text in ("import bench\n", "from applications import chatbot\n",
+                 "  from applications.eval_common import run_eval\n"):
+        assert APPS_PATTERN.findall(text), text
+    assert not APPS_PATTERN.findall("from . import train_synthetic\n")
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "sys.modules['transformers'] = None\n"
+        "import lookaheaddecoding_tpu_torch.applications as a\n"
+        "names = [m.name for m in pkgutil.iter_modules(a.__path__)]\n"
+        "for n in names:\n"
+        "    importlib.import_module(a.__name__ + '.' + n)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m.split('.')[0] in ('lookaheaddecoding_tpu',\n"
+        "                              'applications', 'bench',\n"
+        "                              'bench_learned')]\n"
+        "assert not bad, bad\n"
+        "print('ok', len(names))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[0] == "ok" and int(out.stdout.split()[1]) >= 11
 
 
 def test_the_boundary_check_catches_a_script_that_imports_jax(tmp_path):

@@ -4,7 +4,10 @@ cores and in float32 on FMAs; the int8, int4 and pipelined int4 matrix
 products, in bfloat16 on the tensor cores; the int4 product's two
 micro-benchmark variants), each against its plain PyTorch version; the
 attention also at head_dim 256 with Gemma-2B's heads and at head_dim 32,
-80 and 96; continuous batching against the flat engine. They skip without a CUDA device. This file imports no
+80 and 96; continuous batching against the flat engine; the training
+step on the card against the CPU, ``load_params`` onto the card and
+``utils.profiling.trace`` around a card ``generate``. They skip without a
+CUDA device. This file imports no
 JAX, so on a machine without JAX it runs without the suite's conftest:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
@@ -774,3 +777,122 @@ def test_continuous_batching_lanes_equal_flat_generate():
         one = eng.generate(reqs[r.request_id]["prompt"],
                            reqs[r.request_id]["max_new_tokens"])
         np.testing.assert_array_equal(r.tokens, one.tokens)
+
+
+def _tiny_train_model(device):
+    import lookaheaddecoding_tpu_torch as lt
+    cfg = lt.LlamaConfig(vocab_size=256, hidden_size=128,
+                         intermediate_size=256, num_hidden_layers=2,
+                         num_attention_heads=4, num_key_value_heads=2,
+                         dtype=torch.float32)
+    return cfg, lt.init_params(cfg, seed=0, scale=0.02, device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("optimizer", ["adam", "sgd"])
+def test_train_step_on_the_card_matches_the_cpu(optimizer):
+    """Three steps of make_train_step on the card and on the CPU from the
+    same float32 parameters (TF32 off): losses within rtol 1e-4 (another
+    summation order); SGD's parameters within 1e-6. Adam divides each
+    element by its own gradient's size, so an element whose gradient is at
+    the noise of the two orders can move anywhere within lr a step: every
+    element within 2 lr a step, and 99.9% within lr * 1e-3 a step
+    (chip_smoke's phase-11 limits). The step runs where the parameters
+    live."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from lookaheaddecoding_tpu_torch.training import (init_opt_state,
+                                                      make_train_step)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lr = 2e-3
+    rng = np.random.RandomState(1)
+    batches = [rng.randint(0, 256, size=(4, 33)) for _ in range(3)]
+    out = []
+    for dev in ("cuda", "cpu"):
+        cfg, params = _tiny_train_model("cpu")
+        params = {k: ({n: t.to(dev) for n, t in v.items()}
+                      if isinstance(v, dict) else v.to(dev))
+                  for k, v in params.items()}
+        step = make_train_step(cfg, seq_len=64, learning_rate=lr,
+                               optimizer=optimizer)
+        opt = init_opt_state(params, optimizer)
+        losses = []
+        for b in batches:
+            params, opt, loss = step(params, opt, b)
+            losses.append(float(loss))
+        assert params["layers"]["wq"].device.type == dev
+        out.append((np.array(losses), params))
+    (lc, pc), (lh, ph) = out
+    np.testing.assert_allclose(lc, lh, rtol=1e-4)
+
+    def flat(tree):
+        return np.concatenate([
+            x.cpu().numpy().ravel() for k in sorted(tree)
+            for x in ([tree[k]] if not isinstance(tree[k], dict)
+                      else [tree[k][n] for n in sorted(tree[k])])])
+    diff = np.abs(flat(pc) - flat(ph))
+    if optimizer == "adam":
+        assert diff.max() <= 2 * lr * 3
+        assert np.quantile(diff, 0.999) <= lr * 1e-3 * 3
+    else:
+        assert diff.max() <= 1e-6
+
+
+@pytest.mark.gpu
+def test_load_params_onto_the_card_round_trips(tmp_path):
+    """A bf16 and an int4 tree saved and loaded with device='cuda': every
+    leaf on the card, with its dtype and its bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+    import lookaheaddecoding_tpu_torch as lt
+    cfg, params = _tiny_train_model("cuda")
+    cfg = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    bf16 = {k: ({n: t.to(torch.bfloat16) for n, t in v.items()}
+                if isinstance(v, dict) else v.to(torch.bfloat16))
+            for k, v in params.items()}
+    for name, tree in (("bf16", bf16),
+                       ("int4", lt.quantize_params(bf16, bits=4))):
+        lt.save_params(str(tmp_path / name), cfg, tree)
+        cfg2, tree2 = lt.load_params(str(tmp_path / name), device="cuda")
+        assert cfg2 == cfg
+
+        def check(a, b):
+            if isinstance(a, dict):
+                assert set(a) == set(b)
+                for k in a:
+                    check(a[k], b[k])
+                return
+            assert b.device.type == "cuda" and b.dtype == a.dtype
+            assert torch.equal(a, b)
+        check(tree, tree2)
+
+
+@pytest.mark.gpu
+def test_profiling_trace_records_the_attention_kernel(tmp_path):
+    """utils.profiling.trace around a generate on the card writes one
+    Chrome trace that names the bf16 attention kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import json
+    import lookaheaddecoding_tpu_torch as lt
+    from lookaheaddecoding_tpu_torch.utils import profiling
+    cfg = lt.LlamaConfig(vocab_size=256, hidden_size=128,
+                         intermediate_size=256, num_hidden_layers=2,
+                         num_attention_heads=2, num_key_value_heads=1,
+                         dtype=torch.bfloat16)
+    eng = lt.LookaheadEngine(
+        cfg, lt.init_params(cfg, seed=0, scale=0.5, device="cuda"),
+        lt.LookaheadConfig(level=4, window_size=5, guess_set_size=4),
+        lt.EngineConfig(max_seq_len=256, prefill_chunk=16))
+    prompt = list(np.random.RandomState(0).randint(0, 256, size=20))
+    eng.generate(prompt, 8)
+    timer = profiling.StepTimer()
+    with profiling.trace(str(tmp_path)), timer:
+        eng.generate(prompt, 16)
+    files = list(tmp_path.glob("*.pt.trace.json"))
+    assert len(files) == 1
+    names = {e.get("name", "") for e in json.loads(files[0].read_text())[
+        "traceEvents"] if e.get("cat") == "kernel"}
+    assert any("attention_mma_kernel" in n for n in names), sorted(names)
+    assert timer.mean_ms > 0
