@@ -23,7 +23,10 @@ target). It imports no JAX. Phases, each printed as it runs:
    timed) and at head_dim 32, 80 and 96 (64, 32 and 32 query heads on 8
    KV heads, Hq*D 2048-3072; the D=256 cases, B1, B2, prefill and AR
    timed; flat and paged, the paged call bit-equal to the flat one lane
-   by lane), and the int8, int4 and pipelined int4 matrix
+   by lane), and at a first composite row (``row0``, a lookahead-parallel
+   rank's call: B1 and B2 on S=240 split in two, each half bit-equal to
+   those rows of the whole call, bfloat16 and float32, plain and int8
+   KV), and the int8, int4 and pipelined int4 matrix
    products (bfloat16 on the tensor cores; the pipelined one bit-equal to
    the int4 one, a row alone bit-equal to the same row among 240);
    the paged attention call on a shared page pool with shuffled tables
@@ -123,7 +126,20 @@ target). It imports no JAX. Phases, each printed as it runs:
    teacher-forced top-2 margin within 1e-5 of the logit scale; bf16
    reported), through B1 (FMA design in float32), no plain version; and
    one lookahead and one AR ``generate`` under ``utils.profiling.trace``,
-   whose file must name the attention kernel.
+   whose file must name the attention kernel;
+12. parallel: two ranks on the one card over gloo (``parallel/launch.py``;
+   NCCL takes one rank a card), each building the headline model whole
+   from its seed and keeping its shard, on four meshes: ``tp2``, ``pp2``,
+   ``la2`` (S=240, 120 rows a rank) and ``int8_weights_tp2``. On each
+   rank, ``generate`` equals ``generate_baseline``, follows the cycle and
+   equals the first 128 new tokens of phase 4's run of the same
+   configuration (a mismatch raises with the teacher-forced top-2
+   margin); every rank's tokens and steps are equal; the attention
+   kernel's tensor-core design is launched and its FMA design and the
+   plain versions never (``int8_weights_tp2``: B3's tensor-core design
+   too). Prints ms a step beside phase 4's one-process step and the
+   collectives a step. Those times are two processes sharing one card
+   with gloo crossing the host, not a tensor-parallel speed.
 
 Each phase's seconds are printed as ``[seconds]`` lines.
 
@@ -258,6 +274,14 @@ CHECK_LAYERS, CHECK_BATCH, CHECK_SEQ, CHECK_STEPS = 2, 8, 65, 3
 # of them within lr * 1e-3 * steps (gradients that agree to 3 digits; a
 # gradient below 1e-3 of the typical one is that rare)
 CHECK_LOSS_RTOL, CHECK_SGD_ATOL = 1e-4, 1e-6
+# phase 12: two ranks on the one card over gloo (NCCL takes one rank a
+# card), each mesh of the headline model at full width and depth; new
+# tokens compared with phase 4's run of the same configuration
+PAR_RANKS, PAR_NEW, PAR_WARM, PAR_TIMEOUT_S = 2, 128, 16, 420
+PAR_BATCH_NEW = 32    # new tokens of each mesh's two-lane generate_batch
+PAR_MESHES = (("tp2", dict(tp=2), "bf16"), ("pp2", dict(pp=2), "bf16"),
+              ("la2", dict(la=2), "bf16"),     # S=240: 120 rows a rank
+              ("int8_weights_tp2", dict(tp=2), "int8_weights"))
 # float32 token-exactness: a divergence is excused only by a teacher-forced
 # top-2 margin within float32 reduction noise, 1e-5 of the row's largest
 # |logit|
@@ -374,6 +398,8 @@ ATT_CASES = ([(S_COMP, 1024, kv, False, 0) for kv in (0, 37, 512, 784)]
 ATT_TIMED = {(S_COMP, 1024, 512, False, 0), (S_COMP, 2048, 1808, False, 0),
              (PREFILL_CHUNK, 1024, 640, True, 0), (1, 1024, 700, True, 0)}
 HEADS_64, HEADS_256 = (32, 4, 64), (8, 1, 256)
+# a tp=2 rank's share of the headline's heads (phase 12's tp2 meshes)
+HEADS_TP2 = (16, 2, 64)
 # head_dim 256: B1 (M=1024), B2 (M=2048), prefill, a sliding window both
 # ways and the AR call, every one timed
 ATT_CASES_256 = [(S_COMP, 1024, 512, False, 0), (S_COMP, 2048, 1808, False, 0),
@@ -506,18 +532,86 @@ def check_attention(device, heads=HEADS_64, cases=ATT_CASES, timed=ATT_TIMED,
     return dict(headline[False], int8_kv=headline[True])
 
 
+def check_row0(device, seed=6):
+    """A lookahead-parallel rank's call: the kernel on composite rows
+    [r0, r0 + n) with ``row0`` = r0 against the plain version's call with
+    the same ``row0`` (within TOL) and against those rows of the whole
+    call, bit for bit: B1 (M=1024, kv_len 512) and B2 (M=2048, kv_len
+    1808) at the headline's heads and S=240 split in two (phase 12's la=2
+    split), bfloat16 and float32, plain and int8 KV. Returns the worst
+    bfloat16 error against the plain version."""
+    import torch
+    from lookaheaddecoding_tpu_torch.models.llama import kv_cache_write
+    from lookaheaddecoding_tpu_torch.ops.lookahead_attention import (
+        lookahead_attention, lookahead_attention_ref)
+
+    rng = np.random.default_rng(seed)
+    hq, hkv, d = HEADS_64
+    geo = dict(level=LEVEL, window=WINDOW, guess_size=LEVEL - 1)
+    half = S_COMP // 2
+    worst = 0.0
+    for int8_kv in (False, True):
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[1]
+            for m, kv in ((1024, 512), (2048, 1808)):
+                def mk(*shape):
+                    x = rng.standard_normal(shape, dtype=np.float32)
+                    return torch.from_numpy(x).to(device, dtype)
+                q = mk(S_COMP, hq, d)
+                if int8_kv:
+                    k, v = ({"q": torch.zeros((hkv, m, d), dtype=torch.int8,
+                                              device=device),
+                             "s": torch.full((hkv, m, 1), 1e-8,
+                                             device=device)}
+                            for _ in range(2))
+                    kv_cache_write(k, mk(m, hkv, d), 0)
+                    kv_cache_write(v, mk(m, hkv, d), 0)
+                else:
+                    k, v = mk(hkv, m, d), mk(hkv, m, d)
+                kv_len = torch.tensor([kv], dtype=torch.int32, device=device)
+                whole = lookahead_attention(q, k, v, kv_len, **geo)
+                for r0 in (0, half):
+                    rows = q[r0:r0 + half].contiguous()
+                    part = lookahead_attention(rows, k, v, kv_len, row0=r0,
+                                               **geo)
+                    want = lookahead_attention_ref(rows, k, v, kv_len,
+                                                   row0=r0, **geo)
+                    torch.cuda.synchronize()
+                    err = (part.float() - want.float()).abs().max().item()
+                    ok = torch.allclose(part.float(), want.float(),
+                                        **TOL[dname])
+                    same = torch.equal(part, whole[r0:r0 + half])
+                    line = (f"  row0={r0:3d} rows {half} of S={S_COMP} M={m} "
+                            f"kv_len={kv} {dname}"
+                            f"{' int8-KV' if int8_kv else ''}: plain version "
+                            f"max_abs_err={err:.3e} {'ok' if ok else 'FAIL'}, "
+                            f"{'bit-equal' if same else 'DIFFERS'} to the "
+                            f"whole call's rows")
+                    log(line)
+                    if not ok:
+                        raise AssertionError("row0 call disagrees with the "
+                                             "plain version:" + line)
+                    if not same:
+                        raise AssertionError("row0 call differs from the "
+                                             "whole call's rows:" + line)
+                    if dtype == torch.bfloat16:
+                        worst = max(worst, err)
+    return worst
+
+
 def check_paged_attention(device, heads=HEADS_64, pages=((128, 8), (48, 22)),
-                          seed=2):
+                          seed=2, lanes=LANES, timed=True):
     """The paged attention call at ``heads`` (Hq, Hkv, D) against its plain
     version and, lane by lane and bit for bit, against the flat call on
     the contiguous cache: bfloat16 and float32, a plain and an int8 pool,
-    composite and causal, with and without a sliding window, four lanes
-    whose ``kv_len`` are 0, one past a page boundary, 512 and the capacity
-    less S, shuffled tables, ``pages`` of (slots, pages a lane). Then its
-    time at the headline shape (four lanes at kv_len 512, pages of 128)
-    beside the plain version's, the bound and one library call on the
-    gathered cache. Returns the headline numbers, plain pool and int8
-    pool."""
+    composite and causal, with and without a sliding window, ``lanes``
+    lanes whose ``kv_len`` are the last ``lanes`` of 0, one past a page
+    boundary, 512 and the capacity less S, shuffled tables, ``pages`` of
+    (slots, pages a lane). Then, if ``timed``, its time at the headline
+    shape (four lanes at kv_len 512, pages of 128) beside the plain
+    version's, the bound and one library call on the gathered cache.
+    Returns the headline numbers (untimed: the worst bfloat16 error),
+    plain pool and int8 pool."""
     import torch
     import torch.nn.functional as F
     from lookaheaddecoding_tpu_torch.core.paged import (paged_gather,
@@ -527,9 +621,9 @@ def check_paged_attention(device, heads=HEADS_64, pages=((128, 8), (48, 22)),
         paged_lookahead_attention_ref)
 
     rng = np.random.default_rng(seed)
-    (hq, hkv, d), lanes = heads, LANES
+    hq, hkv, d = heads
     geo = dict(level=LEVEL, window=WINDOW, guess_size=LEVEL - 1)
-    headline = {}
+    headline = {False: dict(max_abs_err=0.0), True: dict(max_abs_err=0.0)}
 
     def lane_of(tree, b):
         if isinstance(tree, dict):
@@ -573,7 +667,7 @@ def check_paged_attention(device, heads=HEADS_64, pages=((128, 8), (48, 22)),
                                       (True, 300, PREFILL_CHUNK)):
                     q, k, v, tables, kv_lens = make(
                         page, nb, dtype, int8_kv, s,
-                        [0, page + 1, 512, mlog - s])
+                        [0, page + 1, 512, mlog - s][-lanes:])
                     kw = dict(geo, causal=causal, sliding_window=sw)
                     got = paged_lookahead_attention(
                         q, k, v, kv_lens, tables, page_size=page, **kw)
@@ -602,6 +696,11 @@ def check_paged_attention(device, heads=HEADS_64, pages=((128, 8), (48, 22)),
                                 f"{where}")
                     log(f"  {where}: max_abs_err={err:.3e} ok, every lane == "
                         f"the flat kernel bit for bit")
+                    if dtype == torch.bfloat16:
+                        entry = headline[int8_kv]
+                        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    if not timed:
+        return headline
 
     # times at the headline shape: four lanes at kv_len 512, pages of 128
     for int8_kv in (False, True):
@@ -793,11 +892,14 @@ def check_matmuls(device):
             return qm.int8_matmul_ref(x, wq["q"], wq["scale"])
         return qm.int4_matmul_ref(x, wq["q4"], wq["scale"])
 
-    # (K, N): the unfused int8 projections and the LM head; the fused int4
-    # projections; Llama-2-7B's down projection, whose K/2 = 5504 packed
-    # rows are stored as 5632
+    # (K, N): the unfused int8 projections and the LM head, whole and as
+    # phase 12's tp=2 shards (wq, wk/wv, wo, gate/up, down, LM head); the
+    # fused int4 projections; Llama-2-7B's down projection, whose K/2 =
+    # 5504 packed rows are stored as 5632
     shapes = {8: [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048),
-                  (2048, 32000), (11008, 4096)],
+                  (2048, 32000), (11008, 4096),
+                  (2048, 1024), (2048, 128), (1024, 2048), (2048, 2816),
+                  (2816, 2048), (2048, 16000)],
               4: [(2048, 2560), (2048, 2048), (2048, 11264), (5632, 2048),
                   (11008, 4096)]}
     rows = (1, 17, PREFILL_CHUNK, LOGITS_ROWS, s_comp)
@@ -1319,13 +1421,14 @@ P_CYCLE = 0.85        # the cycle token's probability T* is chosen for
 
 def teacher_forced_logits(eng, tokens):
     """float32 logits [T, V] of a causal forward over ``tokens`` on a fresh
-    cache (the attention kernel's causal mode)."""
+    cache (the attention kernel's causal mode); on a mesh engine every rank
+    of the mesh calls it."""
     import torch
     from lookaheaddecoding_tpu_torch.models import llama
 
     mcfg, dev = eng.mcfg, eng.device
     m = eng.ecfg.max_seq_len
-    k, v = llama.make_kv_cache(mcfg, m, dev)
+    k, v = llama.make_kv_cache(mcfg, m, dev, params=eng.params)
     cos, sin = llama.rope_tables(mcfg, m, dev)
     t = torch.tensor(np.asarray(tokens, np.int64), device=dev)
     with torch.inference_mode():
@@ -1335,7 +1438,7 @@ def teacher_forced_logits(eng, tokens):
                            sliding_window=0, causal=True,
                            kv_len=torch.zeros(1, dtype=torch.int32,
                                               device=dev)),
-            attn_impl="kernel")
+            attn_impl="kernel", mesh=eng.mesh)
     return logits.float()
 
 
@@ -2307,6 +2410,155 @@ def learned_model(device, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the parallel slice, two ranks on the one card over gloo
+# ---------------------------------------------------------------------------
+
+def parallel_rank(device, one_process, meshes=PAR_MESHES):
+    """Phase 12 on one rank (``parallel/launch.py`` runs it on each): the
+    headline model built whole from its seed, this rank's shard of it on
+    each mesh of ``meshes`` ((name, mesh axes, phase-4 configuration)),
+    ``generate`` and ``generate_baseline`` of
+    PAR_NEW tokens after a warm-up of PAR_WARM. Each mesh: lookahead equal
+    to AR, following the cycle and equal to ``one_process`` (phase 4's
+    tokens of the same configuration, cut to PAR_NEW new ones); the
+    attention kernel's tensor-core design launched, its FMA design and the
+    plain versions never (``int8_weights_tp2``: B3's tensor-core design
+    too). A mismatch raises with the teacher-forced top-2 margin there
+    (every rank computes it: their tokens are the same). Returns each
+    mesh's tokens, steps, ms a step, collectives a step and launches."""
+    import torch
+    import lookaheaddecoding_tpu_torch as lt
+    from lookaheaddecoding_tpu_torch.ops import quant_matmul as qm
+    from lookaheaddecoding_tpu_torch.parallel import (collectives, make_mesh,
+                                                      shard_params)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    mcfg, params, prompt, nxt = synthetic.build_headline(device)
+    trees = {"bf16": params}
+    out = {"build_s": time.perf_counter() - t0}
+    for name, kw, config in meshes:
+        if config not in trees:
+            trees[config] = lt.quantize_params(params, bits=8,
+                                               quantize_lm_head=True,
+                                               lm_head_bits=8)
+        mesh = make_mesh(**kw, devices=device)
+        eng = lt.LookaheadEngine(
+            mcfg, shard_params(trees[config], mesh, mcfg),
+            lt.LookaheadConfig(level=LEVEL, window_size=WINDOW,
+                               guess_set_size=GUESS, pool_from_prompt=True),
+            lt.EngineConfig(max_seq_len=MAX_SEQ, prefill_chunk=PREFILL_CHUNK,
+                            **kw), mesh=mesh)
+        eng.generate(prompt, PAR_WARM)
+        eng.generate_baseline(prompt, PAR_WARM)
+        runs, got = {}, {}
+        for path, gen in (("lookahead", eng.generate),
+                          ("ar_baseline", eng.generate_baseline)):
+            reset_counts()
+            collectives.counts.update(dict.fromkeys(collectives.counts, 0))
+            torch.cuda.synchronize()
+            runs[path] = r = gen(prompt, PAR_NEW)
+            got[path] = dict(
+                read_counts(), **{k: v for k, v in qm.counts.items()
+                                  if k != "plain"},
+                ms_step=1e3 * r.wall_time_s / r.steps, steps=r.steps,
+                collectives_step=sum(collectives.counts.values()) / r.steps,
+                collectives=dict(collectives.counts))
+            assert got[path]["attention_mma"] > 0, (name, path, got[path])
+            assert got[path]["attention_fma"] == got[path]["plain"] == 0, \
+                (name, path, got[path])
+            assert all(got[path][k] == 0 for k in qm.counts
+                       if k.endswith("_fma")), (name, path, got[path])
+            if config == "int8_weights":
+                assert got[path]["int8_mma"] > 0, (name, path, got[path])
+        r, rb = runs["lookahead"], runs["ar_baseline"]
+        want = np.asarray(one_process[config][:len(prompt) + PAR_NEW])
+        for label, a, b in (("lookahead vs AR", r.tokens, rb.tokens),
+                            ("vs the one-process run", r.tokens, want)):
+            bad = divergence(eng, a, b, len(prompt))
+            if bad is not None or len(a) != len(b):
+                raise AssertionError(f"{name} {label}: {bad}")
+        fidelity = float(np.mean([r.tokens[i + 1] == nxt[r.tokens[i]]
+                                  for i in range(len(prompt) - 1,
+                                                 len(r.tokens) - 1)]))
+        assert fidelity > 0.95, (name, fidelity)
+        # generate_batch on the mesh: the paged step (B6), each lane equal
+        # to this engine's lone generate
+        prompts = [prompt, make_prompt(nxt, start=5, n=PROMPT_LEN // 2)]
+        reset_counts()
+        lanes = eng.generate_batch(prompts, PAR_BATCH_NEW)
+        batch_launches = read_counts()
+        assert batch_launches["paged_attention"] > 0, (name, batch_launches)
+        assert batch_launches["plain"] == batch_launches["attention_fma"] \
+            == 0, (name, batch_launches)
+        for p, lane in zip(prompts, lanes):
+            assert np.array_equal(lane.tokens, eng.generate(
+                p, PAR_BATCH_NEW).tokens), (name, "generate_batch lane")
+        out[name] = dict(tokens=r.tokens.tolist(), steps=r.steps,
+                         compression=r.compression_ratio,
+                         fidelity=fidelity, coords=mesh.coords,
+                         batch_paged_launches=batch_launches[
+                             "paged_attention"], **got)
+        del eng
+        torch.cuda.empty_cache()
+    # phase 2 built every kernel; a rank loads them and builds none
+    from lookaheaddecoding_tpu_torch.ops import _build
+    out["rebuilt"] = [name for name, info in _build.build_info.items()
+                      if info["log"] != "(cached)"]
+    return out
+
+
+def parallel_phase(card, tokens, step_s, meshes=PAR_MESHES, ranks=PAR_RANKS,
+                   backend="gloo"):
+    """Phase 12: ``ranks`` ranks on the card(s) (over gloo: all on the one
+    card) run ``parallel_rank``; every rank's tokens and steps must be
+    equal. Prints each mesh's ms a step beside the one-process step's
+    (phase 4) and the collectives a step. Returns each mesh's launches by
+    rank."""
+    from lookaheaddecoding_tpu_torch.parallel.launch import launch
+
+    one_process = {c: [int(t) for t in tokens[c]]
+                   for c in {config for _, _, config in meshes}}
+    ranks = launch(f"{os.path.abspath(__file__)}:parallel_rank", ranks,
+                   backend, "cuda", dict(one_process=one_process,
+                                         meshes=[list(m) for m in meshes]),
+                   timeout=PAR_TIMEOUT_S)
+    log(f"  model built on each rank in "
+        f"{', '.join(f'{r['build_s']:.1f}' for r in ranks)} s; kernels "
+        f"rebuilt by a rank: {[r['rebuilt'] for r in ranks]}")
+    assert not any(r["rebuilt"] for r in ranks), "a rank rebuilt a kernel"
+    launches = {}
+    for name, kw, config in meshes:
+        per = [r[name] for r in ranks]
+        assert all(p["tokens"] == per[0]["tokens"] for p in per), name
+        assert all(p[path]["steps"] == per[0][path]["steps"] for p in per
+                   for path in ("lookahead", "ar_baseline")), name
+        for path in ("lookahead", "ar_baseline"):
+            log(f"  [{card}] {name} {path}: {per[0][path]['steps']} steps, "
+                f"ms a step by rank "
+                f"{', '.join(f'{p[path]['ms_step']:.2f}' for p in per)} "
+                f"(one process, {config}: {1e3 * step_s[config][path]:.2f}; "
+                f"{len(per)} ranks over {backend}"
+                f"{': they share the card and gloo crosses the host, not a tensor-parallel speed' if backend == 'gloo' else ', one a card'}"
+                f"), collectives a step "
+                f"{per[0][path]['collectives_step']:.1f} "
+                f"{per[0][path]['collectives']}, launches by rank (attention "
+                f"mma, int8 mma) "
+                f"{[(p[path]['attention_mma'], p[path]['int8_mma']) for p in per]}")
+        log(f"  [{card}] {name}: compression {per[0]['compression']:.3f}, "
+            f"fidelity {per[0]['fidelity']:.3f}, token-exact against AR and "
+            f"the one-process {config} run, the same on every rank "
+            f"(coords {[p['coords'] for p in per]}); a two-lane "
+            f"generate_batch equal to the lone generate, paged kernel "
+            f"launches by rank {[p['batch_paged_launches'] for p in per]}")
+        launches[name] = [dict({path: {k: p[path][k] for k in (
+            "attention_mma", "attention_fma", "plain", "int8_mma")}
+            for path in ("lookahead", "ar_baseline")},
+            batch_paged=p["batch_paged_launches"]) for p in per]
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2352,6 +2604,17 @@ def main() -> int:
         f"(8 query, 1 KV), vs plain version ({card})")
     att256 = check_attention(device, HEADS_256, ATT_CASES_256,
                              set(ATT_CASES_256), seed=4)
+    log(f"[kernels] lookahead_attention at a first composite row (row0, a "
+        f"lookahead-parallel rank's call) vs the whole call's rows ({card})")
+    row0_err = check_row0(device)
+    log(f"[kernels] lookahead_attention and paged lookahead_attention at a "
+        f"tp=2 rank's heads {HEADS_TP2} vs plain version, the paged call "
+        f"with generate_batch's two lanes of one page each, vs the flat "
+        f"kernel ({card})")
+    att_tp2 = check_attention(device, HEADS_TP2, ATT_CASES, set(), seed=7)
+    patt_tp2 = check_paged_attention(device, HEADS_TP2,
+                                     ((PAGE, 8), (MAX_SEQ, 1)), seed=8,
+                                     lanes=2, timed=False)
     log(f"[kernels] quantized matmuls vs plain versions ({card})")
     mm = check_matmuls(device)
     log(f"[kernels] paged lookahead_attention vs plain version and vs the "
@@ -2487,6 +2750,15 @@ def main() -> int:
     learned = learned_model(device, card)
     lap("learned model")
 
+    log(f"[parallel] ({card}); {PAR_RANKS} ranks on the one card over gloo "
+        f"(parallel/launch.py), the headline model at full width and depth "
+        f"built on each rank, L{LEVEL}/W{WINDOW}/G{GUESS}, M={MAX_SEQ}, "
+        f"{PROMPT_LEN}-token prompt, {PAR_NEW} new tokens; meshes "
+        f"{[name for name, _, _ in PAR_MESHES]}")
+    torch.cuda.empty_cache()
+    par = parallel_phase(card, tokens, step_s)
+    lap("parallel")
+
     # phase 8's paths that step through the paged kernel (generate_batch
     # and the paged engine) and those that run the flat one
     samp_paged = {path: got for path, got in samp_launches.items()
@@ -2533,11 +2805,22 @@ def main() -> int:
                  "learned_bf16": learned["learned_bf16"]}),
              launches_float32=sum(got["attention_fma"] for got in
                                   learned["learned_float32"].values()),
+             row0_bit_equal=True, row0_max_abs_err=row0_err,
+             tp2_heads_max_abs_err=att_tp2["max_abs_err"],
+             tp2_heads_int8_kv_max_abs_err=att_tp2["int8_kv"]["max_abs_err"],
+             launches_parallel_by_rank={name: [
+                 p["lookahead"]["attention_mma"]
+                 + p["ar_baseline"]["attention_mma"] for p in per]
+                 for name, per in par.items()},
              **att),
         dict(name="int8_matmul", route="cuda", source=CSRC + "quant_matmul.cu",
              replaces=tpu_mm + ":274", main_path="int8_weights, "
              "int8_weights_int8_kv, the int4 configurations' LM head",
-             **on_main_path("int8_mma"), **mm["int8"]),
+             **on_main_path("int8_mma"),
+             launches_parallel_by_rank=[
+                 p["lookahead"]["int8_mma"] + p["ar_baseline"]["int8_mma"]
+                 for p in par["int8_weights_tp2"]],
+             **mm["int8"]),
         dict(name="int4_matmul", route="cuda", source=CSRC + "quant_matmul.cu",
              replaces=tpu_mm + ":32", main_path="int4_weights",
              **on_main_path("int4_mma"), **mm["int4"]),
@@ -2549,7 +2832,12 @@ def main() -> int:
              source=CSRC + "lookahead_attention.cu",
              replaces=TPU_PAGED_KERNEL, main_path="paged_bf16; phase 8's "
              "generate_batch and paged sampling",
-             **on_paged_path(False), **patt[False]),
+             **on_paged_path(False),
+             launches_parallel_by_rank={name: [p["batch_paged"] for p in per]
+                                        for name, per in par.items()},
+             tp2_heads_max_abs_err=patt_tp2[False]["max_abs_err"],
+             tp2_heads_int8_kv_max_abs_err=patt_tp2[True]["max_abs_err"],
+             **patt[False]),
         dict(name="paged_lookahead_attention_int8_kv", route="cuda",
              source=CSRC + "lookahead_attention.cu",
              replaces=TPU_PAGED_KERNEL,

@@ -14,9 +14,11 @@ and Gemma families (``LlamaConfig.from_hf``, ``convert_hf_model``; linear,
 dynamic-NTK, llama3 and YaRN rope scaling). ``training`` fits a model on
 the card (``forward_train``, Adam or momentum SGD), ``utils`` saves and
 loads checkpoints in the JAX package's format, profiles and autotunes,
-``compat`` carries the reference's ``config_lade`` knobs, and
+``compat`` carries the reference's ``config_lade`` knobs,
 ``applications`` holds the demos, the chatbot, the evaluation harness and
-the learned-model benchmark. The composite attention, flat
+the learned-model benchmark, and ``parallel`` runs tensor, pipeline,
+lookahead and data parallelism over ``torch.distributed`` (the engine's
+and the train step's ``mesh=``). The composite attention, flat
 and paged, and the quantized-weight products are hand-written CUDA kernels
 (``ops/csrc/``). It imports no JAX, and ``transformers`` only inside
 ``load_pretrained``.

@@ -51,8 +51,9 @@ def base_parser() -> argparse.ArgumentParser:
     ap.add_argument("--temperature", type=float, default=0.7)
     ap.add_argument("--use-lade", type=int, default=1)
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel mesh axis (not ported yet: > 1 "
-                    "raises)")
+                    help="tensor-parallel ranks: above 1, every rank of a "
+                    "started world (parallel/launch.py or torchrun) builds "
+                    "make_mesh(tp=...) and keeps its shard of the model")
     ap.add_argument("--device", default="cuda",
                     help="where to run (the card unless 'cpu')")
     ap.add_argument("--max-seq-len", type=int, default=2048)
@@ -138,14 +139,17 @@ def make_engine(args):
     import torch
     import lookaheaddecoding_tpu_torch as lt
 
-    if args.tp > 1:
-        raise NotImplementedError(
-            "--tp > 1 needs the tensor-parallel mesh, which is not ported "
-            "yet")
     if getattr(args, "synthetic", False):
         return make_synthetic_engine(args)
+    mesh, device = None, args.device
+    if args.tp > 1:
+        from ..parallel.sharding import make_mesh, shard_params
+        mesh = make_mesh(tp=args.tp, devices=args.device)
+        device = mesh.device
     mcfg, params, tok = lt.load_pretrained(
-        args.model_path, dtype=torch.bfloat16, device=args.device)
+        args.model_path, dtype=torch.bfloat16, device=device)
+    if mesh is not None:
+        params = shard_params(params, mesh, mcfg)
     log = lt.DecodeLog()
     eng = lt.LookaheadEngine(
         mcfg, params,
@@ -153,8 +157,9 @@ def make_engine(args):
             level=args.level, window_size=args.window,
             guess_set_size=args.guess, pool_from_prompt=True,
             attention_impl=_attention_impl(args)),
-        lt.EngineConfig(max_seq_len=args.max_seq_len, prefill_chunk=128),
-        log=log, device=args.device)
+        lt.EngineConfig(max_seq_len=args.max_seq_len, prefill_chunk=128,
+                        tp=args.tp),
+        log=log, device=device, mesh=mesh)
     return eng, tok, log
 
 

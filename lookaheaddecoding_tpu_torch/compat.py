@@ -101,25 +101,31 @@ def get_engine(model_path: str, dtype=None, device=None):
     """Analog of the reference's ``get_model``: loads and converts the
     checkpoint through the port's ``load_pretrained`` onto ``device`` (the
     card unless it says otherwise) and builds the engine from CONFIG_MAP.
-    ``DIST_WORKERS`` above 1 raises: the tensor-parallel mesh is not
-    ported yet."""
+    ``DIST_WORKERS`` above 1 is the tensor-parallel mesh: every rank of a
+    started world (``parallel/launch.py`` or ``torchrun``) calls this,
+    builds ``make_mesh(tp=DIST_WORKERS)`` and keeps its shard of the
+    model."""
     import torch
     from .models.convert import load_pretrained
+    from .parallel.sharding import make_mesh, shard_params
 
     lcfg, ecfg = _configs()
-    if ecfg.tp > 1:
-        raise NotImplementedError(
-            "DIST_WORKERS > 1 needs the tensor-parallel mesh, which is not "
-            "ported yet")
     log = CONFIG_MAP.get("log")
     if log is not None and "DEBUG" in CONFIG_MAP:
         # only an explicit DEBUG knob overrides a user-constructed
         # DecodeLog(debug=True); absent means "leave the log's own flag"
         log.debug = bool(CONFIG_MAP["DEBUG"])
     device = device if device is not None else "cuda"
+    mesh = None
+    if ecfg.tp > 1:
+        mesh = make_mesh(tp=ecfg.tp, devices=device)
+        device = mesh.device
     mcfg, params, tok = load_pretrained(
         model_path, dtype=dtype or torch.bfloat16, device=device)
-    eng = LookaheadEngine(mcfg, params, lcfg, ecfg, log=log, device=device)
+    if mesh is not None:
+        params = shard_params(params, mesh, mcfg)
+    eng = LookaheadEngine(mcfg, params, lcfg, ecfg, log=log, device=device,
+                          mesh=mesh)
     return eng, tok
 
 

@@ -139,11 +139,23 @@ class LookaheadEngine:
         engine: Optional[EngineConfig] = None,
         log=None,
         device=None,
+        mesh=None,
     ):
         """``log`` (a ``utils.logging.DecodeLog``, or anything with
         ``append``) takes every result of ``generate``,
         ``generate_sample``, ``generate_baseline`` and ``generate_batch``,
-        and those of a ``ContinuousBatchingEngine`` on this engine."""
+        and those of a ``ContinuousBatchingEngine`` on this engine.
+
+        ``mesh`` (``parallel.make_mesh``) runs the engine on every rank of
+        a mesh, each with its shards (``parallel.shard_params``) on the
+        mesh's device unless ``device`` says otherwise: tp splits heads,
+        MLP columns and the vocabulary, pp the layers (``EngineConfig.pp``
+        must equal the mesh's pp axis), la with ``EngineConfig.la > 1``
+        the composite step's rows (of the flat step; ``generate_batch``'s
+        paged step runs them whole). Every rank calls the same methods
+        with the same arguments and gets the same tokens."""
+        if mesh is not None and device is None:
+            device = mesh.device
         self.device = torch.device(device if device is not None else "cuda")
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -168,8 +180,7 @@ class LookaheadEngine:
                 f"got {model_cfg.head_dim}; pass attention_impl='dense' to "
                 f"run the plain version on the card")
         e = self.ecfg
-        if max(e.tp, e.la, e.dp, e.pp) > 1:
-            raise NotImplementedError("parallel meshes are not ported yet")
+        self.mesh = mesh
         self.layout: Layout = build_layout(self.lcfg)
         if e.max_seq_len < self.layout.seq_len + 8:
             raise ValueError("max_seq_len too small for the composite step")
@@ -182,11 +193,39 @@ class LookaheadEngine:
             raise ValueError(
                 "composite step size exceeds the model's sliding window; "
                 "reduce level/window_size/guess_set_size")
-        if e.fuse_projections:
+        if e.pp > 1:
+            if mesh is None or "pp" not in mesh.axis_names:
+                raise ValueError("pp > 1 requires a mesh with a 'pp' axis")
+            if mesh.shape["pp"] != e.pp:
+                raise ValueError(
+                    f"mesh 'pp' axis size {mesh.shape['pp']} != "
+                    f"EngineConfig.pp {e.pp}")
+            if model_cfg.num_hidden_layers % e.pp != 0:
+                raise ValueError(
+                    "num_hidden_layers must be divisible by pp "
+                    f"({model_cfg.num_hidden_layers} % {e.pp})")
+        if mesh is not None:
+            self._check_shards(mesh)
+        # a mesh-sharded tree stays unfused
+        if e.fuse_projections and mesh is None:
             self.params = llama.fuse_params(self.params)
         self._fns = build_step_fns(model_cfg, self.lcfg, e, self.layout,
-                                   self.device)
+                                   self.device, mesh=mesh)
         self._paged_fns = None      # generate_batch's, built on first use
+
+    def _check_shards(self, mesh):
+        """The tree must be this rank's shard of the mesh: the layer count
+        and embedding rows that ``shard_params`` leaves a rank."""
+        from ..parallel.sharding import local_dims
+        if mesh.coords is None:
+            raise ValueError("this rank lies outside the mesh")
+        layers = mesh.split("pp", self.mcfg.num_hidden_layers)[1]
+        vocab = mesh.split("tp", self.mcfg.vocab_size)[1]
+        if (local_dims(self.params, self.mcfg)[0] != layers
+                or self.params["embed"].shape[0] != vocab):
+            raise ValueError(
+                "params are not this rank's shard of the mesh: pass "
+                "parallel.shard_params(params, mesh, cfg)")
 
     # ------------------------------------------------------------------
     def _host_args(self, prompt_ids, max_new_tokens: int,
@@ -258,7 +297,7 @@ class LookaheadEngine:
         if prefix is None:
             k_cache, v_cache = llama.make_kv_cache(
                 self.mcfg, self.ecfg.max_seq_len, dev,
-                quant=self.ecfg.kv_quant)
+                quant=self.ecfg.kv_quant, params=self.params)
         else:
             k_cache, v_cache = _clone(prefix.k_cache), _clone(prefix.v_cache)
         if prefix is not None and prefix.pool is not None:
@@ -465,7 +504,7 @@ class LookaheadEngine:
         if self._paged_fns is None:
             self._paged_fns = build_paged_step_fns(
                 self.mcfg, self.lcfg, self.ecfg, self.layout,
-                self.ecfg.max_seq_len, self.device)
+                self.ecfg.max_seq_len, self.device, mesh=self.mesh)
         return self._paged_fns
 
     def generate_batch(self, prompts: Sequence[Sequence[int]],
@@ -518,7 +557,8 @@ class LookaheadEngine:
             lanes = [self._prepare(buf, n, s, fill, prefix)
                      for (buf, n, fill), s in zip(args, seeds)]
             trash = llama.make_kv_cache(self.mcfg, self.ecfg.max_seq_len, dev,
-                                        quant=self.ecfg.kv_quant)
+                                        quant=self.ecfg.kv_quant,
+                                        params=self.params)
             k_pool = _cat_slots([st.k_cache for st in lanes], trash[0])
             v_pool = _cat_slots([st.v_cache for st in lanes], trash[1])
             M = self.ecfg.max_seq_len

@@ -61,7 +61,7 @@ class PagedStepFns(NamedTuple):
 
 def build_paged_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
                          ecfg: EngineConfig, layout: Layout, page_size: int,
-                         device) -> PagedStepFns:
+                         device, mesh=None) -> PagedStepFns:
     M = ecfg.max_seq_len
     S, W, N = layout.seq_len, layout.window, layout.level
     G, GS = layout.guess_set_size, layout.guess_size
@@ -150,7 +150,7 @@ def build_paged_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
                 tables, kv_lens, page_size, rope_cos, rope_sin,
                 dict(meta, causal=True, kv_lens=kv_lens),
                 logits_rows=no_rows, attn_impl=impl, write_limit=limit,
-                trash_slot=trash_slot, rope_seq_len=prompt_len)
+                trash_slot=trash_slot, rope_seq_len=prompt_len, mesh=mesh)
         return max(n, 0)
 
     # ------------------------------------------------------------------
@@ -176,7 +176,7 @@ def build_paged_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
             kv_lens, page_size, rope_cos, rope_sin,
             dict(meta, kv_lens=kv_lens), logits_rows=logits_rows,
             attn_impl=impl, trash_slot=states.trash,
-            rope_seq_len=positions + 1 if dyn else None)
+            rope_seq_len=positions + 1 if dyn else None, mesh=mesh)
 
         fin = states.finished
         updates, winner, _ = posts[mode](

@@ -36,8 +36,8 @@ from typing import Deque, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..models import llama
 from .engine import MAX_EOS_IDS, GenerationResult, LookaheadEngine, _eos_vec
-from .paged import make_paged_pool
 from .paged_step import PagedLaneState
 from .pool import PoolState, pool_init
 
@@ -147,8 +147,11 @@ class ContinuousBatchingEngine:
         eng, B = self.engine, self.num_lanes
         dev, M, lay = eng.device, eng.ecfg.max_seq_len, eng.layout
         with torch.inference_mode():
-            self._k_pool, self._v_pool = make_paged_pool(
-                eng.mcfg, B + 1, M, dev, quant=eng.ecfg.kv_quant)
+            # B lanes and a trash page of M slots; on a mesh, the rank's
+            # shard of the pool
+            self._k_pool, self._v_pool = llama.make_kv_cache(
+                eng.mcfg, (B + 1) * M, dev, quant=eng.ecfg.kv_quant,
+                params=eng.params)
             one = pool_init(eng._pool_rows(), lay.guess_set_size,
                             lay.guess_size, dev)
 

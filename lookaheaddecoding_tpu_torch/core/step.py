@@ -290,8 +290,16 @@ def _run_loop(step, state: DecodeState, max_new: int, per_step: int):
 
 
 def build_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
-                   ecfg: EngineConfig, layout: Layout, device) -> StepFns:
+                   ecfg: EngineConfig, layout: Layout, device,
+                   mesh=None) -> StepFns:
+    """The step functions. On a ``mesh`` every forward runs on the rank's
+    shards (``models/llama.py:forward``), and with ``ecfg.la > 1`` the
+    composite decode step splits its rows over the mesh's la axis; the
+    prefill chunks and the AR step run whole on every la rank, as in the
+    JAX package. Every rank gets the same logits, so the state after each
+    step is the same on every rank."""
     M = ecfg.max_seq_len
+    split_rows = mesh is not None and ecfg.la > 1
     S, W, N = layout.seq_len, layout.window, layout.level
     G, GS = layout.guess_set_size, layout.guess_size
     n_window = layout.n_window
@@ -359,7 +367,7 @@ def build_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
                       state.v_cache, start, rope_cos, rope_sin,
                       dict(meta, causal=True, kv_len=kv_len),
                       logits_rows=no_rows, attn_impl=impl,
-                      rope_seq_len=prompt_len)
+                      rope_seq_len=prompt_len, mesh=mesh)
         state.kv_len = torch.tensor(min(start + C, prompt_len - 1),
                                     dtype=torch.int32, device=device)
         return state
@@ -404,7 +412,8 @@ def build_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
             params, mcfg, tokens, positions, state.k_cache, state.v_cache,
             kv_len, rope_cos, rope_sin, dict(meta, kv_len=kv_len.view(1)),
             logits_rows=logits_rows, attn_impl=impl,
-            rope_seq_len=positions + 1 if dyn else None)
+            rope_seq_len=positions + 1 if dyn else None, mesh=mesh,
+            split_rows=split_rows)
 
         lanes = _as_lanes(state)
         updates, winner, max_hit = posts[mode](
@@ -461,7 +470,8 @@ def build_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
         logits, _, _ = llama.forward(
             params, mcfg, lst, kv_len.view(1), s.k_cache, s.v_cache, kv_len,
             rope_cos, rope_sin, dict(meta, causal=True, kv_len=kv_len.view(1)),
-            attn_impl=impl, rope_seq_len=kv_len.view(1) + 1 if dyn else None)
+            attn_impl=impl, rope_seq_len=kv_len.view(1) + 1 if dyn else None,
+            mesh=mesh)
         nxt = logits[0].argmax().int().view(1)
         _append(s.out_buf, s.n_confirmed, nxt, s.finished)
         n_confirmed = s.n_confirmed + 1

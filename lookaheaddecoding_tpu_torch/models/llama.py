@@ -14,7 +14,13 @@ The same model and the same data formats as
 - a projection may be a quantized dict (``ops/quant.py``) in place of a
   tensor, and q/k/v and gate/up may be fused into ``wqkv`` / ``w_gate_up``
   (``fuse_params``); every projection goes through ``ops/quant.py:qmatmul``;
-- RMSNorm statistics, rotary tables, attention logits and softmax are fp32.
+- RMSNorm statistics, rotary tables, attention logits and softmax are fp32;
+- on a mesh (``parallel/sharding.py``) the tree and the caches are the
+  rank's shards, and the forward calls the collectives of
+  ``parallel/collectives.py``: tp sums the row-parallel products and the
+  vocabulary-sharded embedding and gathers the logits; la splits the
+  composite step's rows and gathers their K/V and final hidden rows; pp
+  runs its stage's layers and hands the hidden state on.
 
 Parameter tree (``L`` layers):
 
@@ -33,6 +39,9 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..parallel import collectives
+from ..parallel.sharding import local_dims, split_sizes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -465,12 +474,16 @@ def kv_cache_write(cache, new: torch.Tensor, slots):
 
 
 def make_kv_cache(cfg: LlamaConfig, max_seq: int, device="cuda",
-                  quant: Optional[str] = None):
+                  quant: Optional[str] = None, params: Optional[Dict] = None):
     """Zeroed KV-head-major cache buffers [L, Hkv, M, D] for K and V;
     ``quant="int8"`` gives int8 values with float32 scales [L, Hkv, M, 1]
-    (filled with 1e-8) for each."""
-    shape = (cfg.num_hidden_layers, cfg.num_key_value_heads, max_seq,
-             cfg.head_dim)
+    (filled with 1e-8) for each. With ``params`` (a rank's shard) L and
+    Hkv are those the tree holds: the cache's shard by
+    ``parallel.sharding.kv_cache_spec``."""
+    layers, hkv = cfg.num_hidden_layers, cfg.num_key_value_heads
+    if params is not None:
+        layers, _, hkv = local_dims(params, cfg)
+    shape = (layers, hkv, max_seq, cfg.head_dim)
     if quant is None:
         return (torch.zeros(shape, dtype=cfg.dtype, device=device),
                 torch.zeros(shape, dtype=cfg.dtype, device=device))
@@ -546,6 +559,9 @@ def forward(
     logits_rows: Optional[torch.Tensor] = None,  # rows gathered before lm_head
     attn_impl: str = "dense",
     rope_seq_len=None,           # dynamic-NTK keying: None, an int or [T]
+    mesh=None,                   # parallel.sharding.Mesh: params, caches
+                                 # are this rank's shards
+    split_rows: bool = False,    # la: this rank runs its share of the rows
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One forward over the layer stack. The tokens' K/V are written at
     slots [write_start, write_start+T) of every layer; attention then reads
@@ -555,29 +571,91 @@ def forward(
     (``attn_impl="kernel"``). A dynamic-NTK config computes its rotary
     rows from the positions, keyed on ``rope_seq_len``
     (:func:`rope_rows_dynamic`); every other config gathers them from the
-    tables. Returns (fp32 logits, k_cache, v_cache)."""
+    tables.
+
+    On a ``mesh`` with ``split_rows`` (the composite decode step) la rank
+    i runs the i-th ``torch.tensor_split`` share of the T rows through
+    every product, gathers the K/V of all T rows over la before the cache
+    write (every la rank's cache holds them all) and passes the attention
+    its first row as ``row0``; the final hidden rows are gathered over la
+    before the logits. Every rank returns the same logits, bit for bit.
+    Returns (fp32 logits, k_cache, v_cache)."""
     from ..ops.lookahead_attention import (lookahead_attention,
                                            lookahead_attention_ref)
 
     t = tokens.shape[0]
     m = (k_cache["q"] if isinstance(k_cache, dict) else k_cache).shape[2]
-    x = params["embed"][tokens]                              # [T, H]
-    if cfg.scale_embeddings:
-        x = x * torch.tensor(math.sqrt(cfg.hidden_size), dtype=cfg.dtype)
+    x = _stage_input(params, cfg, tokens, mesh)              # [T, H]
     cos, sin = _rope_rows(cfg, positions, rope_cos, rope_sin, rope_seq_len)
     slots = write_slots(write_start, t, m)
     attend = lookahead_attention if attn_impl == "kernel" \
         else lookahead_attention_ref
     meta = dict(attn_meta)
     kv_len = meta.pop("kv_len")
+    la = mesh.group("la") if mesh is not None and split_rows else None
+    row0 = 0
+    if la is not None:
+        row0, n = mesh.split("la", t)
+        sizes = split_sizes(t, mesh.shape["la"])
+        x, cos, sin = (a[row0:row0 + n] for a in (x, cos, sin))
 
     def attention(li, q, k, vv):
+        if la is not None:
+            k, vv = (collectives.all_gather(a, la, 0, sizes) for a in (k, vv))
         kc = kv_cache_write(_layer(k_cache, li), k, slots)
         vc = kv_cache_write(_layer(v_cache, li), vv, slots)
-        return attend(q, kc, vc, kv_len, **meta)
+        return attend(q, kc, vc, kv_len, row0=row0, **meta)
 
-    x = _decoder_layers(params, cfg, x, cos, sin, attention)
-    return _logits(params, cfg, x, logits_rows), k_cache, v_cache
+    x = _decoder_layers(params, cfg, x, cos, sin, attention, mesh)
+    if la is not None:
+        x = collectives.all_gather(x, la, 0, sizes)
+    return _logits(params, cfg, x, logits_rows, mesh), k_cache, v_cache
+
+
+def _tp_group(mesh):
+    return mesh.group("tp") if mesh is not None else None
+
+
+def _tp_sum(y: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum over tp of the row-parallel partial products ``y``, taken
+    in float32 and rounded once to y's dtype (Megatron's g: identity
+    backward)."""
+    group = _tp_group(mesh)
+    if group is None:
+        return y
+    return collectives.reduce_from_region(y.float(), group).to(y.dtype)
+
+
+def _embed(params, cfg: LlamaConfig, tokens: torch.Tensor, mesh=None):
+    """Token embeddings [*tokens.shape, H]. A vocabulary-sharded table (tp)
+    looks up the rank's own rows, zeroes the tokens outside them and sums
+    over tp: one rank adds its row to zeros, so the sum is exact."""
+    emb = params["embed"]
+    if _tp_group(mesh) is None:
+        x = emb[tokens]
+    else:
+        v0, n = mesh.split("tp", cfg.vocab_size)
+        local = tokens - v0
+        inside = ((local >= 0) & (local < n))[..., None]
+        x = _tp_sum(torch.where(inside, emb[local.clamp(0, n - 1)],
+                                torch.zeros((), dtype=emb.dtype,
+                                            device=emb.device)), mesh)
+    if cfg.scale_embeddings:
+        x = x * torch.tensor(math.sqrt(cfg.hidden_size), dtype=cfg.dtype)
+    return x
+
+
+def _stage_input(params, cfg: LlamaConfig, tokens: torch.Tensor, mesh):
+    """The rows the layer stack starts from: the embeddings of ``tokens``,
+    or on a pp stage past the first, whose rows come from the stage before
+    (:func:`_decoder_layers`), a buffer of their shape, with no lookup
+    and no collective."""
+    if mesh is not None and mesh.group("pp") is not None \
+            and mesh.coords["pp"] > 0:
+        emb = params["embed"]
+        return torch.empty((*tokens.shape, cfg.hidden_size), dtype=emb.dtype,
+                           device=emb.device)
+    return _embed(params, cfg, tokens, mesh)
 
 
 def _layer(tree, li):
@@ -587,19 +665,31 @@ def _layer(tree, li):
     return tree[li]
 
 
-def _decoder_layers(params, cfg: LlamaConfig, x, cos, sin, attention):
+def _decoder_layers(params, cfg: LlamaConfig, x, cos, sin, attention,
+                    mesh=None):
     """The layer stack on rows x [R, H] with rotary tables cos/sin [R, D].
     ``attention(li, q [R, Hq, D], k [R, Hkv, D], v [R, Hkv, D])`` writes the
     rows' K and V into layer ``li`` of the cache and returns the attention
-    output [R, Hq*D]; the flat and the paged forward differ only there."""
+    output [R, Hq*D]; the flat and the paged forward differ only there.
+
+    On a ``mesh`` the layers, heads and MLP columns are those the rank's
+    shard holds; tp sums the outputs of ``wo`` and ``w_down``; pp stage s
+    receives the hidden state from stage s-1, runs its layers and sends to
+    s+1, and the last stage hands the result to every stage."""
     from ..ops.quant import qmatmul
 
-    hq, hkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    n_layers, hq, hkv = local_dims(params, cfg)
+    d = cfg.head_dim
     inter = cfg.intermediate_size
     t = x.shape[0]
     lp = params["layers"]
     act = act_fn(cfg)
-    for li in range(cfg.num_hidden_layers):
+    pp = mesh.group("pp") if mesh is not None else None
+    if pp is not None:
+        stage, stages = mesh.coords["pp"], mesh.shape["pp"]
+        if stage > 0:
+            x = collectives.recv(x, mesh.peer("pp", stage - 1), pp)
+    for li in range(n_layers):
         y = rms_norm(x, lp["input_norm"][li], cfg.rms_norm_eps,
                      cfg.rms_norm_offset)
         if "wqkv" in lp:         # fused projections (fuse_params)
@@ -618,7 +708,8 @@ def _decoder_layers(params, cfg: LlamaConfig, x, cos, sin, attention):
         q = apply_rope(q.reshape(t, hq, d), cos, sin).contiguous()
         k = apply_rope(k.reshape(t, hkv, d), cos, sin)
         attn = attention(li, q, k, vv.reshape(t, hkv, d))
-        x = x + qmatmul(attn.to(cfg.dtype), _layer(lp["wo"], li))
+        x = x + _tp_sum(qmatmul(attn.to(cfg.dtype), _layer(lp["wo"], li)),
+                        mesh)
         y = rms_norm(x, lp["post_norm"][li], cfg.rms_norm_eps,
                      cfg.rms_norm_offset)
         if "w_gate_up" in lp:
@@ -628,24 +719,34 @@ def _decoder_layers(params, cfg: LlamaConfig, x, cos, sin, attention):
             gate_in = qmatmul(y, _layer(lp["w_gate"], li))
             up = qmatmul(y, _layer(lp["w_up"], li))
         gate = act(gate_in.float()).to(cfg.dtype)
-        x = x + qmatmul(gate * up, _layer(lp["w_down"], li))
+        x = x + _tp_sum(qmatmul(gate * up, _layer(lp["w_down"], li)), mesh)
+    if pp is not None:
+        if stage < stages - 1:
+            collectives.send(x, mesh.peer("pp", stage + 1), pp)
+        x = collectives.broadcast(x, mesh.peer("pp", stages - 1), pp)
     return rms_norm(x, params["final_norm"], cfg.rms_norm_eps,
                     cfg.rms_norm_offset)
 
 
-def _logits(params, cfg: LlamaConfig, x, rows):
+def _logits(params, cfg: LlamaConfig, x, rows, mesh=None):
     """fp32 logits of the normed rows x [R, H] (or [B, T, H]), gathered at
-    ``rows`` of the second-to-last axis first when given."""
+    ``rows`` of the second-to-last axis first when given. A head sharded
+    over the vocabulary (tp) gives the rank's columns, gathered over tp."""
     from ..ops.quant import qmatmul
 
     if rows is not None:
         x = x.index_select(x.dim() - 2, rows)
     head = params.get("lm_head")
     if head is None:
-        return (x @ params["embed"].T).float()
-    lead = x.shape[:-1]
-    return qmatmul(x.reshape(-1, x.shape[-1]), head).float().view(
-        *lead, cfg.vocab_size)
+        logits = (x @ params["embed"].T).float()
+    else:
+        y = qmatmul(x.reshape(-1, x.shape[-1]), head)
+        logits = y.float().view(*x.shape[:-1], y.shape[-1])
+    group = _tp_group(mesh)
+    if group is None:
+        return logits
+    return collectives.gather_from_region(
+        logits, group, -1, split_sizes(cfg.vocab_size, mesh.shape["tp"]))
 
 
 NEG_INF_F32 = -1e30   # forward_train's masked score, as JAX's
@@ -659,6 +760,8 @@ def forward_train(
     tokens: torch.Tensor,        # [B, T] int
     rope_cos: torch.Tensor,      # [>=T, D] fp32
     rope_sin: torch.Tensor,
+    mesh=None,                   # parallel.sharding.Mesh: params are the
+                                 # rank's tp shards (whole layer stack)
 ) -> torch.Tensor:
     """Batched causal forward without a KV cache (training, teacher
     forcing), differentiable by autograd: the JAX package's
@@ -666,6 +769,10 @@ def forward_train(
     over a ``[B, T, Hkv, rep, D]`` query (JAX computes it with einsums
     outside any Pallas kernel). It takes unfused, unquantized projections
     without biases, as JAX's does, and raises on any other layer key.
+    On a ``mesh`` Megatron's f/g pair surrounds the tp-sharded products:
+    f (``copy_to_region``) before the column-parallel q/k/v, gate/up and
+    LM head, g (``reduce_from_region``) after the row-parallel o/down and
+    the vocabulary-sharded embedding; the logits are gathered over tp.
     Returns [B, T, V] fp32 logits."""
     lp = params["layers"]
     other = sorted(set(lp) - _TRAIN_LAYER_KEYS)
@@ -673,13 +780,13 @@ def forward_train(
         raise ValueError(
             "forward_train takes unfused, unquantized projections without "
             f"biases; got layer keys {other or sorted(lp)}")
-    hq, hkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    n_layers, hq, hkv = local_dims(params, cfg)
+    d = cfg.head_dim
     b, t = tokens.shape
     rep = hq // hkv
+    tp = _tp_group(mesh)
 
-    x = params["embed"][tokens]                              # [B, T, H]
-    if cfg.scale_embeddings:
-        x = x * torch.tensor(math.sqrt(cfg.hidden_size), dtype=cfg.dtype)
+    x = _embed(params, cfg, tokens, mesh)                    # [B, T, H]
     cos, sin = rope_cos[:t], rope_sin[:t]
     causal = torch.ones(t, t, dtype=torch.bool, device=x.device).tril()
     act = act_fn(cfg)
@@ -687,9 +794,10 @@ def forward_train(
     def att_rope(y, w, n_heads):
         return apply_rope((y @ w).reshape(b, t, n_heads, d), cos, sin)
 
-    for li in range(cfg.num_hidden_layers):
-        y = rms_norm(x, lp["input_norm"][li], cfg.rms_norm_eps,
-                     cfg.rms_norm_offset)
+    for li in range(n_layers):
+        y = collectives.copy_to_region(rms_norm(
+            x, lp["input_norm"][li], cfg.rms_norm_eps, cfg.rms_norm_offset),
+            tp)
         # [B, Hkv, rep, T, D] queries against [B, Hkv, 1, T, D] keys
         q = att_rope(y, lp["wq"][li], hq).reshape(b, t, hkv, rep, d)
         q = q.float().permute(0, 2, 3, 1, 4)
@@ -699,17 +807,23 @@ def forward_train(
         scores = scores.masked_fill(~causal, NEG_INF_F32)
         attn = torch.matmul(torch.softmax(scores, dim=-1), vv[:, :, None])
         attn = attn.permute(0, 3, 1, 2, 4).reshape(b, t, hq * d)
-        x = x + attn.to(cfg.dtype) @ lp["wo"][li]
-        y = rms_norm(x, lp["post_norm"][li], cfg.rms_norm_eps,
-                     cfg.rms_norm_offset)
+        x = x + _tp_sum(attn.to(cfg.dtype) @ lp["wo"][li], mesh)
+        y = collectives.copy_to_region(rms_norm(
+            x, lp["post_norm"][li], cfg.rms_norm_eps, cfg.rms_norm_offset),
+            tp)
         gate = act((y @ lp["w_gate"][li]).float()).to(cfg.dtype)
-        x = x + (gate * (y @ lp["w_up"][li])) @ lp["w_down"][li]
-    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps,
-                 cfg.rms_norm_offset)
+        x = x + _tp_sum((gate * (y @ lp["w_up"][li])) @ lp["w_down"][li],
+                        mesh)
+    x = collectives.copy_to_region(rms_norm(
+        x, params["final_norm"], cfg.rms_norm_eps, cfg.rms_norm_offset), tp)
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].T
-    return (x @ head).float()
+    logits = (x @ head).float()
+    if tp is None:
+        return logits
+    return collectives.gather_from_region(
+        logits, tp, -1, split_sizes(cfg.vocab_size, mesh.shape["tp"]))
 
 
 def forward_paged(
@@ -733,6 +847,7 @@ def forward_paged(
                                                  # table, write to the lane's
                                                  # trash page
     rope_seq_len=None,           # dynamic-NTK keying: an int or [B, T]
+    mesh=None,                   # parallel.sharding.Mesh, as in forward
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Lane-batched forward over the shared paged KV pool (core/paged.py).
 
@@ -745,17 +860,17 @@ def forward_paged(
     dynamic-NTK rotation, a scalar for one lane's prefill). With ``write_limit`` the rows of a padded
     prefill chunk past the prompt go to the lane's trash page (their
     logical pages may not be allocated); their outputs are discarded and no
-    real row sees their columns. Returns (fp32 logits [B, R, V], k_pool,
-    v_pool); a call that reads no logits row (prefill) gets [B, 0, V]."""
+    real row sees their columns. On a ``mesh`` the pool and the tree are
+    the rank's shards and tp and pp run as in :func:`forward` (la does not
+    split these rows). Returns (fp32 logits [B, R, V], k_pool, v_pool); a
+    call that reads no logits row (prefill) gets [B, 0, V]."""
     from ..core.paged import paged_write, phys_slots
     from ..ops.lookahead_attention import (paged_lookahead_attention,
                                            paged_lookahead_attention_ref)
 
-    hq, d = cfg.num_attention_heads, cfg.head_dim
+    hq, d = local_dims(params, cfg)[1], cfg.head_dim
     b, t = tokens.shape
-    x = params["embed"][tokens.reshape(-1)]                  # [B*T, H]
-    if cfg.scale_embeddings:
-        x = x * torch.tensor(math.sqrt(cfg.hidden_size), dtype=cfg.dtype)
+    x = _stage_input(params, cfg, tokens.reshape(-1), mesh)  # [B*T, H]
     if isinstance(rope_seq_len, torch.Tensor):
         rope_seq_len = rope_seq_len.reshape(-1)     # one value a row
     cos, sin = _rope_rows(cfg, positions.reshape(-1), rope_cos, rope_sin,
@@ -778,9 +893,9 @@ def forward_paged(
         return attend(q.view(b, t, hq, d), kc, vc, kv_lens, tables,
                       page_size=page_size, **meta).reshape(b * t, hq * d)
 
-    x = _decoder_layers(params, cfg, x, cos, sin, attention)
+    x = _decoder_layers(params, cfg, x, cos, sin, attention, mesh)
     x = x.view(b, t, -1)
     if logits_rows is not None and logits_rows.numel() == 0:
         return (torch.zeros((b, 0, cfg.vocab_size), dtype=torch.float32,
                             device=x.device), k_pool, v_pool)
-    return _logits(params, cfg, x, logits_rows), k_pool, v_pool
+    return _logits(params, cfg, x, logits_rows, mesh), k_pool, v_pool

@@ -33,8 +33,8 @@ SIGNATURES = {
         "lookahead_attention_launch",
         # q, k, v, k_scale, v_scale, kv_lens, tables, out, dtype, kv_int8,
         # lanes, s_len, hq, hkv, m, pool_slots, page_size, nb, d, level,
-        # window, guess_size, causal, sliding_window, stream
-        [_P] * 8 + [_I] * 16 + [_P]),
+        # window, guess_size, causal, sliding_window, row0, stream
+        [_P] * 8 + [_I] * 17 + [_P]),
     "quant_matmul": (
         "quant_matmul_launch",
         # x, w, scale, out, mode, dtype, t, k, n, w_rows, k2, stream

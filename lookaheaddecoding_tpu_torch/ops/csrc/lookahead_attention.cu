@@ -42,6 +42,10 @@
 //     slots kv_len + rj, rj in [0, S), follow the within-composite mask
 //     spec_visible(s, rj), derived here from index arithmetic.
 //   causal mode: c <= kv_len + s (and c > kv_len + s - sw with a window).
+// s is the row's composite index: row0 + the row of the call. A
+// lookahead-parallel rank passes its share of the composite rows with
+// row0 at its first one (models/llama.py), and gets those rows of the
+// whole call.
 //
 // What bounds it on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): at
 // the headline composite call (S=240, Hq=32, Hkv=4, D=64, kv_len=512, so
@@ -123,6 +127,7 @@ struct Geometry {
   int level, window, guess_size;
   int causal;          // 1: prefill / AR mode
   int sliding_window;  // 0: full attention
+  int row0;            // composite index of query row 0 (an la rank's first row)
   float scale_log2;    // log2(e) / sqrt(D)
 };
 
@@ -149,12 +154,14 @@ __device__ __forceinline__ bool spec_visible(int qi, int rj, const Geometry& g) 
   return (rj - nw) / gs == (qi - nw) / gs && (rj - nw) % gs <= (qi - nw) % gs;
 }
 
+// s is a composite row index (row0 + the call's row); rows see no
+// speculative slot past their own, so rj < row0 + s_len bounds rj.
 __device__ __forceinline__ bool visible(int s, int c, int kv_len, const Geometry& g) {
   const int sw = g.sliding_window;
   if (g.causal) return c <= kv_len + s && (sw == 0 || c > kv_len + s - sw);
   if (c < kv_len) return sw == 0 || c > kv_len + rel_pos(s, g) - sw;
   const int rj = c - kv_len;
-  return rj < g.s_len && spec_visible(s, rj, g);
+  return rj < g.row0 + g.s_len && spec_visible(s, rj, g);
 }
 
 // float32 q (T = float). Grid (row tiles, KV heads, lanes). Block: NT
@@ -209,10 +216,10 @@ lookahead_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k,
   // the sliding window (rel_pos >= 0 in composite mode).
   const int s_lo = t0 / g.rep;
   const int s_hi = (min(t0 + BR, n_rows) - 1) / g.rep;
-  const int col_end = min(kv_len + s_hi + 1, g.m);
+  const int col_end = min(kv_len + g.row0 + s_hi + 1, g.m);
   int col_begin = 0;
   if (g.sliding_window) {
-    col_begin = max(kv_len + (g.causal ? s_lo : 0) - g.sliding_window + 1, 0);
+    col_begin = max(kv_len + (g.causal ? g.row0 + s_lo : 0) - g.sliding_window + 1, 0);
   }
   const int tile_begin = col_begin / BK;
   const int tile_end = (col_end + BK - 1) / BK;
@@ -294,7 +301,7 @@ lookahead_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
         const int c = c0 + tx + TX * j;
-        const bool vis = t < n_rows && c < g.m && visible(s, c, kv_len, g);
+        const bool vis = t < n_rows && c < g.m && visible(g.row0 + s, c, kv_len, g);
         const float scaled = QUANT ? sc[i][j] * g.scale_log2 * sks[tx + TX * j]
                                    : sc[i][j] * g.scale_log2;
         sc[i][j] = vis ? scaled : -INFINITY;
@@ -454,9 +461,10 @@ attention_mma_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict__
   // Live columns of this block's rows, as in the FMA kernel.
   const int s_lo = t0 / g.rep;
   const int s_hi = (min(t0 + MBR, n_rows) - 1) / g.rep;
-  const int col_end = min(kv_len + s_hi + 1, g.m);
+  const int col_end = min(kv_len + g.row0 + s_hi + 1, g.m);
   int col_begin = 0;
-  if (g.sliding_window) col_begin = max(kv_len + (g.causal ? s_lo : 0) - g.sliding_window + 1, 0);
+  if (g.sliding_window)
+    col_begin = max(kv_len + (g.causal ? g.row0 + s_lo : 0) - g.sliding_window + 1, 0);
   const int tile_begin = col_begin / KT;
   const int tile_end = (col_end + KT - 1) / KT;
 
@@ -517,7 +525,7 @@ attention_mma_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict__
       const int s = s_lo + i / spec_words, rj0 = (i % spec_words) * 32;
       unsigned bits = 0;
       for (int e = 0; e < 32; ++e)
-        if (rj0 + e < g.s_len && spec_visible(s, rj0 + e, g)) bits |= 1u << e;
+        if (rj0 + e < g.row0 + g.s_len && spec_visible(g.row0 + s, rj0 + e, g)) bits |= 1u << e;
       spec[i] = bits;
     }
   }
@@ -536,9 +544,9 @@ attention_mma_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict__
     row_live[r] = t < n_rows;
     const int s = row_live[r] ? t / g.rep : s_lo;
     srow[r] = s - s_lo;
-    const int base = g.causal ? kv_len + s : kv_len + rel_pos(s, g);
+    const int base = g.causal ? kv_len + g.row0 + s : kv_len + rel_pos(g.row0 + s, g);
     lo[r] = g.sliding_window ? base - g.sliding_window : -1;
-    hi[r] = kv_len + s;
+    hi[r] = kv_len + g.row0 + s;
   }
 
   float o[NS][ND][4], m_run[NS][2], l_run[NS][2];
@@ -578,7 +586,8 @@ attention_mma_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict__
     // A tile every row of the warp sees whole needs no mask.
     const bool whole =
         warp_full && g.sliding_window == 0 &&
-        (g.causal ? c0 + KT - 1 <= kv_len + wr0 / g.rep && c0 + KT <= g.m : c0 + KT <= kv_len);
+        (g.causal ? c0 + KT - 1 <= kv_len + g.row0 + wr0 / g.rep && c0 + KT <= g.m
+                  : c0 + KT <= kv_len);
     // accumulator (j, 2 r + e) is row gq + 8 r, key column c0 + 8 j + 2 qq + e
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -598,7 +607,8 @@ attention_mma_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict__
               vis = c > lo[r];
             } else {
               const int rj = c - kv_len;
-              vis = rj < g.s_len && ((spec[srow[r] * spec_words + (rj >> 5)] >> (rj & 31)) & 1u);
+              vis = rj < g.row0 + g.s_len &&
+                    ((spec[srow[r] * spec_words + (rj >> 5)] >> (rj & 31)) & 1u);
             }
           }
           float x = __fmul_rn(sc[j][2 * r + e], g.scale_log2);
@@ -797,7 +807,7 @@ cudaError_t launch_mma_g(const Pointers& a, int lanes, int hkv, const Geometry& 
 template <typename KV, int D>
 cudaError_t launch_mma(const Pointers& a, int lanes, int hkv, const Geometry& g,
                        cudaStream_t stream) {
-  const int spec_words = g.causal ? 0 : (g.s_len + 31) / 32;
+  const int spec_words = g.causal ? 0 : (g.row0 + g.s_len + 31) / 32;
   if constexpr (D > 128) {
     return launch_mma_g<KV, D, 2>(a, lanes, hkv, g, spec_words, stream);
   } else {
@@ -854,8 +864,10 @@ extern "C" int lookahead_attention_launch(const void* q, const void* k, const vo
                                           int dtype, int kv_int8, int lanes, int s_len, int hq,
                                           int hkv, int m, int pool_slots, int page_size, int nb,
                                           int d, int level, int window, int guess_size,
-                                          int causal, int sliding_window, void* stream) {
-  if (lanes <= 0 || s_len <= 0 || hkv <= 0 || hq % hkv != 0) return (int)cudaErrorInvalidValue;
+                                          int causal, int sliding_window, int row0,
+                                          void* stream) {
+  if (lanes <= 0 || s_len <= 0 || hkv <= 0 || hq % hkv != 0 || row0 < 0)
+    return (int)cudaErrorInvalidValue;
   if (kv_int8 && (k_scale == nullptr || v_scale == nullptr)) return (int)cudaErrorInvalidValue;
   if (page_size < 0 || (page_size > 0 && (tables == nullptr || nb <= 0 || m != nb * page_size)))
     return (int)cudaErrorInvalidValue;
@@ -874,6 +886,7 @@ extern "C" int lookahead_attention_launch(const void* q, const void* k, const vo
   g.guess_size = guess_size;
   g.causal = causal;
   g.sliding_window = sliding_window;
+  g.row0 = row0;
   g.scale_log2 = 1.4426950408889634f / sqrtf((float)d);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;

@@ -77,11 +77,11 @@ def _rel_pos(qi, *, level, window, guess_size):
 
 
 def _block_mask(kv_len, m, *, s_len, level, window, guess_size, causal,
-                sliding_window, device):
+                sliding_window, device, row0=0):
     """[S, M] bool visibility over the whole cache for a device scalar
-    ``kv_len`` (no host read)."""
+    ``kv_len`` (no host read), of composite rows [row0, row0 + S)."""
     col = torch.arange(m, device=device)[None, :]
-    qi = torch.arange(s_len, device=device)[:, None]
+    qi = row0 + torch.arange(s_len, device=device)[:, None]
     kv_len = kv_len.reshape(()).long()
     if causal:
         visible = col <= kv_len + qi
@@ -94,19 +94,20 @@ def _block_mask(kv_len, m, *, s_len, level, window, guess_size, causal,
         q_pos = kv_len + _rel_pos(qi, level=level, window=window,
                                   guess_size=guess_size)
         committed = committed & (col > q_pos - sliding_window)
-    return committed | ((rel >= 0) & (rel < s_len) & _spec_visible(
+    return committed | ((rel >= 0) & (rel < row0 + s_len) & _spec_visible(
         qi, rel, level=level, window=window, guess_size=guess_size))
 
 
 def lookahead_attention_ref(q, k, v, kv_len, *, level, window, guess_size,
-                            causal=False, sliding_window=0):
+                            causal=False, sliding_window=0, row0=0):
     """Plain version: the [S, M] visibility of :func:`_block_mask` through
     ``models/llama.py:attention_dense`` (plain or int8 cache). Returns
-    [S, Hq*D] in q's dtype."""
+    [S, Hq*D] in q's dtype. Row i of q is composite row ``row0 + i``."""
     m = (k["q"] if isinstance(k, dict) else k).shape[1]
     vis = _block_mask(kv_len, m, s_len=q.shape[0], level=level,
                       window=window, guess_size=guess_size, causal=causal,
-                      sliding_window=sliding_window, device=q.device)
+                      sliding_window=sliding_window, device=q.device,
+                      row0=row0)
     mask = torch.zeros(vis.shape, dtype=torch.float32, device=q.device)
     mask.masked_fill_(~vis, float("-inf"))
     return attention_dense(q, k, v, mask).to(q.dtype)
@@ -204,6 +205,7 @@ def _launch(q, k, v, lens, tables, page_size, geometry, tally):
         page_size if nb else 0, nb, d,
         geometry["level"], geometry["window"], geometry["guess_size"],
         int(geometry["causal"]), int(geometry["sliding_window"]),
+        int(geometry.get("row0", 0)),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"lookahead_attention kernel launch failed: "
@@ -214,27 +216,31 @@ def _launch(q, k, v, lens, tables, page_size, geometry, tally):
 
 
 def lookahead_attention(q, k, v, kv_len, *, level, window, guess_size,
-                        causal=False, sliding_window=0, spec_mask=None):
+                        causal=False, sliding_window=0, spec_mask=None,
+                        row0=0):
     """Composite-mask attention, [S, Hq*D] in q's dtype.
 
     q [S, Hq, D]; k, v [Hkv, M, D] (one layer of the KV-head-major cache,
     plain or ``{"q", "s"}`` int8 dicts);
     ``kv_len`` a one-element int32 tensor on q's device, read by the kernel
-    itself, so launching needs no host read. ``spec_mask`` is accepted for
-    the JAX signature; both versions derive that mask from index
-    arithmetic."""
+    itself, so launching needs no host read. Row i of q is composite row
+    ``row0 + i`` (a lookahead-parallel rank's share of the rows gives the
+    same rows of the whole call). ``spec_mask`` is accepted for the JAX
+    signature; both versions derive that mask from index arithmetic."""
+    if row0 < 0:
+        raise ValueError(f"row0 must be >= 0, got {row0}")
     if q.device.type == "cpu":
         counts["plain"] += 1
         return lookahead_attention_ref(
             q, k, v, kv_len, level=level, window=window,
             guess_size=guess_size, causal=causal,
-            sliding_window=sliding_window)
+            sliding_window=sliding_window, row0=row0)
     if q.device.type != "cuda":
         raise ValueError(f"no attention kernel for device {q.device}")
     _check_kernel_inputs(q, k, v, kv_len)
     return _launch(q[None], k, v, kv_len, None, 0, dict(
         level=level, window=window, guess_size=guess_size, causal=causal,
-        sliding_window=sliding_window), counts)[0]
+        sliding_window=sliding_window, row0=row0), counts)[0]
 
 
 def paged_lookahead_attention_ref(q, k, v, kv_lens, tables, *, level, window,

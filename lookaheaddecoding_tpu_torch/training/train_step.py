@@ -9,8 +9,9 @@ where no pretrained weights are reachable
 
 Adam is optax's ``adam`` written out in optax's order of operations (b1 0.9,
 b2 0.999, eps 1e-8, eps_root 0; bias correction by the step count), SGD the
-JAX package's momentum variant. The sharded step over a mesh is not ported
-yet: ``mesh`` raises.
+JAX package's momentum variant. With a mesh (``parallel.make_mesh``) the
+same step runs on every rank on the rank's shards, with the collectives of
+``parallel/collectives.py``.
 """
 
 from __future__ import annotations
@@ -21,16 +22,19 @@ import torch
 import torch.nn.functional as F
 
 from ..models import llama
+from ..parallel import collectives
+from ..parallel.sharding import Mesh, split_sizes
 
 B1, B2, EPS = 0.9, 0.999, 1e-8     # optax.adam's defaults (eps_root 0)
 OPTIMIZERS = ("adam", "sgd")
 
 
 def next_token_loss(params, cfg: llama.LlamaConfig, batch: torch.Tensor,
-                    rope_cos, rope_sin) -> torch.Tensor:
-    """Mean causal cross-entropy over [B, T] token batches."""
+                    rope_cos, rope_sin, mesh=None) -> torch.Tensor:
+    """Mean causal cross-entropy over [B, T] token batches (this rank's
+    rows on a mesh)."""
     logits = llama.forward_train(params, cfg, batch[:, :-1], rope_cos,
-                                 rope_sin)
+                                 rope_sin, mesh=mesh)
     return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                            batch[:, 1:].reshape(-1).long())
 
@@ -72,10 +76,23 @@ def make_train_step(
     card, as ``init_params`` places them by default); ``batch`` (a [B, T]
     integer tensor or numpy array, T <= ``seq_len``) is moved there. Adam
     by default (plain SGD stalls on transformer attention patterns);
-    ``optimizer="sgd"`` keeps the dependency-free momentum variant."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the sharded training step is not ported yet: pass mesh=None")
+    ``optimizer="sgd"`` keeps the dependency-free momentum variant.
+
+    With ``mesh`` every rank of the mesh calls the step with its shards
+    (``parallel.shard_params``) and its optimizer state
+    (``init_opt_state`` of those shards). ``batch`` is this rank's rows of
+    the dp axis: ranks that share a dp coordinate pass the same rows (the
+    convention of JAX's multi-process runtime). The forward wraps its tp
+    products in Megatron's f/g pair (``models/llama.py:forward_train``); a
+    layer stack split over pp is gathered for the step, each stage keeping
+    the gradient of its own layers. After the backward the gradient of a
+    KV head that several tp ranks hold is summed over them, every gradient
+    is averaged over dp, and Adam or SGD steps each local shard. The loss
+    is the global mean, the same on every rank."""
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(
+            f"mesh must be the port's parallel.sharding.Mesh "
+            f"(parallel.make_mesh), got {type(mesh).__name__}")
     _check_optimizer(optimizer)
     tables = {}      # device -> rope tables of seq_len rows
 
@@ -87,9 +104,16 @@ def make_train_step(
         batch = torch.as_tensor(batch, device=dev)
         live = [p.detach().requires_grad_(True) for p in leaves]
         with torch.enable_grad():
-            loss = next_token_loss(_rebuild(paths, live), cfg, batch,
-                                   *tables[dev])
+            tree = _rebuild(paths, live)
+            if mesh is not None:
+                tree = _whole_stack(tree, cfg, mesh)
+            loss = next_token_loss(tree, cfg, batch, *tables[dev], mesh=mesh)
             grads = torch.autograd.grad(loss, live)
+        if mesh is not None:
+            grads = _sync_grads(paths, grads, cfg, mesh)
+            dp = mesh.group("dp")
+            loss = collectives.all_reduce(loss.detach().reshape(1),
+                                          dp)[0] / mesh.shape["dp"]
         with torch.no_grad():
             update = _adam if optimizer == "adam" else _sgd
             new, opt_state = update(paths, leaves, grads, opt_state,
@@ -97,6 +121,36 @@ def make_train_step(
         return _rebuild(paths, new), opt_state, loss.detach()
 
     return step
+
+
+def _whole_stack(params, cfg, mesh):
+    """The layer stack gathered over pp (the gradient of each stage's
+    slice reaches its own layers alone)."""
+    pp = mesh.group("pp")
+    if pp is None:
+        return params
+    sizes = split_sizes(cfg.num_hidden_layers, mesh.shape["pp"])
+    layers = {k: collectives.gather_from_region(v, pp, 0, sizes)
+              for k, v in params["layers"].items()}
+    return {**params, "layers": layers}
+
+
+def _sync_grads(paths, grads, cfg, mesh):
+    """Gradients of the rank's shards, made whole: a KV head held by
+    several tp ranks (tp > Hkv) sums the gradients of its copies over
+    them, then every gradient is averaged over dp."""
+    tp, dp = mesh.group("tp"), mesh.group("dp")
+    share = mesh.shape["tp"] // cfg.num_key_value_heads
+    out = []
+    for path, g in zip(paths, grads):
+        if tp is not None and share > 1 and path[-1] in ("wk", "wv"):
+            h = mesh.coords["tp"] // share
+            g = collectives.all_gather(g[None], tp)[h * share:
+                                                    (h + 1) * share].sum(0)
+        if dp is not None:
+            g = collectives.all_reduce(g, dp) / mesh.shape["dp"]
+        out.append(g)
+    return out
 
 
 def _get(tree, path):

@@ -19,6 +19,8 @@ from applications import eval_common as jeval
 from applications import train_synthetic as jtrain_synthetic
 from applications.eval_mtbench import build_prompt as jmtbench_prompt
 import lookaheaddecoding_tpu_torch as lt
+import torch_parallel_worker as W
+from lookaheaddecoding_tpu_torch.parallel.launch import launch
 from lookaheaddecoding_tpu_torch.applications import (
     bench_learned, chatbot, eval_common, eval_mtbench, minimal, synthetic,
     train_synthetic)
@@ -192,9 +194,26 @@ def test_run_eval_baseline_sample_and_synthetic_modes(tmp_path, capsys):
             eval_mtbench.build_prompt, str(tmp_path / f"a{i}.jsonl"))
         assert stats and stats[0][1] > 0
     assert "AVERAGE THROUGHPUT2" in capsys.readouterr().out
-    args = eval_common.base_parser().parse_args(["--tp", "2"])
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        eval_common.make_engine(args)
+    # --tp 2: each rank of a two-rank gloo world builds the tp=2 mesh and
+    # its shard through the stubbed loader, and decodes the unsharded
+    # engine's tokens
+    jcfg, tree, cfg, params = carried()
+    W.save_tree(tmp_path / "tiny.npz", tree)
+    prompt = list(np.random.RandomState(0).randint(0, 128, size=16))
+    want = lt.LookaheadEngine(
+        cfg, params, lt.LookaheadConfig(level=5, window_size=10,
+                                        guess_set_size=10,
+                                        pool_from_prompt=True),
+        lt.EngineConfig(max_seq_len=256, prefill_chunk=128),
+        device="cpu").generate(prompt, 24)
+    ranks = launch(f"{W.__file__}:eval_tp2", 2, "gloo",
+                   "cpu", dict(data=str(tmp_path), prompt=[int(t) for t in prompt],
+                        n=24),
+                   timeout=240, threads=1)
+    for rank, got in enumerate(ranks):
+        assert got["tp"] == 2 and got["coords"]["tp"] == rank
+        assert got["wq_cols"] == 32 and got["loaded_on"] == ["cpu"]
+        assert got["tokens"] == want.tokens.tolist()
 
 
 def test_minimal_synthetic_tiny_on_cpu(capsys):

@@ -75,6 +75,10 @@ def test_no_port_source_imports_jax_or_the_jax_package():
             "lookaheaddecoding_tpu_torch/utils/tuning.py",
             "lookaheaddecoding_tpu_torch/applications/bench_learned.py",
             "scripts/torch_int4_micro.py",
+            "lookaheaddecoding_tpu_torch/parallel/sharding.py",
+            "lookaheaddecoding_tpu_torch/parallel/collectives.py",
+            "lookaheaddecoding_tpu_torch/parallel/launch.py",
+            "scripts/torch_gloo_cuda_ops.py",
             "scripts/torch_matmul_tile_sweep.py", "chip_smoke.py"} <= names
     for path in sources:
         hits = pattern.findall(path.read_text())

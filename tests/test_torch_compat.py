@@ -1,7 +1,8 @@
 """The port's compat shim against the JAX package's: ``_configs()`` field
 by field for several knob dicts (the JAX ``"pallas"`` / ``"xla"`` read as
 the port's ``"kernel"`` / ``"dense"``), the same warnings, ``get_engine``
-through a stubbed loader, and the ``always_fwd_one`` and window-init
+through a stubbed loader (and with ``DIST_WORKERS=2`` on a two-rank gloo
+world), and the ``always_fwd_one`` and window-init
 cases of the JAX package's ``test_compat.py``."""
 
 import dataclasses
@@ -16,6 +17,8 @@ import lookaheaddecoding_tpu as jlt
 import lookaheaddecoding_tpu.compat as jlade
 import lookaheaddecoding_tpu_torch as lt
 import lookaheaddecoding_tpu_torch.compat as lade
+import torch_parallel_worker as W
+from lookaheaddecoding_tpu_torch.parallel.launch import launch
 
 ARCH = dict(vocab_size=128, hidden_size=64, intermediate_size=128,
             num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
@@ -79,12 +82,15 @@ def test_always_fwd_one_knob():
     assert lade._configs()[0].always_fwd_one is True
 
 
+def tree_of_tiny():
+    jcfg = jlt.LlamaConfig(**ARCH, dtype=jnp.float32)
+    return jax.device_get(jlt.init_params(jcfg, jax.random.PRNGKey(0),
+                                          scale=0.5))
+
+
 def tiny():
     cfg = lt.LlamaConfig(**ARCH, dtype=torch.float32)
-    jcfg = jlt.LlamaConfig(**ARCH, dtype=jnp.float32)
-    tree = jax.device_get(jlt.init_params(jcfg, jax.random.PRNGKey(0),
-                                          scale=0.5))
-    return cfg, lt.params_from_numpy(tree, cfg, "cpu")
+    return cfg, lt.params_from_numpy(tree_of_tiny(), cfg, "cpu")
 
 
 def test_use_lade_reads_the_environment(monkeypatch):
@@ -115,9 +121,18 @@ def test_get_engine_loads_through_the_ports_loader(monkeypatch, tmp_path):
     assert lade.CONFIG_MAP["log"].records
     lade.save_log(str(tmp_path / "log.json"))
     assert lt.DecodeLog.load(str(tmp_path / "log.json")).records
-    lade.CONFIG_MAP["DIST_WORKERS"] = 2
-    with pytest.raises(NotImplementedError, match="DIST_WORKERS"):
-        lade.get_engine("some/model", device="cpu")
+    # DIST_WORKERS=2: each rank of a two-rank gloo world builds the tp=2
+    # mesh and its shard through the same stubbed loader, and decodes the
+    # unsharded engine's tokens
+    W.save_tree(tmp_path / "tiny.npz", tree_of_tiny())
+    ranks = launch(f"{W.__file__}:compat_tp2", 2, "gloo",
+                   "cpu", dict(data=str(tmp_path), prompt=[int(t) for t in prompt],
+                        n=24),
+                   timeout=240, threads=1)
+    for rank, got in enumerate(ranks):
+        assert got["tp"] == 2 and got["coords"]["tp"] == rank
+        assert got["embed_rows"] == 64 and got["loaded_on"] == ["cpu"]
+        assert got["tokens"] == r.tokens.tolist()
 
 
 def test_always_fwd_one_zero_token_exact_and_productive():

@@ -5,13 +5,16 @@ products, in bfloat16 on the tensor cores; the int4 product's two
 micro-benchmark variants), each against its plain PyTorch version; the
 attention also at head_dim 256 with Gemma-2B's heads and at head_dim 32,
 80 and 96; continuous batching against the flat engine; the training
-step on the card against the CPU, ``load_params`` onto the card and
-``utils.profiling.trace`` around a card ``generate``. They skip without a
-CUDA device. This file imports no
+step on the card against the CPU, ``load_params`` onto the card,
+``utils.profiling.trace`` around a card ``generate``, the attention at a
+first composite row (``row0``) and two ranks decoding at tp=2 on one card
+over gloo. They skip without a CUDA device. This file imports no
 JAX, so on a machine without JAX it runs without the suite's conftest:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -896,3 +899,58 @@ def test_profiling_trace_records_the_attention_kernel(tmp_path):
         "traceEvents"] if e.get("cat") == "kernel"}
     assert any("attention_mma_kernel" in n for n in names), sorted(names)
     assert timer.mean_ms > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8_kv", [False, True], ids=["plain", "int8_kv"])
+def test_attention_kernel_row0_equals_rows_of_the_whole_call(dtype, int8_kv):
+    """A lookahead-parallel rank's call: the kernel on composite rows
+    [r0, r0 + n) with ``row0`` = r0 equals those rows of the whole call,
+    bit for bit, for B1 (M = 1024) and B2 (M = 2048) at S = 240 split in
+    two (D = 64, the headline's heads), and at an uneven split."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from lookaheaddecoding_tpu_torch.models.llama import kv_cache_write
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(5)
+    geo = dict(level=7, window=20, guess_size=6)       # S = 240
+    for m, kv in ((1024, 512), (2048, 1808)):
+        def mk(*shape):
+            return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+                dev, dtype)
+        q = mk(240, 32, 64)
+        if int8_kv:
+            k, v = ({"q": torch.zeros(4, m, 64, dtype=torch.int8, device=dev),
+                     "s": torch.ones(4, m, 1, device=dev)} for _ in range(2))
+            kv_cache_write(k, mk(m, 4, 64), 0)
+            kv_cache_write(v, mk(m, 4, 64), 0)
+        else:
+            k, v = mk(4, m, 64), mk(4, m, 64)
+        kv_len = torch.tensor([kv], dtype=torch.int32, device=dev)
+        whole = la.lookahead_attention(q, k, v, kv_len, **geo)
+        for r0, n in ((0, 120), (120, 120), (97, 143)):
+            before = la.counts["kernel"]
+            part = la.lookahead_attention(q[r0:r0 + n].contiguous(), k, v,
+                                          kv_len, row0=r0, **geo)
+            assert la.counts["kernel"] == before + 1
+            assert torch.equal(part, whole[r0:r0 + n]), (m, r0, n)
+
+
+@pytest.mark.gpu
+def test_two_ranks_tp2_decode_on_one_card():
+    """Two ranks on the one card over gloo (parallel/launch.py), tp=2 on a
+    transition-cycle model in bfloat16: both ranks give the same tokens,
+    those of the unsharded engine on the card, following the cycle, through
+    the attention kernel's tensor-core design and no plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from lookaheaddecoding_tpu_torch.parallel.launch import launch
+    worker = Path(__file__).with_name("torch_parallel_worker.py")
+    ranks = launch(f"{worker}:card_tp2", 2, "gloo", "cuda", timeout=300)
+    assert ranks[0]["tokens"] == ranks[1]["tokens"]
+    for r in ranks:
+        assert r["device"] == "cuda:0"
+        assert r["tokens"] == r["one"] and r["cycle"]
+        assert r["launches"]["mma"] > 0
+        assert r["launches"]["plain"] == r["launches"]["fma"] == 0

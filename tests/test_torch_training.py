@@ -166,7 +166,7 @@ def test_training_reduces_loss():
 
 def test_mesh_unknown_optimizer_and_other_trees_raise():
     _, _, tcfg, tparams = models()
-    with pytest.raises(NotImplementedError, match="sharded"):
+    with pytest.raises(TypeError, match="Mesh"):
         make_train_step(tcfg, seq_len=SEQ, mesh=object())
     with pytest.raises(ValueError, match="optimizer"):
         make_train_step(tcfg, seq_len=SEQ, optimizer="adamw")
