@@ -20,8 +20,9 @@ target). It imports no JAX. Phases, each printed as it runs:
    FMAs; the bfloat16 result also within its rounding limit of the
    float32 kernel's), at head_dim 64 with the headline's heads, at
    head_dim 256 with Gemma-2B's (8 query heads, 1 KV head; every case
-   timed) and at head_dim 32, 80 and 96 (64, 32 and 32 query heads on 8
-   KV heads, Hq*D 2048-3072; the D=256 cases, B1, B2, prefill and AR
+   timed) and at head_dim 32, 48, 80, 96 and 112 (64, 40, 32, 32 and 24
+   query heads on 8 KV heads, Hq*D 1920-3072; the D=256 cases, B1, B2,
+   prefill and AR
    timed; flat and paged, the paged call bit-equal to the flat one lane
    by lane), and at a first composite row (``row0``, a lookahead-parallel
    rank's call: B1 and B2 on S=240 split in two, each half bit-equal to
@@ -109,7 +110,8 @@ target). It imports no JAX. Phases, each printed as it runs:
    head), ``generate`` token-exact against ``generate_baseline``; the
    headline model with dynamic-NTK rope (max_position_embeddings 512,
    factor 2, M=2048, a 600-token prompt), token-exact; and engines at
-   head_dim 32, 80 and 96 (4 layers), token-exact through the mma kernel,
+   head_dim 32, 48, 80, 96 and 112 (4 layers), token-exact through the
+   mma kernel,
    with three requests each through ``ContinuousBatchingEngine`` equal to
    the flat ``generate`` (the paged kernel at that head_dim);
 11. the learned model: ``training.make_train_step`` on the card against
@@ -139,7 +141,20 @@ target). It imports no JAX. Phases, each printed as it runs:
    plain versions never (``int8_weights_tp2``: B3's tensor-core design
    too). Prints ms a step beside phase 4's one-process step and the
    collectives a step. Those times are two processes sharing one card
-   with gloo crossing the host, not a tensor-parallel speed.
+   with gloo crossing the host, not a tensor-parallel speed (a mesh
+   engine steps eagerly: gloo's collectives cannot be captured);
+13. the captured step: every engine on the card replays its decode step
+   as a CUDA graph (``core/graphs.py``), in every phase above but 12.
+   Here each of bf16, int8_weights, int4_weights, int8_weights_int8_kv
+   (greedy lookahead), bf16's AR baseline and sampling at T*, and
+   paged_bf16 (four requests) runs eagerly (``graphs.eager()``) and
+   graphed on the same engine: the tokens must be equal, the graphed call
+   must replay (counted alone: the kernels' launches, which a replay
+   counts as many times as its capture made them), and it prints graphs
+   captured, replays, the port's kernel launches a replay, tok/s and peak
+   device memory both ways, the step alone timed in windows (eager,
+   graphed, graphed, eager) and each way's kernels a step, device busy
+   and idle from a profile.
 
 Each phase's seconds are printed as ``[seconds]`` lines.
 
@@ -238,15 +253,19 @@ LLAMA32_1B = dict(
 # past 512 positions (factor 2), M=2048, a prompt that crosses the threshold
 DYN_MAX_POS, DYN_FACTOR, DYN_SEQ = 512, 2.0, 2048
 DYN_PROMPT, DYN_NEW = 600, 128
-# phase 10's engines at head_dim 32, 80 and 96 (the heads of phase 3), the
-# LLaMA layer at reduced depth: 4 layers, vocab 32000, SwiGLU
+# phase 10's engines at head_dim 32, 48, 80, 96 and 112 (the heads of phase
+# 3), the LLaMA layer at reduced depth: 4 layers, vocab 32000, SwiGLU
 ARCH_SMALL_D = {
     32: dict(hidden_size=2048, intermediate_size=5632, num_attention_heads=64,
+             num_key_value_heads=8),
+    48: dict(hidden_size=1920, intermediate_size=5120, num_attention_heads=40,
              num_key_value_heads=8),
     80: dict(hidden_size=2560, intermediate_size=8192, num_attention_heads=32,
              num_key_value_heads=8),
     96: dict(hidden_size=3072, intermediate_size=8192, num_attention_heads=32,
-             num_key_value_heads=8)}
+             num_key_value_heads=8),
+    112: dict(hidden_size=2688, intermediate_size=7168,
+              num_attention_heads=24, num_key_value_heads=8)}
 SMALL_D_LAYERS, SMALL_D_NEW = 4, 64
 # phase 11: the learned model (applications/train_synthetic.py's widths:
 # vocab 2048, hidden 512, intermediate 1280, 6 layers, 8/4 heads, D=64) on
@@ -409,9 +428,11 @@ ATT_CASES_256 = [(S_COMP, 1024, 512, False, 0), (S_COMP, 2048, 1808, False, 0),
                  (1, 1024, 700, True, 0)]
 
 
-# head_dim 32, 80 and 96, each at Hq * D near 2048 (2048, 2560, 3072): the
-# D=256 cases, four of them timed (B1, B2, prefill, AR)
-HEADS_SMALL = {32: (64, 8, 32), 80: (32, 8, 80), 96: (32, 8, 96)}
+# head_dim 32, 48, 80, 96 and 112, each at Hq * D near 2048 (2048, 1920,
+# 2560, 3072, 2688; 48 and 112 with GQA factors 5 and 3): the D=256 cases,
+# four of them timed (B1, B2, prefill, AR)
+HEADS_SMALL = {32: (64, 8, 32), 48: (40, 8, 48), 80: (32, 8, 80),
+               96: (32, 8, 96), 112: (24, 8, 112)}
 ATT_TIMED_SMALL = {(S_COMP, 1024, 512, False, 0), (S_COMP, 2048, 1808, False, 0),
                    (PREFILL_CHUNK, 1024, 640, True, 0), (1, 1024, 700, True, 0)}
 
@@ -2018,7 +2039,7 @@ def build_on_card(device, mcfg, seed=0):
 
 def model_coverage(device, card, params, nxt_headline):
     """Phase 10: Llama-3.2-1B from its config fields, the dynamic-NTK run
-    and the engines at head_dim 32, 80 and 96. Returns launches by
+    and the engines at head_dim 32, 48, 80, 96 and 112. Returns launches by
     configuration (flat and paged)."""
     import dataclasses
     import types
@@ -2559,6 +2580,228 @@ def parallel_phase(card, tokens, step_s, meshes=PAR_MESHES, ranks=PAR_RANKS,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the captured step
+# ---------------------------------------------------------------------------
+
+CAPTURE_STEPS = 24    # decode steps of a timed window of the step alone
+CAPTURE_PROFILED = 6  # of a profiled one
+CAPTURE_BUDGET = 100_000   # max_new of those windows: no step ends them
+
+
+def profile_steps(run, n):
+    """(kernels a step, device busy ms a step, wall ms a step under the
+    profiler) of ``run(n)``, n decode steps; None if the profiler records
+    no kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(n)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return None
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    return len(kernels) / n, busy_ms / n, wall_ms / n
+
+
+def timed_steps(run, n):
+    """Wall ms a step of ``run(n)``, from a synchronised host clock."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(n)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / n
+
+
+def _mode(which):
+    """``graphs.eager()`` for "eager", a null context for "graphed"."""
+    import contextlib
+    from lookaheaddecoding_tpu_torch.core import graphs
+    return graphs.eager() if which == "eager" else contextlib.nullcontext()
+
+
+def step_windows(make_run, n_timed, n_prof, done=lambda: None):
+    """The decode step alone, eager and graphed in turns (eager, graphed,
+    graphed, eager, then one profiled window each): ``make_run()`` gives a
+    fresh live state's ``run(n)``, whose first use captures when graphed;
+    ``done()`` follows each window. Returns {"eager"|"graphed": (ms a step
+    of the two timed windows, profile_steps' numbers)}."""
+    walls, prof = {"eager": [], "graphed": []}, {}
+    for which in ("eager", "graphed", "graphed", "eager", "eager",
+                  "graphed"):
+        with _mode(which):
+            run = make_run()
+            run(2)
+            if len(walls[which]) < 2:
+                walls[which].append(timed_steps(run, n_timed))
+            else:
+                prof[which] = profile_steps(run, n_prof)
+        done()
+    return {which: (walls[which], prof[which]) for which in walls}
+
+
+def capture_line(name, card, windows, per_replay, tok_s, peak, stats):
+    """The phase's report of one configuration."""
+    parts = []
+    for mode in ("eager", "graphed"):
+        walls, prof = windows[mode]
+        wall = min(walls)
+        line = (f"{mode} {walls[0]:.3f}/{walls[1]:.3f} ms a step, "
+                f"{tok_s[mode]:.1f} tok/s, peak {peak[mode]:.0f} MiB")
+        if prof is None:
+            line += ", device time not measured (no kernel recorded)"
+        else:
+            kernels, busy, pwall = prof
+            line += (f", {kernels:.0f} kernels a step, device busy "
+                     f"{busy:.3f} ms a step, idle {1 - busy / wall:.3f} "
+                     f"(profiled wall {pwall:.3f} ms a step)")
+        parts.append(line)
+    ratio = min(windows["eager"][0]) / min(windows["graphed"][0])
+    log(f"  [{card}] {name}: tokens == eager; graphs captured "
+        f"{stats['captured']}, replays {stats['replays']}, launches of the "
+        f"port's kernels a replay {per_replay}; " + "; ".join(parts)
+        + f"; eager / graphed wall a step {ratio:.2f}x")
+
+
+def captured_flat(name, eng, prompt, mode, card, n_new, sampling=None):
+    """One flat configuration's captured step against its eager step on the
+    same engine: the generate call of ``mode`` ("greedy", "ar" or
+    "sample") eager and graphed (tokens and steps equal, tok/s, peak
+    memory; the graphed call counted alone: replays > 0 and the kernels'
+    launches), then the step alone in windows and under the profiler."""
+    import torch
+    from lookaheaddecoding_tpu_torch.core import graphs
+
+    call = {"greedy": lambda: eng.generate(prompt, n_new),
+            "ar": lambda: eng.generate_baseline(prompt, n_new),
+            "sample": lambda: eng.generate_sample(prompt, n_new, sampling,
+                                                  seed=0)}[mode]
+    runs, peak, tok_s = {}, {}, {}
+    for which in ("eager", "graphed"):
+        with _mode(which):
+            call()                                   # warm (captures)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            if which == "graphed":
+                reset_counts()
+                graphs.stats.update(dict.fromkeys(graphs.stats, 0))
+            runs[which] = call()
+            torch.cuda.synchronize()
+        peak[which] = torch.cuda.max_memory_allocated() / 2**20
+        tok_s[which] = runs[which].tokens_per_sec
+    got, stats = read_counts(), dict(graphs.stats)
+    assert np.array_equal(runs["graphed"].tokens, runs["eager"].tokens), \
+        f"{name}: the graphed step's tokens differ from the eager step's"
+    assert runs["graphed"].steps == runs["eager"].steps, name
+    assert stats["replays"] > 0 and got["attention_mma"] > 0, (name, stats,
+                                                               got)
+    assert got["plain"] == 0 and got["attention_fma"] == 0, (name, got)
+    with torch.inference_mode():     # the graph that call replayed
+        per_replay = eng._flat_runner(eng._free_slot(), mode, n_new, None,
+                                      sampling).launches_per_replay()
+
+    def make_run():
+        with torch.inference_mode():
+            slot = eng._free_slot()
+            out_buf, n, fill = eng._host_args(prompt, CAPTURE_BUDGET)
+            eng._prepare(out_buf, n, 0, fill, slot=slot)
+            steps = eng._flat_runner(slot, mode, CAPTURE_BUDGET, None,
+                                     sampling)
+
+        def run(k):
+            with torch.inference_mode():
+                steps.run(k)
+        return run
+    windows = step_windows(make_run, CAPTURE_STEPS, CAPTURE_PROFILED)
+    capture_line(name, card, windows, per_replay, tok_s, peak, stats)
+
+
+def captured_paged(name, srv, nxt, card):
+    """``PagedServingEngine``'s captured batched step against its eager
+    step on the same engine: four requests eager and graphed (every result
+    equal), then the step alone with four lanes live."""
+    import torch
+    import lookaheaddecoding_tpu_torch as lt
+    from lookaheaddecoding_tpu_torch.core import graphs
+
+    def reqs():
+        return [lt.Request(prompt=make_prompt(nxt, start=30 + i, n=64),
+                           max_new_tokens=PAGED_NEW, request_id=i)
+                for i in range(LANES)]
+    res, peak, tok_s = {}, {}, {}
+    for which in ("eager", "graphed"):
+        with _mode(which):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            if which == "graphed":
+                reset_counts()
+                graphs.stats.update(dict.fromkeys(graphs.stats, 0))
+            t0 = time.perf_counter()
+            out = srv.run(reqs())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        res[which] = {r.request_id: r.tokens for r in out}
+        peak[which] = torch.cuda.max_memory_allocated() / 2**20
+        tok_s[which] = sum(len(t) - 64 for t in res[which].values()) / wall
+    got, stats = read_counts(), dict(graphs.stats)
+    for rid, toks in res["eager"].items():
+        assert np.array_equal(res["graphed"][rid], toks), \
+            f"{name}: request {rid}'s graphed tokens differ from eager"
+    assert stats["replays"] > 0 and got["paged_attention"] > 0, (stats, got)
+    assert srv.pages_free == N_PAGES, srv.memory_stats()
+    per_replay = srv._runner().launches_per_replay()
+
+    def make_run():
+        for r in reqs():
+            srv.submit(r)
+        srv.step()                 # admission and the first steps
+        runner = srv._runner()
+
+        def run(k):
+            with torch.inference_mode():
+                runner.run(k)
+        return run
+
+    def drain():
+        while srv.step():
+            pass
+        srv._results = []
+    # four lanes stay live through the windows: 4 + 2 + 8 steps of at most
+    # 6 tokens each, below PAGED_NEW
+    windows = step_windows(make_run, 8, 4, drain)
+    assert srv.pages_free == N_PAGES, srv.memory_stats()
+    capture_line(name, card, windows, per_replay, tok_s, peak, stats)
+
+
+def captured_phase(configs, prompt, paged_engine, nxt, card, t_star):
+    """Phase 13 over bf16, int8_weights, int4_weights,
+    int8_weights_int8_kv (greedy lookahead), bf16's AR baseline and
+    sampling at T*, and paged_bf16."""
+    import lookaheaddecoding_tpu_torch as lt
+    from lookaheaddecoding_tpu_torch.core import graphs
+
+    log(f"  [{card}] phases 2-12 captured {graphs.stats['captured']} graphs "
+        f"and replayed them {graphs.stats['replays']} times")
+    for name in ("bf16", "int8_weights", "int4_weights",
+                 "int8_weights_int8_kv"):
+        captured_flat(name, configs[name][0], prompt, "greedy", card,
+                      N_NEW if name == "bf16" else N_NEW_QUANT)
+    bf16 = configs["bf16"][0]
+    captured_flat("bf16 AR baseline", bf16, prompt, "ar", card, N_NEW_QUANT)
+    captured_flat(f"bf16 sampling at T*={t_star:.4f}", bf16, prompt,
+                  "sample", card, N_SAMPLE,
+                  lt.SamplingConfig(temperature=t_star, top_k=TOP_K))
+    captured_paged("paged_bf16", paged_engine, nxt, card)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2734,8 +2977,8 @@ def main() -> int:
         f"M={MAX_SEQ}, {N_NEW_QUANT} new tokens; dynamic-NTK on the headline "
         f"model (max_position_embeddings {DYN_MAX_POS}, factor {DYN_FACTOR}, "
         f"M={DYN_SEQ}, {DYN_PROMPT}-token prompt, {DYN_NEW} new tokens); "
-        f"head_dim 32, 80 and 96 at {SMALL_D_LAYERS} layers, {SMALL_D_NEW} "
-        f"new tokens")
+        f"head_dim {sorted(ARCH_SMALL_D)} at {SMALL_D_LAYERS} layers, "
+        f"{SMALL_D_NEW} new tokens")
     cov_flat, cov_paged = model_coverage(device, card, params, nxt)
     lap("model coverage")
 
@@ -2758,6 +3001,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     par = parallel_phase(card, tokens, step_s)
     lap("parallel")
+
+    log(f"[captured step] ({card}); each decode step replayed as a CUDA "
+        f"graph against the same step run eagerly (graphs.eager()) on the "
+        f"same engine: bf16, int8_weights, int4_weights, "
+        f"int8_weights_int8_kv, bf16's AR baseline and sampling at T*, "
+        f"paged_bf16; ms a step of the step alone in windows of "
+        f"{CAPTURE_STEPS} steps (8 paged), eager, graphed, graphed, eager")
+    captured_phase(configs, prompt, paged_stats["paged_bf16"]["engine"], nxt,
+                   card, samp_info["t_star"])
+    lap("captured step")
 
     # phase 8's paths that step through the paged kernel (generate_batch
     # and the paged engine) and those that run the flat one

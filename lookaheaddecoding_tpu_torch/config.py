@@ -95,4 +95,5 @@ class EngineConfig:
     la: int = 1                      # lookahead-parallel axis (speculative tokens)
     dp: int = 1                      # data/request parallel axis
     pp: int = 1                      # pipeline stages
-    donate_state: bool = True        # the port always updates state in place
+    donate_state: bool = True        # the port always updates state in
+                                     # place (core/graphs.py)

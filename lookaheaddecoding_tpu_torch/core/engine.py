@@ -14,10 +14,20 @@ device-to-host transfer. ``generate_stream`` yields the new tokens as the
 steps confirm them, ``generate_batch`` decodes several prompts with one
 batched forward a step, and a :class:`PrefixCache` lets prompts that share
 a prefix prefill only their suffix.
+
+On the card (without a ``mesh``) every decode loop replays its step as a
+CUDA graph (``core/graphs.py``: the counterpart of the JAX engine's
+``jax.jit(..., donate_argnums=...)``) over a static state the engine owns
+and writes each call into in place: a :class:`FlatSlot` (a second one only
+while a suspended ``generate_stream`` holds the first) and a
+:class:`LaneSlot` for each lane count of ``generate_batch``, made at first
+use. The prefill chunks (whose starts are host ints) run eagerly, as does
+every step on the CPU and on a mesh.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Iterator, Optional, Sequence
@@ -28,17 +38,19 @@ import torch
 from ..config import EngineConfig, LookaheadConfig, SamplingConfig
 from ..models import llama
 from ..ops.lookahead_attention import KERNEL_HEAD_DIMS
+from . import graphs
 from .layout import Layout, build_layout
 from .paged_step import PagedLaneState, build_paged_step_fns
 from .pool import (PoolState, apply_host_fill, host_prompt_fill, pool_init,
                    pool_table_rows)
 from .state import DecodeState
-from .step import build_step_fns
+from .step import build_step_fns, run_loop
 
 MAX_EOS_IDS = 4
+_INT32_MAX = 2**31 - 1
 
 
-def _eos_vec(eos_token_id, device) -> torch.Tensor:
+def _eos_vec(eos_token_id, device="cpu") -> torch.Tensor:
     """Fixed-width EOS id vector (pad -1); any listed id stops generation."""
     if eos_token_id is None:
         ids = []
@@ -121,13 +133,107 @@ def _clone(cache):
     return cache.clone()
 
 
-def _cat_slots(caches, trash):
-    """Lane caches [L, Hkv, M, D] laid side by side as one paged pool of
-    pages of M slots, with ``trash`` (a zeroed cache) as the last page."""
-    if isinstance(trash, dict):
-        return {name: torch.cat([c[name] for c in caches] + [trash[name]],
-                                dim=2) for name in trash}
-    return torch.cat(list(caches) + [trash], dim=2)
+def _leaf_pairs(dst, src):
+    """(destination, source) buffers of two caches of one kind: plain
+    tensors or int8 {"q", "s"} dicts."""
+    if isinstance(dst, dict):
+        return [(dst[name], src[name]) for name in dst]
+    return [(dst, src)]
+
+
+def _clear_cache(cache) -> None:
+    """A cache back to ``make_kv_cache``'s contents, in place: zeros, and
+    the int8 cache's scales at 1e-8."""
+    if isinstance(cache, dict):
+        cache["q"].zero_()
+        cache["s"].fill_(1e-8)
+    else:
+        cache.zero_()
+
+
+@dataclasses.dataclass
+class FlatSlot:
+    """A flat decode state and every other tensor the step reads, at fixed
+    addresses: a request is written into it in place (``_prepare``), and
+    the engine's captured steps (``graphs``) run over it. ``max_new`` is a
+    0-d int32 tensor, ``eos`` [MAX_EOS_IDS] int32, ``temperature`` and
+    ``top_p`` [1] float32."""
+
+    state: DecodeState
+    max_new: torch.Tensor
+    eos: torch.Tensor
+    temperature: torch.Tensor
+    top_p: torch.Tensor
+    graphs: dict = dataclasses.field(default_factory=dict)
+    busy: bool = False
+
+
+@dataclasses.dataclass
+class LaneSlot:
+    """B lanes laid out as ``generate_batch`` and the continuous-batching
+    scheduler lay them: the lanes' flat caches side by side as one pool
+    ``[L, Hkv, (B+1)*M, D]``, lane b on page b of M slots and one trash page
+    after them; their bookkeeping, each lane's ``max_new``, EOS ids,
+    temperature and top_p, and the captured batched steps (``graphs``), at
+    fixed addresses."""
+
+    k_pool: object
+    v_pool: object
+    states: PagedLaneState
+    max_new: torch.Tensor       # [B] int32
+    eos: torch.Tensor           # [B, MAX_EOS_IDS] int32
+    temperature: torch.Tensor   # [B] float32
+    top_p: torch.Tensor         # [B] float32
+    graphs: dict = dataclasses.field(default_factory=dict)
+
+
+def lane_slot(eng: "LookaheadEngine", lanes: int) -> LaneSlot:
+    """``lanes`` idle lanes of ``eng``: finished, each on its own page, with
+    an empty pool and its own generator."""
+    B, dev = lanes, eng.device
+    M, lay = eng.ecfg.max_seq_len, eng.layout
+    # B lanes and a trash page of M slots; on a mesh, the rank's shard
+    k_pool, v_pool = llama.make_kv_cache(eng.mcfg, (B + 1) * M, dev,
+                                         quant=eng.ecfg.kv_quant,
+                                         params=eng.params)
+    one = pool_init(eng._pool_rows(), lay.guess_set_size, lay.guess_size,
+                    dev)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.int32, device=dev)
+    states = PagedLaneState(
+        table=torch.arange(B, dtype=torch.int32, device=dev)[:, None],
+        cap=torch.full((B,), M, dtype=torch.int32, device=dev),
+        trash=torch.full((B,), B * M, dtype=torch.int32, device=dev),
+        kv_len=zeros(B), window=zeros(B, lay.n_window),
+        pool=PoolState(values=one.values[None].repeat(B, 1, 1, 1),
+                       age=one.age[None].repeat(B, 1, 1),
+                       clock=one.clock[None].repeat(B)),
+        out_buf=zeros(B, M + lay.guess_size),
+        n_confirmed=zeros(B) + 1, init_len=zeros(B) + 1, step_idx=zeros(B),
+        finished=torch.ones(B, dtype=torch.bool, device=dev),
+        rng=[torch.Generator(device=dev) for _ in range(B)])
+    return LaneSlot(k_pool=k_pool, v_pool=v_pool, states=states,
+                    max_new=zeros(B), eos=zeros(B, MAX_EOS_IDS) - 1,
+                    temperature=torch.ones(B, dtype=torch.float32, device=dev),
+                    top_p=torch.ones(B, dtype=torch.float32, device=dev))
+
+
+def write_lane(slot: LaneSlot, lane: int, state: DecodeState) -> None:
+    """A prepared flat state (caches, bookkeeping, pool, generator) copied
+    into lane ``lane`` of ``slot``, in place."""
+    M = _leaf_pairs(state.k_cache, state.k_cache)[0][0].shape[2]
+    for pool, cache in ((slot.k_pool, state.k_cache),
+                        (slot.v_pool, state.v_cache)):
+        for dst, src in _leaf_pairs(pool, cache):
+            dst[:, :, lane * M:(lane + 1) * M] = src
+    st = slot.states
+    for name in ("kv_len", "window", "out_buf", "n_confirmed", "init_len",
+                 "step_idx", "finished"):
+        getattr(st, name)[lane] = getattr(state, name)
+    for name in ("values", "age", "clock"):
+        getattr(st.pool, name)[lane] = getattr(state.pool, name)
+    st.rng[lane].set_state(state.rng.get_state())
 
 
 class LookaheadEngine:
@@ -212,6 +318,13 @@ class LookaheadEngine:
         self._fns = build_step_fns(model_cfg, self.lcfg, e, self.layout,
                                    self.device, mesh=mesh)
         self._paged_fns = None      # generate_batch's, built on first use
+        # On the card every decode step is a replayed CUDA graph over a
+        # static state (core/graphs.py); on the CPU and on a mesh (gloo's
+        # collectives cannot be captured) it runs eagerly.
+        self._graphed = self.device.type == "cuda" and mesh is None
+        self._graph_pool = None     # the graphs' memory pool, at first use
+        self._slots = []            # FlatSlot: one, or one a live stream
+        self._lane_slots = {}       # generate_batch's LaneSlot, by lanes
 
     def _check_shards(self, mesh):
         """The tree must be this rank's shard of the mesh: the layer count
@@ -288,33 +401,129 @@ class LookaheadEngine:
         return pool_table_rows(self.mcfg.vocab_size, self.lcfg.pool_key_len,
                                self.lcfg.pool_hash_size)
 
+    def _new_slot(self) -> FlatSlot:
+        dev, M, lay = self.device, self.ecfg.max_seq_len, self.layout
+        k_cache, v_cache = llama.make_kv_cache(
+            self.mcfg, M, dev, quant=self.ecfg.kv_quant, params=self.params)
+
+        def zeros(*shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+        state = DecodeState(
+            k_cache=k_cache, v_cache=v_cache, kv_len=zeros(),
+            window=zeros(lay.n_window),
+            pool=pool_init(self._pool_rows(), lay.guess_set_size,
+                           lay.guess_size, dev),
+            out_buf=zeros(M + lay.guess_size), n_confirmed=zeros(),
+            init_len=zeros(), step_idx=zeros(),
+            finished=torch.ones((), dtype=torch.bool, device=dev),
+            rng=torch.Generator(device=dev))
+        return FlatSlot(state=state, max_new=zeros(),
+                        eos=zeros(MAX_EOS_IDS) - 1,
+                        temperature=zeros(1, dtype=torch.float32) + 1,
+                        top_p=zeros(1, dtype=torch.float32) + 1)
+
+    def _free_slot(self) -> FlatSlot:
+        """A FlatSlot no call holds, made at first use (a second one only
+        while a suspended ``generate_stream`` holds the first)."""
+        for slot in self._slots:
+            if not slot.busy:
+                return slot
+        self._slots.append(self._new_slot())
+        return self._slots[-1]
+
+    @contextlib.contextmanager
+    def _slot(self):
+        """A FlatSlot held for one call."""
+        slot = self._free_slot()
+        slot.busy = True
+        try:
+            yield slot
+        finally:
+            slot.busy = False
+
     def _prepare(self, out_buf: np.ndarray, prompt_len: int, seed: int,
-                 fill, prefix: Optional[PrefixCache] = None) -> DecodeState:
-        """Caches, pool, window seeding, prompt fill and prefill. A prefix's
-        caches and pool are copied (the prefill's last chunk may rewrite
-        some of its rows), and the fill merges into its pool's rows."""
-        dev = self.device
+                 fill, prefix: Optional[PrefixCache] = None,
+                 slot: Optional[FlatSlot] = None) -> DecodeState:
+        """Caches, pool, window seeding, prompt fill and prefill, written in
+        place into ``slot``'s state (by default a free slot's), which is
+        returned. The caches and the pool start as new ones would, or as
+        copies of a prefix's (the prefill's last chunk may rewrite some of
+        its rows, and the fill merges into its pool's rows); the generator
+        is reseeded with ``seed``."""
+        state = (slot or self._free_slot()).state
         if prefix is None:
-            k_cache, v_cache = llama.make_kv_cache(
-                self.mcfg, self.ecfg.max_seq_len, dev,
-                quant=self.ecfg.kv_quant, params=self.params)
+            _clear_cache(state.k_cache)
+            _clear_cache(state.v_cache)
         else:
-            k_cache, v_cache = _clone(prefix.k_cache), _clone(prefix.v_cache)
+            for dst, src in (_leaf_pairs(state.k_cache, prefix.k_cache)
+                             + _leaf_pairs(state.v_cache, prefix.v_cache)):
+                dst.copy_(src)
+        pool = state.pool
         if prefix is not None and prefix.pool is not None:
-            pool = PoolState(prefix.pool.values.clone(),
-                             prefix.pool.age.clone(), prefix.pool.clock.clone())
+            for name in ("values", "age", "clock"):
+                getattr(pool, name).copy_(getattr(prefix.pool, name))
         else:
-            pool = pool_init(self._pool_rows(), self.layout.guess_set_size,
-                             self.layout.guess_size, dev)
-        rng = torch.Generator(device=dev)
-        rng.manual_seed(seed)
-        state = self._fns.init_state(
-            k_cache, v_cache, pool, torch.from_numpy(out_buf).to(dev),
-            prompt_len, rng)
+            pool.values.zero_()
+            pool.age.zero_()
+            pool.clock.fill_(1)
+        state.rng.manual_seed(seed)
+        self._fns.init_state(state, torch.from_numpy(out_buf), prompt_len)
         if fill is not None:
-            apply_host_fill(state.pool, *fill, merge=prefix is not None)
+            apply_host_fill(pool, *fill, merge=prefix is not None)
         return self._fns.prefill_from(self.params, state, prompt_len,
                                       0 if prefix is None else prefix.length)
+
+    def _runner(self, cache: dict, key, step, state):
+        if self._graphed and self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        return graphs.runner(cache, key, step, state, self._graphed,
+                             self._graph_pool)
+
+    def _flat_runner(self, slot: FlatSlot, mode: str, max_new: int,
+                     eos_token_id, sampling: Optional[SamplingConfig] = None):
+        """The step runner of ``mode`` ("greedy", "sample" or "ar") over
+        ``slot``, with the call's ``max_new``, EOS ids and warpers written
+        into the slot's buffers."""
+        fns, params, st = self._fns, self.params, slot.state
+        slot.max_new.fill_(min(max_new, _INT32_MAX))
+        slot.eos.copy_(_eos_vec(eos_token_id))
+        top_p, top_k = None, 0
+        if mode == "sample":
+            temps, top_p, top_k = self._warp(sampling)
+            slot.temperature.copy_(temps)
+            if top_p is not None:
+                top_p = slot.top_p.copy_(top_p)
+        if mode == "greedy":
+            def step():
+                fns.decode_step(params, st, slot.max_new, slot.eos)
+        elif mode == "ar":
+            def step():
+                fns.baseline_step(params, st, slot.max_new, slot.eos)
+        else:
+            def step():
+                fns.sample_step(params, st, slot.max_new, slot.eos,
+                                slot.temperature, top_p, top_k)
+        return self._runner(slot.graphs, (mode, top_p is not None, top_k),
+                            step, slot)
+
+    def _lane_runner(self, slot: LaneSlot, sampled: bool, top_p_on: bool,
+                     top_k: int):
+        """The batched step runner over ``slot``'s lanes: greedy, or
+        sampling with the slot's temperatures, its top_p when
+        ``top_p_on`` and ``top_k``."""
+        fns, params = self._batch_fns(), self.params
+        top_p = slot.top_p if top_p_on else None
+        if sampled:
+            def step():
+                fns.sample_batch(params, slot.k_pool, slot.v_pool,
+                                 slot.states, slot.max_new, slot.eos,
+                                 slot.temperature, top_p, top_k)
+        else:
+            def step():
+                fns.decode_batch(params, slot.k_pool, slot.v_pool,
+                                 slot.states, slot.max_new, slot.eos)
+        return self._runner(slot.graphs, (sampled, top_p_on, top_k), step,
+                            slot)
 
     def _finalize(self, state: DecodeState, max_new: int, t0: float,
                   return_prefix: bool = False) -> GenerationResult:
@@ -336,13 +545,18 @@ class LookaheadEngine:
     @staticmethod
     def _prefix_of(state: DecodeState, out_buf, kv_len: int,
                    total: int) -> PrefixCache:
-        """The run's own caches and pool as a PrefixCache over its
-        committed KV rows [0, kv_len), clamped to the trimmed result so
-        that the prefix tokens are a prefix of the result's."""
+        """Copies of the run's caches and pool (the slot's own are written
+        by the next call) as a PrefixCache over its committed KV rows
+        [0, kv_len), clamped to the trimmed result so that the prefix
+        tokens are a prefix of the result's."""
         length = min(kv_len, total)
+        pool = state.pool
         return PrefixCache(tokens=out_buf[:length].astype(np.int32),
-                           k_cache=state.k_cache, v_cache=state.v_cache,
-                           length=length, pool=state.pool)
+                           k_cache=_clone(state.k_cache),
+                           v_cache=_clone(state.v_cache), length=length,
+                           pool=PoolState(pool.values.clone(),
+                                          pool.age.clone(),
+                                          pool.clock.clone()))
 
     def _warp(self, sampling: SamplingConfig, lanes: int = 1,
               temperatures=None, top_ps=None):
@@ -358,16 +572,18 @@ class LookaheadEngine:
                         for v in (temps, tops))
         return temps, top_p if min(tops) < 1.0 else None, sampling.top_k
 
-    def _run(self, loop, prompt_ids, max_new_tokens, eos_token_id, seed,
-             prefix=None, return_prefix=False):
+    def _run(self, mode, prompt_ids, max_new_tokens, eos_token_id, seed,
+             prefix=None, return_prefix=False, sampling=None):
         t0 = time.perf_counter()
         if return_prefix:
             self._reject_dynamic_prefix()
         out_buf, P, fill = self._host_args(prompt_ids, max_new_tokens, prefix)
-        with torch.inference_mode():
-            state = self._prepare(out_buf, P, seed, fill, prefix)
-            state = loop(self.params, state, max_new_tokens,
-                         _eos_vec(eos_token_id, self.device))
+        with torch.inference_mode(), self._slot() as slot:
+            state = self._prepare(out_buf, P, seed, fill, prefix, slot=slot)
+            steps = self._flat_runner(slot, mode, max_new_tokens,
+                                      eos_token_id, sampling)
+            run_loop(steps.run, state, max_new_tokens,
+                     1 if mode == "ar" else self.layout.guess_size)
             return self._finalize(state, max_new_tokens, t0, return_prefix)
 
     # ------------------------------------------------------------------
@@ -390,12 +606,12 @@ class LookaheadEngine:
                 f"prefix token ids must lie in [0, {self.mcfg.vocab_size})")
         out_buf = np.zeros((M + self.layout.guess_size,), np.int32)
         out_buf[:P0] = prefix
-        with torch.inference_mode():
+        with torch.inference_mode(), self._slot() as slot:
             # a prompt length of P0 + 1 makes the prefill cover [0, P0)
-            state = self._prepare(out_buf, P0 + 1, 0, None)
-        return PrefixCache(tokens=prefix.astype(np.int32),
-                           k_cache=state.k_cache, v_cache=state.v_cache,
-                           length=P0)
+            state = self._prepare(out_buf, P0 + 1, 0, None, slot=slot)
+            return PrefixCache(tokens=prefix.astype(np.int32),
+                               k_cache=_clone(state.k_cache),
+                               v_cache=_clone(state.v_cache), length=P0)
 
     # ------------------------------------------------------------------
     def generate(self, prompt_ids: Sequence[int], max_new_tokens: int,
@@ -409,8 +625,8 @@ class LookaheadEngine:
         ``result.prefix``, a PrefixCache over this result's committed
         tokens, with which the next turn of a conversation prefills only
         its new message."""
-        return self._run(self._fns.decode_loop, prompt_ids, max_new_tokens,
-                         eos_token_id, seed, prefix, return_prefix)
+        return self._run("greedy", prompt_ids, max_new_tokens, eos_token_id,
+                         seed, prefix, return_prefix)
 
     def generate_sample(self, prompt_ids: Sequence[int], max_new_tokens: int,
                         sampling: Optional[SamplingConfig] = None,
@@ -422,13 +638,9 @@ class LookaheadEngine:
         ``seed`` seeds the run's generator (window seeding and every draw);
         on a CUDA device the stream is the card's, so the tokens differ
         from the CPU's (and from the JAX package's) for the same seed."""
-        warp = self._warp(sampling or SamplingConfig())
-
-        def loop(params, state, max_new, eos):
-            return self._fns.sample_loop(params, state, max_new, eos, *warp)
-
-        return self._run(loop, prompt_ids, max_new_tokens, eos_token_id,
-                         seed, prefix, return_prefix)
+        return self._run("sample", prompt_ids, max_new_tokens, eos_token_id,
+                         seed, prefix, return_prefix,
+                         sampling or SamplingConfig())
 
     def generate_baseline(self, prompt_ids: Sequence[int],
                           max_new_tokens: int, eos_token_id=None,
@@ -436,8 +648,8 @@ class LookaheadEngine:
                           return_prefix: bool = False) -> GenerationResult:
         """Plain autoregressive greedy decoding on the same weights and KV
         machinery: the comparison target for exactness and speedup."""
-        return self._run(self._fns.baseline_loop, prompt_ids, max_new_tokens,
-                         eos_token_id, seed, prefix, return_prefix)
+        return self._run("ar", prompt_ids, max_new_tokens, eos_token_id,
+                         seed, prefix, return_prefix)
 
     # ------------------------------------------------------------------
     def generate_stream(self, prompt_ids: Sequence[int], max_new_tokens: int,
@@ -463,38 +675,34 @@ class LookaheadEngine:
                 "sampling streaming requires lookahead=True (the baseline "
                 "streaming loop is greedy)")
         out_buf, P, fill = self._host_args(prompt_ids, max_new_tokens, prefix)
-        eos = _eos_vec(eos_token_id, self.device)
-        fns, params = self._fns, self.params
-        if sampling is not None:
-            warp = self._warp(sampling)
-
-            def step(s):
-                return fns.sample_step(params, s, max_new_tokens, eos, *warp)
-        else:
-            one = fns.decode_step if lookahead else fns.baseline_step
-
-            def step(s):
-                return one(params, s, max_new_tokens, eos)
+        mode = ("sample" if sampling is not None
+                else "greedy" if lookahead else "ar")
         # inference mode only around device work: a generator that held it
-        # across a yield would leak it into the caller's code
-        with torch.inference_mode():
-            state = self._prepare(out_buf, P, seed, fill, prefix)
-        served, end = P, P + max_new_tokens
-        while True:
+        # across a yield would leak it into the caller's code; the slot is
+        # held until the stream ends or is closed
+        with self._slot() as slot:
             with torch.inference_mode():
-                for _ in range(steps_per_yield):
-                    state = step(state)
-                host = torch.cat([torch.stack([
-                    state.finished.int(), state.n_confirmed, state.kv_len]),
-                    state.out_buf]).cpu().numpy()
-            n = min(int(host[1]), end)
-            if n > served:
-                yield host[3 + served:3 + n].copy()
-                served = n
-            if host[0]:
-                break
-        if return_prefix:
-            return self._prefix_of(state, host[3:], int(host[2]), served)
+                state = self._prepare(out_buf, P, seed, fill, prefix,
+                                      slot=slot)
+                steps = self._flat_runner(slot, mode, max_new_tokens,
+                                          eos_token_id, sampling)
+            served, end = P, P + max_new_tokens
+            while True:
+                with torch.inference_mode():
+                    steps.run(steps_per_yield)
+                    host = torch.cat([torch.stack([
+                        state.finished.int(), state.n_confirmed,
+                        state.kv_len]), state.out_buf]).cpu().numpy()
+                n = min(int(host[1]), end)
+                if n > served:
+                    yield host[3 + served:3 + n].copy()
+                    served = n
+                if host[0]:
+                    break
+            if return_prefix:
+                with torch.inference_mode():
+                    return self._prefix_of(state, host[3:], int(host[2]),
+                                           served)
 
     # ------------------------------------------------------------------
     def _batch_fns(self):
@@ -552,50 +760,32 @@ class LookaheadEngine:
                                  else temperatures[i]),
                     top_p=sampling.top_p if top_ps is None else top_ps[i])
         args = [self._host_args(p, max_new_tokens, prefix) for p in prompts]
-        fns, dev = self._batch_fns(), self.device
         with torch.inference_mode():
-            lanes = [self._prepare(buf, n, s, fill, prefix)
-                     for (buf, n, fill), s in zip(args, seeds)]
-            trash = llama.make_kv_cache(self.mcfg, self.ecfg.max_seq_len, dev,
-                                        quant=self.ecfg.kv_quant,
-                                        params=self.params)
-            k_pool = _cat_slots([st.k_cache for st in lanes], trash[0])
-            v_pool = _cat_slots([st.v_cache for st in lanes], trash[1])
-            M = self.ecfg.max_seq_len
-
-            def stack(name):
-                return torch.stack([getattr(st, name) for st in lanes])
-            states = PagedLaneState(
-                table=torch.arange(B, dtype=torch.int32, device=dev)[:, None],
-                cap=torch.full((B,), M, dtype=torch.int32, device=dev),
-                trash=torch.full((B,), B * M, dtype=torch.int32, device=dev),
-                kv_len=stack("kv_len"), window=stack("window"),
-                pool=PoolState(*(torch.stack([getattr(st.pool, f)
-                                              for st in lanes])
-                                 for f in ("values", "age", "clock"))),
-                out_buf=stack("out_buf"), n_confirmed=stack("n_confirmed"),
-                init_len=stack("init_len"), step_idx=stack("step_idx"),
-                finished=stack("finished"), rng=[st.rng for st in lanes])
-            del lanes       # their caches are copied into the pool
-            max_new = torch.full((B,), max_new_tokens, dtype=torch.int32,
-                                 device=dev)
-            eos = _eos_vec(eos_token_id, dev).expand(B, -1).contiguous()
-            if sampling is None:
-                def step():
-                    fns.decode_batch(self.params, k_pool, v_pool, states,
-                                     max_new, eos)
-            else:
-                warp = self._warp(sampling, B, temperatures, top_ps)
-
-                def step():
-                    fns.sample_batch(self.params, k_pool, v_pool, states,
-                                     max_new, eos, *warp)
-            # as _run_loop, over the slowest unfinished lane
+            lanes = self._lane_slots.get(B)
+            if lanes is None:
+                lanes = self._lane_slots[B] = lane_slot(self, B)
+            # each lane prepared as its lone call, then copied to its page
+            with self._slot() as flat:
+                for b, ((buf, n, fill), s) in enumerate(zip(args, seeds)):
+                    write_lane(lanes, b, self._prepare(buf, n, s, fill,
+                                                       prefix, slot=flat))
+            lanes.max_new.fill_(min(max_new_tokens, _INT32_MAX))
+            lanes.eos.copy_(_eos_vec(eos_token_id).expand(B, -1))
+            top_p, top_k = None, 0
+            if sampling is not None:
+                temps, top_p, top_k = self._warp(sampling, B, temperatures,
+                                                 top_ps)
+                lanes.temperature.copy_(temps)
+                if top_p is not None:
+                    lanes.top_p.copy_(top_p)
+            steps = self._lane_runner(lanes, sampling is not None,
+                                      top_p is not None, top_k)
+            states = lanes.states
+            # as run_loop, over the slowest unfinished lane
             generated = 0
             while True:
-                for _ in range(max(1, -(-(max_new_tokens - generated)
-                                        // self.layout.guess_size))):
-                    step()
+                steps.run(max(1, -(-(max_new_tokens - generated)
+                                   // self.layout.guess_size)))
                 host = torch.stack([states.finished.int(),
                                     states.n_confirmed - states.init_len]
                                    ).cpu().numpy()

@@ -1,0 +1,191 @@
+"""Captured decode steps: the counterpart of the JAX engine's
+``jax.jit(..., donate_argnums=...)``.
+
+JAX compiles a generation into one device program over donated buffers,
+dispatched once. The port's decode step is a Python function that launches
+some 1,200-2,000 kernels, so run op by op the card waits on the host for
+most of a step. On the card every engine therefore captures its step once
+into a ``torch.cuda.CUDAGraph`` and replays it: one launch from the host a
+step. Capture records device addresses, so the step runs over a state
+whose tensors never move: the engines own one static state for each kind
+of step (made at first use), write each request into it in place
+(``_prepare``, admission), and the step writes every field in place.
+
+:class:`StepGraph` makes one warm step on a side stream, which does every
+piece of first-use work (the ``nvcc`` build and ``dlopen`` of a kernel,
+``cudaFuncSetAttribute``, the SM-count query, lazily made tables), and
+then captures one step. The warm step is a real step of the run that
+triggered the capture. A failed capture raises; nothing falls back to the
+eager step on the card. On the CPU, and on a ``mesh`` (gloo's collectives
+cannot be captured), engines step eagerly through :class:`EagerSteps`, the
+same step functions; so does everything inside ``with eager():``, the
+comparison that ``chip_smoke.py`` and the card tests make.
+
+The kernels' launch counts (``counts`` in ``ops/``) tick in Python, which a
+replay does not run: a capture records how many launches of each kernel the
+step made, takes them back (capture launches nothing), and every replay
+adds them again, so the counts stay the number of kernels launched.
+``stats`` counts the captures and replays.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import gc
+from typing import Callable, List
+
+import torch
+
+from ..ops import int4_micro, lookahead_attention, quant, quant_matmul
+
+# Captures made and replays run. Reset with
+# ``stats.update(dict.fromkeys(stats, 0))``.
+stats = {"captured": 0, "replays": 0}
+
+# every launch counter of the port's kernels
+_TALLIES = (lookahead_attention.counts, lookahead_attention.paged_counts,
+            quant_matmul.counts, int4_micro.counts)
+
+_eager_depth = 0
+
+
+@contextlib.contextmanager
+def eager():
+    """Inside this block engines step eagerly on the card too (no capture,
+    no replay): the eager side of a graphed-against-eager comparison."""
+    global _eager_depth
+    _eager_depth += 1
+    try:
+        yield
+    finally:
+        _eager_depth -= 1
+
+
+def _leaves(tree):
+    if isinstance(tree, (torch.Tensor, torch.Generator)):
+        yield tree
+    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        for f in dataclasses.fields(tree):
+            yield from _leaves(getattr(tree, f.name))
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+
+
+def state_tensors(tree) -> List[torch.Tensor]:
+    """Every tensor of a state tree (dataclasses, dicts, lists)."""
+    return [x for x in _leaves(tree) if isinstance(x, torch.Tensor)]
+
+
+def state_generators(tree) -> List[torch.Generator]:
+    """Every ``torch.Generator`` of a state tree."""
+    return [x for x in _leaves(tree) if isinstance(x, torch.Generator)]
+
+
+class EagerSteps:
+    """``run(n)``: ``n`` calls of the step, launched op by op."""
+
+    def __init__(self, step: Callable[[], object]):
+        self.step = step
+
+    def run(self, n: int) -> None:
+        for _ in range(n):
+            self.step()
+
+
+class StepGraph:
+    """One decode step captured over ``state``, a tree whose tensors the
+    step reads and writes in place and whose generators it draws from.
+    ``run(n)`` runs ``n`` steps: on first use one warm step and the
+    capture, then replays. ``pool`` is a graph memory pool
+    (``torch.cuda.graph_pool_handle()``) shared by an engine's graphs, which
+    never run at once and keep no output alive past a replay."""
+
+    def __init__(self, step: Callable[[], object], state, pool=None):
+        self.step = step
+        self.state = state
+        self.pool = pool
+        self.graph = None
+        self.replays = 0
+        # (tally, key, launches a replay) of each kernel the step launches
+        self.launches: list = []
+
+    def run(self, n: int) -> None:
+        if n <= 0:
+            return
+        if self.graph is None:
+            self._capture()
+            n -= 1
+        for _ in range(n):
+            self.graph.replay()
+        self.replays += n
+        stats["replays"] += n
+        for tally, key, k in self.launches:
+            tally[key] += k * n
+
+    def launches_per_replay(self) -> dict:
+        """{kernel counter key: launches a replay}."""
+        out: dict = {}
+        for _, key, k in self.launches:
+            out[key] = out.get(key, 0) + k
+        return out
+
+    def _capture(self) -> None:
+        tensors = state_tensors(self.state)
+        ptrs = [t.data_ptr() for t in tensors]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            self.step()                     # the warm step, a real one
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        for gen in state_generators(self.state):
+            graph.register_generator_state(gen)
+        before = [dict(t) for t in _TALLIES]
+        # An engine's graphs sit in reference cycles (step closures over
+        # its slots), which only the cycle collector frees; destroying a
+        # graph during a capture invalidates the capture. So collect now,
+        # and not while capturing.
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool):
+                self.step()
+        finally:
+            if collecting:
+                gc.enable()
+            captured = [dict(t) for t in _TALLIES]
+            for tally, old in zip(_TALLIES, before):
+                tally.update(old)           # the capture launched nothing
+        if [t.data_ptr() for t in state_tensors(self.state)] != ptrs:
+            raise RuntimeError(
+                "the step rebound a state tensor: a captured step must "
+                "write its state in place")
+        self.launches = [(tally, key, captured[i][key] - old[key])
+                         for i, (tally, old) in enumerate(zip(_TALLIES,
+                                                              before))
+                         for key in tally if captured[i][key] != old[key]]
+        self.graph = graph
+        stats["captured"] += 1
+
+
+def runner(cache: dict, key, step: Callable[[], object], state, graphed: bool,
+           pool=None):
+    """The step runner of ``key`` in ``cache``: a :class:`StepGraph` when
+    ``graphed`` (an engine on the card without a mesh) and not inside
+    :func:`eager`, else :class:`EagerSteps`. Graphs are cached; the step
+    closure must read only ``state`` and tensors that outlive the cache.
+    ``ops.quant.INT4_PIPELINE`` picks the int4 kernel inside the step, so
+    it is part of the key too."""
+    if not graphed or _eager_depth:
+        return EagerSteps(step)
+    key = (key, quant.INT4_PIPELINE)
+    got = cache.get(key)
+    if got is None:
+        got = cache[key] = StepGraph(step, state, pool)
+    return got

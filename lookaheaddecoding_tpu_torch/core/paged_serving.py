@@ -15,7 +15,9 @@ step through one batched decode step (core/paged_step.py),
 ``steps_per_sync`` steps between host reads, with per-request streaming.
 Verification is greedy, or SpecInfer sampling when the engine is built
 with a ``SamplingConfig``; a request may then set its own ``temperature``
-and ``top_p``.
+and ``top_p``. On the card the batched step is a replayed CUDA graph
+(``core/graphs.py``) over the lanes, pools and buffers made here, which
+admission and harvest write in place.
 
 The engine runs on ``cuda`` unless it is given ``device="cpu"``; without a
 CUDA device it raises rather than carry on on the CPU.
@@ -34,7 +36,8 @@ import torch
 from ..config import EngineConfig, LookaheadConfig, SamplingConfig
 from ..models import llama
 from ..ops.lookahead_attention import KERNEL_HEAD_DIMS
-from .engine import MAX_EOS_IDS, GenerationResult, _eos_vec
+from . import graphs
+from .engine import _INT32_MAX, MAX_EOS_IDS, GenerationResult, _eos_vec
 from .layout import build_layout
 from .paged import (BlockAllocator, OutOfPages, copy_page, make_paged_pool,
                     pages_needed)
@@ -173,6 +176,10 @@ class PagedServingEngine:
         self._temp = torch.ones(B, dtype=torch.float32, device=dev)
         self._topp = torch.ones(B, dtype=torch.float32, device=dev)
         self._topp_host = np.ones(B, np.float32)
+        # on the card the batched step is a replayed CUDA graph over the
+        # fields above (core/graphs.py), by mode, top-p and top-k
+        self._graphs: dict = {}
+        self._graph_pool = None
 
         self._queue: Deque = deque()
         self._iqueue: Deque = deque()      # interactive requests go first
@@ -348,8 +355,6 @@ class PagedServingEngine:
             out_buf[:len(prompt)] = prompt
             out_buf = torch.from_numpy(out_buf).to(dev)
             table_t = torch.from_numpy(table).to(dev)
-            rng = torch.Generator(device=dev)
-            rng.manual_seed(req.seed)
 
             lane_pool = self._lane_pool(lane)
             if prefix is not None and prefix.pool is not None:
@@ -363,13 +368,12 @@ class PagedServingEngine:
             fill = self._host_fill(prompt, prefix)
             if fill is not None:
                 apply_host_fill(lane_pool, *fill, merge=True)
-                st.pool.clock[lane] = lane_pool.clock
             self._fns.init_lane(st, lane, table_t, cap, out_buf, len(prompt),
-                                rng)
+                                req.seed)
             st.kv_len[lane] = self._fns.prefill_from(
                 self.params, (self._k_pool, self._v_pool), table_t,
                 lane * BS, out_buf, len(prompt), plen)
-            self._max_new[lane] = req.max_new_tokens
+            self._max_new[lane] = min(req.max_new_tokens, _INT32_MAX)
             self._eos[lane] = eos
             self._temp[lane] = temp
             self._topp[lane] = topp
@@ -474,22 +478,36 @@ class PagedServingEngine:
             self._admit()
             if not self._meta:
                 return bool(self._queue or self._iqueue)
-            if self.sampling is None:
-                step, warp = self._fns.decode_batch, ()
-            else:
-                # the sort runs when a live request asks for top-p
-                live_topp = self._topp_host[list(self._meta)].min()
-                step, warp = self._fns.sample_batch, (
-                    self._temp, self._topp if live_topp < 1.0 else None,
-                    self.sampling.top_k)
-            for _ in range(self.steps_per_sync):
-                step(self.params, self._k_pool, self._v_pool, self._states,
-                     self._max_new, self._eos, *warp)
+            self._runner().run(self.steps_per_sync)
             self.steps_run += self.steps_per_sync
             host = self._observe()
             out_buf = self._emit_stream(host[1], host[2])
             self._harvest(host, out_buf)
         return bool(self._meta or self._queue or self._iqueue)
+
+    def _runner(self):
+        """The batched step's runner: greedy, or sampling with the sort
+        when a live request asks for top-p."""
+        fns, params = self._fns, self.params
+        bufs = (self._k_pool, self._v_pool, self._states, self._max_new,
+                self._eos)
+        top_p_on, top_k = False, 0
+        if self.sampling is None:
+            def step():
+                fns.decode_batch(params, *bufs)
+        else:
+            top_p_on = bool(self._topp_host[list(self._meta)].min() < 1.0)
+            top_p, top_k = (self._topp if top_p_on else None,
+                            self.sampling.top_k)
+
+            def step():
+                fns.sample_batch(params, *bufs, self._temp, top_p, top_k)
+        graphed = self.device.type == "cuda"
+        if graphed and self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        return graphs.runner(self._graphs, (top_p_on, top_k), step,
+                             bufs + (self._temp, self._topp), graphed,
+                             self._graph_pool)
 
     def run(self, requests: Sequence[Request]) -> List[GenerationResult]:
         for r in requests:

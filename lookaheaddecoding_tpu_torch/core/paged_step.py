@@ -11,8 +11,9 @@ nothing: its bookkeeping is selected back, its pool update and output
 append are masked, and its accept-commit goes to its own trash page, never
 to a page another lane owns.
 
-The state and the pools are updated in place, and a step reads nothing
-back to the host.
+The state and the pools are updated in place (every field keeps its
+address, so the engines can replay the step as a CUDA graph), and a step
+reads nothing back to the host.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from ..models import llama
 from .layout import Layout
 from .paged import paged_commit, phys_slots
 from .pool import PoolState, bigram_key, pool_lookup, pool_table_rows
-from .step import make_post_forward
+from .step import keep_if_finished, make_post_forward
 
 
 @dataclasses.dataclass
@@ -96,11 +97,15 @@ def build_paged_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
 
     # ------------------------------------------------------------------
     def init_lane(states: PagedLaneState, lane: int, table, cap: int,
-                  out_buf, prompt_len: int, rng: torch.Generator):
+                  out_buf, prompt_len: int, seed: int):
         """Lane ``lane`` of ``states`` set up for a new request, in place:
         the counterpart of ``core/step.py:init_state``. ``table`` [NB] and
-        ``out_buf`` [M + GS] are device tensors; the lane's n-gram pool is
-        left as the caller prepared it."""
+        ``out_buf`` [M + GS] are device tensors; the lane's own generator
+        is reseeded with ``seed`` (never swapped: a captured step draws
+        from the generators it was captured with); the lane's n-gram pool
+        is left as the caller prepared it."""
+        rng = states.rng[lane]
+        rng.manual_seed(seed)
         if lcfg.window_init == "random_set":
             window = torch.randint(0, mcfg.vocab_size, (n_window,),
                                    generator=rng, device=device)
@@ -120,7 +125,6 @@ def build_paged_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
         states.init_len[lane] = prompt_len
         states.step_idx[lane] = 0
         states.finished[lane] = False
-        states.rng[lane] = rng
         return states
 
     # ------------------------------------------------------------------
@@ -200,13 +204,8 @@ def build_paged_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
             paged_commit(k_pool, src, dst)
             paged_commit(v_pool, src, dst)
 
-        # finished lanes keep their bookkeeping (the flat step's
-        # _keep_if_finished, as a select over the lane axis)
-        for name, new in updates.items():
-            old = getattr(states, name)
-            keep = fin.view(-1, *([1] * (old.dim() - 1)))
-            setattr(states, name, torch.where(keep, old, new))
-        return states
+        # finished lanes keep their bookkeeping, written in place
+        return keep_if_finished(states, updates)
 
     def decode_batch(params, k_pool, v_pool, states: PagedLaneState,
                      max_new, eos_id) -> PagedLaneState:

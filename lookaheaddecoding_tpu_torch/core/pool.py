@@ -114,10 +114,11 @@ def _update_lanes(values, age, clock, keys, tups, valid):
 
 def pool_update(pool: PoolState, keys: torch.Tensor, tups: torch.Tensor,
                 valid: torch.Tensor) -> PoolState:
-    """Insert K (key, n-gram) lanes in lane order, in place; invalid lanes
-    are no-ops. Returns ``pool`` with the clock advanced by K. A stacked
-    pool (values [B, R+1, G, GS], age [B, R+1, G], clock [B]) takes keys
-    [B, K], tups [B, K, GS] and valid [B, K], one batch a pool.
+    """Insert K (key, n-gram) lanes in lane order, in place, the clock
+    too; invalid lanes are no-ops. Returns ``pool`` with the clock advanced
+    by K. A stacked pool (values [B, R+1, G, GS], age [B, R+1, G], clock
+    [B]) takes keys [B, K], tups [B, K, GS] and valid [B, K], one batch a
+    pool.
 
     Lanes that share a key must see the edits of the earlier ones. JAX
     chooses a sequential chain or a parallel insert with ``lax.cond``; in
@@ -131,12 +132,12 @@ def pool_update(pool: PoolState, keys: torch.Tensor, tups: torch.Tensor,
     if pool.age.shape[-1] == 0 or keys.shape[-1] == 0:
         return pool
     if pool.values.dim() == 4:
-        pool.clock = _update_lanes(pool.values, pool.age, pool.clock, keys,
-                                   tups, valid)
+        pool.clock.copy_(_update_lanes(pool.values, pool.age, pool.clock,
+                                       keys, tups, valid))
     else:
-        pool.clock = _update_lanes(
+        pool.clock.copy_(_update_lanes(
             pool.values[None], pool.age[None], pool.clock.view(1),
-            keys[None], tups[None], valid[None])[0]
+            keys[None], tups[None], valid[None])[0])
     return pool
 
 
@@ -215,10 +216,10 @@ def host_prompt_fill(prompt_tokens, level: int, guess_set_size: int,
 
 def apply_host_fill(pool: PoolState, keys, rows, ages, clock,
                     merge: bool = False) -> PoolState:
-    """Write host-computed fill rows in one scatter, in place (lanes with
-    key -1 go to the trash row). Ages and the clock are offset by the
-    pool's clock, so logical time never runs backwards; empty slots stay 0.
-    Each fill row replaces its key's row, or with ``merge=True`` its
+    """Write host-computed fill rows in one scatter, in place, the clock
+    too (lanes with key -1 go to the trash row). Ages and the clock are
+    offset by the pool's clock, so logical time never runs backwards;
+    empty slots stay 0. Each fill row replaces its key's row, or with ``merge=True`` its
     entries are inserted into the key's existing row in fill order (a match
     refreshes its slot, else the first empty or oldest slot is taken), so a
     carried warm pool keeps every entry the fill does not displace. On
@@ -246,5 +247,5 @@ def apply_host_fill(pool: PoolState, keys, rows, ages, clock,
         new_rows, new_ages = rows, torch.where(ages > 0, ages + pool.clock, 0)
     pool.values.index_put_((keys,), new_rows)
     pool.age.index_put_((keys,), new_ages)
-    pool.clock = pool.clock + int(clock)
+    pool.clock.add_(int(clock))
     return pool

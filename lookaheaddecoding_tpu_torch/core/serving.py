@@ -20,7 +20,10 @@ the step leaves unchanged. So every lane gives the tokens of the lone
 ``generate`` (or ``generate_sample``) with the request's seed. One host
 read every ``steps_per_sync`` steps brings back finished, n_confirmed,
 init_len and step_idx of every lane; the output buffers are read only when
-a lane streams new tokens or finishes, once for both.
+a lane streams new tokens or finishes, once for both. On the card the
+batched step is a replayed CUDA graph over the lanes (``core/graphs.py``),
+which never move: admission writes a lane in place, its generator
+reseeded, never swapped.
 
 The engine runs where its ``LookaheadEngine`` runs (the card unless that
 engine was built with ``device="cpu"``).
@@ -36,10 +39,8 @@ from typing import Deque, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..models import llama
-from .engine import MAX_EOS_IDS, GenerationResult, LookaheadEngine, _eos_vec
-from .paged_step import PagedLaneState
-from .pool import PoolState, pool_init
+from .engine import (_INT32_MAX, GenerationResult, LookaheadEngine, _eos_vec,
+                     lane_slot, write_lane)
 
 
 @dataclasses.dataclass
@@ -119,7 +120,7 @@ class ContinuousBatchingEngine:
         self._iqueue: Deque = deque()          # the interactive class first
         self._results: List[GenerationResult] = []
         self._active: Dict[int, Request] = {}  # lane -> request
-        self._lanes = None                     # built on the first lane step
+        self._lanes = None                     # a LaneSlot, at first use
         self._t0: Dict[int, float] = {}        # lane -> admission time
         self._submit_t: Dict[int, float] = {}  # lane -> submit time
         self._first_tok: Dict[int, float] = {}  # lane -> first-token time
@@ -140,43 +141,15 @@ class ContinuousBatchingEngine:
             self._queue.append((request, time.perf_counter()))
 
     def _ensure_lanes(self) -> None:
-        """The lanes' shared pool and bookkeeping, every lane idle: finished,
-        on its own page, with an empty pool and a placeholder generator."""
+        """The lanes (``engine.lane_slot``: the shared pool, bookkeeping,
+        generators and the captured steps, at fixed addresses), every lane
+        idle: finished, on its own page, with an empty pool."""
         if self._lanes is not None:
             return
-        eng, B = self.engine, self.num_lanes
-        dev, M, lay = eng.device, eng.ecfg.max_seq_len, eng.layout
         with torch.inference_mode():
-            # B lanes and a trash page of M slots; on a mesh, the rank's
-            # shard of the pool
-            self._k_pool, self._v_pool = llama.make_kv_cache(
-                eng.mcfg, (B + 1) * M, dev, quant=eng.ecfg.kv_quant,
-                params=eng.params)
-            one = pool_init(eng._pool_rows(), lay.guess_set_size,
-                            lay.guess_size, dev)
-
-            def zeros(*shape):
-                return torch.zeros(shape, dtype=torch.int32, device=dev)
-            self._lanes = PagedLaneState(
-                table=torch.arange(B, dtype=torch.int32, device=dev)[:, None],
-                cap=torch.full((B,), M, dtype=torch.int32, device=dev),
-                trash=torch.full((B,), B * M, dtype=torch.int32, device=dev),
-                kv_len=zeros(B), window=zeros(B, lay.n_window),
-                pool=PoolState(values=one.values[None].repeat(B, 1, 1, 1),
-                               age=one.age[None].repeat(B, 1, 1),
-                               clock=one.clock[None].repeat(B)),
-                out_buf=zeros(B, M + lay.guess_size),
-                n_confirmed=zeros(B) + 1, init_len=zeros(B) + 1,
-                step_idx=zeros(B),
-                finished=torch.ones(B, dtype=torch.bool, device=dev),
-                rng=[torch.Generator(device=dev) for _ in range(B)])
-            self._max_new = zeros(B)
-            self._eos = zeros(B, MAX_EOS_IDS) - 1
-            # each lane's temperature and top_p (sampling engines), on the
-            # device for the step and top_p on the host for the sort's skip
-            self._temp = torch.ones(B, dtype=torch.float32, device=dev)
-            self._topp = torch.ones(B, dtype=torch.float32, device=dev)
-            self._topp_host = np.ones(B, np.float32)
+            self._lanes = lane_slot(self.engine, self.num_lanes)
+            # each lane's top_p on the host too, for the sort's skip
+            self._topp_host = np.ones(self.num_lanes, np.float32)
 
     def _warpers(self, req: Request):
         """(temperature, top_p) of a request on a sampling engine, checked
@@ -199,8 +172,7 @@ class ContinuousBatchingEngine:
         def has_work():
             return bool(self._iqueue or
                         (self._queue and not interactive_only))
-        eng, st = self.engine, self._lanes
-        M = eng.ecfg.max_seq_len
+        eng, slot = self.engine, self._lanes
         for lane in range(self.num_lanes):
             if not has_work():
                 break
@@ -220,23 +192,15 @@ class ContinuousBatchingEngine:
             except ValueError as e:
                 self._fail(req, e)
                 continue
-            state = eng._prepare(out_buf, P, req.seed, fill, req.prefix)
-            for pool, cache in ((self._k_pool, state.k_cache),
-                                (self._v_pool, state.v_cache)):
-                for name, leaf in (cache.items() if isinstance(cache, dict)
-                                   else [(None, cache)]):
-                    dst = pool if name is None else pool[name]
-                    dst[:, :, lane * M:(lane + 1) * M] = leaf
-            for name in ("kv_len", "window", "out_buf", "n_confirmed",
-                         "init_len", "step_idx", "finished"):
-                getattr(st, name)[lane] = getattr(state, name)
-            for name in ("values", "age", "clock"):
-                getattr(st.pool, name)[lane] = getattr(state.pool, name)
-            st.rng[lane] = state.rng
-            self._max_new[lane] = req.max_new_tokens
-            self._eos[lane] = eos
-            self._temp[lane] = temp
-            self._topp[lane] = topp
+            # the lone call's own prepare, copied into the lane in place
+            with eng._slot() as flat:
+                write_lane(slot, lane, eng._prepare(out_buf, P, req.seed,
+                                                    fill, req.prefix,
+                                                    slot=flat))
+            slot.max_new[lane] = min(req.max_new_tokens, _INT32_MAX)
+            slot.eos[lane] = eos
+            slot.temperature[lane] = temp
+            slot.top_p[lane] = topp
             self._topp_host[lane] = topp
             self._t0[lane] = time.perf_counter()
             self._submit_t[lane] = t_submit
@@ -249,7 +213,7 @@ class ContinuousBatchingEngine:
         """finished, n_confirmed, init_len and step_idx of every lane, in
         one device-to-host transfer; records each active lane's first-token
         time (to the scheduler's own sync granularity)."""
-        st = self._lanes
+        st = self._lanes.states
         host = torch.stack([st.finished.int(), st.n_confirmed, st.init_len,
                             st.step_idx]).cpu().numpy()
         self.host_reads += 1
@@ -261,7 +225,7 @@ class ContinuousBatchingEngine:
 
     def _out_buf(self) -> np.ndarray:
         self.host_reads += 1
-        return self._lanes.out_buf.cpu().numpy()
+        return self._lanes.states.out_buf.cpu().numpy()
 
     def _emit_stream(self, n_confirmed, init_len):
         """Newly confirmed tokens to the requests that stream, with one
@@ -408,19 +372,14 @@ class ContinuousBatchingEngine:
 
     # ------------------------------------------------------------------
     def _lane_steps(self) -> None:
-        """``steps_per_sync`` batched steps of every lane."""
-        fns, st = self.engine._batch_fns(), self._lanes
-        if self.sampling is None:
-            step, warp = fns.decode_batch, ()
-        else:
-            # the top-p sort runs when a live request asks for top-p
-            live_topp = self._topp_host[list(self._active)].min()
-            step, warp = fns.sample_batch, (
-                self._temp, self._topp if live_topp < 1.0 else None,
-                self.sampling.top_k)
-        for _ in range(self.steps_per_sync):
-            step(self.engine.params, self._k_pool, self._v_pool, st,
-                 self._max_new, self._eos, *warp)
+        """``steps_per_sync`` batched steps of every lane (replays of the
+        captured step on the card)."""
+        sampled = self.sampling is not None
+        # the top-p sort runs when a live request asks for top-p
+        top_p_on = sampled and self._topp_host[list(self._active)].min() < 1.0
+        self.engine._lane_runner(
+            self._lanes, sampled, bool(top_p_on),
+            self.sampling.top_k if sampled else 0).run(self.steps_per_sync)
         self.steps_run += self.steps_per_sync
 
     def step(self) -> bool:

@@ -5,9 +5,9 @@ One static-shape step does: guess lookup -> composite assembly -> model
 forward -> verification -> KV commit -> window slide -> pool harvest ->
 output append. Every tensor it makes has a shape fixed when the engine is
 built, and it reads nothing back to the host, so the host can queue many
-steps ahead of the device (and a later change can capture the step in a
-CUDA graph). The generation loops read ``finished`` from the device once
-per batch of steps, never on every step.
+steps ahead of the device, and the engines capture the step in a CUDA
+graph. The generation loops read ``finished`` from the device once per
+batch of steps, never on every step.
 
 A step taken after ``finished`` leaves the state as it was (the JAX
 package's ``lax.cond(state.finished, ...)``): scalars and the window are
@@ -15,8 +15,11 @@ selected with ``torch.where``, the pool update and the output append are
 masked. Only cache slots past the committed ones are rewritten (and, once
 the capacity stop has ended a run, the last S slots), which no read sees.
 
-The state is updated in place: the caches, the pool and the output buffer
-are written where they lie, so a step allocates no second copy of them.
+The state is updated in place: every field, the caches, the pool and the
+output buffer are written where they lie, so a step allocates no second
+copy of them and its tensors keep their addresses, which a captured step
+needs (``core/graphs.py``): on the card the engines replay the step as a
+CUDA graph.
 
 Exactness: window and pool content only proposes tokens; acceptance needs
 agreement with the model's own argmax (greedy) or passes SpecInfer
@@ -195,10 +198,10 @@ def make_post_forward(mcfg, lcfg: LookaheadConfig, layout: Layout, device,
             harvest_keys = torch.cat([harvest_keys, gen_keys], dim=1)
             harvest_tups = torch.cat([harvest_tups, gen_tups], dim=1)
             harvest_valid = torch.cat([harvest_valid, gen_valid], dim=1)
-        clock = state.pool.clock
+        clock = state.pool.clock.clone()
         pool = pool_update(state.pool, harvest_keys, harvest_tups,
                            harvest_valid & ~fin[:, None])
-        pool.clock = torch.where(fin, clock, pool.clock)
+        pool.clock.copy_(torch.where(fin, clock, pool.clock))
 
         # window slide (always_fwd_one): L0 <- L1[1:], Lk <- Lk+1, newest
         # level <- this step's argmax at the newest level's rows
@@ -251,37 +254,43 @@ def _as_lanes(state: DecodeState) -> SimpleNamespace:
             "kv_len", "n_confirmed", "init_len", "step_idx", "finished")})
 
 
-def _keep_if_finished(state: DecodeState, updates: dict) -> DecodeState:
-    """Apply ``updates`` to the state unless it was already finished."""
+def keep_if_finished(state, updates: dict):
+    """Write ``updates`` into the state's fields in place, except in lanes
+    that were already finished (a flat state is one lane: a 0-d
+    ``finished``). Every new value is selected before any is written, so
+    ``finished`` itself may be among them."""
     fin = state.finished
+    kept = {}
     for name, new in updates.items():
-        setattr(state, name, torch.where(fin, getattr(state, name), new))
+        old = getattr(state, name)
+        keep = fin.view(-1, *([1] * (old.dim() - 1))) if fin.dim() else fin
+        kept[name] = torch.where(keep, old, new)
+    for name, new in kept.items():
+        getattr(state, name).copy_(new)
     return state
 
 
 class StepFns(NamedTuple):
-    init_state: Callable
+    init_state: Callable      # a request's window and counters, in place
     prefill_chunk: Callable
     prefill_all: Callable     # whole-prompt prefill
     prefill_from: Callable    # suffix prefill (prefix caching)
-    decode_loop: Callable     # greedy lookahead generation to the end
     decode_step: Callable     # one greedy lookahead step
-    sample_loop: Callable     # sampling lookahead generation to the end
     sample_step: Callable     # one sampling lookahead step
-    baseline_loop: Callable   # autoregressive greedy generation
     baseline_step: Callable   # one AR step
 
 
-def _run_loop(step, state: DecodeState, max_new: int, per_step: int):
-    """Steps until ``finished``. Each batch runs as many steps as cannot
-    reach ``max_new`` (a step confirms at most ``per_step`` tokens), then
-    reads ``finished`` and ``n_confirmed`` in one host transfer, so the
-    last batch overshoots only when EOS or the capacity stop ends the run;
-    the overshooting steps change nothing."""
+def run_loop(run: Callable[[int], None], state: DecodeState, max_new: int,
+             per_step: int) -> DecodeState:
+    """Steps until ``finished``; ``run(n)`` takes n steps of ``state`` in
+    place (eagerly, or as replays of a captured step). Each batch runs as
+    many steps as cannot reach ``max_new`` (a step confirms at most
+    ``per_step`` tokens), then reads ``finished`` and ``n_confirmed`` in
+    one host transfer, so the last batch overshoots only when EOS or the
+    capacity stop ends the run; the overshooting steps change nothing."""
     generated = 0
     while True:
-        for _ in range(max(1, -(-(max_new - generated) // per_step))):
-            state = step(state)
+        run(max(1, -(-(max_new - generated) // per_step)))
         finished, n_conf, init_len = torch.stack(
             [state.finished.int(), state.n_confirmed, state.init_len]).tolist()
         if finished:
@@ -332,9 +341,13 @@ def build_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
              for mode in ("greedy", "sample")}
 
     # ------------------------------------------------------------------
-    def init_state(k_cache, v_cache, pool: PoolState, out_buf, prompt_len: int,
-                   rng: torch.Generator) -> DecodeState:
-        """Window seeded at steady-state level sizes by ``window_init``."""
+    def init_state(state: DecodeState, out_buf, prompt_len: int) -> DecodeState:
+        """A request's output buffer (``out_buf`` [M + GS], the prompt and
+        zeros), its window seeded at steady-state level sizes by
+        ``window_init`` from ``state.rng``, and its counters, written into
+        ``state`` in place; the caches and the pool are the caller's."""
+        out_buf = state.out_buf.copy_(out_buf)
+        rng = state.rng
         if lcfg.window_init == "random_set":
             window = torch.randint(0, mcfg.vocab_size, (n_window,),
                                    generator=rng, device=device)
@@ -345,15 +358,13 @@ def build_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
         else:  # copy_from: random copies of prompt tokens
             window = out_buf[torch.randint(0, prompt_len, (n_window,),
                                            generator=rng, device=device)]
-
-        def scalar(x, dtype=torch.int32):
-            return torch.tensor(x, dtype=dtype, device=device)
-
-        return DecodeState(
-            k_cache=k_cache, v_cache=v_cache, kv_len=scalar(0),
-            window=window.int().contiguous(), pool=pool, out_buf=out_buf,
-            n_confirmed=scalar(prompt_len), init_len=scalar(prompt_len),
-            step_idx=scalar(0), finished=scalar(False, torch.bool), rng=rng)
+        state.window.copy_(window)
+        state.kv_len.fill_(0)
+        state.n_confirmed.fill_(prompt_len)
+        state.init_len.fill_(prompt_len)
+        state.step_idx.fill_(0)
+        state.finished.fill_(False)
+        return state
 
     # ------------------------------------------------------------------
     def prefill_chunk(params, state: DecodeState, tokens, start: int,
@@ -368,8 +379,7 @@ def build_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
                       dict(meta, causal=True, kv_len=kv_len),
                       logits_rows=no_rows, attn_impl=impl,
                       rope_seq_len=prompt_len, mesh=mesh)
-        state.kv_len = torch.tensor(min(start + C, prompt_len - 1),
-                                    dtype=torch.int32, device=device)
+        state.kv_len.fill_(min(start + C, prompt_len - 1))
         return state
 
     def prefill_from(params, state: DecodeState, prompt_len: int,
@@ -386,7 +396,7 @@ def build_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
             start = min(start0 + c * C, max(n - C, 0))
             state = prefill_chunk(params, state, state.out_buf[start:start + C],
                                   start, prompt_len)
-        state.kv_len = torch.tensor(max(n, 0), dtype=torch.int32, device=device)
+        state.kv_len.fill_(max(n, 0))
         return state
 
     def prefill_all(params, state: DecodeState, prompt_len: int) -> DecodeState:
@@ -394,7 +404,7 @@ def build_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
         return prefill_from(params, state, prompt_len, 0)
 
     # ------------------------------------------------------------------
-    def step(params, state: DecodeState, max_new: int, eos_id, mode: str,
+    def step(params, state: DecodeState, max_new, eos_id, mode: str,
              warp: dict) -> DecodeState:
         kv_len = state.kv_len
         lst = state.out_buf.index_select(0, (state.n_confirmed - 1).long().view(1))
@@ -419,7 +429,6 @@ def build_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
         updates, winner, max_hit = posts[mode](
             lanes, logits[None], guesses[None], guess_valid[None], lst, prev,
             max_new, eos_id[None], M, **warp)
-        state.pool.clock = lanes.pool.clock[0]
         updates = {name: new[0] for name, new in updates.items()}
         winner = winner[0]
 
@@ -436,34 +445,28 @@ def build_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
                 for buf in (cache.values() if isinstance(cache, dict)
                             else (cache,)):
                     buf.index_copy_(2, dst, buf.index_select(2, src))
-        return _keep_if_finished(state, updates)
+        return keep_if_finished(state, updates)
 
-    def decode_step(params, state: DecodeState, max_new: int,
+    def decode_step(params, state: DecodeState, max_new,
                     eos_id) -> DecodeState:
+        """One greedy step of ``state``, in place. ``max_new`` is an int or
+        a 0-d int32 tensor (a captured step reads the engine's buffer, so
+        each call may set its own); ``eos_id`` [n_eos] int32, pad -1."""
         return step(params, state, max_new, eos_id, "greedy", {})
 
-    def sample_step(params, state: DecodeState, max_new: int, eos_id,
+    def sample_step(params, state: DecodeState, max_new, eos_id,
                     temperature: torch.Tensor, top_p=None,
                     top_k: int = 0) -> DecodeState:
-        """One sampling step: ``temperature`` a [1] tensor, ``top_p`` a [1]
-        tensor or None (off, no sort), ``top_k`` an int (0: off)."""
+        """One sampling step, as :func:`decode_step`: ``temperature`` a [1]
+        tensor, ``top_p`` a [1] tensor or None (off, no sort), ``top_k`` an
+        int (0: off)."""
         return step(params, state, max_new, eos_id, "sample",
                     dict(temperature=temperature, top_p=top_p, top_k=top_k))
-
-    def decode_loop(params, state: DecodeState, max_new: int, eos_id):
-        return _run_loop(lambda s: decode_step(params, s, max_new, eos_id),
-                         state, max_new, GS)
-
-    def sample_loop(params, state: DecodeState, max_new: int, eos_id,
-                    temperature, top_p=None, top_k: int = 0):
-        return _run_loop(lambda s: sample_step(params, s, max_new, eos_id,
-                                               temperature, top_p, top_k),
-                         state, max_new, GS)
 
     # ------------------------------------------------------------------
     # Autoregressive baseline: one token a step. Attention is causal mode
     # with one query row at kv_len: JAX's dense mask col <= kv_len.
-    def baseline_step(params, s: DecodeState, max_new: int,
+    def baseline_step(params, s: DecodeState, max_new,
                       eos_id) -> DecodeState:
         kv_len = s.kv_len
         lst = s.out_buf.index_select(0, (s.n_confirmed - 1).long().view(1))
@@ -478,23 +481,16 @@ def build_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
         finished = (s.finished | (nxt == eos_id).any()
                     | (n_confirmed - s.init_len >= max_new)
                     | (kv_len + 2 > M))
-        return _keep_if_finished(s, dict(
+        return keep_if_finished(s, dict(
             kv_len=kv_len + 1, n_confirmed=n_confirmed,
             step_idx=s.step_idx + 1, finished=finished))
-
-    def baseline_loop(params, state: DecodeState, max_new: int, eos_id):
-        return _run_loop(lambda s: baseline_step(params, s, max_new, eos_id),
-                         state, max_new, 1)
 
     return StepFns(
         init_state=init_state,
         prefill_chunk=prefill_chunk,
         prefill_all=prefill_all,
         prefill_from=prefill_from,
-        decode_loop=decode_loop,
         decode_step=decode_step,
-        sample_loop=sample_loop,
         sample_step=sample_step,
-        baseline_loop=baseline_loop,
         baseline_step=baseline_step,
     )

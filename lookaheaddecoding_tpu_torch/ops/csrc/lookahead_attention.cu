@@ -54,18 +54,19 @@
 // committed, 2,100 of the sparse within-composite mask), so it does
 // 4*64*32*124,980 ~= 1.02 GFLOP (~1.04 us): compute-bound at ~1.04 us a
 // call, 22 calls a decode step. The paged call of four lanes does four
-// times that work on four times the bytes. Head dims 32, 64, 80, 96, 128
-// and 256 are instantiated. At D=256 with Gemma-2B's heads (Hq=8, Hkv=1) the
+// times that work on four times the bytes. Head dims 32, 48, 64, 80, 96,
+// 112, 128 and 256 are instantiated. At D=256 with Gemma-2B's heads (Hq=8, Hkv=1) the
 // same call moves the same bytes and does the same FLOPs (Hq*D is 2048 in
 // both), but its 1,920 GQA rows are only 30 row tiles.
 // Every D is a multiple of 16, which is all either kernel assumes of it: the
 // mma kernel takes D / 16 k16 steps of Q K^T and D / 8 n8 tiles of P V, in
-// ldmatrix .x4 pairs (5 pairs at D = 80, 6 at D = 96), and its rows move in
-// 16-byte cp.async pieces (bf16 rows of D / 8 pieces, int8 rows of D / 16:
-// two at D = 32, five at D = 80); a tile row of D + 8 bf16 keeps every row
+// ldmatrix .x4 pairs (3 pairs at D = 48, 5 at D = 80, 6 at D = 96, 7 at
+// D = 112), and its rows move in 16-byte cp.async pieces (bf16 rows of
+// D / 8 pieces, int8 rows of D / 16: two at D = 32, three at D = 48, five at
+// D = 80, seven at D = 112); a tile row of D + 8 bf16 keeps every row
 // 16-byte aligned and puts the eight rows of an ldmatrix matrix on eight
-// different groups of four banks at each D (a row stride of 20, 44 or 52
-// words at D = 32, 80, 96). The FMA kernel gives each thread D / 8 output
+// different groups of four banks at each D (a row stride of 20, 28, 44, 52
+// or 60 words at D = 32, 48, 80, 96, 112). The FMA kernel gives each thread D / 8 output
 // dims. D <= 128 takes the key-group rule of D = 64 (below), so flat and
 // paged calls keep the same bits lane by lane at every D.
 //
@@ -832,9 +833,11 @@ cudaError_t launch_d(int d, const Pointers& a, int lanes, int hkv, const Geometr
                      cudaStream_t stream) {
   switch (d) {
     case 32: return launch<T, KV, 32>(a, lanes, hkv, g, stream);
+    case 48: return launch<T, KV, 48>(a, lanes, hkv, g, stream);
     case 64: return launch<T, KV, 64>(a, lanes, hkv, g, stream);
     case 80: return launch<T, KV, 80>(a, lanes, hkv, g, stream);
     case 96: return launch<T, KV, 96>(a, lanes, hkv, g, stream);
+    case 112: return launch<T, KV, 112>(a, lanes, hkv, g, stream);
     case 128: return launch<T, KV, 128>(a, lanes, hkv, g, stream);
     case 256: return launch<T, KV, 256>(a, lanes, hkv, g, stream);
     default: return cudaErrorInvalidValue;

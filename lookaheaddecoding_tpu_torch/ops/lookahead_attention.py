@@ -43,7 +43,7 @@ from ..models.llama import attention_dense
 counts = {"kernel": 0, "mma": 0, "fma": 0, "plain": 0}
 paged_counts = {"kernel": 0, "mma": 0, "fma": 0, "plain": 0}
 
-KERNEL_HEAD_DIMS = (32, 64, 80, 96, 128, 256)
+KERNEL_HEAD_DIMS = (32, 48, 64, 80, 96, 112, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 

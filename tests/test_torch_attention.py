@@ -83,7 +83,7 @@ def test_attention_dense_matches_attention_xla():
 
 
 @pytest.mark.parametrize("bad,match", [
-    (dict(q=(27, 8, 48), k=(2, 128, 48)), "head_dim"),
+    (dict(q=(27, 8, 40), k=(2, 128, 40)), "head_dim"),
     (dict(q=(27, 5, 64)), "heads"),
     (dict(k=(2, 128, 32)), "mismatch"),
     (dict(dtype=torch.float16), "dtype"),
@@ -126,7 +126,7 @@ def _kernel_inputs(paged, **bad):
 @pytest.mark.parametrize("paged", [False, True], ids=["flat", "paged"])
 @pytest.mark.parametrize("bad,message", [
     (dict(q=(8, 64)), "need q "),
-    (dict(q=(27, 8, 48), k=(2, 128, 48)), "kernel takes head_dim in (32, 64, 80, 96, 128, 256), got 48"),
+    (dict(q=(27, 8, 40), k=(2, 128, 40)), "kernel takes head_dim in (32, 48, 64, 80, 96, 112, 128, 256), got 40"),
     (dict(q=(27, 5, 64)), "head dims 64/64 or heads 5/2 mismatch"),
     (dict(dtype=torch.float16), "kernel takes float32 or bfloat16 q with k/v of the same dtype"),
     (dict(kv_dtype=torch.float64), "kernel takes float32 or bfloat16 q with k/v of the same dtype"),
@@ -263,13 +263,13 @@ def test_head_dim_256_paged_matches_jax_kernel(causal, sw, int8_kv):
 
 
 @pytest.mark.parametrize("paged", [False, True], ids=["flat", "paged"])
-@pytest.mark.parametrize("d", [32, 64, 80, 96, 128, 256])
+@pytest.mark.parametrize("d", [32, 48, 64, 80, 96, 112, 128, 256])
 def test_kernel_input_checks_take_every_kernel_head_dim(monkeypatch, paged,
                                                        d):
-    """head_dim 32, 64, 80, 96, 128 and 256 pass the kernel's input checks,
-    flat and paged, plain and int8 cache; 48 and 100 still raise with the
-    one message. (CPU tensors stand in for the card's: the current device
-    is made theirs.)"""
+    """head_dim 32, 48, 64, 80, 96, 112, 128 and 256 pass the kernel's input
+    checks, flat and paged, plain and int8 cache; 40 and 100 still raise
+    with the one message. (CPU tensors stand in for the card's: the current
+    device is made theirs.)"""
     monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
     for int8_kv in (False, True):
         bad = dict(q=(27, 8, d), k=(2, 128, d))
@@ -279,38 +279,60 @@ def test_kernel_input_checks_take_every_kernel_head_dim(monkeypatch, paged,
         if paged:
             args = (args[0].contiguous(),) + args[1:]
         la._check_kernel_inputs(*args, **kw)
-    for other in (48, 100):
+    for other in (40, 100):
         args, kw = _kernel_inputs(paged, q=(27, 8, other), k=(2, 128, other))
         with pytest.raises(ValueError) as err:
             la._check_kernel_inputs(*args, **kw)
-        assert (f"kernel takes head_dim in (32, 64, 80, 96, 128, 256), got "
-                f"{other}" in str(err.value))
+        assert (f"kernel takes head_dim in (32, 48, 64, 80, 96, 112, 128, "
+                f"256), got {other}" in str(err.value))
 
 
 # --------------------------------------------------------------------------
-# head_dim 32, 80 and 96: multiples of 16 that are not all powers of two
+# head_dim 32, 48, 80, 96 and 112: multiples of 16 that are not all powers
+# of two
 # --------------------------------------------------------------------------
 
 # (Hq, Hkv) at each head_dim: Hq * D near 2048, as chip_smoke.py times them
 SMALL_HEADS = {32: (64, 8), 80: (32, 8), 96: (32, 8)}
+# head_dim 48 and 112, with GQA factors 5 and 3
+MORE_HEADS = {48: (40, 8), 112: (24, 8)}
 
-
-@pytest.mark.parametrize("d", sorted(SMALL_HEADS))
-@pytest.mark.parametrize("m,kv_len,causal,sw,int8_kv", [
+FLAT_CASES = [
     (256, 37, False, 0, False),      # composite, the whole cache one block
     (2048, 1500, False, 0, False),   # composite, M > 1024: online softmax
     (256, 100, True, 0, False),      # causal prefill
     (256, 37, False, 0, True),       # int8 KV
     (256, 120, False, 48, False),    # sliding window, composite and causal
     (256, 120, True, 48, True),
-], ids=lambda v: str(v))
+]
+PAGED_CASES = [(False, 0, False), (True, 0, False), (False, 40, False),
+               (False, 0, True), (True, 40, True)]
+
+
+@pytest.mark.parametrize("d", sorted(SMALL_HEADS))
+@pytest.mark.parametrize("m,kv_len,causal,sw,int8_kv", FLAT_CASES,
+                         ids=lambda v: str(v))
 def test_head_dims_32_80_96_match_jax_kernel(m, kv_len, causal, sw, int8_kv,
                                             d):
     """The port's kernel path at head_dim 32, 80 and 96 (its plain version
     on the CPU) against JAX's Pallas kernel in interpret mode: composite
     at M <= 1024 and M > 1024, causal prefill, an int8 cache and a sliding
     window. Tolerance TOL."""
-    hq, hkv = SMALL_HEADS[d]
+    _flat_matches_jax(m, kv_len, causal, sw, int8_kv, d, *SMALL_HEADS[d])
+
+
+@pytest.mark.parametrize("d", sorted(MORE_HEADS))
+@pytest.mark.parametrize("m,kv_len,causal,sw,int8_kv", FLAT_CASES,
+                         ids=lambda v: str(v))
+def test_head_dims_48_112_match_jax_kernel(m, kv_len, causal, sw, int8_kv,
+                                          d):
+    """The port's kernel path at head_dim 48 and 112 (its plain version on
+    the CPU) against JAX's Pallas kernel in interpret mode, on the cases of
+    head_dim 32, 80 and 96. Tolerance TOL."""
+    _flat_matches_jax(m, kv_len, causal, sw, int8_kv, d, *MORE_HEADS[d])
+
+
+def _flat_matches_jax(m, kv_len, causal, sw, int8_kv, d, hq, hkv):
     s = 24 if causal else S_COMPOSITE
     q, k, v = inputs(d + m + kv_len + sw, s, hq, hkv, m, d=d)
     if int8_kv:
@@ -328,17 +350,28 @@ def test_head_dims_32_80_96_match_jax_kernel(m, kv_len, causal, sw, int8_kv,
 
 
 @pytest.mark.parametrize("d", sorted(SMALL_HEADS))
-@pytest.mark.parametrize("causal,sw,int8_kv", [
-    (False, 0, False), (True, 0, False), (False, 40, False), (False, 0, True),
-    (True, 40, True)])
+@pytest.mark.parametrize("causal,sw,int8_kv", PAGED_CASES)
 def test_head_dims_32_80_96_paged_match_jax_kernel(causal, sw, int8_kv, d):
     """The paged call at head_dim 32, 80 and 96: two lanes of different
     kv_len on shuffled pages of 128, against JAX's paged Pallas kernel in
     interpret mode (TOL), and each lane equal to the flat call on its
     gathered cache."""
+    _paged_matches_jax(causal, sw, int8_kv, d, *SMALL_HEADS[d])
+
+
+@pytest.mark.parametrize("d", sorted(MORE_HEADS))
+@pytest.mark.parametrize("causal,sw,int8_kv", PAGED_CASES)
+def test_head_dims_48_112_paged_match_jax_kernel(causal, sw, int8_kv, d):
+    """The paged call at head_dim 48 and 112, as at 32, 80 and 96: against
+    JAX's paged Pallas kernel in interpret mode (TOL), each lane equal to
+    the flat call on its gathered cache."""
+    _paged_matches_jax(causal, sw, int8_kv, d, *MORE_HEADS[d])
+
+
+def _paged_matches_jax(causal, sw, int8_kv, d, hq, hkv):
     from lookaheaddecoding_tpu_torch.core.paged import paged_gather
     rng = np.random.RandomState(d + sw + int8_kv)
-    (hq, hkv), lanes, page, nb = SMALL_HEADS[d], 2, 128, 3
+    lanes, page, nb = 2, 128, 3
     s = 24 if causal else S_COMPOSITE
     q = rng.randn(lanes, s, hq, d).astype(np.float32)
     n_pages = lanes * nb + 1
@@ -377,13 +410,13 @@ ENGINE_ARCH = dict(vocab_size=128, hidden_size=64, intermediate_size=128,
 
 
 @pytest.mark.parametrize("engine", ["flat", "paged"])
-@pytest.mark.parametrize("d", [32, 48, 80, 96, 100])
+@pytest.mark.parametrize("d", [32, 40, 48, 80, 96, 100, 112])
 def test_engines_take_the_kernel_head_dims_on_the_card(monkeypatch, engine,
                                                        d):
     """The engines' guard without a card (CUDA made to look available):
-    head_dim 32, 80 and 96 pass it, and the engine goes on to its first
-    device allocation, which a CPU-only torch refuses; 48 and 100 still
-    raise the head_dim ValueError (unless attention_impl="dense")."""
+    head_dim 32, 48, 80, 96 and 112 pass it, and the engine goes on to its
+    first device allocation, which a CPU-only torch refuses; 40 and 100
+    still raise the head_dim ValueError (unless attention_impl="dense")."""
     import lookaheaddecoding_tpu_torch as tlt
     cfg = tlt.LlamaConfig(**ENGINE_ARCH, head_dim_override=d)
     params = tlt.init_params(cfg, seed=0, device="cpu")

@@ -4,7 +4,7 @@ cores and in float32 on FMAs; the int8, int4 and pipelined int4 matrix
 products, in bfloat16 on the tensor cores; the int4 product's two
 micro-benchmark variants), each against its plain PyTorch version; the
 attention also at head_dim 256 with Gemma-2B's heads and at head_dim 32,
-80 and 96; continuous batching against the flat engine; the training
+48, 80, 96 and 112; continuous batching against the flat engine; the training
 step on the card against the CPU, ``load_params`` onto the card,
 ``utils.profiling.trace`` around a card ``generate``, the attention at a
 first composite row (``row0``) and two ranks decoding at tp=2 on one card
@@ -395,9 +395,9 @@ def test_paged_attention_refusals_on_the_card():
     geo = dict(level=4, window=5, guess_size=3)
     plain = la.paged_counts["plain"]
     with pytest.raises(ValueError, match="head_dim"):
-        la.paged_lookahead_attention(q[..., :48].contiguous(),
-                                     k[..., :48].contiguous(),
-                                     k[..., :48].contiguous(), lens, tables,
+        la.paged_lookahead_attention(q[..., :40].contiguous(),
+                                     k[..., :40].contiguous(),
+                                     k[..., :40].contiguous(), lens, tables,
                                      page_size=64, **geo)
     with pytest.raises(ValueError, match="whole pages"):
         la.paged_lookahead_attention(q, k, k, lens, tables, page_size=48,
@@ -628,8 +628,10 @@ def test_paged_attention_kernel_head_dim_256(dtype, tol, int8_kv):
     check_paged_head_dim(dtype, tol, int8_kv, seed=10, **GEMMA_HEADS)
 
 
-# head_dim 32, 80 and 96, each at Hq * D near 2048: (Hq, Hkv, D)
+# head_dim 32, 80 and 96, each at Hq * D near 2048: (Hq, Hkv, D); 48 and
+# 112 with GQA factors 5 and 3
 SMALL_HEADS = {32: (64, 8, 32), 80: (32, 8, 80), 96: (32, 8, 96)}
+MORE_HEADS = {48: (40, 8, 48), 112: (24, 8, 112)}
 
 
 @pytest.mark.gpu
@@ -656,6 +658,33 @@ def test_paged_attention_kernel_head_dims_32_80_96(dtype, tol, int8_kv, d):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     hq, hkv, _ = SMALL_HEADS[d]
+    check_paged_head_dim(dtype, tol, int8_kv, hq, hkv, d, seed=d + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", sorted(MORE_HEADS))
+@pytest.mark.parametrize("int8_kv", [False, True], ids=["plain", "int8_kv"])
+@pytest.mark.parametrize("dtype,tol", TOLS)
+def test_attention_kernel_head_dims_48_112(dtype, tol, int8_kv, d):
+    """head_dim 48 and 112 on GEMMA_CASES, as 32, 80 and 96: the flat call
+    against its plain version and, in bfloat16, within the float32
+    kernel's rounding limit (check_flat_head_dim)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    hq, hkv, _ = MORE_HEADS[d]
+    check_flat_head_dim(dtype, tol, int8_kv, hq, hkv, d, seed=d)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", sorted(MORE_HEADS))
+@pytest.mark.parametrize("int8_kv", [False, True], ids=["plain", "int8_kv"])
+@pytest.mark.parametrize("dtype,tol", TOLS)
+def test_paged_attention_kernel_head_dims_48_112(dtype, tol, int8_kv, d):
+    """The paged call at head_dim 48 and 112: against its plain version and
+    each lane bit-equal to the flat kernel (check_paged_head_dim)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    hq, hkv, _ = MORE_HEADS[d]
     check_paged_head_dim(dtype, tol, int8_kv, hq, hkv, d, seed=d + 1)
 
 
@@ -954,3 +983,129 @@ def test_two_ranks_tp2_decode_on_one_card():
         assert r["tokens"] == r["one"] and r["cycle"]
         assert r["launches"]["mma"] > 0
         assert r["launches"]["plain"] == r["launches"]["fma"] == 0
+
+
+def _graph_engine(dtype=torch.bfloat16, kv_quant=None, bits=None):
+    """A small random engine on the card (the attention kernel, and the
+    quantized products with ``bits``)."""
+    import lookaheaddecoding_tpu_torch as lt
+    cfg = lt.LlamaConfig(vocab_size=256, hidden_size=256,
+                         intermediate_size=512, num_hidden_layers=2,
+                         num_attention_heads=4, num_key_value_heads=2,
+                         dtype=dtype)
+    params = lt.init_params(cfg, seed=0, scale=0.5, device="cuda")
+    if bits:
+        params = lt.quantize_params(params, bits=bits)
+    return lt.LookaheadEngine(
+        cfg, params, lt.LookaheadConfig(level=4, window_size=5,
+                                        guess_set_size=4,
+                                        pool_from_prompt=True),
+        lt.EngineConfig(max_seq_len=256, prefill_chunk=16,
+                        kv_quant=kv_quant))
+
+
+def _tallies():
+    from lookaheaddecoding_tpu_torch.ops import quant_matmul as qm
+    return (la.counts, la.paged_counts, qm.counts)
+
+
+def _counted(call):
+    """call()'s result and the kernels' launches it made."""
+    for t in _tallies():
+        t.update(dict.fromkeys(t, 0))
+    out = call()
+    torch.cuda.synchronize()
+    return out, [dict(t) for t in _tallies()]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("config", ["bf16", "f32", "int8_kv", "int8_weights",
+                                    "int4_weights"])
+def test_graphed_entry_points_equal_eager(config):
+    """Every flat entry point on the card replays captured steps, and gives
+    the tokens and steps of the same call run eagerly (``graphs.eager()``)
+    on the same engine: generate, generate_baseline, generate_sample at a
+    seed (top-p on and off), generate_stream, generate_batch greedy and
+    sampling, a prefix call. Captures happen once a key, later calls only
+    replay, and the kernels' launch counts of a graphed call equal the
+    eager call's (capture counts a launch once a replay)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import lookaheaddecoding_tpu_torch as lt
+    from lookaheaddecoding_tpu_torch.core import graphs
+    eng = _graph_engine(
+        dtype=torch.float32 if config == "f32" else torch.bfloat16,
+        kv_quant="int8" if config == "int8_kv" else None,
+        bits={"int8_weights": 8, "int4_weights": 4}.get(config))
+    rng = np.random.RandomState(0)
+    p = list(rng.randint(0, 256, size=20))
+    q = list(rng.randint(0, 256, size=33))
+    top_p = lt.SamplingConfig(temperature=0.8, top_k=30, top_p=0.9)
+    no_top_p = lt.SamplingConfig(temperature=1.1)
+    pc = eng.precompute_prefix(q[:12])
+    calls = {
+        "generate": lambda: [eng.generate(p, 40)],
+        "generate_baseline": lambda: [eng.generate_baseline(p, 24)],
+        "sample_top_p": lambda: [eng.generate_sample(q, 40, top_p, seed=3)],
+        "sample": lambda: [eng.generate_sample(p, 40, no_top_p, seed=4)],
+        "stream": lambda: [np.concatenate(list(eng.generate_stream(
+            q, 40, sampling=top_p, seed=5, steps_per_yield=3)))],
+        "stream_ar": lambda: [np.concatenate(list(eng.generate_stream(
+            p, 16, lookahead=False)))],
+        "prefix": lambda: [eng.generate(q, 32, prefix=pc)],
+        "batch": lambda: eng.generate_batch([p, q, p[:9]], 32),
+        "batch_sample": lambda: eng.generate_batch(
+            [q, p], 32, sampling=top_p, seeds=[6, 7],
+            temperatures=[0.7, 1.2]),
+    }
+
+    def tokens(res):
+        return [getattr(r, "tokens", r) for r in res]
+    for name, call in calls.items():
+        with graphs.eager():
+            want, eager_counts = _counted(call)
+        call()          # the first graphed call captures
+        captured = graphs.stats["captured"]
+        got, graphed_counts = _counted(call)
+        assert graphs.stats["captured"] == captured, name   # replays only
+        for g, w in zip(tokens(got), tokens(want)):
+            np.testing.assert_array_equal(g, w, name)
+        assert [getattr(r, "steps", 0) for r in got] == \
+            [getattr(r, "steps", 0) for r in want], name
+        assert graphed_counts == eager_counts, (name, graphed_counts,
+                                                eager_counts)
+    assert graphs.stats["replays"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sample"])
+def test_graphed_serving_engines_equal_eager(sampled):
+    """PagedServingEngine and ContinuousBatchingEngine on the card replay
+    their batched step; every result equals the same run made eagerly on
+    the same engine."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import lookaheaddecoding_tpu_torch as lt
+    from lookaheaddecoding_tpu_torch.core import graphs
+    eng = _graph_engine()
+    sc = lt.SamplingConfig(temperature=0.9, top_p=0.9) if sampled else None
+    rng = np.random.RandomState(1)
+    prompts = [list(rng.randint(0, 256, size=n)) for n in (9, 30, 17, 22)]
+
+    def reqs():
+        return [lt.Request(prompt=pr, max_new_tokens=24 + 4 * i, seed=i,
+                           request_id=i,
+                           top_p=0.8 if sampled and i == 2 else None)
+                for i, pr in enumerate(prompts)]
+    paged = lt.PagedServingEngine(eng.mcfg, eng.params, eng.lcfg, eng.ecfg,
+                                  num_lanes=2, page_size=64, sampling=sc)
+    cb = lt.ContinuousBatchingEngine(eng, num_lanes=2, steps_per_sync=2,
+                                     sampling=sc)
+    for srv in (paged, cb):
+        with graphs.eager():
+            want = {r.request_id: r.tokens for r in srv.run(reqs())}
+        before = graphs.stats["replays"]
+        got = {r.request_id: r.tokens for r in srv.run(reqs())}
+        assert graphs.stats["replays"] > before
+        for rid in want:
+            np.testing.assert_array_equal(got[rid], want[rid])

@@ -1,0 +1,528 @@
+"""What capturing the decode step in a CUDA graph needs of the port, held on
+the CPU (capture and replay themselves need the card:
+``tests/test_torch_gpu.py``):
+
+- every state tensor keeps its address across a step of each kind
+  (``decode_step``, ``sample_step``, ``baseline_step``, ``decode_batch``,
+  ``sample_batch``) and across calls on one engine (``_prepare`` and
+  admission write in place);
+- a step taken after ``finished`` leaves every buffer bit-equal;
+- a step reads nothing back to the host;
+- two calls in a row on one engine equal two fresh engines' calls and the
+  JAX engine's at float32: tokens, steps and pool tables;
+- ``core/graphs.py``'s bookkeeping: launch counts a capture takes back
+  and each replay adds, and the refusal of a step that rebinds a field.
+"""
+
+import gc
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import lookaheaddecoding_tpu as jlt
+import lookaheaddecoding_tpu_torch as tlt
+from lookaheaddecoding_tpu_torch.core import graphs
+from lookaheaddecoding_tpu_torch.core.engine import _eos_vec, lane_slot
+from lookaheaddecoding_tpu_torch.ops import lookahead_attention as la
+
+ARCH = dict(vocab_size=128, hidden_size=64, intermediate_size=128,
+            num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+            max_position_embeddings=512)
+LOOK = dict(level=4, window_size=5, guess_set_size=4, pool_from_prompt=True,
+            window_init="order_copy_from")
+SC = tlt.SamplingConfig(temperature=0.9, top_k=20, top_p=0.95)
+
+
+def tree():
+    jcfg = jlt.LlamaConfig(**ARCH, dtype=jnp.float32)
+    return jcfg, jax.device_get(jlt.init_params(jcfg, jax.random.PRNGKey(0),
+                                                scale=0.5))
+
+
+def port_engine(kv_quant=None, **lkw):
+    _, params = tree()
+    tcfg = tlt.LlamaConfig(**ARCH, dtype=torch.float32)
+    return tlt.LookaheadEngine(
+        tcfg, tlt.params_from_numpy(params, tcfg, "cpu"),
+        tlt.LookaheadConfig(**dict(LOOK, **lkw)),
+        tlt.EngineConfig(max_seq_len=256, prefill_chunk=16,
+                         kv_quant=kv_quant), device="cpu")
+
+
+def jax_engine(kv_quant=None):
+    jcfg, params = tree()
+    return jlt.LookaheadEngine(
+        jcfg, params, jlt.LookaheadConfig(**LOOK),
+        jlt.EngineConfig(max_seq_len=256, prefill_chunk=16, dtype="float32",
+                         kv_quant=kv_quant))
+
+
+def prompt(seed, n):
+    return list(np.random.RandomState(seed).randint(0, 128, size=n))
+
+
+def ptrs(tree_):
+    return [t.data_ptr() for t in graphs.state_tensors(tree_)]
+
+
+def snapshot(tree_):
+    return [t.clone() for t in graphs.state_tensors(tree_)]
+
+
+def bit_equal(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def prepared(eng, p, n_new, seed=0):
+    """A flat slot prepared for ``p`` with the call's max_new and EOS."""
+    out_buf, n, fill = eng._host_args(p, n_new)
+    slot = eng._free_slot()
+    eng._prepare(out_buf, n, seed, fill, slot=slot)
+    slot.max_new.fill_(n_new)
+    slot.eos.copy_(_eos_vec(None))
+    return slot
+
+
+def flat_steps(eng, slot):
+    fns, st = eng._fns, slot.state
+    temps, top_p, top_k = eng._warp(SC)
+    return {
+        "decode_step": lambda: fns.decode_step(eng.params, st, slot.max_new,
+                                               slot.eos),
+        "sample_step": lambda: fns.sample_step(eng.params, st, slot.max_new,
+                                               slot.eos, temps, top_p, top_k),
+        "baseline_step": lambda: fns.baseline_step(eng.params, st,
+                                                   slot.max_new, slot.eos)}
+
+
+def batch_slot(eng, seeds=(3, 4)):
+    """Two lanes written as generate_batch writes them."""
+    from lookaheaddecoding_tpu_torch.core.engine import write_lane
+    lanes = lane_slot(eng, len(seeds))
+    for b, s in enumerate(seeds):
+        out_buf, n, fill = eng._host_args(prompt(b, 12 + 5 * b), 40)
+        write_lane(lanes, b, eng._prepare(out_buf, n, s, fill))
+    lanes.max_new.fill_(40)
+    return lanes
+
+
+def batch_steps(eng, lanes):
+    fns = eng._batch_fns()
+    args = (eng.params, lanes.k_pool, lanes.v_pool, lanes.states,
+            lanes.max_new, lanes.eos)
+    return {"decode_batch": lambda: fns.decode_batch(*args),
+            "sample_batch": lambda: fns.sample_batch(
+                *args, lanes.temperature, lanes.top_p, SC.top_k)}
+
+
+# --------------------------------------------------------------------------
+# fixed addresses
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+@pytest.mark.parametrize("kind", ["decode_step", "sample_step",
+                                  "baseline_step"])
+def test_flat_steps_keep_every_address(kind, kv_quant):
+    """Each flat step writes its state in place: every tensor of the slot
+    (caches or int8 {"q", "s"} trees, pool, window, counters, buffers) has
+    the same data_ptr after steps, and the steps did change the state."""
+    eng = port_engine(kv_quant)
+    with torch.inference_mode():
+        slot = prepared(eng, prompt(0, 20), 24)
+        before, old = ptrs(slot), snapshot(slot)
+        for _ in range(3):
+            flat_steps(eng, slot)[kind]()
+        assert ptrs(slot) == before
+        assert not bit_equal(snapshot(slot), old)
+
+
+@pytest.mark.parametrize("kind", ["decode_batch", "sample_batch"])
+def test_batched_steps_keep_every_address(kind):
+    """The batched paged step writes its lanes, pools and buffers in
+    place."""
+    eng = port_engine()
+    with torch.inference_mode():
+        lanes = batch_slot(eng)
+        before, old = ptrs(lanes), snapshot(lanes)
+        for _ in range(3):
+            batch_steps(eng, lanes)[kind]()
+        assert ptrs(lanes) == before
+        assert not bit_equal(snapshot(lanes), old)
+
+
+def test_calls_on_one_engine_reuse_its_static_state():
+    """A second generate, a sampling call, the AR baseline, a stream, a
+    prefix call and a batch reuse the engine's one flat slot and its lane
+    slot, at the same addresses."""
+    eng = port_engine()
+    p = prompt(0, 20)
+    eng.generate(p, 30)
+    assert len(eng._slots) == 1
+    flat = ptrs(eng._slots[0])
+    eng.generate_batch([p, p[:9]], 16)
+    lanes = ptrs(eng._lane_slots[2])
+    pc = eng.precompute_prefix(p[:12])
+    eng.generate(prompt(1, 31), 40)
+    eng.generate_sample(p, 20, SC, seed=3)
+    eng.generate_baseline(p, 20)
+    list(eng.generate_stream(p, 20, steps_per_yield=2))
+    eng.generate(p, 20, prefix=pc, return_prefix=True)
+    eng.generate_batch([p[:15], p], 24, sampling=SC, seeds=[1, 2])
+    assert len(eng._slots) == 1 and list(eng._lane_slots) == [2]
+    assert ptrs(eng._slots[0]) == flat
+    assert ptrs(eng._lane_slots[2]) == lanes
+
+
+def test_a_suspended_stream_keeps_its_slot():
+    """A call made while a stream is suspended takes a second slot, so
+    neither writes the other's state: both equal their lone calls."""
+    eng = port_engine()
+    p, q = prompt(0, 20), prompt(1, 17)
+    want_p, want_q = eng.generate(p, 40), eng.generate(q, 40)
+    stream = eng.generate_stream(p, 40)
+    first = next(stream)
+    got_q = eng.generate(q, 40)
+    assert len(eng._slots) == 2
+    rest = np.concatenate([p, first] + list(stream))
+    np.testing.assert_array_equal(rest, want_p.tokens)
+    np.testing.assert_array_equal(got_q.tokens, want_q.tokens)
+    assert not any(s.busy for s in eng._slots)
+
+
+def test_continuous_batching_lanes_keep_their_addresses():
+    """The scheduler's lanes (and their generators) stay the objects they
+    were made as across admissions, steps and harvests."""
+    eng = port_engine()
+    cb = tlt.ContinuousBatchingEngine(eng, num_lanes=2, steps_per_sync=2)
+    reqs = [tlt.Request(prompt=prompt(i, 9 + i), max_new_tokens=16,
+                        seed=i, request_id=i) for i in range(3)]
+    cb.submit(reqs[0])
+    cb.step()
+    before = ptrs(cb._lanes)
+    gens = list(cb._lanes.states.rng)
+    for r in reqs[1:]:
+        cb.submit(r)
+    while cb.step():
+        pass
+    assert ptrs(cb._lanes) == before
+    assert all(a is b for a, b in zip(cb._lanes.states.rng, gens))
+    for r in cb._results:
+        np.testing.assert_array_equal(
+            r.tokens, eng.generate(reqs[r.request_id].prompt, 16,
+                                   seed=r.request_id).tokens)
+
+
+def test_paged_serving_keeps_its_addresses():
+    """PagedServingEngine's pools, lanes, generators and buffers keep their
+    addresses across admission (a prefix, a reseeded lane generator),
+    steps and harvest."""
+    eng = port_engine()
+    srv = tlt.PagedServingEngine(
+        eng.mcfg, eng.params, eng.lcfg, eng.ecfg, num_lanes=2, page_size=32,
+        n_pages=8, device="cpu", sampling=SC)
+    bufs = (srv._k_pool, srv._v_pool, srv._states, srv._max_new, srv._eos,
+            srv._temp, srv._topp)
+    before, gens = ptrs(bufs), list(srv._states.rng)
+    px = srv.precompute_prefix(prompt(0, 40)[:12])
+    res = srv.run([tlt.Request(prompt=prompt(0, 40), max_new_tokens=24,
+                               prefix=px, seed=5, request_id=0),
+                   tlt.Request(prompt=prompt(1, 20), max_new_tokens=24,
+                               seed=6, top_p=0.8, request_id=1)])
+    srv.release_prefix(px)
+    assert ptrs(bufs) == before
+    assert all(a is b for a, b in zip(srv._states.rng, gens))
+    assert all(r.error is None for r in res)
+
+
+# --------------------------------------------------------------------------
+# a finished step is a no-op; no host read
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+@pytest.mark.parametrize("kind", ["decode_step", "sample_step",
+                                  "baseline_step"])
+def test_flat_step_after_finished_changes_nothing(kind, kv_quant):
+    """Once ``finished`` is set (here by max_new), further steps leave
+    every buffer of the slot bit-equal but the cache rows past the
+    committed ones and the pool's write-only trash row, which no read
+    sees: a replayed batch may overshoot. (The generator advances: a step
+    draws a fixed count whatever the data.)"""
+    eng = port_engine(kv_quant)
+    with torch.inference_mode():
+        slot = prepared(eng, prompt(0, 20), 6)
+        step = flat_steps(eng, slot)[kind]
+        for _ in range(40):
+            step()
+            if bool(slot.state.finished):
+                break
+        assert bool(slot.state.finished)
+        kv = int(slot.state.kv_len)
+        caches = graphs.state_tensors((slot.state.k_cache,
+                                       slot.state.v_cache))
+        pool = slot.state.pool
+        others = [t for t in graphs.state_tensors(slot)
+                  if not any(t is c for c in caches + [pool.values,
+                                                       pool.age])]
+        others += [pool.values[:-1], pool.age[:-1]]
+        committed = [c[..., :kv, :].clone() for c in caches]
+        kept = [t.clone() for t in others]
+        for _ in range(3):
+            step()
+        assert bit_equal([c[..., :kv, :] for c in caches], committed)
+        assert bit_equal(others, kept)
+
+
+@pytest.mark.parametrize("kind", ["decode_batch", "sample_batch"])
+def test_batched_step_after_finished_changes_nothing(kind):
+    """Lanes that are all finished: a batched step leaves the lanes'
+    committed KV rows, bookkeeping and pools bit-equal (rows past the
+    committed ones, the trash page and the pools' trash rows, which no
+    read sees, may be written)."""
+    eng = port_engine()
+    with torch.inference_mode():
+        lanes = batch_slot(eng)
+        lanes.states.finished.fill_(True)
+        M = eng.ecfg.max_seq_len
+        kv = lanes.states.kv_len.tolist()
+
+        def committed():
+            return [t[:, :, b * M:b * M + kv[b]] for t in graphs.state_tensors(
+                (lanes.k_pool, lanes.v_pool)) for b in range(2)]
+        live = [t.clone() for t in committed()]
+        pool = lanes.states.pool
+        rows = [t for t in graphs.state_tensors(
+            (lanes.states, lanes.max_new, lanes.eos))
+            if t is not pool.values and t is not pool.age]
+        rows += [pool.values[:, :-1], pool.age[:, :-1]]
+        rest = [t.clone() for t in rows]
+        for _ in range(3):
+            batch_steps(eng, lanes)[kind]()
+        assert bit_equal(committed(), live)
+        assert bit_equal(rows, rest)
+
+
+class _HostReads(torch.utils._python_dispatch.TorchDispatchMode):
+    """Records the ops that read a tensor's value back to the host or
+    whose output shape depends on data: a captured step may make none."""
+
+    SYNCING = ("_local_scalar_dense", "nonzero", "masked_select", "unique",
+               "item")
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.__name__.split(".")[0]
+        if name.lstrip("_") in self.SYNCING or name in self.SYNCING:
+            self.seen.append(func.__name__)
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("kind", ["decode_step", "sample_step",
+                                  "baseline_step", "decode_batch",
+                                  "sample_batch"])
+def test_steps_read_nothing_back_to_the_host(kind):
+    """No op of a step reads a value back (``item``, a data-dependent
+    shape): capture would fail on one, and a replay would not redo it."""
+    eng = port_engine(pool_key_len=2, pool_hash_size=97,
+                      always_fwd_one=False)
+    with torch.inference_mode():
+        if kind.endswith("batch"):
+            lanes = batch_slot(eng)
+            step = batch_steps(eng, lanes)[kind]
+        else:
+            step = flat_steps(eng, prepared(eng, prompt(0, 20), 24))[kind]
+        step()
+        with _HostReads() as mode:
+            step()
+    assert mode.seen == []
+
+
+# --------------------------------------------------------------------------
+# two calls in a row
+# --------------------------------------------------------------------------
+
+def pool_of(res):
+    pool = res.prefix.pool
+    return [np.asarray(x) for x in (pool.values, pool.age, pool.clock)]
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+def test_two_calls_on_one_engine_equal_fresh_engines_and_jax(kv_quant):
+    """generate twice on one engine (a long prompt, then a shorter one, so
+    a stale row of the first would show) equals each call on a fresh
+    engine and the JAX engine: tokens, steps and the final pool tables
+    (values, ages, clock; from ``return_prefix``; JAX's trash row apart),
+    and the committed KV rows equal the fresh engine's bit for bit."""
+    eng, jeng = port_engine(kv_quant), jax_engine(kv_quant)
+    calls = [(prompt(0, 60), 48), (prompt(1, 14), 40)]
+    got = [eng.generate(p, n, return_prefix=True) for p, n in calls]
+    fresh = [port_engine(kv_quant).generate(p, n, return_prefix=True)
+             for p, n in calls]
+    want = [jeng.generate(p, n, return_prefix=True) for p, n in calls]
+    for g, f, w in zip(got, fresh, want):
+        np.testing.assert_array_equal(g.tokens, f.tokens)
+        np.testing.assert_array_equal(g.tokens, w.tokens)
+        assert g.steps == f.steps == w.steps
+        for a, b, c in zip(pool_of(g), pool_of(f), pool_of(w)):
+            np.testing.assert_array_equal(a, b)
+            # the write-only trash row takes another order than JAX's
+            np.testing.assert_array_equal(a[:-1] if a.ndim else a,
+                                          c[:-1] if c.ndim else c)
+        assert g.prefix.length == f.prefix.length == w.prefix.length
+        kv = g.prefix.length
+        for a, b in zip(graphs.state_tensors((g.prefix.k_cache,
+                                              g.prefix.v_cache)),
+                        graphs.state_tensors((f.prefix.k_cache,
+                                              f.prefix.v_cache))):
+            assert torch.equal(a[..., :kv, :], b[..., :kv, :])
+
+
+def test_two_calls_of_each_kind_equal_fresh_engines():
+    """Sampling at a seed, the AR baseline and a batch, each called twice
+    on one engine after other calls, equal the same call on a fresh
+    engine: tokens and steps."""
+    eng = port_engine()
+    p, q = prompt(0, 30), prompt(2, 11)
+    calls = {
+        "sample": lambda e: [e.generate_sample(p, 40, SC, seed=7)],
+        "baseline": lambda e: [e.generate_baseline(q, 30)],
+        "batch": lambda e: e.generate_batch([q, p], 24, sampling=SC,
+                                            seeds=[1, 2]),
+    }
+    for name, call in calls.items():
+        want = call(port_engine())
+        for _ in range(2):
+            got = call(eng)
+            eng.generate(prompt(3, 25), 16)
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g.tokens, w.tokens, name)
+                assert g.steps == w.steps, name
+
+
+def test_returned_prefix_is_not_the_engine_state():
+    """A ``return_prefix`` result owns its caches and pool: a later call on
+    the engine does not write them, and the conversation's next turn
+    equals the full prefill."""
+    eng = port_engine()
+    r1 = eng.generate(prompt(0, 20), 30, return_prefix=True)
+    kept = [t.clone() for t in graphs.state_tensors(r1.prefix)]
+    eng.generate(prompt(5, 40), 40)
+    assert bit_equal(graphs.state_tensors(r1.prefix), kept)
+    turn2 = list(r1.tokens) + [5, 6]
+    np.testing.assert_array_equal(
+        eng.generate(turn2, 30, prefix=r1.prefix).tokens,
+        eng.generate(turn2, 30).tokens)
+
+
+# --------------------------------------------------------------------------
+# core/graphs.py
+# --------------------------------------------------------------------------
+
+def test_runner_is_eager_on_the_cpu_and_inside_eager():
+    cache = {}
+    r = graphs.runner(cache, "k", lambda: None, (), graphed=False)
+    assert isinstance(r, graphs.EagerSteps) and cache == {}
+    with graphs.eager():
+        r = graphs.runner(cache, "k", lambda: None, (), graphed=True)
+    assert isinstance(r, graphs.EagerSteps) and cache == {}
+
+
+def test_runner_keys_graphs_by_the_int4_kernel_switch(monkeypatch):
+    """A graph is cached by its key and by ``ops.quant.INT4_PIPELINE``,
+    which picks the int4 kernel inside a captured step."""
+    from lookaheaddecoding_tpu_torch.ops import quant
+    cache = {}
+    monkeypatch.setattr(quant, "INT4_PIPELINE", False)
+    plain = graphs.runner(cache, "k", lambda: None, (), graphed=True)
+    assert isinstance(plain, graphs.StepGraph)
+    assert graphs.runner(cache, "k", lambda: None, (), graphed=True) is plain
+    monkeypatch.setattr(quant, "INT4_PIPELINE", True)
+    piped = graphs.runner(cache, "k", lambda: None, (), graphed=True)
+    assert piped is not plain and len(cache) == 2
+
+
+class _FakeGraph:
+    """Stands in for torch.cuda.CUDAGraph: records registered generators
+    and replays by calling the captured step."""
+
+    def __init__(self):
+        self.generators, self.step = [], None
+
+    def register_generator_state(self, gen):
+        self.generators.append(gen)
+
+    def replay(self):
+        self.step()
+
+
+@pytest.fixture
+def fake_cuda(monkeypatch):
+    import contextlib
+    made = []
+
+    class Stream:
+        def wait_stream(self, other):
+            pass
+
+    def graph_cm(g, pool=None):
+        @contextlib.contextmanager
+        def cm():
+            made.append(g)
+            # no collection during a capture: destroying an unreachable
+            # graph then would invalidate it
+            assert not gc.isenabled()
+            yield
+        return cm()
+
+    monkeypatch.setattr(torch.cuda, "Stream", Stream)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: Stream())
+    monkeypatch.setattr(torch.cuda, "stream",
+                        lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
+    monkeypatch.setattr(torch.cuda, "graph", graph_cm)
+    return made
+
+
+def test_step_graph_counts_launches_once_a_replay(fake_cuda):
+    """A capture takes back the launches it counted (capture launches
+    nothing), each replay adds the step's launches, the warm step counts
+    as the real step it is, the generators of the state are registered,
+    and the cycle collector is off during the capture and on after it."""
+    state = dict(x=torch.zeros(3), rng=torch.Generator())
+    la.counts.update(dict.fromkeys(la.counts, 0))
+
+    def step():
+        state["x"].add_(1)
+        la.counts["kernel"] += 2
+        la.counts["mma"] += 2
+
+    g = graphs.StepGraph(step, state)
+    before = dict(graphs.stats)
+    g.run(1)                       # the warm step and the capture
+    assert la.counts["kernel"] == 2 and la.counts["mma"] == 2
+    assert g.launches_per_replay() == {"kernel": 2, "mma": 2}
+    assert fake_cuda[0].generators == [state["rng"]]
+    assert gc.isenabled()
+    fake_cuda[0].step = lambda: state["x"].add_(1)
+    g.run(5)
+    assert la.counts["kernel"] == 12 and la.counts["mma"] == 12
+    assert g.replays == 5
+    assert graphs.stats["captured"] == before["captured"] + 1
+    assert graphs.stats["replays"] == before["replays"] + 5
+
+
+def test_step_graph_refuses_a_step_that_rebinds_its_state(fake_cuda):
+    """A step that replaces a state tensor instead of writing it would
+    replay into a buffer nobody reads: the capture raises."""
+    state = {"x": torch.zeros(3)}
+
+    def step():
+        state["x"] = state["x"] + 1
+
+    with pytest.raises(RuntimeError, match="in place"):
+        graphs.StepGraph(step, state).run(2)
