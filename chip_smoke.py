@@ -38,7 +38,11 @@ target). It imports no JAX. Phases, each printed as it runs:
    kernel; K-outer: a row alone equal to the same row among others), then
    ``scripts/torch_int4_micro.py``'s timing loop, the path that launches
    them (the K-outer variant through its tensor-core design alone), and
-   both on the device alone;
+   both on the device alone; and the CUDA-graph IF node
+   (``ops/graph_cond.py``, the pool's ``lax.cond``): three nodes in one
+   captured graph over every pattern of their predicates, each body run
+   exactly when its plain version runs it, and ms a node taken and
+   skipped on the device alone;
 4. main path: the headline configuration, a synthetic TinyLlama-1.1B
    model at full width (random weights from a seed, with an embedding and
    head that make greedy decoding follow a token cycle), greedy lookahead
@@ -80,7 +84,8 @@ target). It imports no JAX. Phases, each printed as it runs:
    gives the cycle token probability 0.85 (from the measured top-2
    margin): a seed repeats its tokens, another seed differs, every token
    lies in the top-50 support, and a profile of ``sample_step`` alone
-   (kernels, busy and idle, no device-to-host copy); (d)
+   (kernels, busy and idle, one device-to-host copy a step: the eager
+   read of the pool chain's predicate); (d)
    ``generate_stream`` (sampling with ``steps_per_yield`` 1 and 4, greedy,
    ``lookahead=False``) equal to the one-shot calls; (e) ``generate_batch``
    of four prompts, greedy and sampling with per-lane temperatures, each
@@ -128,7 +133,15 @@ target). It imports no JAX. Phases, each printed as it runs:
    teacher-forced top-2 margin within 1e-5 of the logit scale; bf16
    reported), through B1 (FMA design in float32), no plain version; and
    one lookahead and one AR ``generate`` under ``utils.profiling.trace``,
-   whose file must name the attention kernel;
+   whose file must name the attention kernel. On the card the train step
+   replays a CUDA graph (forward, backward and Adam captured,
+   ``training/train_step.py``): the card-against-CPU steps and the
+   training above run it; then on a batch already on the card it runs
+   eagerly (``graphs.eager()``) and captured from one start, three steps
+   each, whose losses and parameters must be bit-equal (else within the
+   Adam limits, the kernels that only one way ran named), with ms a step,
+   kernels a step, device busy and idle both ways and the copies in and
+   out alone;
 12. parallel: two ranks on the one card over gloo (``parallel/launch.py``;
    NCCL takes one rank a card), each building the headline model whole
    from its seed and keeping its shard, on four meshes: ``tp2``, ``pp2``,
@@ -144,17 +157,24 @@ target). It imports no JAX. Phases, each printed as it runs:
    with gloo crossing the host, not a tensor-parallel speed (a mesh
    engine steps eagerly: gloo's collectives cannot be captured);
 13. the captured step: every engine on the card replays its decode step
-   as a CUDA graph (``core/graphs.py``), in every phase above but 12.
+   as a CUDA graph (``core/graphs.py``), in every phase above but 12, the
+   pool update's chain rounds as an IF node (``graphs.cond``, JAX's
+   ``lax.cond``) that the device takes when two valid lanes share a key.
    Here each of bf16, int8_weights, int4_weights, int8_weights_int8_kv
-   (greedy lookahead), bf16's AR baseline and sampling at T*, and
-   paged_bf16 (four requests) runs eagerly (``graphs.eager()``) and
-   graphed on the same engine: the tokens must be equal, the graphed call
-   must replay (counted alone: the kernels' launches, which a replay
-   counts as many times as its capture made them), and it prints graphs
-   captured, replays, the port's kernel launches a replay, tok/s and peak
-   device memory both ways, the step alone timed in windows (eager,
-   graphed, graphed, eager) and each way's kernels a step, device busy
-   and idle from a profile.
+   (greedy lookahead), bf16's AR baseline and sampling at T*, paged_bf16
+   (four requests) and phase 11's learned model in bf16 at (5,7,7),
+   (5,15,15) and (7,20,20) runs eagerly (``graphs.eager()``) and graphed
+   on the same engine: the tokens and steps must be equal, a greedy
+   call's pool tables (rows [0, R) and the clock) bit-equal, both ways
+   must evaluate the same branches and take the same chains, the graphed
+   call must replay (counted alone: the kernels' launches, which a replay
+   counts as many times as its capture made them), and the learned model
+   must chain. It prints graphs captured, replays, the port's kernel
+   launches a replay, the share of steps whose IF body ran, tok/s and
+   peak device memory both ways, the step alone timed in windows (eager,
+   graphed, graphed, eager) and each way's kernels a step, device busy,
+   idle and IF-body share from a profile of a state's first steps (the
+   headline's take the parallel insert: asserted) and of later steps.
 
 Each phase's seconds are printed as ``[seconds]`` lines.
 
@@ -365,18 +385,22 @@ def graph_ms(enqueue, calls=20, replays=5) -> float:
 
 
 def reset_counts():
+    from lookaheaddecoding_tpu_torch.ops import graph_cond
     from lookaheaddecoding_tpu_torch.ops import lookahead_attention as la
     from lookaheaddecoding_tpu_torch.ops import quant_matmul as qm
-    for tally in (la.counts, la.paged_counts, qm.counts):
+    for tally in (la.counts, la.paged_counts, qm.counts, graph_cond.counts):
         tally.update(dict.fromkeys(tally, 0))
 
 
 def read_counts():
-    """The attention kernels' launches by design, and the plain versions'
-    calls, since the last ``reset_counts``."""
+    """The attention kernels' launches by design, the IF node's condition
+    kernel's, and the plain versions' calls, since the last
+    ``reset_counts``."""
+    from lookaheaddecoding_tpu_torch.ops import graph_cond
     from lookaheaddecoding_tpu_torch.ops import lookahead_attention as la
     from lookaheaddecoding_tpu_torch.ops import quant_matmul as qm
     return dict(attention_mma=la.counts["mma"],
+                set_if=graph_cond.counts["set_if"],
                 paged_attention=la.paged_counts["mma"],
                 attention_fma=la.counts["fma"] + la.paged_counts["fma"],
                 plain=(la.counts["plain"] + la.paged_counts["plain"]
@@ -789,6 +813,75 @@ def load_int4_micro():
     return module
 
 
+def check_graph_cond(device):
+    """The IF node (``ops/graph_cond.py``, ``csrc/graph_cond.cu``) against
+    its plain version: a captured graph of three nodes on three predicates,
+    each body an add to its own counter, replayed over every pattern of
+    the predicates, must run each body exactly when the plain version
+    does. Then ms an IF node on the device alone (a graph of 20, taken and
+    not taken, each body one add), the plain version's ms (the predicate
+    read on the host, then the add), and the bound: the one-byte predicate
+    read and the four-byte condition written, over the memory rate. No
+    PyTorch call sets a graph's condition (PyTorch 2.11 has no conditional
+    nodes): library_ms is null."""
+    import torch
+    from lookaheaddecoding_tpu_torch.ops import graph_cond
+
+    preds = torch.zeros(3, dtype=torch.bool, device=device)
+    got = torch.zeros(3, dtype=torch.int64, device=device)
+    body_stream = graph_cond.body_stream(device)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(3):
+            graph_cond.if_node(preds[i], lambda i=i: got[i].add_(1),
+                               body_stream)
+    want = torch.zeros(3, dtype=torch.int64)
+    for pattern in range(8):
+        flags = [bool(pattern >> i & 1) for i in range(3)]
+        preds.copy_(torch.tensor(flags))
+        graph.replay()
+        for i, f in enumerate(flags):
+            graph_cond.if_node_ref(torch.tensor(f),
+                                   lambda i=i: want[i].add_(1))
+    err = float((got.cpu() - want).abs().max())
+    assert err == 0, (got, want)
+
+    flag = torch.ones((), dtype=torch.bool, device=device)
+    count = torch.zeros((), dtype=torch.int64, device=device)
+    nodes, replays = 20, 5
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(nodes):
+            graph_cond.if_node(flag, lambda: count.add_(1), body_stream)
+
+    def node_ms():
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(replays):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / (nodes * replays)
+    ms = node_ms()
+    flag.fill_(False)
+    ms_skipped = node_ms()
+    flag.fill_(True)
+    plain_ms = time_ms(lambda: graph_cond.if_node_ref(
+        flag, lambda: count.add_(1)), reps=200)
+    bound_ms = 1e3 * (1 + 4) / HBM_BYTES_S
+    log(f"  graph_cond IF node: every body ran as the plain version's "
+        f"(8 patterns of 3 predicates); {ms:.5f} ms a node taken, "
+        f"{ms_skipped:.5f} skipped (device alone, a graph of 20, the body "
+        f"one add); plain version (a host read) {plain_ms:.5f} ms; bound "
+        f"{bound_ms:.2e} ms (bytes)")
+    return dict(max_abs_err=err, ms=ms, ms_not_taken=ms_skipped,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                library_ms=None)
+
+
 def check_int4_micro(device):
     """The int4 product's two variants: held against their plain versions
     and the int4 kernel by the micro-benchmark's own checks on its four
@@ -1079,6 +1172,7 @@ def main_path(name, eng, prompt, nxt, card, matmul_kernels, n_new=N_NEW):
     and both plain versions 0). One warm-up pass of WARM_NEW tokens, then
     one timed run of ``n_new`` tokens of each path."""
     import torch
+    from lookaheaddecoding_tpu_torch.ops import graph_cond
     from lookaheaddecoding_tpu_torch.ops import lookahead_attention as la
     from lookaheaddecoding_tpu_torch.ops import quant_matmul as qm
 
@@ -1092,14 +1186,19 @@ def main_path(name, eng, prompt, nxt, card, matmul_kernels, n_new=N_NEW):
                       ("ar_baseline", eng.generate_baseline)):
         la.counts.update(dict.fromkeys(la.counts, 0))
         qm.counts.update(dict.fromkeys(qm.counts, 0))
+        graph_cond.counts.update(dict.fromkeys(graph_cond.counts, 0))
         runs[path] = gen(prompt, n_new)
         got = dict(qm.counts, attention_mma=la.counts["mma"],
+                   set_if=graph_cond.counts["set_if"],
                    attention_fma=la.counts["fma"],
                    plain=qm.counts["plain"] + la.counts["plain"])
         launches[path] = got
         assert got["attention_mma"] > 0 and got["attention_fma"] == 0, \
             (name, path, got)
         assert got["plain"] == 0, (name, path, got)
+        # the pool's chain is an IF node of every captured lookahead step
+        assert (got["set_if"] > 0) == (path == "lookahead"), (name, path,
+                                                              got)
         # bf16 on the tensor cores: the FMA matmul kernels never run
         for kernel in qm.counts:
             if kernel != "plain":
@@ -1650,8 +1749,9 @@ def sampling_path(eng, mcfg, params, prompt, nxt, card):
         f"({greedy.steps} steps), generate_baseline "
         f"{base.tokens_per_sec:.1f} tok/s (one timed run each)")
 
-    # the sample step alone under the profiler: kernels, device busy and
-    # no device-to-host copy inside the steps
+    # the sample step alone (eager) under the profiler: kernels, device
+    # busy, and one device-to-host copy a step, graphs.cond's predicate of
+    # the pool's chain (an IF node in the captured step), and no other
     out_buf, n, fill = eng._host_args(prompt, N_SAMPLE)
     warp = eng._warp(cfg)
     eos = torch.full((4,), -1, dtype=torch.int32, device=eng.device)
@@ -1672,7 +1772,8 @@ def sampling_path(eng, mcfg, params, prompt, nxt, card):
               if e.device_type == torch.autograd.DeviceType.CUDA]
     d2h = [e for e in events if "DtoH" in e.name or "Device -> P" in e.name
            or "Device -> H" in e.name]
-    assert not d2h, f"device-to-host copies inside sample_step: {d2h[:3]}"
+    assert len(d2h) == n_steps, \
+        f"device-to-host copies inside sample_step: {len(d2h)}, {d2h[:3]}"
     step_ms = 1e3 * s0.wall_time_s / s0.steps
     prof_line = "device time not measured (the profiler recorded no kernel)"
     if events:
@@ -1681,7 +1782,8 @@ def sampling_path(eng, mcfg, params, prompt, nxt, card):
                      f"{busy:.3f} ms a step, idle {1 - busy / step_ms:.3f} of "
                      f"the unprofiled {step_ms:.2f} ms wall a step (idle "
                      f"{1 - busy / prof_ms:.3f} of {prof_ms:.2f} ms under the "
-                     f"profiler); 0 device-to-host copies in {n_steps} steps")
+                     f"profiler); {len(d2h)} device-to-host copies (the "
+                     f"chain's predicate, read eagerly) in {n_steps} steps")
     log(f"  [{card}] 8c profile, sample_step alone: {prof_line}")
     by_name = {}
     for e in events:
@@ -2367,48 +2469,97 @@ def profile_learned(eng, ar_eng, prompt, card, tmpdir):
 
 
 def profile_train_step(mcfg, params, device, card):
-    """Where a train step's time goes: 10 steps on one batch already on
-    the card (no corpus sampling), timed with CUDA events, then 3 under
-    torch.profiler: device busy a step and the largest kernels."""
+    """The train step eager (``graphs.eager()``) and captured (a CUDA graph
+    replayed, the arguments copied in and the results cloned out) on one
+    batch already on the card: CHECK_STEPS steps each way from the same
+    start, whose losses and parameters must be bit-equal (the same kernels
+    in the same order) or, naming the kernels that only one way ran,
+    within check_train_step's Adam limits; then ms a step (CUDA events, 10
+    steps) and 3 steps under torch.profiler: kernels a step, device busy
+    and idle, the largest kernels; and the captured step's copies in and
+    out timed alone."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from lookaheaddecoding_tpu_torch.applications import train_synthetic
+    from lookaheaddecoding_tpu_torch.core import graphs
     from lookaheaddecoding_tpu_torch.training import (init_opt_state,
                                                       make_train_step)
+    from lookaheaddecoding_tpu_torch.training import train_step as ts
 
     sampler = train_synthetic.make_markov_sampler(
         mcfg.vocab_size, order=LEARNED_ORDER, active_vocab=LEARNED_ACTIVE)
     batch = torch.from_numpy(sampler(LEARNED_BATCH, LEARNED_SEQ,
                                      np.random.RandomState(2))).to(device)
     step = make_train_step(mcfg, LEARNED_SEQ + 1, learning_rate=LEARNED_LR)
-    opt = init_opt_state(params)
-    p = params
-    for _ in range(2):
-        p, opt, _ = step(p, opt, batch)
-    ms = time_ms(lambda: step(p, opt, batch), reps=10, warm=0, rounds=1)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            p, opt, loss = step(p, opt, batch)
-        float(loss)
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + \
-            e.time_range.elapsed_us() / 3e3
-    busy = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
-    log(f"  [{card}] train step on a batch already on the card: "
-        f"{ms:.2f} ms (CUDA events, 10 steps); {len(kernels) / 3:.0f} "
-        f"kernels a step, device busy {busy:.2f} ms a step; largest: "
-        + "; ".join(f"{v:.2f} ms {k[:60]}" for k, v in top))
+    ends, names = {}, {}
+    for which in ("eager", "captured"):
+        with _mode("eager" if which == "eager" else "graphed"):
+            p, opt, losses = params, init_opt_state(params), []
+            for _ in range(CHECK_STEPS):
+                p, opt, loss = step(p, opt, batch)
+                losses.append(loss)
+            ends[which] = (p, torch.stack(losses))
+            ms = time_ms(lambda: step(p, opt, batch), reps=10, warm=0,
+                         rounds=1)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    step(p, opt, batch)
+                torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        by_name = {}
+        for e in kernels:
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 3e3
+        names[which] = set(by_name)
+        busy = sum(by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+        extra = ""
+        if which == "captured":
+            _, static = step.graphs[next(iter(step.graphs))]
+
+            def copies():
+                ts._copy_into(static["params"], p)
+                ts._copy_into(static["opt"], opt)
+                static["batch"].copy_(batch)
+                ts._clone(static["params"])
+                ts._clone(static["opt"])
+            extra = (f"; of which the copies in and out alone "
+                     f"{time_ms(copies, reps=10, warm=2, rounds=1):.2f} ms; "
+                     f"graph keys {len(step.graphs)}")
+        log(f"  [{card}] train step {which} on a batch already on the "
+            f"card: {ms:.2f} ms a step (CUDA events, 10 steps); "
+            f"{len(kernels) / 3:.0f} kernels a step, device busy "
+            f"{busy:.2f} ms a step, idle {1 - busy / ms:.3f}{extra}; "
+            f"largest: " + "; ".join(f"{v:.2f} ms {k[:60]}"
+                                     for k, v in top))
+    (pe, le), (pc, lc) = ends["eager"], ends["captured"]
+    diff = torch.cat([(a.float() - b.float()).abs().flatten()
+                      for a, b in zip(graphs.state_tensors(pc),
+                                      graphs.state_tensors(pe))])
+    worst = float(diff.max())
+    same = torch.equal(le, lc) and worst == 0.0
+    log(f"  [{card}] train step captured vs eager after {CHECK_STEPS} "
+        f"steps from one start: losses {le.tolist()} / {lc.tolist()}, "
+        f"worst |captured - eager| of the parameters {worst:.3g}: "
+        + ("bit-equal" if same else
+           f"not bit-equal; kernels only eager "
+           f"{sorted(names['eager'] - names['captured'])[:4]}, only "
+           f"captured {sorted(names['captured'] - names['eager'])[:4]}"))
+    if not same:
+        q999 = float(np.quantile(diff.cpu().numpy(), 0.999))
+        loss_rel = float(((le - lc).abs() / le.abs()).max())
+        assert loss_rel <= CHECK_LOSS_RTOL, loss_rel
+        assert worst <= 2 * LEARNED_LR * CHECK_STEPS, worst
+        assert q999 <= LEARNED_LR * 1e-3 * CHECK_STEPS, q999
 
 
 def learned_model(device, card):
     """Phase 11: the train step card against CPU, training the learned
     model, its checkpoint, serving it in bf16 and float32, and a profile.
-    Returns the B1 launches by dtype and candidate."""
+    Returns the B1 launches by dtype and candidate, and the bf16 model
+    (config, params) for phase 13."""
     import tempfile
     import torch
 
@@ -2426,9 +2577,9 @@ def learned_model(device, card):
             if name == "learned_bf16":
                 eng = build_learned_engine(cfg, params, LEARNED_CANDIDATES[0])
                 profile_learned(eng, ar_eng, prompt, card, tmpdir)
-    del params32, params16
+    del params32
     torch.cuda.empty_cache()
-    return launches
+    return launches, (cfg16, params16)
 
 
 # ---------------------------------------------------------------------------
@@ -2586,6 +2737,10 @@ def parallel_phase(card, tokens, step_s, meshes=PAR_MESHES, ranks=PAR_RANKS,
 
 CAPTURE_STEPS = 24    # decode steps of a timed window of the step alone
 CAPTURE_PROFILED = 6  # of a profiled one
+# steps profiled first in a fresh state: fewer than the headline's N-2 = 5
+# steps whose window lanes are not yet harvested, so they take the parallel
+# insert unless the prompt's own n-grams share a key
+CAPTURE_FIRST = 3
 CAPTURE_BUDGET = 100_000   # max_new of those windows: no step ends them
 
 
@@ -2628,63 +2783,101 @@ def _mode(which):
     return graphs.eager() if which == "eager" else contextlib.nullcontext()
 
 
-def step_windows(make_run, n_timed, n_prof, done=lambda: None):
+def step_windows(make_run, n_timed, n_prof, done=lambda: None, n_first=0):
     """The decode step alone, eager and graphed in turns (eager, graphed,
-    graphed, eager, then one profiled window each): ``make_run()`` gives a
+    graphed, eager, then one profiled pass each): ``make_run()`` gives a
     fresh live state's ``run(n)``, whose first use captures when graphed;
-    ``done()`` follows each window. Returns {"eager"|"graphed": (ms a step
-    of the two timed windows, profile_steps' numbers)}."""
+    ``done()`` follows each window. A profiled pass profiles the first
+    ``n_first`` steps of its state (if any), runs 2, and profiles
+    ``n_prof``. Returns {"eager"|"graphed": (ms a step of the two timed
+    windows, [(profile_steps' numbers, (IF bodies run, branches
+    evaluated)) of each profiled window])}."""
+    from lookaheaddecoding_tpu_torch.core import graphs
+
+    def profiled(run, n):
+        graphs.reset_stats()
+        prof = profile_steps(run, n)
+        got = graphs.read_stats()
+        return prof, (got["taken"], got["branches"])
+
     walls, prof = {"eager": [], "graphed": []}, {}
     for which in ("eager", "graphed", "graphed", "eager", "eager",
                   "graphed"):
         with _mode(which):
             run = make_run()
-            run(2)
             if len(walls[which]) < 2:
+                run(2)
                 walls[which].append(timed_steps(run, n_timed))
             else:
-                prof[which] = profile_steps(run, n_prof)
+                prof[which] = [profiled(run, n_first)] if n_first else []
+                run(2)
+                prof[which].append(profiled(run, n_prof))
         done()
     return {which: (walls[which], prof[which]) for which in walls}
+
+
+def share(taken, branches):
+    """'t of b (share)' of IF bodies run over branches evaluated."""
+    if not branches:
+        return "no branch (no pool)"
+    return f"{taken} of {branches} ({taken / branches:.3f})"
 
 
 def capture_line(name, card, windows, per_replay, tok_s, peak, stats):
     """The phase's report of one configuration."""
     parts = []
     for mode in ("eager", "graphed"):
-        walls, prof = windows[mode]
+        walls, profs = windows[mode]
         wall = min(walls)
         line = (f"{mode} {walls[0]:.3f}/{walls[1]:.3f} ms a step, "
                 f"{tok_s[mode]:.1f} tok/s, peak {peak[mode]:.0f} MiB")
-        if prof is None:
-            line += ", device time not measured (no kernel recorded)"
-        else:
+        for i, (prof, branch) in enumerate(profs):
+            which = ("the first steps of a state" if i < len(profs) - 1
+                     else "later steps")
+            if prof is None:
+                line += (f"; {which}: device time not measured (no kernel "
+                         f"recorded)")
+                continue
             kernels, busy, pwall = prof
-            line += (f", {kernels:.0f} kernels a step, device busy "
+            line += (f"; {which}: {kernels:.0f} kernels a step, device busy "
                      f"{busy:.3f} ms a step, idle {1 - busy / wall:.3f} "
-                     f"(profiled wall {pwall:.3f} ms a step)")
+                     f"(profiled wall {pwall:.3f} ms a step), the chain's "
+                     f"IF body in {share(*branch)} steps")
         parts.append(line)
     ratio = min(windows["eager"][0]) / min(windows["graphed"][0])
     log(f"  [{card}] {name}: tokens == eager; graphs captured "
         f"{stats['captured']}, replays {stats['replays']}, launches of the "
-        f"port's kernels a replay {per_replay}; " + "; ".join(parts)
+        f"port's kernels a replay {per_replay}; the pool's chain (an IF "
+        f"node graphed) ran in {share(stats['taken'], stats['branches'])} "
+        f"steps of the call, as eagerly; " + " | ".join(parts)
         + f"; eager / graphed wall a step {ratio:.2f}x")
+    return windows
+
+
+def same_branches(name, branch):
+    """The eager and the graphed call evaluated the same branches and took
+    the same chains (each step's predicate is the same)."""
+    e, g = branch["eager"], branch["graphed"]
+    assert (e["branches"], e["taken"]) == (g["branches"], g["taken"]), \
+        (name, e, g)
 
 
 def captured_flat(name, eng, prompt, mode, card, n_new, sampling=None):
     """One flat configuration's captured step against its eager step on the
     same engine: the generate call of ``mode`` ("greedy", "ar" or
-    "sample") eager and graphed (tokens and steps equal, tok/s, peak
-    memory; the graphed call counted alone: replays > 0 and the kernels'
-    launches), then the step alone in windows and under the profiler."""
+    "sample") eager and graphed (tokens and steps equal, greedy's pool
+    tables' rows [0, R) and clock bit-equal, the same branches evaluated
+    and chains taken, tok/s, peak memory; the graphed call counted alone:
+    replays > 0 and the kernels' launches), then the step alone in windows
+    and under the profiler. Returns the graphed call's branch counts."""
     import torch
     from lookaheaddecoding_tpu_torch.core import graphs
 
-    call = {"greedy": lambda: eng.generate(prompt, n_new),
+    call = {"greedy": lambda: eng.generate(prompt, n_new, return_prefix=True),
             "ar": lambda: eng.generate_baseline(prompt, n_new),
             "sample": lambda: eng.generate_sample(prompt, n_new, sampling,
                                                   seed=0)}[mode]
-    runs, peak, tok_s = {}, {}, {}
+    runs, peak, tok_s, branch = {}, {}, {}, {}
     for which in ("eager", "graphed"):
         with _mode(which):
             call()                                   # warm (captures)
@@ -2692,18 +2885,28 @@ def captured_flat(name, eng, prompt, mode, card, n_new, sampling=None):
             torch.cuda.reset_peak_memory_stats()
             if which == "graphed":
                 reset_counts()
-                graphs.stats.update(dict.fromkeys(graphs.stats, 0))
+            graphs.reset_stats()
             runs[which] = call()
             torch.cuda.synchronize()
+            branch[which] = graphs.read_stats()
         peak[which] = torch.cuda.max_memory_allocated() / 2**20
         tok_s[which] = runs[which].tokens_per_sec
-    got, stats = read_counts(), dict(graphs.stats)
+    got, stats = read_counts(), branch["graphed"]
     assert np.array_equal(runs["graphed"].tokens, runs["eager"].tokens), \
         f"{name}: the graphed step's tokens differ from the eager step's"
     assert runs["graphed"].steps == runs["eager"].steps, name
+    if mode == "greedy":
+        pools = [runs[w].prefix.pool for w in ("eager", "graphed")]
+        for field in ("values", "age"):
+            a, b = (getattr(pool, field)[:-1] for pool in pools)
+            assert torch.equal(a, b), f"{name}: pool {field} rows differ"
+        assert torch.equal(pools[0].clock, pools[1].clock), name
+    same_branches(name, branch)
     assert stats["replays"] > 0 and got["attention_mma"] > 0, (name, stats,
                                                                got)
     assert got["plain"] == 0 and got["attention_fma"] == 0, (name, got)
+    # one condition kernel a replay's IF node, one IF node a branch
+    assert got["set_if"] == stats["branches"], (name, got, stats)
     with torch.inference_mode():     # the graph that call replayed
         per_replay = eng._flat_runner(eng._free_slot(), mode, n_new, None,
                                       sampling).launches_per_replay()
@@ -2720,8 +2923,10 @@ def captured_flat(name, eng, prompt, mode, card, n_new, sampling=None):
             with torch.inference_mode():
                 steps.run(k)
         return run
-    windows = step_windows(make_run, CAPTURE_STEPS, CAPTURE_PROFILED)
+    windows = step_windows(make_run, CAPTURE_STEPS, CAPTURE_PROFILED,
+                           n_first=CAPTURE_FIRST)
     capture_line(name, card, windows, per_replay, tok_s, peak, stats)
+    return (stats["taken"], stats["branches"]), windows["graphed"][1]
 
 
 def captured_paged(name, srv, nxt, card):
@@ -2736,26 +2941,29 @@ def captured_paged(name, srv, nxt, card):
         return [lt.Request(prompt=make_prompt(nxt, start=30 + i, n=64),
                            max_new_tokens=PAGED_NEW, request_id=i)
                 for i in range(LANES)]
-    res, peak, tok_s = {}, {}, {}
+    res, peak, tok_s, branch = {}, {}, {}, {}
     for which in ("eager", "graphed"):
         with _mode(which):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             if which == "graphed":
                 reset_counts()
-                graphs.stats.update(dict.fromkeys(graphs.stats, 0))
+            graphs.reset_stats()
             t0 = time.perf_counter()
             out = srv.run(reqs())
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+            branch[which] = graphs.read_stats()
         res[which] = {r.request_id: r.tokens for r in out}
         peak[which] = torch.cuda.max_memory_allocated() / 2**20
         tok_s[which] = sum(len(t) - 64 for t in res[which].values()) / wall
-    got, stats = read_counts(), dict(graphs.stats)
+    got, stats = read_counts(), branch["graphed"]
     for rid, toks in res["eager"].items():
         assert np.array_equal(res["graphed"][rid], toks), \
             f"{name}: request {rid}'s graphed tokens differ from eager"
+    same_branches(name, branch)
     assert stats["replays"] > 0 and got["paged_attention"] > 0, (stats, got)
+    assert got["set_if"] == stats["branches"] > 0, (name, got, stats)
     assert srv.pages_free == N_PAGES, srv.memory_stats()
     per_replay = srv._runner().launches_per_replay()
 
@@ -2779,27 +2987,63 @@ def captured_paged(name, srv, nxt, card):
     windows = step_windows(make_run, 8, 4, drain)
     assert srv.pages_free == N_PAGES, srv.memory_stats()
     capture_line(name, card, windows, per_replay, tok_s, peak, stats)
+    return (stats["taken"], stats["branches"]), windows["graphed"][1]
 
 
-def captured_phase(configs, prompt, paged_engine, nxt, card, t_star):
+def captured_phase(configs, prompt, paged_engine, nxt, card, t_star,
+                   learned):
     """Phase 13 over bf16, int8_weights, int4_weights,
     int8_weights_int8_kv (greedy lookahead), bf16's AR baseline and
-    sampling at T*, and paged_bf16."""
+    sampling at T*, paged_bf16, and phase 11's learned model in bf16 at
+    each autotune candidate: 16 active tokens over K = W + GS harvest
+    lanes, so its steps chain. Each configuration's IF-body share is
+    printed; the learned model must chain, and the headline's first steps
+    (no window lane harvested yet) must take the parallel insert."""
     import lookaheaddecoding_tpu_torch as lt
+    from lookaheaddecoding_tpu_torch.applications import train_synthetic
     from lookaheaddecoding_tpu_torch.core import graphs
 
-    log(f"  [{card}] phases 2-12 captured {graphs.stats['captured']} graphs "
-        f"and replayed them {graphs.stats['replays']} times")
+    got = graphs.read_stats()
+    log(f"  [{card}] phases 2-12 captured {got['captured']} graphs and "
+        f"replayed them {got['replays']} times")
+    shares = {}
     for name in ("bf16", "int8_weights", "int4_weights",
                  "int8_weights_int8_kv"):
-        captured_flat(name, configs[name][0], prompt, "greedy", card,
-                      N_NEW if name == "bf16" else N_NEW_QUANT)
+        shares[name] = captured_flat(
+            name, configs[name][0], prompt, "greedy", card,
+            N_NEW if name == "bf16" else N_NEW_QUANT)
     bf16 = configs["bf16"][0]
     captured_flat("bf16 AR baseline", bf16, prompt, "ar", card, N_NEW_QUANT)
-    captured_flat(f"bf16 sampling at T*={t_star:.4f}", bf16, prompt,
-                  "sample", card, N_SAMPLE,
-                  lt.SamplingConfig(temperature=t_star, top_k=TOP_K))
-    captured_paged("paged_bf16", paged_engine, nxt, card)
+    shares["sampling"] = captured_flat(
+        f"bf16 sampling at T*={t_star:.4f}", bf16, prompt, "sample", card,
+        N_SAMPLE, lt.SamplingConfig(temperature=t_star, top_k=TOP_K))
+    shares["paged_bf16"] = captured_paged("paged_bf16", paged_engine, nxt,
+                                          card)
+    cfg, params = learned
+    sampler = train_synthetic.make_markov_sampler(
+        cfg.vocab_size, order=LEARNED_ORDER, active_vocab=LEARNED_ACTIVE)
+    learned_prompt = sampler(1, LEARNED_PROMPT,
+                             np.random.RandomState(7))[0].tolist()
+    for cand in LEARNED_CANDIDATES:
+        name = f"learned_bf16 L{cand[0]}/W{cand[1]}/G{cand[2]}"
+        shares[name] = captured_flat(
+            name, build_learned_engine(cfg, params, cand), learned_prompt,
+            "greedy", card, LEARNED_NEW)
+    for name, ((taken, branches), profs) in shares.items():
+        if name.startswith("learned"):
+            assert taken > 0, f"{name}: the learned model never chained"
+    # the headline's kernels a replay by branch: its first steps take the
+    # parallel insert, its later ones mostly the chain
+    (first, (t1, _)), (later, (t2, b2)) = shares["bf16"][1]
+    assert t1 == 0, ("the headline's first steps chained", t1)
+    if first is not None and later is not None:
+        log(f"  [{card}] bf16 lookahead, graphed: {first[0]:.0f} kernels a "
+            f"replay on steps that took the parallel insert, "
+            f"{later[0]:.0f} on later steps (the chain in {share(t2, b2)})"
+            f"; device busy {first[1]:.3f} / {later[1]:.3f} ms a step")
+    log(f"  [{card}] the pool's chain ran in (IF bodies of steps, whole "
+        f"calls): " + "; ".join(f"{k} {share(*v[0])}"
+                                for k, v in shares.items()))
 
 
 def main() -> int:
@@ -2879,6 +3123,9 @@ def main() -> int:
         f"int4 kernel, then the micro-benchmark ({card}; us a call, "
         f"bfloat16, weight cold in L2)")
     micro = check_int4_micro(device)
+    log(f"[kernels] the CUDA-graph IF node (the pool's lax.cond) vs plain "
+        f"version ({card})")
+    gcond = check_graph_cond(device)
     lap("kernels")
 
     log(f"[main path] ({card}); one timed run a path after a warm-up pass")
@@ -2990,7 +3237,7 @@ def main() -> int:
         f"{LEARNED_BUDGET_S:.0f} s); served in bf16 and float32 at "
         f"M={MAX_SEQ}, a {LEARNED_PROMPT}-token prompt, {LEARNED_NEW} new "
         f"tokens")
-    learned = learned_model(device, card)
+    learned, learned16 = learned_model(device, card)
     lap("learned model")
 
     log(f"[parallel] ({card}); {PAR_RANKS} ranks on the one card over gloo "
@@ -3003,13 +3250,14 @@ def main() -> int:
     lap("parallel")
 
     log(f"[captured step] ({card}); each decode step replayed as a CUDA "
-        f"graph against the same step run eagerly (graphs.eager()) on the "
-        f"same engine: bf16, int8_weights, int4_weights, "
-        f"int8_weights_int8_kv, bf16's AR baseline and sampling at T*, "
-        f"paged_bf16; ms a step of the step alone in windows of "
+        f"graph, the pool's chain an IF node, against the same step run "
+        f"eagerly (graphs.eager()) on the same engine: bf16, int8_weights, "
+        f"int4_weights, int8_weights_int8_kv, bf16's AR baseline and "
+        f"sampling at T*, paged_bf16, the learned model in bf16 at "
+        f"{LEARNED_CANDIDATES}; ms a step of the step alone in windows of "
         f"{CAPTURE_STEPS} steps (8 paged), eager, graphed, graphed, eager")
     captured_phase(configs, prompt, paged_stats["paged_bf16"]["engine"], nxt,
-                   card, samp_info["t_star"])
+                   card, samp_info["t_star"], learned16)
     lap("captured step")
 
     # phase 8's paths that step through the paged kernel (generate_batch
@@ -3124,6 +3372,14 @@ def main() -> int:
                  f"lanes",
                  launches=cov_paged[f"bf16_head_dim_{d}"]["paged_attention"],
                  **patt_small[d][False], int8_kv=patt_small[d][True]))],
+        dict(name="graph_cond_if_node", route="cuda",
+             source=CSRC + "graph_cond.cu",
+             replaces="lookaheaddecoding_tpu/core/pool.py:144 (lax.cond; "
+             "not a pl.pallas_call)",
+             main_path="the pool update's chain, an IF node of every "
+             "captured lookahead step (phase 4; phase 13 adds the sampling, "
+             "paged and learned-model steps)",
+             **on_main_path("set_if"), **gcond),
         dict(name="int4_matmul_shift", route="cuda",
              source=CSRC + "int4_micro.cu", replaces="scripts/int4_micro.py:53",
              main_path="scripts/torch_int4_micro.py (micro-benchmark only)",

@@ -26,6 +26,13 @@ replay does not run: a capture records how many launches of each kernel the
 step made, takes them back (capture launches nothing), and every replay
 adds them again, so the counts stay the number of kernels launched.
 ``stats`` counts the captures and replays.
+
+:func:`cond` is the counterpart of ``lax.cond``: inside a capture it records
+its body as a CUDA-graph IF node (``ops/graph_cond.py``), which the device
+runs or skips on each replay by a predicate it computed itself; eagerly it
+reads the predicate on the host. ``stats`` counts the branches evaluated
+and the bodies run (a replay's on the device: :func:`read_stats` folds
+them in).
 """
 
 from __future__ import annotations
@@ -33,21 +40,31 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
-from typing import Callable, List
+import weakref
+from typing import Callable, List, Tuple
 
 import torch
 
-from ..ops import int4_micro, lookahead_attention, quant, quant_matmul
+from ..ops import (graph_cond, int4_micro, lookahead_attention, quant,
+                   quant_matmul)
 
-# Captures made and replays run. Reset with
-# ``stats.update(dict.fromkeys(stats, 0))``.
-stats = {"captured": 0, "replays": 0}
+# Captures made, replays run, cond branches evaluated (eagerly, or by a
+# replay's IF nodes) and their bodies run. Read with read_stats() and reset
+# with reset_stats(), which fold in the bodies that replays ran.
+stats = {"captured": 0, "replays": 0, "branches": 0, "taken": 0}
 
 # every launch counter of the port's kernels
 _TALLIES = (lookahead_attention.counts, lookahead_attention.paged_counts,
-            quant_matmul.counts, int4_micro.counts)
+            quant_matmul.counts, int4_micro.counts, graph_cond.counts)
 
 _eager_depth = 0
+
+# (StepGraph, capturing) while a StepGraph runs its warm step (False) or
+# captures (True); None otherwise
+_active = None
+
+# StepGraphs whose captured step holds IF nodes, for read_stats()
+_with_conds: "weakref.WeakSet" = weakref.WeakSet()
 
 
 @contextlib.contextmanager
@@ -60,6 +77,73 @@ def eager():
         yield
     finally:
         _eager_depth -= 1
+
+
+def cond(pred: torch.Tensor, body: Callable[[], object]) -> None:
+    """``lax.cond(pred, body, no-op)``: run ``body`` when the one-element
+    boolean tensor ``pred`` is true. ``body`` takes no arguments, writes
+    its results in place into tensors made before the call, and allocates
+    no device memory itself.
+
+    - Inside a :class:`StepGraph` capture the body is recorded as an IF
+      node (``ops/graph_cond.py``): each replay computes ``pred`` on the
+      device and runs or skips the body there, and a body that runs adds
+      one to its graph's device counter (``StepGraph.taken``). Where the
+      node cannot be made the capture raises; nothing runs the body
+      unconditionally instead. A body must launch none of the port's
+      counted kernels (a replay could not tell whether it ran them): the
+      capture raises if one does.
+    - The warm step before a capture runs every body once, whatever
+      ``pred`` says, so that no body is captured before its first-use work
+      is done. A body must therefore change nothing that is read when
+      ``pred`` is false; that run is counted in neither ``stats`` entry.
+    - Anywhere else (the CPU, a mesh, inside :func:`eager`) it reads
+      ``pred`` on the host, a sync, and runs the body if it is true."""
+    if _active is None:
+        stats["branches"] += 1
+        if bool(pred):
+            stats["taken"] += 1
+            body()
+        return
+    owner, capturing = _active
+    if not capturing:                   # the warm step
+        body()
+        return
+
+    def counted():
+        before = [dict(t) for t in _TALLIES]
+        body()
+        owner.taken.add_(1)
+        if [dict(t) for t in _TALLIES] != before:
+            raise RuntimeError(
+                "a graphs.cond body launched one of the port's counted "
+                "kernels, whose launches a replay could not count")
+    graph_cond.if_node(pred.reshape(()).to(torch.bool), counted,
+                       owner.body_stream)
+    owner.conds += 1
+    _with_conds.add(owner)
+
+
+def read_stats() -> dict:
+    """``stats`` after adding the IF bodies that replays ran since the last
+    read, from each live graph's device counter (a sync)."""
+    for g in list(_with_conds):
+        n = int(g.taken)
+        stats["taken"] += n - g.taken_read
+        g.taken_read = n
+    return dict(stats)
+
+
+def reset_stats() -> None:
+    """Set every ``stats`` entry to 0 (after :func:`read_stats`, so bodies
+    run before the reset are not counted after it)."""
+    read_stats()
+    stats.update(dict.fromkeys(stats, 0))
+
+
+def eager_depth() -> int:
+    """How many :func:`eager` blocks are open (0: engines capture)."""
+    return _eager_depth
 
 
 def _leaves(tree):
@@ -113,6 +197,10 @@ class StepGraph:
         self.replays = 0
         # (tally, key, launches a replay) of each kernel the step launches
         self.launches: list = []
+        self.conds = 0           # IF nodes (graphs.cond) in the capture
+        self.body_stream = None
+        self.taken = None        # device counter: IF bodies replays ran
+        self.taken_read = 0      # what read_stats() has counted of it
 
     def run(self, n: int) -> None:
         if n <= 0:
@@ -124,8 +212,15 @@ class StepGraph:
             self.graph.replay()
         self.replays += n
         stats["replays"] += n
+        stats["branches"] += n * self.conds
         for tally, key, k in self.launches:
             tally[key] += k * n
+
+    def branches(self) -> Tuple[int, int]:
+        """(IF bodies run, IF nodes evaluated) by the replays so far; reads
+        the device counter."""
+        taken = 0 if self.taken is None else int(self.taken)
+        return taken, self.replays * self.conds
 
     def launches_per_replay(self) -> dict:
         """{kernel counter key: launches a replay}."""
@@ -135,12 +230,21 @@ class StepGraph:
         return out
 
     def _capture(self) -> None:
+        global _active
         tensors = state_tensors(self.state)
         ptrs = [t.data_ptr() for t in tensors]
+        device = tensors[0].device if tensors else torch.device("cuda")
+        self.conds = 0
+        self.body_stream = graph_cond.body_stream(device)
+        self.taken = torch.zeros((), dtype=torch.int64, device=device)
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
-            self.step()                     # the warm step, a real one
+            _active = (self, False)
+            try:
+                self.step()                 # the warm step, a real one
+            finally:
+                _active = None
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         for gen in state_generators(self.state):
@@ -155,7 +259,11 @@ class StepGraph:
         gc.disable()
         try:
             with torch.cuda.graph(graph, pool=self.pool):
-                self.step()
+                _active = (self, True)
+                try:
+                    self.step()
+                finally:
+                    _active = None
         finally:
             if collecting:
                 gc.enable()
@@ -182,7 +290,7 @@ def runner(cache: dict, key, step: Callable[[], object], state, graphed: bool,
     closure must read only ``state`` and tensors that outlive the cache.
     ``ops.quant.INT4_PIPELINE`` picks the int4 kernel inside the step, so
     it is part of the key too."""
-    if not graphed or _eager_depth:
+    if not graphed or eager_depth():
         return EagerSteps(step)
     key = (key, quant.INT4_PIPELINE)
     got = cache.get(key)

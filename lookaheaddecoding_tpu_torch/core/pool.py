@@ -10,8 +10,8 @@ The lanes of the paged serving engine keep their pools stacked on a leading
 axis ([B, R+1, G, GS], [B, R+1, G], [B]); ``pool_update`` and
 ``pool_lookup`` take either form.
 
-Row R is a write-only trash row: updates of invalid lanes go there, so an
-update never branches on the data. Inserting an n-gram refreshes the age
+Row R is a write-only trash row: updates of invalid lanes go there, so
+they need no branch of their own. Inserting an n-gram refreshes the age
 of the slot that holds it, else fills the empty or least-recently-used
 slot (the first such slot on ties).
 """
@@ -22,6 +22,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from . import graphs
 
 
 @dataclasses.dataclass
@@ -67,7 +69,7 @@ def _update_lanes(values, age, clock, keys, tups, valid):
     [B, R+1, G, GS], age [B, R+1, G] (both contiguous, written in place),
     clock [B]; keys [B, K], tups [B, K, GS], valid [B, K]. The B tables are
     addressed as one table of B*(R+1) rows, a pool's keys offset by its
-    index, so the K rounds are shared by all pools. Returns the clocks
+    index, so the rounds are shared by all pools. Returns the clocks
     advanced by K."""
     b, k_lanes = keys.shape
     n_rows, g, gs = values.shape[1:]
@@ -80,6 +82,9 @@ def _update_lanes(values, age, clock, keys, tups, valid):
     prev_same = torch.where(earlier, lane[None, :], -1).amax(dim=2)
     rank = earlier.sum(dim=2)
     is_last = ~(same & (lane[None, :] > lane[:, None])).any(dim=2)
+    # JAX's branch predicate: two lanes, both valid, share a key (in any
+    # of the B pools); lanes redirected to the trash row never chain
+    chained = (earlier & valid[:, :, None] & valid[:, None, :]).any()
     src = torch.where(prev_same >= 0, prev_same, lane)
     pool_of = torch.arange(b, device=dev)[:, None]
     src = (src + pool_of * k_lanes).reshape(-1)
@@ -87,23 +92,49 @@ def _update_lanes(values, age, clock, keys, tups, valid):
     aflat = age.view(b * n_rows, g)
     fkeys = keys + pool_of * n_rows
 
-    # working rows: n-gram tokens with the age as one more column
+    # working rows: n-gram tokens with the age as one more column, written
+    # in place by every round, and each round's scratch, all made here: an
+    # IF node's body can neither rebind a tensor nor allocate one
     work = torch.cat([vflat[fkeys], aflat[fkeys][..., None]], dim=-1)
     entry = torch.cat([tups.int(), (clock[:, None] + lane.int())[..., None]],
                       dim=-1)                                # [B, K, GS+1]
     slot_id = torch.arange(g, device=dev)
     in_round = rank[None] == torch.arange(k_lanes, device=dev)[:, None, None]
-    big = torch.iinfo(torch.int32).max
-    for r in range(k_lanes):
-        row = work.reshape(b * k_lanes, g, gs + 1)[src].view_as(work)
-        match = ((row[..., :gs] == entry[..., None, :gs]).all(dim=-1)
-                 & (row[..., gs] > 0))
+    big = torch.full((), torch.iinfo(torch.int32).max, dtype=torch.int32,
+                     device=dev)
+    row, keep = torch.empty_like(work), torch.empty_like(work)
+    same_tok = torch.empty(b, k_lanes, g, gs, dtype=torch.bool, device=dev)
+    match, live, put = (torch.empty(b, k_lanes, g, dtype=torch.bool,
+                                    device=dev) for _ in range(3))
+    neg_age, score = (torch.empty(b, k_lanes, g, dtype=torch.int32,
+                                  device=dev) for _ in range(2))
+    slot = torch.empty(b, k_lanes, dtype=torch.long, device=dev)
+
+    def insert(r):
+        """The lanes of rank r, each into the working row of the previous
+        lane of its key."""
+        torch.index_select(work.view(b * k_lanes, g, gs + 1), 0, src,
+                           out=row.view(b * k_lanes, g, gs + 1))
+        torch.eq(row[..., :gs], entry[..., None, :gs], out=same_tok)
+        torch.all(same_tok, dim=-1, out=match)
+        torch.gt(row[..., gs], 0, out=live)
+        torch.logical_and(match, live, out=match)
         # the matching slot, else the first empty or oldest one
-        slot = torch.where(match, big, -row[..., gs]).argmax(dim=-1)
+        torch.neg(row[..., gs], out=neg_age)
+        torch.where(match, big, neg_age, out=score)
+        torch.argmax(score, dim=-1, out=slot)
         sel = in_round[r]
-        put = (slot_id == slot[..., None]) & sel[..., None]
-        work = torch.where(put[..., None], entry[..., None, :],
-                           torch.where(sel[..., None, None], row, work))
+        torch.eq(slot_id, slot[..., None], out=put)
+        torch.logical_and(put, sel[..., None], out=put)
+        torch.where(sel[..., None, None], row, work, out=keep)
+        torch.where(put[..., None], entry[..., None, :], keep, out=work)
+
+    def chain():
+        for r in range(1, k_lanes):
+            insert(r)
+
+    insert(0)
+    graphs.cond(chained, chain)
 
     dest = (torch.where(is_last, keys, trash) + pool_of * n_rows).reshape(-1)
     work = work.reshape(b * k_lanes, g, gs + 1)
@@ -120,15 +151,28 @@ def pool_update(pool: PoolState, keys: torch.Tensor, tups: torch.Tensor,
     [B]) takes keys [B, K], tups [B, K, GS] and valid [B, K], one batch a
     pool.
 
-    Lanes that share a key must see the edits of the earlier ones. JAX
-    chooses a sequential chain or a parallel insert with ``lax.cond``; in
-    eager PyTorch that choice would read the device from the host. Here
-    every lane gets its rank among the earlier lanes of its key, and K
-    rounds each insert the lanes of one rank, each into the working row of
-    the previous lane of its key (its ``prev_same``). The last lane of each
-    key writes back, all keys in one ``index_put_``; the others write to
-    the trash row. Only the trash row can receive duplicate indices, whose
-    order ``index_put_`` does not fix on CUDA, so rows [0, R) are exact."""
+    Lanes that share a key must see the edits of the earlier ones. Each
+    lane gets its rank among the earlier lanes of its key; round r inserts
+    the lanes of rank r, each into the working row of the previous lane of
+    its key (its ``prev_same``). The last lane of each key writes back, all
+    keys in one ``index_put_``; the others write to the trash row. As in
+    JAX's ``lax.cond`` there are two branches:
+
+    - the parallel insert (JAX's ``_parallel``): round 0 alone, every lane
+      into its own row. It is right when no two valid lanes share a key,
+      the common case of single-stream decoding; duplicates among invalid
+      lanes all go to the trash row and need no chain;
+    - the chain (JAX's ``_chain``): rounds 1..K-1 as well, run through
+      :func:`graphs.cond` when two valid lanes share a key in any of the B
+      pools. In a captured step that is an IF node the device takes or
+      skips; eagerly (the CPU, a mesh, :func:`fill_pool_with_prompt`)
+      it costs one host read of the predicate a call.
+
+    Only the trash row can receive duplicate indices, whose order
+    ``index_put_`` does not fix on CUDA, and a chain round changes only it
+    when no valid lanes share a key (the warm step before a capture runs
+    the chain whatever the predicate says); so rows [0, R) are exact and
+    the trash row, which nothing looks up, is unspecified."""
     if pool.age.shape[-1] == 0 or keys.shape[-1] == 0:
         return pool
     if pool.values.dim() == 4:
@@ -161,7 +205,9 @@ def fill_pool_with_prompt(pool: PoolState, prompt: torch.Tensor,
     is a padded [P] int buffer whose first ``prompt_len`` entries (an int or
     a 0-d tensor) are real tokens; the starts whose n-gram runs past them
     are invalid lanes. The engines fill from the host
-    (:func:`host_prompt_fill`), which gives the same content."""
+    (:func:`host_prompt_fill`), which gives the same content. Eagerly the
+    choice of chain reads one predicate on the host (:func:`pool_update`):
+    one sync a fill."""
     gs = level - 1
     k = prompt.shape[0] - gs       # upper bound on (key, n-gram) pairs
     if k <= 0:

@@ -44,6 +44,10 @@ SIGNATURES = {
         # x, w, scale, out, part, variant, dtype, t, k, n, w_rows, k2,
         # slab_rows, stream
         [_P] * 5 + [_I] * 8 + [_P]),
+    "graph_cond": (
+        "graph_cond_launch",
+        # op (0 begin an IF node, 1 end its body), stream, pred, body_stream
+        [_I] + [_P] * 3),
 }
 
 _libs: dict = {}       # name -> loaded ctypes.CDLL (one load per process)

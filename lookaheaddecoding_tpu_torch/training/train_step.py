@@ -12,6 +12,13 @@ b2 0.999, eps 1e-8, eps_root 0; bias correction by the step count), SGD the
 JAX package's momentum variant. With a mesh (``parallel.make_mesh``) the
 same step runs on every rank on the rank's shards, with the collectives of
 ``parallel/collectives.py``.
+
+On the card without a mesh the step is the counterpart of ``jax.jit(step)``:
+forward, backward and optimizer step are captured once into a CUDA graph
+(``core/graphs.py``'s ``StepGraph``) over static buffers, and each call
+copies its arguments in, replays, and clones the results out. On the CPU,
+on a mesh (gloo cannot be captured) and inside ``graphs.eager()`` it runs
+op by op.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ from typing import Callable, Dict, List, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..core import graphs
 from ..models import llama
 from ..parallel import collectives
 from ..parallel.sharding import Mesh, split_sizes
@@ -78,6 +86,14 @@ def make_train_step(
     by default (plain SGD stalls on transformer attention patterns);
     ``optimizer="sgd"`` keeps the dependency-free momentum variant.
 
+    On the card without a mesh the step replays a CUDA graph of forward,
+    backward and optimizer step, captured at the first call of each graph
+    key (the optimizer, each leaf's path, dtype and shape in ``params`` and
+    ``opt_state``, the batch's shape and dtype) after one warm step; the
+    returned step's ``graphs`` holds them by key. A call copies its
+    arguments into the graph's static buffers and clones the results out,
+    so the contract above holds. A failed capture raises.
+
     With ``mesh`` every rank of the mesh calls the step with its shards
     (``parallel.shard_params``) and its optimizer state
     (``init_opt_state`` of those shards). ``batch`` is this rank's rows of
@@ -95,13 +111,11 @@ def make_train_step(
             f"(parallel.make_mesh), got {type(mesh).__name__}")
     _check_optimizer(optimizer)
     tables = {}      # device -> rope tables of seq_len rows
+    captured = {}    # graph key -> (StepGraph, its static buffers)
 
-    def step(params, opt_state, batch):
+    def eager(params, opt_state, batch):
         paths, leaves = zip(*_leaves(params))
         dev = leaves[0].device
-        if dev not in tables:
-            tables[dev] = llama.rope_tables(cfg, seq_len, dev)
-        batch = torch.as_tensor(batch, device=dev)
         live = [p.detach().requires_grad_(True) for p in leaves]
         with torch.enable_grad():
             tree = _rebuild(paths, live)
@@ -120,7 +134,66 @@ def make_train_step(
                                     learning_rate)
         return _rebuild(paths, new), opt_state, loss.detach()
 
+    def replayed(params, opt_state, batch):
+        key = (optimizer, _signature(params), _signature(opt_state),
+               tuple(batch.shape), batch.dtype)
+        got = captured.get(key)
+        if got is None:
+            static = dict(params=_clone(params), opt=_clone(opt_state),
+                          batch=batch.clone(),
+                          loss=torch.zeros((), device=batch.device))
+
+            def body():
+                new, opt, loss = eager(static["params"], static["opt"],
+                                       static["batch"])
+                with torch.no_grad():
+                    _copy_into(static["params"], new)
+                    _copy_into(static["opt"], opt)
+                    static["loss"].copy_(loss)
+            got = captured[key] = (graphs.StepGraph(body, static), static)
+        else:
+            static = got[1]
+            _copy_into(static["params"], params)
+            _copy_into(static["opt"], opt_state)
+            static["batch"].copy_(batch)
+        got[0].run(1)
+        return (_clone(static["params"]), _clone(static["opt"]),
+                static["loss"].clone())
+
+    def step(params, opt_state, batch):
+        dev = _leaves(params)[0][1].device
+        if dev not in tables:
+            tables[dev] = llama.rope_tables(cfg, seq_len, dev)
+        batch = torch.as_tensor(batch, device=dev)
+        if _graphed(dev, mesh):
+            return replayed(params, opt_state, batch)
+        return eager(params, opt_state, batch)
+
+    step.graphs = captured
     return step
+
+
+def _graphed(dev, mesh) -> bool:
+    """Whether a step on ``dev`` replays a captured graph: on the card,
+    without a mesh, outside ``graphs.eager()``."""
+    return dev.type == "cuda" and mesh is None and not graphs.eager_depth()
+
+
+def _signature(tree) -> tuple:
+    """What a captured step's static buffers depend on: each leaf's path,
+    dtype and shape."""
+    return tuple((path, t.dtype, tuple(t.shape)) for path, t in _leaves(tree))
+
+
+def _clone(tree):
+    paths, leaves = zip(*_leaves(tree))
+    return _rebuild(paths, [t.detach().clone() for t in leaves])
+
+
+def _copy_into(dst, src) -> None:
+    """Each leaf of ``src`` into the leaf of ``dst`` at its path."""
+    for path, d in _leaves(dst):
+        d.copy_(_get(src, path))
 
 
 def _whole_stack(params, cfg, mesh):
@@ -166,9 +239,9 @@ def _adam(paths, params, grads, state, lr):
     p + (-lr) u in p's dtype."""
     count = state["count"] + 1
     c = count.float()
-    # float32 bias corrections on the device: no host read a step
-    bc1 = 1 - torch.pow(torch.tensor(B1, device=c.device), c)
-    bc2 = 1 - torch.pow(torch.tensor(B2, device=c.device), c)
+    # float32 bias corrections on the device: no host read or copy a step
+    bc1 = 1 - torch.pow(torch.full_like(c, B1), c)
+    bc2 = 1 - torch.pow(torch.full_like(c, B2), c)
     new, mus, nus = [], [], []
     for path, p, g in zip(paths, params, grads):
         mu = (1 - B1) * g + B1 * _get(state["mu"], path)

@@ -8,7 +8,11 @@ attention also at head_dim 256 with Gemma-2B's heads and at head_dim 32,
 step on the card against the CPU, ``load_params`` onto the card,
 ``utils.profiling.trace`` around a card ``generate``, the attention at a
 first composite row (``row0``) and two ranks decoding at tp=2 on one card
-over gloo. They skip without a CUDA device. This file imports no
+over gloo; the CUDA-graph IF node (``ops/graph_cond.py``) against its plain
+version, the pool's chain as an IF node of captured steps (taken and
+skipped, tables and branch counts equal to eager), a capture whose IF node
+fails raising, and the captured train step bit-equal to the eager one.
+They skip without a CUDA device. This file imports no
 JAX, so on a machine without JAX it runs without the suite's conftest:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
@@ -1109,3 +1113,176 @@ def test_graphed_serving_engines_equal_eager(sampled):
         assert graphs.stats["replays"] > before
         for rid in want:
             np.testing.assert_array_equal(got[rid], want[rid])
+
+
+@pytest.mark.gpu
+def test_graphed_pool_update_takes_and_skips_its_if_node():
+    """The pool update captured with its chain as an IF node, replayed over
+    batches with and without two valid lanes of one key (stacked pools of
+    two, as the lanes keep them): after each replay rows [0, R) and the
+    clocks equal the eager update's bit for bit, and the graph's device
+    counter counts exactly the batches that chain."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from lookaheaddecoding_tpu_torch.core import graphs
+    from lookaheaddecoding_tpu_torch.core import pool as tpool
+    rows, g, gs, k = 40, 3, 2, 8
+    rng = np.random.RandomState(0)
+
+    def stacked():
+        p = tpool.pool_init(rows, g, gs, device="cuda")
+        return tpool.PoolState(p.values[None].repeat(2, 1, 1, 1).contiguous(),
+                               p.age[None].repeat(2, 1, 1).contiguous(),
+                               p.clock[None].repeat(2).contiguous())
+    graphed, eager = stacked(), stacked()
+    keys = torch.zeros(2, k, dtype=torch.int32, device="cuda")
+    tups = torch.zeros(2, k, gs, dtype=torch.int32, device="cuda")
+    valid = torch.zeros(2, k, dtype=torch.bool, device="cuda")
+    runner = graphs.StepGraph(
+        lambda: tpool.pool_update(graphed, keys, tups, valid),
+        (graphed, keys, tups, valid))
+    chains = []
+    for i in range(12):
+        kb = np.stack([rng.permutation(rows)[:k] for _ in range(2)])
+        if i % 3 == 1:
+            kb[1, 3] = kb[1, 0]             # lane 3 chains onto lane 0
+        vb = rng.rand(2, k) < 0.8
+        vb[1, [0, 3]] = True
+        kb[0, ~vb[0]] = kb[0, 0]            # invalid duplicates never chain
+        keys.copy_(torch.from_numpy(kb))
+        tups.copy_(torch.from_numpy(rng.randint(0, 3, size=(2, k, gs))))
+        valid.copy_(torch.from_numpy(vb))
+        with graphs.eager():
+            tpool.pool_update(eager, keys, tups, valid)
+        runner.run(1)                        # the warm step, then replays
+        if i:
+            chains.append(i % 3 == 1)
+        assert torch.equal(graphed.values[:, :rows], eager.values[:, :rows])
+        assert torch.equal(graphed.age[:, :rows], eager.age[:, :rows])
+        assert torch.equal(graphed.clock, eager.clock)
+    assert runner.conds == 1
+    assert runner.branches() == (sum(chains), len(chains))
+
+
+@pytest.mark.gpu
+def test_graphed_steps_keep_the_pool_and_branch_counts_of_eager():
+    """generate and generate_batch on the card, graphed and eagerly on one
+    engine: tokens, steps, the pool tables' rows [0, R) and the clock
+    (from return_prefix), and the branches evaluated and chains taken
+    (``graphs.read_stats``) equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from lookaheaddecoding_tpu_torch.core import graphs
+    eng = _graph_engine()
+    rng = np.random.RandomState(3)
+    p = list(rng.randint(0, 8, size=24))
+    q = list(rng.randint(0, 256, size=30))
+    runs = {}
+    for which in ("eager", "graphed"):
+        ctx = graphs.eager() if which == "eager" else torch.no_grad()
+        with ctx:
+            if which == "graphed":
+                eng.generate(p, 40)              # captures
+                eng.generate_batch([p, q], 24)
+            graphs.reset_stats()
+            r = eng.generate(p, 40, return_prefix=True)
+            b = eng.generate_batch([p, q], 24)
+            runs[which] = (r, b, graphs.read_stats())
+    (r1, b1, s1), (r2, b2, s2) = runs["eager"], runs["graphed"]
+    np.testing.assert_array_equal(r1.tokens, r2.tokens)
+    assert r1.steps == r2.steps
+    for x, y in zip(b1, b2):
+        np.testing.assert_array_equal(x.tokens, y.tokens)
+    for name in ("values", "age"):
+        a, c = getattr(r1.prefix.pool, name), getattr(r2.prefix.pool, name)
+        assert torch.equal(a[:-1], c[:-1]), name
+    assert torch.equal(r1.prefix.pool.clock, r2.prefix.pool.clock)
+    assert (s1["branches"], s1["taken"]) == (s2["branches"], s2["taken"])
+    assert s2["replays"] > 0 and s2["branches"] > 0
+
+
+@pytest.mark.gpu
+def test_capture_raises_when_the_if_node_fails_on_the_card(monkeypatch):
+    """The IF node's host function failing as a CUDA runtime without
+    conditional nodes does (cudaErrorNotSupported): the first graphed
+    generate raises, naming the PyTorch version, instead of capturing the
+    chain rounds unconditionally or stepping eagerly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import re
+    from lookaheaddecoding_tpu_torch.ops import graph_cond
+    launch = graph_cond._launch
+    monkeypatch.setattr(graph_cond, "_launch", lambda op, *args: (
+        801 if op == 0 else launch(op, *args)))
+    eng = _graph_engine()
+    with pytest.raises(RuntimeError, match=re.escape(torch.__version__)):
+        eng.generate(list(range(20)), 24)
+
+
+@pytest.mark.gpu
+def test_if_node_kernel_matches_its_plain_version():
+    """The IF node (csrc/graph_cond.cu) in a captured graph of three nodes
+    on three predicates, replayed over every pattern of them: each body
+    (an add to its own counter) runs exactly when the plain version runs
+    it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from lookaheaddecoding_tpu_torch.ops import graph_cond
+    preds = torch.zeros(3, dtype=torch.bool, device="cuda")
+    got = torch.zeros(3, dtype=torch.int64, device="cuda")
+    body_stream = graph_cond.body_stream("cuda")
+    graph = torch.cuda.CUDAGraph()
+    before = graph_cond.counts["set_if"]
+    with torch.cuda.graph(graph):
+        for i in range(3):
+            graph_cond.if_node(preds[i], lambda i=i: got[i].add_(1),
+                               body_stream)
+    assert graph_cond.counts["set_if"] == before + 3
+    want = torch.zeros(3, dtype=torch.int64)
+    for pattern in range(8):
+        flags = [bool(pattern >> i & 1) for i in range(3)]
+        preds.copy_(torch.tensor(flags))
+        graph.replay()
+        for i, f in enumerate(flags):
+            graph_cond.if_node_ref(torch.tensor(f),
+                                   lambda i=i: want[i].add_(1))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("optimizer", ["adam", "sgd"])
+def test_captured_train_step_equals_eager_on_the_card(optimizer):
+    """Three steps of make_train_step on the card replayed from its CUDA
+    graph and three run eagerly (``graphs.eager()``) from the same float32
+    parameters and batches: losses and every parameter bit-equal (the same
+    kernels in the same order), the arguments unchanged, one graph key."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from lookaheaddecoding_tpu_torch.core import graphs
+    from lookaheaddecoding_tpu_torch.training import (init_opt_state,
+                                                      make_train_step)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, params = _tiny_train_model("cuda")
+    rng = np.random.RandomState(2)
+    batches = [torch.from_numpy(rng.randint(0, 256, size=(4, 33))).cuda()
+               for _ in range(3)]
+    step = make_train_step(cfg, seq_len=64, learning_rate=2e-3,
+                           optimizer=optimizer)
+    out = {}
+    for which in ("eager", "graphed"):
+        ctx = graphs.eager() if which == "eager" else torch.enable_grad()
+        p, o, losses = params, init_opt_state(params, optimizer), []
+        with ctx:
+            for b in batches:
+                kept = [t.clone() for t in graphs.state_tensors((p, o))]
+                p2, o2, loss = step(p, o, b)
+                assert all(torch.equal(x, y) for x, y in zip(
+                    graphs.state_tensors((p, o)), kept))
+                p, o = p2, o2
+                losses.append(loss)
+        torch.cuda.synchronize()
+        out[which] = (graphs.state_tensors((p, o)), torch.stack(losses))
+    assert len(step.graphs) == 1
+    assert torch.equal(out["eager"][1], out["graphed"][1])
+    assert all(torch.equal(x, y) for x, y in zip(out["eager"][0],
+                                                  out["graphed"][0]))

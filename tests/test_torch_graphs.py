@@ -11,7 +11,16 @@ the CPU (capture and replay themselves need the card:
 - two calls in a row on one engine equal two fresh engines' calls and the
   JAX engine's at float32: tokens, steps and pool tables;
 - ``core/graphs.py``'s bookkeeping: launch counts a capture takes back
-  and each replay adds, and the refusal of a step that rebinds a field.
+  and each replay adds, and the refusal of a step that rebinds a field;
+- ``graphs.cond``: its body runs exactly when the predicate holds, a
+  capture records it as an IF node (or raises without the API), the warm
+  step runs it whatever the predicate says, and the pool's chain launches
+  none of the port's counted kernels;
+- the captured train step (``training/train_step.py``): eager on the CPU,
+  on a mesh and inside ``graphs.eager()``; through a faked capture its
+  steps equal the eager ones bit for bit, its arguments stay as they were,
+  its results alias neither them nor the static buffers, and calls with
+  the same shapes share one graph.
 """
 
 import gc
@@ -325,11 +334,21 @@ class _HostReads(torch.utils._python_dispatch.TorchDispatchMode):
 @pytest.mark.parametrize("kind", ["decode_step", "sample_step",
                                   "baseline_step", "decode_batch",
                                   "sample_batch"])
-def test_steps_read_nothing_back_to_the_host(kind):
+def test_steps_read_nothing_back_to_the_host(kind, monkeypatch):
     """No op of a step reads a value back (``item``, a data-dependent
-    shape): capture would fail on one, and a replay would not redo it."""
+    shape): capture would fail on one, and a replay would not redo it. The
+    one exception is ``graphs.cond``'s predicate, which a capture turns
+    into an IF node and which eagerly is read on the host: it is replaced
+    here by a call that runs the body without reading it, and the
+    lookahead steps make one such call (the pool's chain)."""
     eng = port_engine(pool_key_len=2, pool_hash_size=97,
                       always_fwd_one=False)
+    conds = []
+
+    def cond(pred, body):
+        conds.append(pred.shape)
+        body()
+    monkeypatch.setattr(graphs, "cond", cond)
     with torch.inference_mode():
         if kind.endswith("batch"):
             lanes = batch_slot(eng)
@@ -337,9 +356,11 @@ def test_steps_read_nothing_back_to_the_host(kind):
         else:
             step = flat_steps(eng, prepared(eng, prompt(0, 20), 24))[kind]
         step()
+        conds.clear()
         with _HostReads() as mode:
             step()
     assert mode.seen == []
+    assert conds == ([] if kind == "baseline_step" else [torch.Size([])])
 
 
 # --------------------------------------------------------------------------
@@ -462,8 +483,21 @@ class _FakeGraph:
 
 @pytest.fixture
 def fake_cuda(monkeypatch):
+    """torch.cuda's streams and graphs on the CPU: the warm step runs, the
+    capture runs the step but restores the state after it (a capture
+    launches nothing), and a replay runs the step."""
     import contextlib
     made = []
+    capturing = []
+    capture = graphs.StepGraph._capture
+
+    def tracked(self):
+        capturing.append(self)
+        try:
+            capture(self)
+        finally:
+            capturing.pop()
+    monkeypatch.setattr(graphs.StepGraph, "_capture", tracked)
 
     class Stream:
         def wait_stream(self, other):
@@ -476,7 +510,14 @@ def fake_cuda(monkeypatch):
             # no collection during a capture: destroying an unreachable
             # graph then would invalidate it
             assert not gc.isenabled()
-            yield
+            owner = capturing[-1]
+            g.step = owner.step
+            kept = [(t, t.clone()) for t in graphs.state_tensors(owner.state)]
+            try:
+                yield
+            finally:
+                for t, old in kept:
+                    t.copy_(old)
         return cm()
 
     monkeypatch.setattr(torch.cuda, "Stream", Stream)
@@ -526,3 +567,205 @@ def test_step_graph_refuses_a_step_that_rebinds_its_state(fake_cuda):
 
     with pytest.raises(RuntimeError, match="in place"):
         graphs.StepGraph(step, state).run(2)
+
+
+# --------------------------------------------------------------------------
+# graphs.cond
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("pred", [True, False])
+@pytest.mark.parametrize("shape", [(), (1,)])
+def test_cond_runs_its_body_exactly_when_pred_holds(pred, shape):
+    """Eagerly (the CPU) the body runs iff the one-element predicate is
+    true; ``stats`` counts the branch and, if taken, the body."""
+    graphs.reset_stats()
+    ran = []
+    graphs.cond(torch.full(shape, pred), lambda: ran.append(1))
+    assert ran == ([1] if pred else [])
+    assert graphs.read_stats()["branches"] == 1
+    assert graphs.stats["taken"] == int(pred)
+
+
+@pytest.fixture
+def if_nodes(monkeypatch):
+    """ops.graph_cond.if_node recorded: (predicate, body stream) of each
+    node; the body runs, as a capture would record it."""
+    from lookaheaddecoding_tpu_torch.ops import graph_cond
+    made = []
+
+    def if_node(pred, body, body_stream):
+        made.append((pred, body_stream))
+        body()
+    monkeypatch.setattr(graph_cond, "if_node", if_node)
+    return made
+
+
+def test_cond_is_an_if_node_under_capture(fake_cuda, if_nodes):
+    """A capture records the body as an IF node on the predicate as a 0-d
+    bool tensor, on the graph's own body stream, and the body adds one to
+    the graph's device counter. The warm step runs the body although the
+    predicate is false, and counts no branch; each replay counts one
+    branch evaluated."""
+    state = {"x": torch.zeros(3), "flag": torch.zeros(1, dtype=torch.int32)}
+    ran = []
+
+    def step():
+        graphs.cond(state["flag"] > 0, lambda: ran.append(1))
+
+    g = graphs.StepGraph(step, state)
+    graphs.reset_stats()
+    g.run(1)
+    assert len(ran) == 2                 # the warm step and the capture
+    assert [(p.shape, p.dtype, s) for p, s in if_nodes] == [
+        (torch.Size([]), torch.bool, g.body_stream)]
+    assert g.conds == 1
+    assert int(g.taken) == 1             # the faked capture ran the body
+    assert graphs.stats["branches"] == 0 and graphs.stats["taken"] == 0
+    g.taken.zero_()
+    fake_cuda[0].step = lambda: None     # a replay that skips the body
+    g.run(3)
+    assert graphs.stats["branches"] == 3
+    assert g.branches() == (0, 3)
+
+
+def test_capture_raises_when_the_if_node_fails(fake_cuda, monkeypatch):
+    """An IF node that cannot be made (no conditional nodes in the CUDA
+    runtime) fails the capture: the error reaches the caller, and the body
+    is not captured unconditionally instead."""
+    from lookaheaddecoding_tpu_torch.ops import graph_cond
+
+    def if_node(pred, body, body_stream):
+        raise RuntimeError("CUDA-graph IF node failed")
+    monkeypatch.setattr(graph_cond, "if_node", if_node)
+    ran = []
+
+    def step():
+        graphs.cond(torch.tensor(False), lambda: ran.append(1))
+
+    with pytest.raises(RuntimeError, match="IF node failed"):
+        graphs.StepGraph(step, {"x": torch.zeros(1)}).run(2)
+    assert ran == [1]                    # the warm step's run alone
+
+
+def test_cond_body_launching_a_counted_kernel_is_refused(fake_cuda, if_nodes):
+    """A body that launches one of the port's counted kernels would leave
+    the launch counts of a replay unknown: the capture raises."""
+    def step():
+        def body():
+            la.counts["kernel"] += 1
+        graphs.cond(torch.tensor(True), body)
+
+    with pytest.raises(RuntimeError, match="counted kernels"):
+        graphs.StepGraph(step, {"x": torch.zeros(1)}).run(1)
+
+
+def test_pool_chain_launches_no_counted_kernel(fake_cuda, if_nodes):
+    """The pool update's chain (valid lanes sharing a key) captures as an
+    IF node whose body launches none of the port's kernels: every launch
+    count stays as it was, eagerly and through a capture."""
+    from lookaheaddecoding_tpu_torch.core import pool as tpool
+    p = tpool.pool_init(8, 2, 2, device="cpu")
+    keys = torch.tensor([5, 5, 3, 5])
+    tups = torch.tensor([[1, 1], [2, 2], [9, 9], [1, 1]])
+    valid = torch.ones(4, dtype=torch.bool)
+    before = [dict(t) for t in graphs._TALLIES]
+    graphs.reset_stats()
+    tpool.pool_update(p, keys, tups, valid)
+    assert graphs.stats["taken"] == 1
+    g = graphs.StepGraph(lambda: tpool.pool_update(p, keys, tups, valid), p)
+    g.run(3)
+    assert g.conds == 1 and g.launches_per_replay() == {}
+    assert [dict(t) for t in graphs._TALLIES] == before
+
+
+# --------------------------------------------------------------------------
+# the captured train step
+# --------------------------------------------------------------------------
+
+def _train_model():
+    from lookaheaddecoding_tpu_torch.training import init_opt_state
+    cfg = tlt.LlamaConfig(**ARCH, dtype=torch.float32)
+    params = tlt.init_params(cfg, seed=0, scale=0.1, device="cpu")
+    return cfg, params, init_opt_state(params)
+
+
+def _train_batch(seed, t=33):
+    return np.random.RandomState(seed).randint(0, 128, size=(4, t))
+
+
+def test_train_step_is_eager_on_the_cpu_on_a_mesh_and_inside_eager():
+    """A step replays a graph only on the card without a mesh and outside
+    ``graphs.eager()``; on the CPU it captures nothing."""
+    from lookaheaddecoding_tpu_torch.training import make_train_step
+    from lookaheaddecoding_tpu_torch.training import train_step
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    assert train_step._graphed(cuda, None)
+    assert not train_step._graphed(cpu, None)
+    assert not train_step._graphed(cuda, object())
+    with graphs.eager():
+        assert not train_step._graphed(cuda, None)
+    cfg, params, opt = _train_model()
+    step = make_train_step(cfg, seq_len=64)
+    captured = graphs.stats["captured"]
+    step(params, opt, _train_batch(0))
+    assert step.graphs == {} and graphs.stats["captured"] == captured
+
+
+@pytest.mark.parametrize("optimizer", ["adam", "sgd"])
+def test_captured_train_step_equals_eager(fake_cuda, monkeypatch, optimizer):
+    """Through a faked capture (the state restored after it, replays
+    running the step): three steps equal three eager steps bit for bit;
+    the arguments are unchanged after each call; the returned trees alias
+    neither the arguments nor the static buffers; calls with the same
+    shapes, fed their own results, share one graph key, and a new batch
+    shape adds a second."""
+    from lookaheaddecoding_tpu_torch.training import (init_opt_state,
+                                                      make_train_step)
+    from lookaheaddecoding_tpu_torch.training import train_step
+    monkeypatch.setattr(train_step, "_graphed",
+                        lambda dev, mesh: not graphs.eager_depth())
+    cfg, params, _ = _train_model()
+    opt = init_opt_state(params, optimizer)
+    batches = [_train_batch(s) for s in range(3)]
+
+    def run(step):
+        p, o, out = params, opt, []
+        for b in batches:
+            kept = snapshot((p, o))
+            p2, o2, loss = step(p, o, b)
+            assert bit_equal(snapshot((p, o)), kept)       # unchanged
+            mine = set(ptrs((p2, o2, loss)))
+            assert not mine & set(ptrs((p, o)))
+            for _, static in step.graphs.values():
+                assert not mine & set(ptrs(static))
+            p, o = p2, o2
+            out.append(loss)
+        return p, o, out
+
+    step = make_train_step(cfg, seq_len=64, optimizer=optimizer)
+    with graphs.eager():
+        want = run(step)
+    assert step.graphs == {}
+    captured, replays = graphs.stats["captured"], graphs.stats["replays"]
+    got = run(step)
+    assert len(step.graphs) == 1
+    assert graphs.stats["captured"] == captured + 1
+    assert graphs.stats["replays"] == replays + 2
+    assert bit_equal(graphs.state_tensors(got), graphs.state_tensors(want))
+    step(got[0], got[1], _train_batch(5, t=17))
+    assert len(step.graphs) == 2
+
+
+@pytest.mark.parametrize("pred", [True, False])
+def test_if_node_runs_its_plain_version_on_the_cpu(pred):
+    """ops.graph_cond.if_node on a CPU predicate is its plain version (the
+    body runs iff the predicate holds) and counts it; it takes one bool
+    element only."""
+    from lookaheaddecoding_tpu_torch.ops import graph_cond
+    before = dict(graph_cond.counts)
+    ran = []
+    graph_cond.if_node(torch.tensor(pred), lambda: ran.append(1), None)
+    assert ran == ([1] if pred else [])
+    assert graph_cond.counts == dict(before, plain=before["plain"] + 1)
+    with pytest.raises(ValueError, match="one bool element"):
+        graph_cond.if_node(torch.tensor([True, False]), lambda: None, None)
