@@ -154,8 +154,9 @@ target). It imports no JAX. Phases, each printed as it runs:
    plain versions never (``int8_weights_tp2``: B3's tensor-core design
    too). Prints ms a step beside phase 4's one-process step and the
    collectives a step. Those times are two processes sharing one card
-   with gloo crossing the host, not a tensor-parallel speed (a mesh
-   engine steps eagerly: gloo's collectives cannot be captured);
+   with gloo crossing the host, not a tensor-parallel speed (a mesh with a
+   gloo group steps eagerly: gloo's collectives cannot be captured; each
+   rank reports the graphs it captured, which must be none);
 13. the captured step: every engine on the card replays its decode step
    as a CUDA graph (``core/graphs.py``), in every phase above but 12, the
    pool update's chain rounds as an IF node (``graphs.cond``, JAX's
@@ -174,7 +175,16 @@ target). It imports no JAX. Phases, each printed as it runs:
    peak device memory both ways, the step alone timed in windows (eager,
    graphed, graphed, eager) and each way's kernels a step, device busy,
    idle and IF-body share from a profile of a state's first steps (the
-   headline's take the parallel insert: asserted) and of later steps.
+   headline's take the parallel insert: asserted) and of later steps;
+14. the mesh step captured: a world of one rank over NCCL
+   (``parallel/launch.py --nproc 1 --backend nccl``; the card takes one
+   NCCL rank) builds the headline model and runs an engine on
+   ``make_mesh(tp=1)`` (an NCCL process group, no collective) beside one
+   without a mesh: ``generate`` and ``generate_baseline`` eagerly and
+   graphed on the mesh engine must give the no-mesh engine's and phase
+   4's tokens, steps and (greedy) pool rows, and the graphed calls must
+   capture and replay (``graphs.stats``). Meshes of more than one NCCL
+   rank need a card a rank: ``scripts/torch_parallel_nccl.py`` on four.
 
 Each phase's seconds are printed as ``[seconds]`` lines.
 
@@ -1671,6 +1681,24 @@ def check_sampling_function(device, card):
             f"cum_before difference {float((c_cpu - c_card).abs().max()):.3g})")
 
 
+def cycle_temperature(eng, prompt):
+    """(T*, the cycle token's mean probability at T*, the median top-2
+    logit margin) over the prompt's positions: T* is the temperature at
+    which the cycle token has probability P_CYCLE on average."""
+    import torch
+    lg = teacher_forced_logits(eng, prompt)
+    top2 = lg.topk(2, dim=-1).values
+    margin = float((top2[:, 0] - top2[:, 1]).median())
+    lo, hi = 0.05, 200.0
+    for _ in range(60):
+        t = (lo * hi) ** 0.5
+        p = float(torch.softmax(lg / t, -1).amax(-1).mean())
+        lo, hi = (t, hi) if p > P_CYCLE else (lo, t)
+    t_star = (lo * hi) ** 0.5
+    p_star = float(torch.softmax(lg / t_star, -1).amax(-1).mean())
+    return t_star, p_star, margin
+
+
 def sampling_path(eng, mcfg, params, prompt, nxt, card):
     """Phase 8 b-g on the headline engine. Every path is counted alone: the
     flat (or, for the batch and the paged engine, the paged) attention
@@ -1693,18 +1721,7 @@ def sampling_path(eng, mcfg, params, prompt, nxt, card):
         launches[path] = got
         return out
 
-    # T*: the temperature at which the cycle token has probability P_CYCLE
-    # on average over the prompt's positions
-    lg = teacher_forced_logits(eng, prompt)
-    top2 = lg.topk(2, dim=-1).values
-    margin = float((top2[:, 0] - top2[:, 1]).median())
-    lo, hi = 0.05, 200.0
-    for _ in range(60):
-        t = (lo * hi) ** 0.5
-        p = float(torch.softmax(lg / t, -1).amax(-1).mean())
-        lo, hi = (t, hi) if p > P_CYCLE else (lo, t)
-    t_star = (lo * hi) ** 0.5
-    p_star = float(torch.softmax(lg / t_star, -1).amax(-1).mean())
+    t_star, p_star, margin = cycle_temperature(eng, prompt)
     log(f"  [{card}] top-2 logit margin over the prompt (median) {margin:.3f};"
         f" T* = {t_star:.4f} gives the cycle token p = {p_star:.4f}")
     cfg = lt.SamplingConfig(temperature=t_star, top_k=TOP_K)
@@ -2601,6 +2618,7 @@ def parallel_rank(device, one_process, meshes=PAR_MESHES):
     mesh's tokens, steps, ms a step, collectives a step and launches."""
     import torch
     import lookaheaddecoding_tpu_torch as lt
+    from lookaheaddecoding_tpu_torch.core import graphs
     from lookaheaddecoding_tpu_torch.ops import quant_matmul as qm
     from lookaheaddecoding_tpu_torch.parallel import (collectives, make_mesh,
                                                       shard_params)
@@ -2610,6 +2628,7 @@ def parallel_rank(device, one_process, meshes=PAR_MESHES):
     mcfg, params, prompt, nxt = synthetic.build_headline(device)
     trees = {"bf16": params}
     out = {"build_s": time.perf_counter() - t0}
+    captured = graphs.stats["captured"]
     for name, kw, config in meshes:
         if config not in trees:
             trees[config] = lt.quantize_params(params, bits=8,
@@ -2674,6 +2693,8 @@ def parallel_rank(device, one_process, meshes=PAR_MESHES):
                              "paged_attention"], **got)
         del eng
         torch.cuda.empty_cache()
+    # a mesh with a gloo group steps eagerly: gloo cannot be captured
+    out["captured"] = graphs.stats["captured"] - captured
     # phase 2 built every kernel; a rank loads them and builds none
     from lookaheaddecoding_tpu_torch.ops import _build
     out["rebuilt"] = [name for name, info in _build.build_info.items()
@@ -2681,25 +2702,29 @@ def parallel_rank(device, one_process, meshes=PAR_MESHES):
     return out
 
 
-def parallel_phase(card, tokens, step_s, meshes=PAR_MESHES, ranks=PAR_RANKS,
-                   backend="gloo"):
-    """Phase 12: ``ranks`` ranks on the card(s) (over gloo: all on the one
-    card) run ``parallel_rank``; every rank's tokens and steps must be
-    equal. Prints each mesh's ms a step beside the one-process step's
-    (phase 4) and the collectives a step. Returns each mesh's launches by
-    rank."""
+def parallel_phase(card, tokens, step_s, meshes=PAR_MESHES):
+    """Phase 12: PAR_RANKS ranks on the one card over gloo run
+    ``parallel_rank``; every rank's tokens and steps must be equal, and
+    every mesh must have stepped eagerly (no graph captured on a rank).
+    Prints each mesh's ms a step beside the one-process step's (phase 4)
+    and the collectives a step. Returns each mesh's launches by rank."""
     from lookaheaddecoding_tpu_torch.parallel.launch import launch
 
+    backend = "gloo"
     one_process = {c: [int(t) for t in tokens[c]]
                    for c in {config for _, _, config in meshes}}
-    ranks = launch(f"{os.path.abspath(__file__)}:parallel_rank", ranks,
+    ranks = launch(f"{os.path.abspath(__file__)}:parallel_rank", PAR_RANKS,
                    backend, "cuda", dict(one_process=one_process,
                                          meshes=[list(m) for m in meshes]),
                    timeout=PAR_TIMEOUT_S)
     log(f"  model built on each rank in "
         f"{', '.join(f'{r['build_s']:.1f}' for r in ranks)} s; kernels "
-        f"rebuilt by a rank: {[r['rebuilt'] for r in ranks]}")
+        f"rebuilt by a rank: {[r['rebuilt'] for r in ranks]}; graphs "
+        f"captured by a rank: {[r['captured'] for r in ranks]} (gloo "
+        f"meshes step eagerly)")
     assert not any(r["rebuilt"] for r in ranks), "a rank rebuilt a kernel"
+    assert not any(r["captured"] for r in ranks), \
+        "a gloo mesh captured a graph"
     launches = {}
     for name, kw, config in meshes:
         per = [r[name] for r in ranks]
@@ -2711,8 +2736,8 @@ def parallel_phase(card, tokens, step_s, meshes=PAR_MESHES, ranks=PAR_RANKS,
                 f"ms a step by rank "
                 f"{', '.join(f'{p[path]['ms_step']:.2f}' for p in per)} "
                 f"(one process, {config}: {1e3 * step_s[config][path]:.2f}; "
-                f"{len(per)} ranks over {backend}"
-                f"{': they share the card and gloo crosses the host, not a tensor-parallel speed' if backend == 'gloo' else ', one a card'}"
+                f"{len(per)} ranks over {backend}: they share the card and "
+                f"gloo crosses the host, not a tensor-parallel speed"
                 f"), collectives a step "
                 f"{per[0][path]['collectives_step']:.1f} "
                 f"{per[0][path]['collectives']}, launches by rank (attention "
@@ -2729,6 +2754,110 @@ def parallel_phase(card, tokens, step_s, meshes=PAR_MESHES, ranks=PAR_RANKS,
             for path in ("lookahead", "ar_baseline")},
             batch_paged=p["batch_paged_launches"]) for p in per]
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the mesh step captured, a one-rank NCCL world
+# ---------------------------------------------------------------------------
+
+def pool_hash(pool) -> str:
+    """A hash of the pool's rows [0, R) and clock (its write-only trash row
+    apart)."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in (pool.values[:-1], pool.age[:-1], pool.clock):
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def nccl_one_rank(device, one_process):
+    """Phase 14 on its one rank: the headline engine on ``make_mesh(tp=1)``
+    (the world's NCCL group; no axis has a group, so no collective runs)
+    and one without a mesh, ``generate`` and ``generate_baseline`` of
+    PAR_NEW tokens each way on the mesh engine (eager, graphed) and
+    graphed on the other. Returns each run's tokens, steps, pool hash
+    (greedy) and ``graphs.stats`` of the call and its warm-up, and whether
+    the graphed greedy tokens are ``one_process``'s (when given)."""
+    import torch
+    import torch.distributed as dist
+    import lookaheaddecoding_tpu_torch as lt
+    from lookaheaddecoding_tpu_torch.core import graphs
+    from lookaheaddecoding_tpu_torch.parallel import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mcfg, params, prompt, _ = synthetic.build_headline(device)
+    plain = build_engine(mcfg, params)
+    engines = {"mesh": lt.LookaheadEngine(mcfg, params, plain.lcfg,
+                                          plain.ecfg,
+                                          mesh=make_mesh(tp=1,
+                                                         devices=device)),
+               "no_mesh": plain}
+    out = {"backend": dist.get_backend(), "graphed_engine": {
+        k: e._graphed for k, e in engines.items()}}
+    for name, which in (("mesh", "eager"), ("mesh", "graphed"),
+                        ("no_mesh", "graphed")):
+        eng = engines[name]
+        for path, gen in (("lookahead", lambda n: eng.generate(
+                prompt, n, return_prefix=True)),
+                ("ar_baseline", lambda n: eng.generate_baseline(prompt, n))):
+            with _mode(which):
+                graphs.reset_stats()
+                gen(PAR_WARM)
+                warm = graphs.read_stats()
+                graphs.reset_stats()
+                r = gen(PAR_NEW)
+                torch.cuda.synchronize()
+                got = graphs.read_stats()
+            rec = dict(tokens=r.tokens.tolist(), steps=r.steps,
+                       ms_step=1e3 * r.wall_time_s / r.steps, warm=warm,
+                       call=got)
+            if path == "lookahead":
+                rec["pool"] = pool_hash(r.prefix.pool)
+            out[f"{name} {which} {path}"] = rec
+    if one_process is not None:
+        out["one_process"] = one_process[:len(prompt) + PAR_NEW] == \
+            out["mesh graphed lookahead"]["tokens"]
+    return out
+
+
+def nccl_phase(card, tokens=None):
+    """Phase 14: ``nccl_one_rank`` in a one-rank NCCL world. The mesh
+    engine captures and replays; its graphed and eager runs and the no-mesh
+    engine's give the same tokens, steps and pool rows, and phase 4's
+    tokens (``tokens``, when given)."""
+    from lookaheaddecoding_tpu_torch.parallel.launch import launch
+
+    one = None if tokens is None else [int(t) for t in tokens["bf16"]]
+    r, = launch(f"{os.path.abspath(__file__)}:nccl_one_rank", 1, "nccl",
+                "cuda", dict(one_process=one), timeout=PAR_TIMEOUT_S)
+    assert r["backend"] == "nccl", r["backend"]
+    assert r["graphed_engine"] == {"mesh": True, "no_mesh": True}, r
+    for path in ("lookahead", "ar_baseline"):
+        eager, graphed, plain = (r[f"{k} {path}"] for k in (
+            "mesh eager", "mesh graphed", "no_mesh graphed"))
+        for key in ("tokens", "steps") + (("pool",) if path == "lookahead"
+                                          else ()):
+            assert graphed[key] == eager[key] == plain[key], (path, key)
+        assert eager["warm"]["captured"] == eager["call"]["captured"] == 0
+        assert eager["call"]["replays"] == 0, (path, eager)
+        assert graphed["warm"]["captured"] > 0, (path, graphed)
+        assert graphed["call"]["captured"] == 0, (path, graphed)
+        assert graphed["call"]["replays"] == graphed["steps"], (path,
+                                                                graphed)
+        assert graphed["call"]["branches"] == eager["call"]["branches"]
+        assert graphed["call"]["taken"] == eager["call"]["taken"]
+        log(f"  [{card}] mesh engine (tp=1, one NCCL rank) {path}: "
+            f"{graphed['steps']} steps; graphs captured at the warm-up "
+            f"{graphed['warm']['captured']}, replays "
+            f"{graphed['call']['replays']}; tokens, steps"
+            f"{', pool rows' if path == 'lookahead' else ''} and branches "
+            f"({graphed['call']['branches']}, chains taken "
+            f"{graphed['call']['taken']}) equal to its eager run and the "
+            f"no-mesh engine's; ms a step graphed {graphed['ms_step']:.3f},"
+            f" eager {eager['ms_step']:.3f}, no mesh {plain['ms_step']:.3f}")
+    if one is not None:
+        assert r["one_process"], \
+            "the mesh engine's tokens differ from phase 4's"
 
 
 # ---------------------------------------------------------------------------
@@ -2783,20 +2912,44 @@ def _mode(which):
     return graphs.eager() if which == "eager" else contextlib.nullcontext()
 
 
-def step_windows(make_run, n_timed, n_prof, done=lambda: None, n_first=0):
+def flat_step_run(eng, prompt, mode, sampling=None):
+    """``make_run`` of :func:`step_windows` for the flat step of ``mode``
+    ("greedy", "ar" or "sample") on ``eng``: each call prefills ``prompt``
+    into a free slot with a budget no window reaches, and gives that live
+    state's ``run(n)``, n decode steps."""
+    import torch
+
+    def make_run():
+        with torch.inference_mode():
+            slot = eng._free_slot()
+            out_buf, n, fill = eng._host_args(prompt, CAPTURE_BUDGET)
+            eng._prepare(out_buf, n, 0, fill, slot=slot)
+            steps = eng._flat_runner(slot, mode, CAPTURE_BUDGET, None,
+                                     sampling)
+
+        def run(k):
+            with torch.inference_mode():
+                steps.run(k)
+        return run
+    return make_run
+
+
+def step_windows(make_run, n_timed, n_prof, done=lambda: None, n_first=0,
+                 profiler=None):
     """The decode step alone, eager and graphed in turns (eager, graphed,
     graphed, eager, then one profiled pass each): ``make_run()`` gives a
     fresh live state's ``run(n)``, whose first use captures when graphed;
     ``done()`` follows each window. A profiled pass profiles the first
     ``n_first`` steps of its state (if any), runs 2, and profiles
     ``n_prof``. Returns {"eager"|"graphed": (ms a step of the two timed
-    windows, [(profile_steps' numbers, (IF bodies run, branches
-    evaluated)) of each profiled window])}."""
+    windows, [(the profiler's numbers, (IF bodies run, branches
+    evaluated)) of each profiled window])}; ``profiler(run, n)`` is
+    :func:`profile_steps` by default."""
     from lookaheaddecoding_tpu_torch.core import graphs
 
     def profiled(run, n):
         graphs.reset_stats()
-        prof = profile_steps(run, n)
+        prof = (profiler or profile_steps)(run, n)
         got = graphs.read_stats()
         return prof, (got["taken"], got["branches"])
 
@@ -2911,19 +3064,8 @@ def captured_flat(name, eng, prompt, mode, card, n_new, sampling=None):
         per_replay = eng._flat_runner(eng._free_slot(), mode, n_new, None,
                                       sampling).launches_per_replay()
 
-    def make_run():
-        with torch.inference_mode():
-            slot = eng._free_slot()
-            out_buf, n, fill = eng._host_args(prompt, CAPTURE_BUDGET)
-            eng._prepare(out_buf, n, 0, fill, slot=slot)
-            steps = eng._flat_runner(slot, mode, CAPTURE_BUDGET, None,
-                                     sampling)
-
-        def run(k):
-            with torch.inference_mode():
-                steps.run(k)
-        return run
-    windows = step_windows(make_run, CAPTURE_STEPS, CAPTURE_PROFILED,
+    windows = step_windows(flat_step_run(eng, prompt, mode, sampling),
+                           CAPTURE_STEPS, CAPTURE_PROFILED,
                            n_first=CAPTURE_FIRST)
     capture_line(name, card, windows, per_replay, tok_s, peak, stats)
     return (stats["taken"], stats["branches"]), windows["graphed"][1]
@@ -3259,6 +3401,14 @@ def main() -> int:
     captured_phase(configs, prompt, paged_stats["paged_bf16"]["engine"], nxt,
                    card, samp_info["t_star"], learned16)
     lap("captured step")
+
+    log(f"[mesh step captured] ({card}); a one-rank NCCL world "
+        f"(parallel/launch.py --nproc 1 --backend nccl), the headline "
+        f"model on make_mesh(tp=1) and without a mesh, {PAR_NEW} new "
+        f"tokens, eager and graphed")
+    torch.cuda.empty_cache()
+    nccl_phase(card, tokens)
+    lap("mesh step captured")
 
     # phase 8's paths that step through the paged kernel (generate_batch
     # and the paged engine) and those that run the flat one

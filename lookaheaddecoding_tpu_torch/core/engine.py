@@ -15,14 +15,17 @@ steps confirm them, ``generate_batch`` decodes several prompts with one
 batched forward a step, and a :class:`PrefixCache` lets prompts that share
 a prefix prefill only their suffix.
 
-On the card (without a ``mesh``) every decode loop replays its step as a
-CUDA graph (``core/graphs.py``: the counterpart of the JAX engine's
-``jax.jit(..., donate_argnums=...)``) over a static state the engine owns
-and writes each call into in place: a :class:`FlatSlot` (a second one only
-while a suspended ``generate_stream`` holds the first) and a
-:class:`LaneSlot` for each lane count of ``generate_batch``, made at first
-use. The prefill chunks (whose starts are host ints) run eagerly, as does
-every step on the CPU and on a mesh.
+On the card every decode loop replays its step as a CUDA graph
+(``core/graphs.py``: the counterpart of the JAX engine's ``jax.jit(...,
+donate_argnums=...)``) over a static state the engine owns and writes each
+call into in place: a :class:`FlatSlot` (a second one only while a
+suspended ``generate_stream`` holds the first) and a :class:`LaneSlot` for
+each lane count of ``generate_batch``, made at first use. On a ``mesh``
+whose groups are NCCL each rank replays its own graph, collectives
+included (JAX's ``jit`` over the mesh); the graphs live in a memory pool
+of the engine's own, so two engines on one rank never share one. The
+prefill chunks (whose starts are host ints) run eagerly, as does every
+step on the CPU and on a mesh with a gloo group.
 """
 
 from __future__ import annotations
@@ -318,10 +321,11 @@ class LookaheadEngine:
         self._fns = build_step_fns(model_cfg, self.lcfg, e, self.layout,
                                    self.device, mesh=mesh)
         self._paged_fns = None      # generate_batch's, built on first use
-        # On the card every decode step is a replayed CUDA graph over a
-        # static state (core/graphs.py); on the CPU and on a mesh (gloo's
-        # collectives cannot be captured) it runs eagerly.
-        self._graphed = self.device.type == "cuda" and mesh is None
+        # On the card, alone or on an NCCL mesh, every decode step is a
+        # replayed CUDA graph over a static state (core/graphs.py); on the
+        # CPU and on a mesh with a gloo group (gloo's collectives cannot be
+        # captured) it runs eagerly.
+        self._graphed = graphs.capturable(self.device, mesh)
         self._graph_pool = None     # the graphs' memory pool, at first use
         self._slots = []            # FlatSlot: one, or one a live stream
         self._lane_slots = {}       # generate_batch's LaneSlot, by lanes

@@ -16,15 +16,29 @@ piece of first-use work (the ``nvcc`` build and ``dlopen`` of a kernel,
 ``cudaFuncSetAttribute``, the SM-count query, lazily made tables), and
 then captures one step. The warm step is a real step of the run that
 triggered the capture. A failed capture raises; nothing falls back to the
-eager step on the card. On the CPU, and on a ``mesh`` (gloo's collectives
-cannot be captured), engines step eagerly through :class:`EagerSteps`, the
-same step functions; so does everything inside ``with eager():``, the
-comparison that ``chip_smoke.py`` and the card tests make.
+eager step on the card.
 
-The kernels' launch counts (``counts`` in ``ops/``) tick in Python, which a
-replay does not run: a capture records how many launches of each kernel the
-step made, takes them back (capture launches nothing), and every replay
-adds them again, so the counts stay the number of kernels launched.
+On a ``mesh`` (``parallel.make_mesh``) each rank captures and replays its
+own step, collectives included, when every process group of the mesh is
+NCCL (:func:`capturable`): the counterpart of JAX's ``jit`` over a mesh,
+whose one program holds the collectives XLA inserted. The warm step runs
+every collective of the step once, so ProcessGroupNCCL has made each of
+its lazily made communicators (the pp stages' send/recv pairs too) before
+the capture, which cannot make one; every rank runs the same step, so
+every rank captures the same sequence of collectives. The capture is
+``thread_local``: ProcessGroupNCCL's watchdog thread may go on querying
+the events of earlier collectives while this thread captures. gloo's
+collectives cannot be captured (they stage CUDA tensors through the host),
+so a mesh with a gloo group steps eagerly, as the CPU does, through
+:class:`EagerSteps` and the same step functions; so does everything inside
+``with eager():``, the comparison that ``chip_smoke.py`` and the card tests
+make.
+
+The kernels' launch counts (``counts`` in ``ops/``) and the collectives'
+(``parallel/collectives.py``) tick in Python, which a replay does not run:
+a capture records how many launches of each kernel and calls of each
+collective the step made, takes them back (capture launches nothing), and
+every replay adds them again, so the counts stay the number launched.
 ``stats`` counts the captures and replays.
 
 :func:`cond` is the counterpart of ``lax.cond``: inside a capture it records
@@ -44,18 +58,21 @@ import weakref
 from typing import Callable, List, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..ops import (graph_cond, int4_micro, lookahead_attention, quant,
                    quant_matmul)
+from ..parallel import collectives
 
 # Captures made, replays run, cond branches evaluated (eagerly, or by a
 # replay's IF nodes) and their bodies run. Read with read_stats() and reset
 # with reset_stats(), which fold in the bodies that replays ran.
 stats = {"captured": 0, "replays": 0, "branches": 0, "taken": 0}
 
-# every launch counter of the port's kernels
+# every launch counter of the port's kernels, and the collectives' calls
 _TALLIES = (lookahead_attention.counts, lookahead_attention.paged_counts,
-            quant_matmul.counts, int4_micro.counts, graph_cond.counts)
+            quant_matmul.counts, int4_micro.counts, graph_cond.counts,
+            collectives.counts)
 
 _eager_depth = 0
 
@@ -91,8 +108,10 @@ def cond(pred: torch.Tensor, body: Callable[[], object]) -> None:
       one to its graph's device counter (``StepGraph.taken``). Where the
       node cannot be made the capture raises; nothing runs the body
       unconditionally instead. A body must launch none of the port's
-      counted kernels (a replay could not tell whether it ran them): the
-      capture raises if one does.
+      counted kernels (a replay could not tell whether it ran them) and
+      call no collective (each rank evaluates its IF node on its own
+      device: a collective under a predicate that differed between ranks
+      would hang the world): the capture raises if it does.
     - The warm step before a capture runs every body once, whatever
       ``pred`` says, so that no body is captured before its first-use work
       is done. A body must therefore change nothing that is read when
@@ -117,7 +136,9 @@ def cond(pred: torch.Tensor, body: Callable[[], object]) -> None:
         if [dict(t) for t in _TALLIES] != before:
             raise RuntimeError(
                 "a graphs.cond body launched one of the port's counted "
-                "kernels, whose launches a replay could not count")
+                "kernels or called a collective: a replay could not count "
+                "its launches, and a collective under a rank's own "
+                "predicate could hang the world")
     graph_cond.if_node(pred.reshape(()).to(torch.bool), counted,
                        owner.body_stream)
     owner.conds += 1
@@ -258,7 +279,8 @@ class StepGraph:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, pool=self.pool):
+            with torch.cuda.graph(graph, pool=self.pool,
+                                  capture_error_mode="thread_local"):
                 _active = (self, True)
                 try:
                     self.step()
@@ -282,11 +304,20 @@ class StepGraph:
         stats["captured"] += 1
 
 
+def capturable(device, mesh=None) -> bool:
+    """Whether a step on ``device`` over ``mesh`` may be captured: on the
+    card, without a mesh or on one whose process groups are all NCCL (an
+    axis of size 1 has no group, so a mesh without groups counts)."""
+    return torch.device(device).type == "cuda" and (
+        mesh is None or all(dist.get_backend(g) == "nccl"
+                            for g in mesh.groups.values()))
+
+
 def runner(cache: dict, key, step: Callable[[], object], state, graphed: bool,
            pool=None):
     """The step runner of ``key`` in ``cache``: a :class:`StepGraph` when
-    ``graphed`` (an engine on the card without a mesh) and not inside
-    :func:`eager`, else :class:`EagerSteps`. Graphs are cached; the step
+    ``graphed`` (:func:`capturable`) and not inside :func:`eager`, else
+    :class:`EagerSteps`. Graphs are cached; the step
     closure must read only ``state`` and tensors that outlive the cache.
     ``ops.quant.INT4_PIPELINE`` picks the int4 kernel inside the step, so
     it is part of the key too."""

@@ -18,7 +18,13 @@ summing them, so a gather is bit-exact whatever the backend supports; a
 sum is taken in the caller's dtype (the model sums its partial products in
 float32).
 
-``counts`` tallies the calls that moved data, by kind.
+Under CUDA-graph capture (``core/graphs.py``: an engine or train step on
+a mesh whose groups are all NCCL) every call here is recorded into the
+graph as it is: nothing touches the host, and a call that would stage
+through host memory (a gloo group) raises instead. ``counts`` tallies the
+calls that moved data, by kind; a capture records a step's calls, takes
+them back and adds them again on each replay, as it does the kernels'
+launch counts.
 
 Megatron's f/g pair for training. The loss is computed whole on every tp
 rank (replicated), so the gradient that reaches a replicated activation is
@@ -47,9 +53,19 @@ counts = {"all_reduce": 0, "all_gather": 0, "send": 0, "recv": 0,
 
 
 def staged(group, x: torch.Tensor, op: str) -> bool:
-    """Whether ``op`` on ``x`` goes through host memory on ``group``."""
-    return (x.is_cuda and dist.get_backend(group) == "gloo"
-            and op not in GLOO_CUDA_OPS)
+    """Whether ``op`` on ``x`` goes through host memory on ``group``.
+    Raises if it would while the current stream is being captured: a
+    capture cannot record a copy to the host, and a replay would skip
+    it."""
+    if not (x.is_cuda and dist.get_backend(group) == "gloo"
+            and op not in GLOO_CUDA_OPS):
+        return False
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"{op} of a CUDA tensor on a gloo group stages through host "
+            f"memory, which a CUDA graph cannot capture: capture needs "
+            f"NCCL groups")
+    return True
 
 
 def _bits(x: torch.Tensor) -> torch.Tensor:
@@ -73,21 +89,26 @@ def all_gather(x: torch.Tensor, group, dim: int = 0,
     """The ranks' ``x`` concatenated along ``dim`` in group-rank order.
     ``sizes`` are the parts' lengths along ``dim`` (``torch.tensor_split``
     sizes; equal parts by default), so the axis need not divide the rows:
-    every part travels padded to the longest."""
+    every part travels padded to the longest, into one buffer."""
     if group is None:
         return x
     n = dist.get_world_size(group)
     sizes = sizes or [x.shape[dim]] * n
     part = x.movedim(dim, 0)
     longest = max(sizes)
-    buf = part.new_zeros((longest,) + part.shape[1:])
-    buf[:part.shape[0]] = part
+    if part.shape[0] == longest:
+        buf = part.contiguous()
+    else:
+        buf = part.new_zeros((longest,) + part.shape[1:])
+        buf[:part.shape[0]] = part
     if staged(group, buf, "all_gather"):
         buf = buf.cpu()
-    parts = [torch.empty_like(buf) for _ in range(n)]
-    dist.all_gather([_bits(p) for p in parts], _bits(buf), group=group)
+    out = buf.new_empty((n * longest,) + buf.shape[1:])
+    dist.all_gather_into_tensor(_bits(out), _bits(buf), group=group)
     counts["all_gather"] += 1
-    out = torch.cat([p[:s] for p, s in zip(parts, sizes)])
+    if any(s != longest for s in sizes):
+        out = torch.cat([out[i * longest:i * longest + s]
+                         for i, s in enumerate(sizes)])
     return out.to(x.device).movedim(0, dim)
 
 

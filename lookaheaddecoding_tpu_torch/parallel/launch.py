@@ -16,9 +16,18 @@ same as a function that returns the results, for tests and scripts that
 need them in the parent.
 
 Every rank has a time limit: the process group's collectives time out
-after it, and the parent kills the whole world once any rank fails or the
-limit has passed. ``torchrun`` starts the same ranks (the functions read
-their rank from the process group), but returns nothing to its caller.
+after it, a rank still running five seconds before it prints every
+thread's stack, and the parent kills the whole world once any rank fails
+or the limit has passed, reporting the logs of the ranks at fault. A
+rank that is done frees its CUDA graphs before it tears its process group
+down (a graph that captured NCCL collectives holds the communicator); a
+teardown that still outlives ``TEARDOWN_S`` fails the rank, and with it
+the world. A rank whose function raises prints its traceback and exits at
+once, without tearing down its process group (which could wait on a
+collective it left open), so the world ends with that rank's error even
+when the others wait in a collective, a captured one included.
+``torchrun`` starts the same ranks (the functions read their rank from
+the process group), but returns nothing to its caller.
 """
 
 from __future__ import annotations
@@ -26,6 +35,8 @@ from __future__ import annotations
 import argparse
 import contextlib
 import datetime
+import faulthandler
+import gc
 import importlib
 import importlib.util
 import json
@@ -34,6 +45,7 @@ import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 from pathlib import Path
@@ -41,6 +53,7 @@ from typing import Dict, List, Optional
 
 ROOT = Path(__file__).resolve().parents[2]
 _MODULE = "lookaheaddecoding_tpu_torch.parallel.launch"
+TEARDOWN_S = 30.0   # seconds a rank's teardown may take once it is done
 
 
 class WorldError(RuntimeError):
@@ -101,17 +114,27 @@ def _wait(procs, logs, timeout: float) -> None:
     deadline = time.monotonic() + timeout
     while True:
         codes = [p.poll() for p in procs]
-        for rank, code in enumerate(codes):
-            if code not in (None, 0):
+        failed = [(rank, code) for rank, code in enumerate(codes)
+                  if code not in (None, 0)]
+        if failed:
+            # every rank that has failed by now: the one at fault may not
+            # be the lowest (its peers then fail in the collective)
+            parts = []
+            for rank, code in failed:
                 logs[rank].seek(0)
-                raise WorldError(f"rank {rank} exited with {code}:\n"
-                                 f"{logs[rank].read()[-6000:]}")
+                parts.append(f"rank {rank} exited with {code}:\n"
+                             f"{logs[rank].read()[-6000:]}")
+            raise WorldError("\n".join(parts))
         if all(c == 0 for c in codes):
             return
         if time.monotonic() > deadline:
-            raise WorldError(f"the world did not finish within {timeout} s "
-                             f"(ranks still running: "
-                             f"{[r for r, c in enumerate(codes) if c is None]})")
+            running = [r for r, c in enumerate(codes) if c is None]
+            parts = [f"the world did not finish within {timeout} s (ranks "
+                     f"still running: {running})"]
+            for rank in running:        # each with its stacks (_run_rank)
+                logs[rank].seek(0)
+                parts.append(f"rank {rank}:\n{logs[rank].read()[-6000:]}")
+            raise WorldError("\n".join(parts))
         time.sleep(0.05)
 
 
@@ -134,6 +157,9 @@ def _run_rank(spec: Dict) -> None:
     import torch.distributed as dist
 
     rank, world = spec["rank"], spec["world"]
+    # a rank still running near the time limit prints every thread's
+    # stack into its log, which the parent reports
+    faulthandler.dump_traceback_later(max(spec["timeout"] - 5, 1))
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
                       LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
     if spec["threads"]:
@@ -152,8 +178,32 @@ def _run_rank(spec: Dict) -> None:
     try:
         result = _function(spec["target"])(device=device, **spec["args"])
         Path(spec["out"]).write_text(json.dumps({"result": result}))
-    finally:
-        dist.destroy_process_group()
+    except Exception:
+        # End here, with this rank's error: tearing the process group down
+        # could wait on a collective this rank left open (a capture that
+        # raised, a peer that never answers). The parent sees the exit and
+        # ends the other ranks, which may be waiting in a collective.
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+    # The teardown. A CUDA graph that captured NCCL collectives holds its
+    # communicator, and the engines keep their graphs in reference cycles:
+    # free them first, or the teardown waits on them. A teardown that
+    # still outlives TEARDOWN_S ends the rank as failed.
+    guard = threading.Timer(TEARDOWN_S, _end_torn_down_rank)
+    guard.daemon = True
+    guard.start()
+    gc.collect()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    dist.destroy_process_group()
+
+
+def _end_torn_down_rank() -> None:
+    print(f"the process group's teardown took over {TEARDOWN_S} s; ending "
+          f"the rank as failed", flush=True)
+    os._exit(1)
 
 
 def main(argv=None) -> int:

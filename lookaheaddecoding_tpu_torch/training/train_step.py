@@ -13,12 +13,14 @@ JAX package's momentum variant. With a mesh (``parallel.make_mesh``) the
 same step runs on every rank on the rank's shards, with the collectives of
 ``parallel/collectives.py``.
 
-On the card without a mesh the step is the counterpart of ``jax.jit(step)``:
-forward, backward and optimizer step are captured once into a CUDA graph
+On the card the step is the counterpart of ``jax.jit(step)`` (and, on a
+mesh whose groups are NCCL, of ``jax.jit(step, in_shardings=...)``):
+forward, backward, the collectives of both and of the gradient sync, and
+the optimizer step are captured once into a CUDA graph on each rank
 (``core/graphs.py``'s ``StepGraph``) over static buffers, and each call
 copies its arguments in, replays, and clones the results out. On the CPU,
-on a mesh (gloo cannot be captured) and inside ``graphs.eager()`` it runs
-op by op.
+on a mesh with a gloo group (gloo cannot be captured) and inside
+``graphs.eager()`` it runs op by op.
 """
 
 from __future__ import annotations
@@ -86,8 +88,9 @@ def make_train_step(
     by default (plain SGD stalls on transformer attention patterns);
     ``optimizer="sgd"`` keeps the dependency-free momentum variant.
 
-    On the card without a mesh the step replays a CUDA graph of forward,
-    backward and optimizer step, captured at the first call of each graph
+    On the card (without a mesh, or on one whose groups are all NCCL)
+    the step replays a CUDA graph of forward, backward, their collectives
+    and optimizer step, captured at the first call of each graph
     key (the optimizer, each leaf's path, dtype and shape in ``params`` and
     ``opt_state``, the batch's shape and dtype) after one warm step; the
     returned step's ``graphs`` holds them by key. A call copies its
@@ -175,8 +178,9 @@ def make_train_step(
 
 def _graphed(dev, mesh) -> bool:
     """Whether a step on ``dev`` replays a captured graph: on the card,
-    without a mesh, outside ``graphs.eager()``."""
-    return dev.type == "cuda" and mesh is None and not graphs.eager_depth()
+    without a mesh or on an NCCL one (``graphs.capturable``), outside
+    ``graphs.eager()``."""
+    return graphs.capturable(dev, mesh) and not graphs.eager_depth()
 
 
 def _signature(tree) -> tuple:

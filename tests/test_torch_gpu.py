@@ -8,10 +8,12 @@ attention also at head_dim 256 with Gemma-2B's heads and at head_dim 32,
 step on the card against the CPU, ``load_params`` onto the card,
 ``utils.profiling.trace`` around a card ``generate``, the attention at a
 first composite row (``row0``) and two ranks decoding at tp=2 on one card
-over gloo; the CUDA-graph IF node (``ops/graph_cond.py``) against its plain
-version, the pool's chain as an IF node of captured steps (taken and
-skipped, tables and branch counts equal to eager), a capture whose IF node
-fails raising, and the captured train step bit-equal to the eager one.
+over gloo, and a one-rank NCCL mesh engine (chip_smoke's phase 14) and
+train step captured; the CUDA-graph IF node (``ops/graph_cond.py``)
+against its plain version, the pool's chain as an IF node of captured
+steps (taken and skipped, tables and branch counts equal to eager), a
+capture whose IF node fails raising, and the captured train step
+bit-equal to the eager one.
 They skip without a CUDA device. This file imports no
 JAX, so on a machine without JAX it runs without the suite's conftest:
 
@@ -987,6 +989,28 @@ def test_two_ranks_tp2_decode_on_one_card():
         assert r["tokens"] == r["one"] and r["cycle"]
         assert r["launches"]["mma"] > 0
         assert r["launches"]["plain"] == r["launches"]["fma"] == 0
+
+
+@pytest.mark.gpu
+def test_one_rank_nccl_mesh_engine_is_captured():
+    """A one-rank NCCL world (the card takes one NCCL rank): chip_smoke's
+    phase 14, whose engine on ``make_mesh(tp=1)`` replays its decode step
+    as a captured graph with the tokens, steps, pool rows and branches of
+    its eager run and of the engine without a mesh, one replay a step; and
+    the train step on that mesh, captured and bit-equal to its eager
+    steps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import sys
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from lookaheaddecoding_tpu_torch.parallel.launch import launch
+    chip_smoke.nccl_phase(chip_smoke.nvidia_smi())
+    worker = Path(__file__).with_name("torch_parallel_worker.py")
+    r, = launch(f"{worker}:card_nccl_train_one_rank", 1, "nccl", "cuda",
+                timeout=300)
+    assert r["backend"] == "nccl"
+    assert r["train_bit_equal"] and r["train_graphs"] == 1
 
 
 def _graph_engine(dtype=torch.bfloat16, kv_quant=None, bits=None):

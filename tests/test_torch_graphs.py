@@ -10,12 +10,17 @@ the CPU (capture and replay themselves need the card:
 - a step reads nothing back to the host;
 - two calls in a row on one engine equal two fresh engines' calls and the
   JAX engine's at float32: tokens, steps and pool tables;
-- ``core/graphs.py``'s bookkeeping: launch counts a capture takes back
-  and each replay adds, and the refusal of a step that rebinds a field;
+- ``core/graphs.py``'s bookkeeping: launch counts (and collectives'
+  calls) a capture takes back and each replay adds, and the refusal of a
+  step that rebinds a field;
+- the mesh rule of capture: on the card without a mesh or on an NCCL one,
+  eager on a gloo one; a gloo op staged through the host raises inside a
+  capture;
 - ``graphs.cond``: its body runs exactly when the predicate holds, a
   capture records it as an IF node (or raises without the API), the warm
-  step runs it whatever the predicate says, and the pool's chain launches
-  none of the port's counted kernels;
+  step runs it whatever the predicate says, the pool's chain launches
+  none of the port's counted kernels, and a body that calls a collective
+  is refused;
 - the captured train step (``training/train_step.py``): eager on the CPU,
   on a mesh and inside ``graphs.eager()``; through a faked capture its
   steps equal the eager ones bit for bit, its arguments stay as they were,
@@ -23,6 +28,7 @@ the CPU (capture and replay themselves need the card:
   the same shapes share one graph.
 """
 
+import contextlib
 import gc
 
 import jax
@@ -34,8 +40,9 @@ import torch
 import lookaheaddecoding_tpu as jlt
 import lookaheaddecoding_tpu_torch as tlt
 from lookaheaddecoding_tpu_torch.core import graphs
-from lookaheaddecoding_tpu_torch.core.engine import _eos_vec, lane_slot
+from lookaheaddecoding_tpu_torch.core.engine import lane_slot
 from lookaheaddecoding_tpu_torch.ops import lookahead_attention as la
+from torch_parallel_worker import HostReads, faked_capture, prepared
 
 ARCH = dict(vocab_size=128, hidden_size=64, intermediate_size=128,
             num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
@@ -83,16 +90,6 @@ def snapshot(tree_):
 
 def bit_equal(a, b):
     return all(torch.equal(x, y) for x, y in zip(a, b))
-
-
-def prepared(eng, p, n_new, seed=0):
-    """A flat slot prepared for ``p`` with the call's max_new and EOS."""
-    out_buf, n, fill = eng._host_args(p, n_new)
-    slot = eng._free_slot()
-    eng._prepare(out_buf, n, seed, fill, slot=slot)
-    slot.max_new.fill_(n_new)
-    slot.eos.copy_(_eos_vec(None))
-    return slot
 
 
 def flat_steps(eng, slot):
@@ -313,24 +310,6 @@ def test_batched_step_after_finished_changes_nothing(kind):
         assert bit_equal(rows, rest)
 
 
-class _HostReads(torch.utils._python_dispatch.TorchDispatchMode):
-    """Records the ops that read a tensor's value back to the host or
-    whose output shape depends on data: a captured step may make none."""
-
-    SYNCING = ("_local_scalar_dense", "nonzero", "masked_select", "unique",
-               "item")
-
-    def __init__(self):
-        super().__init__()
-        self.seen = []
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        name = func.__name__.split(".")[0]
-        if name.lstrip("_") in self.SYNCING or name in self.SYNCING:
-            self.seen.append(func.__name__)
-        return func(*args, **(kwargs or {}))
-
-
 @pytest.mark.parametrize("kind", ["decode_step", "sample_step",
                                   "baseline_step", "decode_batch",
                                   "sample_batch"])
@@ -357,7 +336,7 @@ def test_steps_read_nothing_back_to_the_host(kind, monkeypatch):
             step = flat_steps(eng, prepared(eng, prompt(0, 20), 24))[kind]
         step()
         conds.clear()
-        with _HostReads() as mode:
+        with HostReads() as mode:
             step()
     assert mode.seen == []
     assert conds == ([] if kind == "baseline_step" else [torch.Size([])])
@@ -453,6 +432,136 @@ def test_runner_is_eager_on_the_cpu_and_inside_eager():
     assert isinstance(r, graphs.EagerSteps) and cache == {}
 
 
+@contextlib.contextmanager
+def backends_named_by_group():
+    """``dist.get_backend(group)`` is the group itself: a hand-made mesh's
+    groups are backend names."""
+    get = torch.distributed.get_backend
+    torch.distributed.get_backend = lambda group=None: group
+    try:
+        yield
+    finally:
+        torch.distributed.get_backend = get
+
+
+def mesh_of(**groups):
+    """A hand-made mesh whose axes' groups are ``groups`` (backend names
+    for :func:`backends_named_by_group`), every axis of size 1 or 2."""
+    from lookaheaddecoding_tpu_torch.parallel.sharding import AXES, Mesh
+    shape = {a: 2 if a in groups else 1 for a in AXES}
+    return Mesh(shape, dict.fromkeys(AXES, 0), torch.device("cuda"),
+                np.zeros([shape[a] for a in AXES], np.int64), groups)
+
+
+@pytest.mark.parametrize("groups,want", [
+    ({}, True),                           # every axis of size 1: no group
+    ({"tp": "nccl"}, True),
+    ({"pp": "nccl", "tp": "nccl", "la": "nccl"}, True),
+    ({"tp": "gloo"}, False),
+    ({"dp": "nccl", "tp": "gloo"}, False),
+])
+def test_capture_follows_the_meshs_backends(groups, want):
+    """An engine's steps and the train step capture on the card without a
+    mesh, or on a mesh whose every process group is NCCL; a gloo group
+    (whose collectives stage through the host) keeps them eager, and the
+    CPU never captures. ``runner`` then gives a StepGraph or eager
+    steps."""
+    from lookaheaddecoding_tpu_torch.training import train_step
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    assert graphs.capturable(cuda) and not graphs.capturable(cpu)
+    with backends_named_by_group():
+        mesh = mesh_of(**groups)
+        assert graphs.capturable(cuda, mesh) is want
+        assert not graphs.capturable(cpu, mesh)
+        assert train_step._graphed(cuda, mesh) is want
+        with graphs.eager():
+            assert not train_step._graphed(cuda, mesh)
+        r = graphs.runner({}, "k", lambda: None, (),
+                          graphed=graphs.capturable(cuda, mesh))
+    assert isinstance(r, graphs.StepGraph if want else graphs.EagerSteps)
+
+
+@pytest.fixture
+def gloo_group():
+    """A one-rank gloo process group in this process, torn down after."""
+    import socket
+    import torch.distributed as dist
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        yield dist.new_group([0])
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("op,staged", [("send", True), ("recv", True),
+                                       ("all_reduce", False),
+                                       ("all_gather", False),
+                                       ("broadcast", False)])
+def test_staged_gloo_op_inside_a_capture_raises(gloo_group, monkeypatch, op,
+                                                staged):
+    """A collective that gloo takes only through host memory (send and
+    receive of a CUDA tensor) raises when the stream is being captured,
+    and is staged otherwise; the ones gloo takes on the card are never
+    staged."""
+    from types import SimpleNamespace
+    from lookaheaddecoding_tpu_torch.parallel import collectives
+    on_card = SimpleNamespace(is_cuda=True)
+    capturing = [False]
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: capturing[0])
+    assert collectives.staged(gloo_group, on_card, op) is staged
+    assert not collectives.staged(gloo_group, torch.zeros(1), op)
+    capturing[0] = True
+    if staged:
+        with pytest.raises(RuntimeError, match="cannot capture"):
+            collectives.staged(gloo_group, on_card, op)
+    else:
+        assert not collectives.staged(gloo_group, on_card, op)
+
+
+def test_step_graph_counts_collectives_once_a_replay(fake_cuda, gloo_group):
+    """A captured step's collectives are counted as its kernels are: the
+    warm step's for real, the capture's taken back, each replay's added
+    once."""
+    from lookaheaddecoding_tpu_torch.parallel import collectives
+    x = torch.ones(4)
+
+    def step():
+        collectives.all_reduce(x, gloo_group)
+        collectives.all_gather(x, gloo_group)
+        collectives.all_reduce(x, gloo_group)
+
+    before = dict(collectives.counts)
+    g = graphs.StepGraph(step, {"x": x})
+    g.run(1)
+    assert g.launches_per_replay() == {"all_reduce": 2, "all_gather": 1}
+    fake_cuda[0].step = lambda: None
+    g.run(5)
+    assert collectives.counts == dict(before,
+                                      all_reduce=before["all_reduce"] + 12,
+                                      all_gather=before["all_gather"] + 6)
+
+
+def test_cond_body_calling_a_collective_is_refused(fake_cuda, if_nodes,
+                                                   gloo_group):
+    """Each rank evaluates its IF node on its own device: a collective
+    under a predicate that differed between ranks would hang the world, so
+    a body that calls one fails the capture."""
+    from lookaheaddecoding_tpu_torch.parallel import collectives
+    x = torch.ones(2)
+
+    def step():
+        graphs.cond(torch.tensor(True),
+                    lambda: collectives.all_reduce(x, gloo_group))
+
+    with pytest.raises(RuntimeError, match="collective"):
+        graphs.StepGraph(step, {"x": x}).run(1)
+
+
 def test_runner_keys_graphs_by_the_int4_kernel_switch(monkeypatch):
     """A graph is cached by its key and by ``ops.quant.INT4_PIPELINE``,
     which picks the int4 kernel inside a captured step."""
@@ -467,66 +576,12 @@ def test_runner_keys_graphs_by_the_int4_kernel_switch(monkeypatch):
     assert piped is not plain and len(cache) == 2
 
 
-class _FakeGraph:
-    """Stands in for torch.cuda.CUDAGraph: records registered generators
-    and replays by calling the captured step."""
-
-    def __init__(self):
-        self.generators, self.step = [], None
-
-    def register_generator_state(self, gen):
-        self.generators.append(gen)
-
-    def replay(self):
-        self.step()
-
-
 @pytest.fixture
-def fake_cuda(monkeypatch):
-    """torch.cuda's streams and graphs on the CPU: the warm step runs, the
-    capture runs the step but restores the state after it (a capture
-    launches nothing), and a replay runs the step."""
-    import contextlib
-    made = []
-    capturing = []
-    capture = graphs.StepGraph._capture
-
-    def tracked(self):
-        capturing.append(self)
-        try:
-            capture(self)
-        finally:
-            capturing.pop()
-    monkeypatch.setattr(graphs.StepGraph, "_capture", tracked)
-
-    class Stream:
-        def wait_stream(self, other):
-            pass
-
-    def graph_cm(g, pool=None):
-        @contextlib.contextmanager
-        def cm():
-            made.append(g)
-            # no collection during a capture: destroying an unreachable
-            # graph then would invalidate it
-            assert not gc.isenabled()
-            owner = capturing[-1]
-            g.step = owner.step
-            kept = [(t, t.clone()) for t in graphs.state_tensors(owner.state)]
-            try:
-                yield
-            finally:
-                for t, old in kept:
-                    t.copy_(old)
-        return cm()
-
-    monkeypatch.setattr(torch.cuda, "Stream", Stream)
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda: Stream())
-    monkeypatch.setattr(torch.cuda, "stream",
-                        lambda s: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
-    monkeypatch.setattr(torch.cuda, "graph", graph_cm)
-    return made
+def fake_cuda():
+    """torch.cuda's streams and graphs on the CPU (the worker's
+    ``faked_capture``): the graphs made, in order."""
+    with faked_capture() as made:
+        yield made
 
 
 def test_step_graph_counts_launches_once_a_replay(fake_cuda):
@@ -694,14 +749,16 @@ def _train_batch(seed, t=33):
 
 
 def test_train_step_is_eager_on_the_cpu_on_a_mesh_and_inside_eager():
-    """A step replays a graph only on the card without a mesh and outside
-    ``graphs.eager()``; on the CPU it captures nothing."""
+    """A step replays a graph only on the card, without a mesh or on an
+    NCCL one, and outside ``graphs.eager()``: a gloo mesh steps eagerly;
+    on the CPU it captures nothing."""
     from lookaheaddecoding_tpu_torch.training import make_train_step
     from lookaheaddecoding_tpu_torch.training import train_step
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     assert train_step._graphed(cuda, None)
     assert not train_step._graphed(cpu, None)
-    assert not train_step._graphed(cuda, object())
+    with backends_named_by_group():
+        assert not train_step._graphed(cuda, mesh_of(tp="gloo"))
     with graphs.eager():
         assert not train_step._graphed(cuda, None)
     cfg, params, opt = _train_model()
@@ -712,7 +769,7 @@ def test_train_step_is_eager_on_the_cpu_on_a_mesh_and_inside_eager():
 
 
 @pytest.mark.parametrize("optimizer", ["adam", "sgd"])
-def test_captured_train_step_equals_eager(fake_cuda, monkeypatch, optimizer):
+def test_captured_train_step_equals_eager(fake_cuda, optimizer):
     """Through a faked capture (the state restored after it, replays
     running the step): three steps equal three eager steps bit for bit;
     the arguments are unchanged after each call; the returned trees alias
@@ -721,9 +778,6 @@ def test_captured_train_step_equals_eager(fake_cuda, monkeypatch, optimizer):
     shape adds a second."""
     from lookaheaddecoding_tpu_torch.training import (init_opt_state,
                                                       make_train_step)
-    from lookaheaddecoding_tpu_torch.training import train_step
-    monkeypatch.setattr(train_step, "_graphed",
-                        lambda dev, mesh: not graphs.eager_depth())
     cfg, params, _ = _train_model()
     opt = init_opt_state(params, optimizer)
     batches = [_train_batch(s) for s in range(3)]

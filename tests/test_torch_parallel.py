@@ -288,6 +288,164 @@ def test_every_rank_ran_collectives(world):
 
 
 # ---------------------------------------------------------------------------
+# What capturing a mesh step needs (an NCCL mesh replays it as a CUDA
+# graph), held on the gloo world at tp=2, pp=2, la=2 (each beside dp=2)
+# and la=2 x tp=2
+# ---------------------------------------------------------------------------
+
+CAPTURE = list(W.CAPTURE_MESHES)
+
+
+@pytest.mark.parametrize("mesh", CAPTURE)
+def test_mesh_steps_keep_every_address(world, mesh):
+    """Each flat step (greedy, sampling, AR) and batched step (greedy,
+    sampling) writes its state in place on every rank: every tensor of its
+    slot has the same data_ptr after three steps, which changed it."""
+    ranks, _, _, _ = world
+    for r in ranks:
+        for kind, got in r["mesh_steps"][mesh].items():
+            assert got["addresses_kept"], (r["rank"], kind)
+            assert got["changed"], (r["rank"], kind)
+
+
+@pytest.mark.parametrize("mesh", CAPTURE)
+def test_mesh_step_after_finished_changes_nothing(world, mesh):
+    """Once ``finished`` holds, further steps leave every buffer bit-equal
+    on every rank (cache rows past the committed ones and the pools' trash
+    rows apart, which no read sees)."""
+    ranks, _, _, _ = world
+    for r in ranks:
+        for kind, got in r["mesh_steps"][mesh].items():
+            assert got["after_finished_unchanged"], (r["rank"], kind)
+
+
+@pytest.mark.parametrize("mesh", CAPTURE)
+def test_mesh_steps_read_nothing_back_to_the_host(world, mesh):
+    """No op of a mesh step reads a value back to the host, collectives
+    included; the lookahead steps make one ``graphs.cond`` call (the
+    pool's chain, an IF node under capture), the AR step none."""
+    ranks, _, _, _ = world
+    for r in ranks:
+        for kind, got in r["mesh_steps"][mesh].items():
+            assert got["host_reads"] == [], (r["rank"], kind)
+            assert got["conds"] == ([] if kind == "baseline_step"
+                                    else [[]]), (r["rank"], kind)
+
+
+@pytest.mark.parametrize("mesh", CAPTURE)
+def test_every_rank_takes_the_same_branches(world, mesh):
+    """Every rank evaluates the same cond predicates, step by step, and
+    takes the same chains: each rank's IF node decides alone under
+    capture, so the predicate must not differ between ranks."""
+    ranks, _, _, _ = world
+    got = [r["branches"][mesh] for r in ranks]
+    assert got[0]["preds"] and any(got[0]["preds"])
+    assert got[0]["branches"] == len(got[0]["preds"])
+    for g in got[1:]:
+        assert g == got[0]
+
+
+# graphs the first graphed call of each kind captures on the engine, which
+# has run the kinds before it: the streams' first resumes on the first
+# slot, whose greedy graph ``generate`` captured, and the second captures
+# on a second slot; the prefix call replays the first slot's greedy graph
+NEW_GRAPHS = {"generate": 1, "baseline": 1, "sample": 1, "batch": 1,
+              "streams": 1, "prefix": 0}
+
+
+@pytest.mark.parametrize("mesh", CAPTURE)
+def test_faked_capture_of_mesh_steps_equals_eager(world, mesh):
+    """Through a faked capture (the warm step, a capture that restores the
+    state, replays running the step as the graph would) greedy
+    ``generate``, ``generate_baseline``, ``generate_sample``, a two-lane
+    ``generate_batch``, a stream that runs while another is suspended and
+    a call from a ``precompute_prefix`` cache equal their eager calls on
+    one engine: tokens, steps and (once captured) branches; the
+    collectives a call counts are the eager call's (a capture takes its
+    own back, each replay adds the step's once); the first call captures
+    its new graphs (``NEW_GRAPHS``), and a step is one replay (a capture's
+    first step is the warm one). Every rank gives the same tokens, steps,
+    branches and replays (the collectives differ between pp stages)."""
+    ranks, _, _, _ = world
+    for r in ranks:
+        got_kinds = r["fake_captured"][mesh]
+        assert set(got_kinds) == set(NEW_GRAPHS)
+        # la's AR step and batched step run whole on every rank
+        assert sum(sum(got["eager"]["collectives"].values())
+                   for got in got_kinds.values()) > 0
+        for kind, got in got_kinds.items():
+            eager = got["eager"]
+            assert eager["captured"] == eager["replays"] == 0, kind
+            # the warm step runs the chain's body unconditionally and
+            # counts no branch, so a capturing call's branches differ
+            first_keys = ("tokens", "steps", "collectives") + (
+                () if NEW_GRAPHS[kind] else ("branches", "taken"))
+            for which, keys in (("first", first_keys),
+                                ("graphed", ("tokens", "steps", "collectives",
+                                             "branches", "taken"))):
+                for key in keys:
+                    assert got[which][key] == eager[key], (r["rank"], kind,
+                                                           which, key)
+            # lanes step together; streams each step their own slot
+            steps = (sum if kind == "streams" else max)(eager["steps"])
+            assert got["first"]["captured"] == NEW_GRAPHS[kind], kind
+            assert got["graphed"]["captured"] == 0, kind
+            assert got["graphed"]["replays"] == steps, kind
+            assert got["first"]["replays"] == steps - NEW_GRAPHS[kind], kind
+            first = ranks[0]["fake_captured"][mesh][kind]
+            for which in got:
+                for key in ("tokens", "steps", "branches", "taken",
+                            "replays"):
+                    assert got[which][key] == first[which][key], (kind, key)
+
+
+def test_faked_capture_of_the_dp_tp_train_step_equals_eager(world):
+    """Three Adam steps at dp=2 x tp=2 through a faked capture equal three
+    eager steps bit for bit on every rank (losses, parameters and optimizer
+    state), call the same collectives, and share one graph."""
+    ranks, _, _, _ = world
+    for r in ranks:
+        got = r["fake_captured_train"]
+        assert got["graphed"] == got["eager"], r["rank"]
+        assert sum(got["eager"]["collectives"].values()) > 0
+        assert got["graphs"] == 1
+    assert len({r["fake_captured_train"]["eager"]["losses"][-1]
+                for r in ranks}) == 1
+
+
+def test_a_failing_rank_ends_the_world():
+    """A rank that raises while the others wait in a collective it never
+    joins ends the world with its own error, well before the time limit."""
+    import time
+    t0 = time.monotonic()
+    with pytest.raises(WorldError, match="rank 1 fails on purpose"):
+        launch(f"{W.__file__}:fail_in_a_collective", 2, "gloo", "cpu",
+               timeout=120, threads=1)
+    assert time.monotonic() - t0 < 60
+
+
+def test_a_teardown_that_hangs_fails_the_world():
+    """A rank whose process group's teardown outlives its limit ends as
+    failed, with the reason in its log: a hung teardown is no success."""
+    import time
+    t0 = time.monotonic()
+    with pytest.raises(WorldError, match="teardown took over"):
+        launch(f"{W.__file__}:hang_in_teardown", 2, "gloo", "cpu",
+               timeout=60, threads=1)
+    assert time.monotonic() - t0 < 30
+
+
+def test_a_hung_world_reports_where_each_rank_waits():
+    """A world past its time limit is killed, and the error carries each
+    running rank's log with the stack it printed before the limit."""
+    with pytest.raises(WorldError, match="did not finish") as e:
+        launch(f"{W.__file__}:hang", 2, "gloo", "cpu", timeout=8, threads=1)
+    for rank in (0, 1):
+        assert f"rank {rank}:" in str(e.value)
+    assert str(e.value).count("in hang") == 2
+
+
+# ---------------------------------------------------------------------------
 # In-process: the layout against JAX's, the int4 row shard, the kernel's
 # first row
 # ---------------------------------------------------------------------------

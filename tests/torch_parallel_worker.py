@@ -10,6 +10,7 @@ package's trees (``save_tree``).
 
 from __future__ import annotations
 
+import contextlib
 from pathlib import Path
 
 import numpy as np
@@ -17,6 +18,7 @@ import torch
 import torch.distributed as dist
 
 import lookaheaddecoding_tpu_torch as lt
+from lookaheaddecoding_tpu_torch.core.graphs import state_tensors
 from lookaheaddecoding_tpu_torch.parallel import collectives
 from lookaheaddecoding_tpu_torch.parallel.sharding import (
     AXES, Mesh, _coords, make_mesh, make_multihost_mesh, shard_params)
@@ -383,6 +385,396 @@ def _multihost_train(data, device):
             "loss_after_step": float(loss2)}
 
 
+# ---------------------------------------------------------------------------
+# What capturing a mesh step needs (CUDA graphs on an NCCL mesh), held on
+# the gloo world: fixed addresses, no-op steps after ``finished``, no host
+# read but the cond predicate, the same branches on every rank, and a
+# faked capture equal to the eager step
+# ---------------------------------------------------------------------------
+
+# name -> (model file, config, mesh, EngineConfig's parallel fields): every
+# rank of the world is in each mesh (dp fills the rest)
+CAPTURE_MESHES = {
+    "tp2": ("small", small(), dict(dp=2, tp=2), dict(tp=2)),
+    "pp2": ("pipe", pipe(), dict(dp=2, pp=2), dict(pp=2)),
+    "la2": ("la", small(), dict(dp=2, la=2), dict(la=2)),
+    "la2_tp2": ("la", small(), dict(la=2, tp=2), dict(tp=2, la=2)),
+}
+SAMPLING = dict(temperature=0.9, top_k=20, top_p=0.95)
+
+
+def _capture_engine(name, data, device, **lkw):
+    model, cfg, mesh_kw, par = CAPTURE_MESHES[name]
+    mesh = make_mesh(**mesh_kw, devices=device)
+    params = shard_params(load_tree(Path(data) / f"{model}.npz", cfg), mesh,
+                          cfg)
+    return engine(cfg, params, dict(LC_POOL, **lkw), EC, device, mesh, par)
+
+
+def prepared(eng, p, n_new, seed=0):
+    """A flat slot prepared for ``p`` with the call's max_new and EOS."""
+    from lookaheaddecoding_tpu_torch.core.engine import _eos_vec
+    out_buf, n, fill = eng._host_args(p, n_new)
+    slot = eng._free_slot()
+    eng._prepare(out_buf, n, seed, fill, slot=slot)
+    slot.max_new.fill_(n_new)
+    slot.eos.copy_(_eos_vec(None))
+    return slot
+
+
+def _step_kinds(eng, n_new=24):
+    """{kind: (state tree, one step)} of the three flat steps and the two
+    batched ones, each on a state of its own, freshly prepared for
+    ``n_new`` new tokens."""
+    from lookaheaddecoding_tpu_torch.core.engine import lane_slot, write_lane
+    temps, top_p, top_k = eng._warp(lt.SamplingConfig(**SAMPLING))
+    fns, params = eng._fns, eng.params
+    out = {}
+    for kind in ("decode_step", "sample_step", "baseline_step"):
+        slot = prepared(eng, prompt_of("small"), n_new)
+        eng._slots.remove(slot)     # the next kind prepares a slot of its own
+        st = slot.state
+        out[kind] = (slot, {
+            "decode_step": lambda st=st, slot=slot: fns.decode_step(
+                params, st, slot.max_new, slot.eos),
+            "sample_step": lambda st=st, slot=slot: fns.sample_step(
+                params, st, slot.max_new, slot.eos, temps, top_p, top_k),
+            "baseline_step": lambda st=st, slot=slot: fns.baseline_step(
+                params, st, slot.max_new, slot.eos)}[kind])
+    bfns = eng._batch_fns()
+    for kind in ("decode_batch", "sample_batch"):
+        lanes = lane_slot(eng, 2)
+        for b, p in enumerate((prompt_of("small"), prompt_of("la"))):
+            out_buf, n, fill = eng._host_args(p[:10 + b], n_new)
+            write_lane(lanes, b, eng._prepare(out_buf, n, 3 + b, fill))
+        lanes.max_new.fill_(n_new)
+        args = (params, lanes.k_pool, lanes.v_pool, lanes.states,
+                lanes.max_new, lanes.eos)
+        out[kind] = (lanes, (lambda a=args: bfns.decode_batch(*a))
+                     if kind == "decode_batch" else
+                     (lambda a=args, lanes=lanes: bfns.sample_batch(
+                         *a, lanes.temperature, lanes.top_p,
+                         SAMPLING["top_k"])))
+    return out
+
+
+class HostReads(torch.utils._python_dispatch.TorchDispatchMode):
+    """Records the ops that read a tensor's value back to the host or
+    whose output shape depends on data: a captured step may make none."""
+
+    SYNCING = ("_local_scalar_dense", "nonzero", "masked_select", "unique",
+               "item")
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.__name__.split(".")[0]
+        if name.lstrip("_") in self.SYNCING or name in self.SYNCING:
+            self.seen.append(func.__name__)
+        return func(*args, **(kwargs or {}))
+
+
+def _equal(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _still_after_finished(eng, kind, tree, step):
+    """Whether, once ``finished`` holds (the flat steps: by max_new; the
+    batched ones: set), three more steps leave every buffer bit-equal but
+    the cache rows past the committed ones and the pools' write-only trash
+    rows (``test_torch_graphs.py``'s rules)."""
+    if kind.endswith("batch"):
+        tree.states.finished.fill_(True)
+        M = eng.ecfg.max_seq_len
+        kv = tree.states.kv_len.tolist()
+        caches = state_tensors((tree.k_pool, tree.v_pool))
+        committed = [t[:, :, b * M:b * M + kv[b]] for t in caches
+                     for b in range(len(kv))]
+        pool = tree.states.pool
+        others = [t for t in state_tensors((tree.states, tree.max_new, tree.eos))
+                  if t is not pool.values and t is not pool.age]
+        others += [pool.values[:, :-1], pool.age[:, :-1]]
+    else:
+        state = tree.state
+        for _ in range(40):
+            step()
+            if bool(state.finished):
+                break
+        if not bool(state.finished):
+            return False
+        kv = int(state.kv_len)
+        caches = state_tensors((state.k_cache, state.v_cache))
+        committed = [c[..., :kv, :] for c in caches]
+        pool = state.pool
+        others = [t for t in state_tensors(tree)
+                  if not any(t is c for c in caches + [pool.values,
+                                                       pool.age])]
+        others += [pool.values[:-1], pool.age[:-1]]
+    kept = [t.clone() for t in committed + others]
+    for _ in range(3):
+        step()
+    return _equal(committed + others, kept)
+
+
+def _mesh_steps(name, data, device):
+    """Each step kind at mesh ``name``: whether every state tensor kept its
+    address across three steps (and the steps changed the state); the ops
+    that read back to the host in one step, with ``graphs.cond``'s
+    predicate replaced by a call that runs the body unread (the one read a
+    capture turns into an IF node), and those calls' predicate shapes;
+    and whether steps after ``finished`` changed nothing."""
+    from lookaheaddecoding_tpu_torch.core import graphs
+    eng = _capture_engine(name, data, device, pool_key_len=2,
+                          pool_hash_size=97, always_fwd_one=False)
+    out = {}
+    cond, conds = graphs.cond, []
+
+    def unread(pred, body):
+        conds.append(list(pred.shape))
+        body()
+    with torch.inference_mode():
+        for kind, (tree, step) in _step_kinds(eng).items():
+            before = [t.data_ptr() for t in state_tensors(tree)]
+            old = [t.clone() for t in state_tensors(tree)]
+            for _ in range(3):
+                step()
+            kept = [t.data_ptr() for t in state_tensors(tree)] == before
+            changed = not _equal(state_tensors(tree), old)
+            step()
+            conds.clear()
+            graphs.cond = unread
+            try:
+                with HostReads() as mode:
+                    step()
+            finally:
+                graphs.cond = cond
+            out[kind] = {"addresses_kept": kept, "changed": changed,
+                         "host_reads": mode.seen, "conds": list(conds)}
+        for kind, (tree, step) in _step_kinds(eng, n_new=6).items():
+            out[kind]["after_finished_unchanged"] = _still_after_finished(
+                eng, kind, tree, step)
+    return out
+
+
+def _branches(name, data, device):
+    """Eager ``generate`` and ``generate_batch`` at mesh ``name``: every
+    ``graphs.cond`` predicate the rank read, in order, and the branch
+    counts."""
+    from lookaheaddecoding_tpu_torch.core import graphs
+    eng = _capture_engine(name, data, device, pool_key_len=2,
+                          pool_hash_size=97)
+    preds = []
+    cond = graphs.cond
+
+    def recorded(pred, body):
+        preds.append(bool(pred))
+        cond(pred, body)
+    graphs.reset_stats()
+    graphs.cond = recorded
+    try:
+        eng.generate(prompt_of("la"), 40)
+        eng.generate_batch([prompt_of("small"), prompt_of("la")[:9]], 24)
+    finally:
+        graphs.cond = cond
+    got = graphs.read_stats()
+    return {"preds": preds, "branches": got["branches"], "taken": got["taken"]}
+
+
+class _FakeGraph:
+    """Stands in for torch.cuda.CUDAGraph on the CPU. It records the
+    generators registered with it, and a replay runs ``step`` (the captured
+    step, or one a test puts there) as the graph would: its conds as IF
+    nodes (the body runs when the predicate holds and ticks the graph's
+    device counter) and no launch counted by Python (a replay runs
+    none)."""
+
+    def __init__(self):
+        self.owner, self.step, self.generators = None, None, []
+
+    def register_generator_state(self, gen):
+        self.generators.append(gen)
+
+    def replay(self):
+        from lookaheaddecoding_tpu_torch.core import graphs
+        owner = self.owner
+        tallies = [dict(t) for t in graphs._TALLIES]
+        conds = owner.conds
+        graphs._active = (owner, True)
+        try:
+            self.step()
+        finally:
+            graphs._active = None
+            for t, old in zip(graphs._TALLIES, tallies):
+                t.update(old)
+            owner.conds = conds
+
+
+@contextlib.contextmanager
+def faked_capture():
+    """torch.cuda's streams and graphs on the CPU, and ``graphs.capturable``
+    true: engines and train steps made inside capture. The warm step runs;
+    the capture (with the cycle collector off) runs the step, its
+    collectives too on every rank alike, and then restores the state, its
+    generators and the counts (a capture launches nothing); a replay is
+    :class:`_FakeGraph`'s. Yields the graphs made, in order."""
+    import gc
+    from lookaheaddecoding_tpu_torch.core import graphs
+    from lookaheaddecoding_tpu_torch.training import train_step
+
+    made, capturing = [], []
+    capture = graphs.StepGraph._capture
+
+    def tracked(self):
+        capturing.append(self)
+        try:
+            capture(self)
+        finally:
+            capturing.pop()
+
+    class Stream:
+        def wait_stream(self, other):
+            pass
+
+    @contextlib.contextmanager
+    def graph(g, pool=None, capture_error_mode="global"):
+        # no collection during a capture: destroying an unreachable graph
+        # then would invalidate it
+        assert not gc.isenabled()
+        made.append(g)
+        owner = g.owner = capturing[-1]
+        g.step = owner.step
+        kept = [(t, t.clone()) for t in graphs.state_tensors(owner.state)]
+        gens = [(x, x.get_state())
+                for x in graphs.state_generators(owner.state)]
+        try:
+            yield
+        finally:
+            for t, old in kept:
+                t.copy_(old)
+            for x, st in gens:
+                x.set_state(st)
+
+    patches = [(graphs.StepGraph, "_capture", tracked),
+               (graphs, "capturable", lambda device, mesh=None: True),
+               (train_step, "_graphed",
+                lambda dev, mesh: not graphs.eager_depth()),
+               (torch.cuda, "Stream", Stream),
+               (torch.cuda, "current_stream", lambda: Stream()),
+               (torch.cuda, "stream", lambda s: contextlib.nullcontext()),
+               (torch.cuda, "CUDAGraph", _FakeGraph),
+               (torch.cuda, "graph", graph),
+               (torch.cuda, "graph_pool_handle", lambda: None)]
+    saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in patches]
+    for obj, attr, value in patches:
+        setattr(obj, attr, value)
+    try:
+        yield made
+    finally:
+        for obj, attr, value in saved:
+            setattr(obj, attr, value)
+
+
+def _counted(fn):
+    """(fn's results, collectives called, graphs stats) of one call."""
+    from lookaheaddecoding_tpu_torch.core import graphs
+    calls = dict(collectives.counts)
+    graphs.reset_stats()
+    res = fn()
+    got = graphs.read_stats()
+    return (res if isinstance(res, list) else [res],
+            {k: collectives.counts[k] - calls[k] for k in calls}, got)
+
+
+def _streams(eng, p, q):
+    """A greedy ``generate_stream`` of ``p`` suspended after its first
+    part while a second one, of ``q``, runs to its end on a second slot,
+    then the first resumed: each stream's tokens and steps (its slot's
+    step count)."""
+    from types import SimpleNamespace
+    first = eng.generate_stream(p, 24)
+    parts = [next(first)]                       # holds the first slot
+    second = [t for part in eng.generate_stream(q, 16) for t in part]
+    parts += list(first)
+    return [SimpleNamespace(tokens=np.array(p + [int(t) for part in parts
+                                                 for t in part]),
+                            steps=int(eng._slots[0].state.step_idx)),
+            SimpleNamespace(tokens=np.array(q + [int(t) for t in second]),
+                            steps=int(eng._slots[1].state.step_idx))]
+
+
+def _fake_captured(name, data, device):
+    """At mesh ``name`` on one engine made inside :func:`faked_capture`:
+    greedy ``generate``, ``generate_baseline``, ``generate_sample``, a
+    two-lane ``generate_batch``, two greedy streams of which the second
+    runs while the first is suspended (:func:`_streams`), and a greedy
+    ``generate`` from a ``precompute_prefix`` cache, each eager
+    (``graphs.eager()``), then graphed twice. Each call's tokens, steps,
+    collectives called and branch counts, and the graphed calls' captures
+    and replays."""
+    from lookaheaddecoding_tpu_torch.core import graphs
+    sc = lt.SamplingConfig(**SAMPLING)
+    p, q = prompt_of("la"), prompt_of("small")[:9]
+    out = {}
+    with faked_capture():
+        eng = _capture_engine(name, data, device, pool_key_len=2,
+                              pool_hash_size=97)
+        calls = {"generate": lambda: eng.generate(p, 32),
+                 "baseline": lambda: eng.generate_baseline(p, 24),
+                 "sample": lambda: eng.generate_sample(p, 32, sc, seed=3),
+                 "batch": lambda: eng.generate_batch([p, q], 24),
+                 "streams": lambda: _streams(eng, p, q),
+                 "prefix": lambda: eng.generate(
+                     p, 24, prefix=eng.precompute_prefix(p[:8]))}
+        for kind, fn in calls.items():
+            runs = {}
+            with graphs.eager():
+                runs["eager"] = _counted(fn)
+            runs["first"] = _counted(fn)
+            runs["graphed"] = _counted(fn)
+            out[kind] = {which: {
+                "tokens": [r.tokens.tolist() for r in res],
+                "steps": [r.steps for r in res], "collectives": calls_,
+                "branches": st["branches"], "taken": st["taken"],
+                "captured": st["captured"], "replays": st["replays"]}
+                for which, (res, calls_, st) in runs.items()}
+    return out
+
+
+def _fake_captured_train(data, device):
+    """Three Adam steps at dp=2 x tp=2, eager and through
+    :func:`faked_capture`: each step's loss and the final shards' hash
+    (bit for bit), and the graphs the captured step made."""
+    import hashlib
+    from lookaheaddecoding_tpu_torch.core import graphs
+    cfg = small()
+    mesh = make_mesh(dp=2, tp=2, devices=device)
+    params = shard_params(load_tree(Path(data) / "train.npz", cfg), mesh, cfg)
+    batch = np.load(Path(data) / "batch.npy")
+    rows = len(batch) // 2
+    local = batch[mesh.coords["dp"] * rows:(mesh.coords["dp"] + 1) * rows]
+    out = {}
+    with faked_capture():
+        step = make_train_step(cfg, seq_len=64, mesh=mesh)
+        for which in ("eager", "graphed"):
+            p, o, losses = params, init_opt_state(params), []
+            calls = dict(collectives.counts)
+            with (graphs.eager() if which == "eager"
+                  else contextlib.nullcontext()):
+                for _ in range(3):
+                    p, o, loss = step(p, o, local)
+                    losses.append(float(loss))
+            sha = hashlib.sha256()
+            for t in state_tensors((p, o)):
+                sha.update(t.numpy().tobytes())
+            out[which] = {"losses": losses, "sha": sha.hexdigest(),
+                          "collectives": {k: collectives.counts[k] - calls[k]
+                                          for k in calls}}
+        out["graphs"] = len(step.graphs)
+    return out
+
+
 def run(device, data):
     """Every case of ``test_torch_parallel.py``, in one order on every
     rank (each mesh's ``new_group`` calls are collective over the world)."""
@@ -400,7 +792,38 @@ def run(device, data):
     out["train"] = {name: _train(name, data, device) for name in TRAIN}
     out["multihost_train"] = _multihost_train(data, device)
     out["collectives"] = dict(collectives.counts)
+    out["mesh_steps"] = {n: _mesh_steps(n, data, device)
+                         for n in CAPTURE_MESHES}
+    out["branches"] = {n: _branches(n, data, device) for n in CAPTURE_MESHES}
+    out["fake_captured"] = {n: _fake_captured(n, data, device)
+                            for n in CAPTURE_MESHES}
+    out["fake_captured_train"] = _fake_captured_train(data, device)
     return out
+
+
+def hang(device):
+    """Every rank sleeps past the world's time limit."""
+    import time
+    time.sleep(120)
+
+
+def hang_in_teardown(device):
+    """Every rank returns, then its process group's teardown hangs past
+    the launcher's limit for it (set to one second here)."""
+    import sys
+    import time
+    sys.modules["__main__"].TEARDOWN_S = 1.0    # the rank's launch module
+    dist.destroy_process_group = lambda *a, **k: time.sleep(60)
+    return "done"
+
+
+def fail_in_a_collective(device):
+    """Rank 1 raises while rank 0 waits in an all-reduce that rank 1 never
+    joins: the world must end with rank 1's error."""
+    if dist.get_rank() == 1:
+        raise RuntimeError("rank 1 fails on purpose")
+    dist.all_reduce(torch.ones(1))
+    return "unreachable"
 
 
 # ---------------------------------------------------------------------------
@@ -490,3 +913,30 @@ def card_tp2(device):
             "steps": r.steps, "one": one.tokens.tolist(),
             "cycle": all(int(nxt[a]) == b for a, b in zip(
                 r.tokens[15:-1], r.tokens[16:])), "launches": launches}
+
+
+def card_nccl_train_one_rank(device):
+    """A one-rank NCCL world on the card: three Adam train steps on
+    ``make_mesh(tp=1)`` (an NCCL process group, no collective), eager and
+    graphed. Whether they are bit-equal, and the graphs captured."""
+    from lookaheaddecoding_tpu_torch.core import graphs
+
+    mesh = make_mesh(tp=1)
+    cfg = small()
+    start = lt.init_params(cfg, seed=0, scale=0.2, device=device)
+    batch = np.random.RandomState(1).randint(0, 128, size=(4, 33))
+    step = make_train_step(cfg, seq_len=64, mesh=mesh)
+    runs = {}
+    for which in ("eager", "graphed"):
+        p, o = start, init_opt_state(start)
+        with (graphs.eager() if which == "eager"
+              else contextlib.nullcontext()):
+            for _ in range(3):
+                p, o, loss = step(p, o, batch)
+        runs[which] = (p, o, float(loss))
+    return {"backend": dist.get_backend(),
+            "train_bit_equal": runs["eager"][2] == runs["graphed"][2] and all(
+                torch.equal(a, b) for a, b in zip(
+                    state_tensors(runs["eager"][:2]),
+                    state_tensors(runs["graphed"][:2]))),
+            "train_graphs": len(step.graphs)}
