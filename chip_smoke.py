@@ -175,7 +175,19 @@ target). It imports no JAX. Phases, each printed as it runs:
    peak device memory both ways, the step alone timed in windows (eager,
    graphed, graphed, eager) and each way's kernels a step, device busy,
    idle and IF-body share from a profile of a state's first steps (the
-   headline's take the parallel insert: asserted) and of later steps;
+   headline's take the parallel insert: asserted) and of later steps.
+   The request's preparation is captured too (JAX's fused prepare call):
+   for each flat configuration above, phase 10's dynamic-NTK engine and a
+   1,536-token prompt on the headline model at M=2048 (12 chunks through
+   B2), the slot after ``_prepare`` must be bit-equal eager and graphed
+   (caches, ``kv_len``, pool, window, output buffer), the graphed prefill
+   must replay the slot's captured chunk once a chunk (``graphs.stats``)
+   with the attention's launches, one a layer and chunk, counted from the
+   replays, and the way from the request's start to its first decode
+   replay must not sync the host (``set_sync_debug_mode("error")``). It
+   prints ms a prefill chunk eager and graphed, ms from the request's
+   start to its first decode step each way, and the call's wall over its
+   steps beside the step alone;
 14. the mesh step captured: a world of one rank over NCCL
    (``parallel/launch.py --nproc 1 --backend nccl``; the card takes one
    NCCL rank) builds the headline model and runs an engine on
@@ -183,8 +195,9 @@ target). It imports no JAX. Phases, each printed as it runs:
    without a mesh: ``generate`` and ``generate_baseline`` eagerly and
    graphed on the mesh engine must give the no-mesh engine's and phase
    4's tokens, steps and (greedy) pool rows, and the graphed calls must
-   capture and replay (``graphs.stats``). Meshes of more than one NCCL
-   rank need a card a rank: ``scripts/torch_parallel_nccl.py`` on four.
+   capture and replay (``graphs.stats``), their prefill chunk too.
+   Meshes of more than one NCCL rank need a card a rank:
+   ``scripts/torch_parallel_nccl.py`` on four.
 
 Each phase's seconds are printed as ``[seconds]`` lines.
 
@@ -2844,12 +2857,17 @@ def nccl_phase(card, tokens=None):
         assert graphed["call"]["captured"] == 0, (path, graphed)
         assert graphed["call"]["replays"] == graphed["steps"], (path,
                                                                 graphed)
+        # the prefill's one chunk a replay of the slot's captured chunk
+        assert eager["call"]["prefills"] == 0, (path, eager)
+        assert graphed["call"]["prefills"] == -(-(PROMPT_LEN - 1)
+                                                // PREFILL_CHUNK), graphed
         assert graphed["call"]["branches"] == eager["call"]["branches"]
         assert graphed["call"]["taken"] == eager["call"]["taken"]
         log(f"  [{card}] mesh engine (tp=1, one NCCL rank) {path}: "
             f"{graphed['steps']} steps; graphs captured at the warm-up "
             f"{graphed['warm']['captured']}, replays "
-            f"{graphed['call']['replays']}; tokens, steps"
+            f"{graphed['call']['replays']} and prefill chunks replayed "
+            f"{graphed['call']['prefills']}; tokens, steps"
             f"{', pool rows' if path == 'lookahead' else ''} and branches "
             f"({graphed['call']['branches']}, chains taken "
             f"{graphed['call']['taken']}) equal to its eager run and the "
@@ -2871,6 +2889,11 @@ CAPTURE_PROFILED = 6  # of a profiled one
 # insert unless the prompt's own n-grams share a key
 CAPTURE_FIRST = 3
 CAPTURE_BUDGET = 100_000   # max_new of those windows: no step ends them
+PREFILL_REPS = 3      # prefills of each way's timed window of the prefill
+PREFILL_PROFILED = ("bf16",)   # configurations whose graphed prefill is
+                               # profiled (each profiler run costs seconds)
+# phase 13's long prompt: the headline model at M=2048 (B2), 12 chunks
+LONG_PROMPT, LONG_SEQ, LONG_NEW = 1536, 2048, 128
 
 
 def profile_steps(run, n):
@@ -3015,22 +3038,160 @@ def same_branches(name, branch):
         (name, e, g)
 
 
-def captured_flat(name, eng, prompt, mode, card, n_new, sampling=None):
-    """One flat configuration's captured step against its eager step on the
-    same engine: the generate call of ``mode`` ("greedy", "ar" or
-    "sample") eager and graphed (tokens and steps equal, greedy's pool
-    tables' rows [0, R) and clock bit-equal, the same branches evaluated
-    and chains taken, tok/s, peak memory; the graphed call counted alone:
-    replays > 0 and the kernels' launches), then the step alone in windows
-    and under the profiler. Returns the graphed call's branch counts."""
+def prefill_chunks(eng, prompt_len, start0=0):
+    """Chunks of ``eng``'s prefill of a prompt past ``start0``."""
+    return -(-max(prompt_len - 1 - start0, 0) // eng.ecfg.prefill_chunk)
+
+
+def prepared_slot(eng, prompt, n_new):
+    """A free slot of ``eng`` after ``_prepare`` of ``prompt``, and clones of
+    every tensor of its state (caches, ``kv_len``, window, pool, output
+    buffer, counters)."""
+    import torch
+    from lookaheaddecoding_tpu_torch.core import graphs
+    with torch.inference_mode():
+        slot = eng._free_slot()
+        out_buf, n, fill = eng._host_args(prompt, n_new)
+        eng._prepare(out_buf, n, 0, fill, slot=slot)
+        return slot, [t.clone() for t in graphs.state_tensors(slot.state)]
+
+
+def prefills(eng, slot, prompt, n):
+    """``n`` prefills of ``prompt`` on ``slot``, prepared for it (each
+    rewrites the same rows)."""
+    import torch
+    with torch.inference_mode():
+        for _ in range(n):
+            eng._prefill(slot, len(prompt), 0)
+
+
+def prefill_ms(eng, slot, prompt):
+    """ms a chunk of PREFILL_REPS prefills of ``prompt`` on ``slot`` in a
+    row."""
+    return (timed_steps(lambda n: prefills(eng, slot, prompt, n),
+                        PREFILL_REPS) / prefill_chunks(eng, len(prompt)))
+
+
+def to_first_step(eng, prompt, mode, n_new, sampling, no_sync):
+    """(ms until the host has queued the first decode step, ms until the
+    card has run it) from the request's start: ``_host_args``,
+    ``_prepare``, the step's runner and one step. With ``no_sync`` the
+    host must not wait for the card on the way: the calls run under
+    ``torch.cuda.set_sync_debug_mode("error")``, so a sync raises."""
+    import torch
+    torch.cuda.synchronize()
+    if no_sync:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            slot = eng._free_slot()
+            out_buf, n, fill = eng._host_args(prompt, n_new)
+            eng._prepare(out_buf, n, 0, fill, slot=slot)
+            eng._flat_runner(slot, mode, n_new, None, sampling).run(1)
+            queued = time.perf_counter()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return 1e3 * (queued - t0), 1e3 * (time.perf_counter() - t0)
+
+
+def captured_prefill(name, eng, prompt, mode, card, n_new, sampling=None):
+    """The request's preparation, eager and graphed on one engine whose
+    graphs the calls before captured: the slot after ``_prepare`` bit-equal
+    both ways (caches, ``kv_len``, pool, window, output buffer, counters);
+    graphed, every chunk a replay of the slot's captured chunk
+    (``stats["prefills"]``, nothing captured) whose attention launches,
+    one a layer and chunk (B1, or B2 past 1024 slots: causal), the
+    kernels' counts take from the replays, no plain version; ms a chunk
+    each way; and from the request's start to its first decode step, ms
+    each way, graphed under the sync check (``to_first_step``). Returns
+    {"chunk_ms", "first_ms", "per_replay"}."""
     import torch
     from lookaheaddecoding_tpu_torch.core import graphs
 
-    call = {"greedy": lambda: eng.generate(prompt, n_new, return_prefix=True),
+    k = prefill_chunks(eng, len(prompt))
+    snaps, stats, got, chunk_ms, first_ms = {}, {}, {}, {}, {}
+    profiled, prof = name in PREFILL_PROFILED, None
+    for which in ("eager", "graphed"):
+        with _mode(which):
+            prepared_slot(eng, prompt, n_new)
+            torch.cuda.synchronize()
+            reset_counts()
+            graphs.reset_stats()
+            slot, snaps[which] = prepared_slot(eng, prompt, n_new)
+            torch.cuda.synchronize()
+            stats[which], got[which] = graphs.read_stats(), read_counts()
+            chunk_ms[which] = prefill_ms(eng, slot, prompt)
+            if which == "graphed" and profiled:
+                prof = profile_steps(
+                    lambda n: prefills(eng, slot, prompt, n), 1)
+            first_ms[which] = to_first_step(eng, prompt, mode, n_new,
+                                            sampling, which == "graphed")
+    assert all(torch.equal(a, b) for a, b in zip(snaps["eager"],
+                                                  snaps["graphed"])), \
+        f"{name}: the slot after the graphed prefill differs from eager"
+    e, g = stats["eager"], stats["graphed"]
+    assert e["prefills"] == e["captured"] == 0, (name, e)
+    assert g["prefills"] == k and g["captured"] == 0, (name, k, g)
+    launches = k * eng.mcfg.num_hidden_layers
+    assert got["graphed"]["attention_mma"] == launches \
+        == got["eager"]["attention_mma"], (name, launches, got)
+    for which in got:
+        assert got[which]["plain"] == got[which]["attention_fma"] == 0, \
+            (name, which, got)
+    per_replay = next(graph for key, graph in eng._free_slot().graphs.items()
+                      if key[0] == "prefill").launches_per_replay()
+    log(f"  [{card}] {name} prefill ({len(prompt)}-token prompt, {k} "
+        f"chunk{'s' if k > 1 else ''} of {eng.ecfg.prefill_chunk}): the "
+        f"slot after it bit-equal eager and graphed; graphed {g['prefills']} "
+        f"replays of the captured chunk, launches a replay {per_replay}; ms "
+        f"a chunk eager {chunk_ms['eager']:.3f}, graphed "
+        f"{chunk_ms['graphed']:.3f} ({chunk_ms['eager'] / chunk_ms['graphed']:.1f}"
+        f"x)" + (f"; a graphed chunk under the profiler: "
+                 f"{profile_line(prof, chunk_ms, k)}" if profiled else "")
+        + f"; from the request's start to its first decode step, ms queued "
+        f"/ run: eager {first_ms['eager'][0]:.3f} / "
+        f"{first_ms['eager'][1]:.3f}, graphed {first_ms['graphed'][0]:.3f} / "
+        f"{first_ms['graphed'][1]:.3f} (no host sync on the way, "
+        f"set_sync_debug_mode('error'))")
+    return dict(chunk_ms=chunk_ms, first_ms=first_ms, per_replay=per_replay,
+                profile=prof)
+
+
+def profile_line(prof, chunk_ms, k):
+    """Kernels, device busy and idle a chunk of the graphed prefill, from
+    ``profile_steps`` of one whole prefill of ``k`` chunks."""
+    if prof is None:
+        return "device time not measured (no kernel recorded)"
+    kernels, busy, _ = prof
+    return (f"{kernels / k:.0f} kernels, device busy {busy / k:.3f} ms, "
+            f"idle {1 - busy / k / chunk_ms['graphed']:.3f}")
+
+
+def captured_flat(name, eng, prompt, mode, card, n_new, sampling=None,
+                  alone=True, return_prefix=True):
+    """One flat configuration's captured step against its eager step on the
+    same engine: the generate call of ``mode`` ("greedy", "ar" or
+    "sample") eager and graphed (tokens and steps equal, greedy's pool
+    tables' rows [0, R) and clock bit-equal: those of the prefix the call
+    returns with ``return_prefix`` (the graphed copy into it included),
+    else of the call's slot; the same branches evaluated and chains
+    taken, tok/s, peak memory; the graphed call counted alone:
+    replays > 0, a prefill replay a chunk, and the kernels' launches),
+    then its preparation (``captured_prefill``), the call's wall over its
+    steps, and, with ``alone``, the step alone in windows and under the
+    profiler beside it. Returns the graphed call's branch counts and the
+    graphed windows' profiles (None without ``alone``)."""
+    import torch
+    from lookaheaddecoding_tpu_torch.core import graphs
+
+    call = {"greedy": lambda: eng.generate(prompt, n_new,
+                                           return_prefix=return_prefix),
             "ar": lambda: eng.generate_baseline(prompt, n_new),
             "sample": lambda: eng.generate_sample(prompt, n_new, sampling,
                                                   seed=0)}[mode]
-    runs, peak, tok_s, branch = {}, {}, {}, {}
+    runs, peak, tok_s, branch, pools = {}, {}, {}, {}, {}
     for which in ("eager", "graphed"):
         with _mode(which):
             call()                                   # warm (captures)
@@ -3042,6 +3203,11 @@ def captured_flat(name, eng, prompt, mode, card, n_new, sampling=None):
             runs[which] = call()
             torch.cuda.synchronize()
             branch[which] = graphs.read_stats()
+            pool = (runs[which].prefix.pool
+                    if mode == "greedy" and return_prefix
+                    else eng._free_slot().state.pool)    # the call's slot
+            pools[which] = [t.clone() for t in (pool.values[:-1],
+                                                pool.age[:-1], pool.clock)]
         peak[which] = torch.cuda.max_memory_allocated() / 2**20
         tok_s[which] = runs[which].tokens_per_sec
     got, stats = read_counts(), branch["graphed"]
@@ -3049,11 +3215,11 @@ def captured_flat(name, eng, prompt, mode, card, n_new, sampling=None):
         f"{name}: the graphed step's tokens differ from the eager step's"
     assert runs["graphed"].steps == runs["eager"].steps, name
     if mode == "greedy":
-        pools = [runs[w].prefix.pool for w in ("eager", "graphed")]
-        for field in ("values", "age"):
-            a, b = (getattr(pool, field)[:-1] for pool in pools)
+        for field, a, b in zip(("values", "age", "clock"), pools["eager"],
+                               pools["graphed"]):
             assert torch.equal(a, b), f"{name}: pool {field} rows differ"
-        assert torch.equal(pools[0].clock, pools[1].clock), name
+    assert stats["prefills"] == prefill_chunks(eng, len(prompt)), (name,
+                                                                   stats)
     same_branches(name, branch)
     assert stats["replays"] > 0 and got["attention_mma"] > 0, (name, stats,
                                                                got)
@@ -3063,11 +3229,24 @@ def captured_flat(name, eng, prompt, mode, card, n_new, sampling=None):
     with torch.inference_mode():     # the graph that call replayed
         per_replay = eng._flat_runner(eng._free_slot(), mode, n_new, None,
                                       sampling).launches_per_replay()
-
+    prefill = captured_prefill(name, eng, prompt, mode, card, n_new,
+                               sampling)
+    call_ms = {w: 1e3 * runs[w].wall_time_s / runs[w].steps for w in runs}
+    if not alone:
+        log(f"  [{card}] {name}: tokens == eager, {runs['graphed'].steps} "
+            f"steps; the call's wall over its steps, ms: graphed "
+            f"{call_ms['graphed']:.3f}, eager {call_ms['eager']:.3f}; "
+            f"{tok_s['graphed']:.1f} / {tok_s['eager']:.1f} tok/s")
+        return (stats["taken"], stats["branches"]), None
     windows = step_windows(flat_step_run(eng, prompt, mode, sampling),
                            CAPTURE_STEPS, CAPTURE_PROFILED,
                            n_first=CAPTURE_FIRST)
     capture_line(name, card, windows, per_replay, tok_s, peak, stats)
+    log(f"  [{card}] {name}: the call's wall over its steps, graphed "
+        f"{call_ms['graphed']:.3f} ms ({runs['graphed'].steps} steps, its "
+        f"prefill {prefill['chunk_ms']['graphed']:.3f} ms a chunk) against "
+        f"the step alone {min(windows['graphed'][0]):.3f}; eager "
+        f"{call_ms['eager']:.3f} against {min(windows['eager'][0]):.3f}")
     return (stats["taken"], stats["branches"]), windows["graphed"][1]
 
 
@@ -3133,14 +3312,16 @@ def captured_paged(name, srv, nxt, card):
 
 
 def captured_phase(configs, prompt, paged_engine, nxt, card, t_star,
-                   learned):
+                   learned, headline):
     """Phase 13 over bf16, int8_weights, int4_weights,
     int8_weights_int8_kv (greedy lookahead), bf16's AR baseline and
-    sampling at T*, paged_bf16, and phase 11's learned model in bf16 at
-    each autotune candidate: 16 active tokens over K = W + GS harvest
-    lanes, so its steps chain. Each configuration's IF-body share is
-    printed; the learned model must chain, and the headline's first steps
-    (no window lane harvested yet) must take the parallel insert."""
+    sampling at T*, phase 10's dynamic-NTK engine and a LONG_PROMPT-token
+    prompt at M=LONG_SEQ (their calls and prefills; no step alone),
+    paged_bf16, and phase 11's learned model in bf16 at each autotune
+    candidate: 16 active tokens over K = W + GS harvest lanes, so its steps
+    chain. Each configuration's IF-body share is printed; the learned
+    model must chain, and the headline's first steps (no window lane
+    harvested yet) must take the parallel insert."""
     import lookaheaddecoding_tpu_torch as lt
     from lookaheaddecoding_tpu_torch.applications import train_synthetic
     from lookaheaddecoding_tpu_torch.core import graphs
@@ -3159,6 +3340,20 @@ def captured_phase(configs, prompt, paged_engine, nxt, card, t_star,
     shares["sampling"] = captured_flat(
         f"bf16 sampling at T*={t_star:.4f}", bf16, prompt, "sample", card,
         N_SAMPLE, lt.SamplingConfig(temperature=t_star, top_k=TOP_K))
+    # the prefill of phase 10's dynamic-NTK engine (its rotation keyed on
+    # the prompt's length, on the device) and of a long prompt at M=2048
+    # (12 chunks through B2)
+    mcfg, params = headline
+    dcfg = lt.LlamaConfig(**dict(ARCH, max_position_embeddings=DYN_MAX_POS),
+                          rope_scaling=("dynamic", DYN_FACTOR),
+                          dtype=mcfg.dtype)
+    captured_flat("dynamic_ntk", build_engine(dcfg, params, max_seq=DYN_SEQ),
+                  make_prompt(nxt, start=7, n=DYN_PROMPT), "greedy", card,
+                  DYN_NEW, alone=False, return_prefix=False)
+    captured_flat(f"bf16 {LONG_PROMPT}-token prompt, M={LONG_SEQ}",
+                  build_engine(mcfg, params, max_seq=LONG_SEQ),
+                  make_prompt(nxt, start=11, n=LONG_PROMPT), "greedy", card,
+                  LONG_NEW, alone=False)
     shares["paged_bf16"] = captured_paged("paged_bf16", paged_engine, nxt,
                                           card)
     cfg, params = learned
@@ -3399,7 +3594,7 @@ def main() -> int:
         f"{LEARNED_CANDIDATES}; ms a step of the step alone in windows of "
         f"{CAPTURE_STEPS} steps (8 paged), eager, graphed, graphed, eager")
     captured_phase(configs, prompt, paged_stats["paged_bf16"]["engine"], nxt,
-                   card, samp_info["t_star"], learned16)
+                   card, samp_info["t_star"], learned16, (mcfg, params))
     lap("captured step")
 
     log(f"[mesh step captured] ({card}); a one-rank NCCL world "

@@ -23,9 +23,18 @@ suspended ``generate_stream`` holds the first) and a :class:`LaneSlot` for
 each lane count of ``generate_batch``, made at first use. On a ``mesh``
 whose groups are NCCL each rank replays its own graph, collectives
 included (JAX's ``jit`` over the mesh); the graphs live in a memory pool
-of the engine's own, so two engines on one rank never share one. The
-prefill chunks (whose starts are host ints) run eagerly, as does every
-step on the CPU and on a mesh with a gloo group.
+of the engine's own, so two engines on one rank never share one.
+
+The request's preparation is JAX's fused prepare call
+(``jax.jit(self._make_fused(None))``: caches, window, pool fill and the
+prefill ``fori_loop``) in three parts, none of which reads the device
+from the host: the host-to-device copies (the prompt's output buffer and
+the pool fill's rows, from pinned memory, ``graphs.upload``); the resets
+of the caches and the pool (or copies of a prefix's), the window seeding
+and the fill, launched eagerly; then the prefill, whose chunks read their
+start from device counters, replays of one captured chunk a slot. Every
+step runs eagerly on the CPU, on a mesh with a gloo group and inside
+``graphs.eager()``.
 """
 
 from __future__ import annotations
@@ -45,7 +54,7 @@ from . import graphs
 from .layout import Layout, build_layout
 from .paged_step import PagedLaneState, build_paged_step_fns
 from .pool import (PoolState, apply_host_fill, host_prompt_fill, pool_init,
-                   pool_table_rows)
+                   pool_table_rows, upload_fill)
 from .state import DecodeState
 from .step import build_step_fns, run_loop
 
@@ -158,15 +167,19 @@ def _clear_cache(cache) -> None:
 class FlatSlot:
     """A flat decode state and every other tensor the step reads, at fixed
     addresses: a request is written into it in place (``_prepare``), and
-    the engine's captured steps (``graphs``) run over it. ``max_new`` is a
-    0-d int32 tensor, ``eos`` [MAX_EOS_IDS] int32, ``temperature`` and
-    ``top_p`` [1] float32."""
+    the engine's captured steps and prefill chunk (``graphs``) run over it.
+    ``max_new`` is a 0-d int32 tensor, ``eos`` [MAX_EOS_IDS] int32,
+    ``temperature`` and ``top_p`` [1] float32; ``start0`` (the prefill's
+    first row: 0, or a prefix's length) and ``chunk`` (the prefill chunk
+    under way) 0-d int32."""
 
     state: DecodeState
     max_new: torch.Tensor
     eos: torch.Tensor
     temperature: torch.Tensor
     top_p: torch.Tensor
+    start0: torch.Tensor
+    chunk: torch.Tensor
     graphs: dict = dataclasses.field(default_factory=dict)
     busy: bool = False
 
@@ -424,7 +437,8 @@ class LookaheadEngine:
         return FlatSlot(state=state, max_new=zeros(),
                         eos=zeros(MAX_EOS_IDS) - 1,
                         temperature=zeros(1, dtype=torch.float32) + 1,
-                        top_p=zeros(1, dtype=torch.float32) + 1)
+                        top_p=zeros(1, dtype=torch.float32) + 1,
+                        start0=zeros(), chunk=zeros())
 
     def _free_slot(self) -> FlatSlot:
         """A FlatSlot no call holds, made at first use (a second one only
@@ -450,11 +464,17 @@ class LookaheadEngine:
                  slot: Optional[FlatSlot] = None) -> DecodeState:
         """Caches, pool, window seeding, prompt fill and prefill, written in
         place into ``slot``'s state (by default a free slot's), which is
-        returned. The caches and the pool start as new ones would, or as
-        copies of a prefix's (the prefill's last chunk may rewrite some of
-        its rows, and the fill merges into its pool's rows); the generator
-        is reseeded with ``seed``."""
-        state = (slot or self._free_slot()).state
+        returned: JAX's fused prepare call. The caches and the pool start as
+        new ones would, or as copies of a prefix's (the prefill's last chunk
+        may rewrite some of its rows, and the fill merges into its pool's
+        rows); the generator is reseeded with ``seed``. The host's arrays
+        go to the device first, without a wait; the prefill replays the
+        slot's captured chunk (:meth:`_prefill`)."""
+        slot = slot or self._free_slot()
+        state, dev = slot.state, self.device
+        out_buf = graphs.upload(out_buf, dev)
+        if fill is not None:
+            fill = upload_fill(*fill, dev)
         if prefix is None:
             _clear_cache(state.k_cache)
             _clear_cache(state.v_cache)
@@ -471,17 +491,32 @@ class LookaheadEngine:
             pool.age.zero_()
             pool.clock.fill_(1)
         state.rng.manual_seed(seed)
-        self._fns.init_state(state, torch.from_numpy(out_buf), prompt_len)
+        self._fns.init_state(state, out_buf, prompt_len)
         if fill is not None:
             apply_host_fill(pool, *fill, merge=prefix is not None)
-        return self._fns.prefill_from(self.params, state, prompt_len,
-                                      0 if prefix is None else prefix.length)
+        return self._prefill(slot, prompt_len,
+                             0 if prefix is None else prefix.length)
 
-    def _runner(self, cache: dict, key, step, state):
+    def _prefill(self, slot: FlatSlot, prompt_len: int,
+                 start0: int) -> DecodeState:
+        """prompt[start0:-1] into ``slot``'s caches: on the card the slot's
+        captured prefill chunk (captured by the first chunk that needs it,
+        which is its warm step) replayed once a chunk, over the slot's
+        ``start0`` and ``chunk`` counters; a prompt of one token has no
+        chunk and captures nothing."""
+        fns, params, st = self._fns, self.params, slot.state
+
+        def chunk():
+            fns.prefill_chunk(params, st, slot.start0, slot.chunk)
+        steps = self._runner(slot.graphs, "prefill", chunk, slot, "prefills")
+        return fns.prefill_from(params, st, prompt_len, start0,
+                                (slot.start0, slot.chunk), steps.run)
+
+    def _runner(self, cache: dict, key, step, state, counter="replays"):
         if self._graphed and self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
         return graphs.runner(cache, key, step, state, self._graphed,
-                             self._graph_pool)
+                             self._graph_pool, counter)
 
     def _flat_runner(self, slot: FlatSlot, mode: str, max_new: int,
                      eos_token_id, sampling: Optional[SamplingConfig] = None):
@@ -490,7 +525,7 @@ class LookaheadEngine:
         into the slot's buffers."""
         fns, params, st = self._fns, self.params, slot.state
         slot.max_new.fill_(min(max_new, _INT32_MAX))
-        slot.eos.copy_(_eos_vec(eos_token_id))
+        slot.eos.copy_(graphs.upload(_eos_vec(eos_token_id), self.device))
         top_p, top_k = None, 0
         if mode == "sample":
             temps, top_p, top_k = self._warp(sampling)
@@ -571,8 +606,7 @@ class LookaheadEngine:
         temps = ([sampling.temperature] * lanes if temperatures is None
                  else list(temperatures))
         tops = [sampling.top_p] * lanes if top_ps is None else list(top_ps)
-        temps, top_p = (torch.tensor(v, dtype=torch.float32,
-                                     device=self.device)
+        temps, top_p = (graphs.upload(np.asarray(v, np.float32), self.device)
                         for v in (temps, tops))
         return temps, top_p if min(tops) < 1.0 else None, sampling.top_k
 
@@ -774,7 +808,8 @@ class LookaheadEngine:
                     write_lane(lanes, b, self._prepare(buf, n, s, fill,
                                                        prefix, slot=flat))
             lanes.max_new.fill_(min(max_new_tokens, _INT32_MAX))
-            lanes.eos.copy_(_eos_vec(eos_token_id).expand(B, -1))
+            lanes.eos.copy_(graphs.upload(_eos_vec(eos_token_id),
+                                          self.device).expand(B, -1))
             top_p, top_k = None, 0
             if sampling is not None:
                 temps, top_p, top_k = self._warp(sampling, B, temperatures,

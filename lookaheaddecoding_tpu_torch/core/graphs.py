@@ -39,7 +39,16 @@ The kernels' launch counts (``counts`` in ``ops/``) and the collectives'
 a capture records how many launches of each kernel and calls of each
 collective the step made, takes them back (capture launches nothing), and
 every replay adds them again, so the counts stay the number launched.
-``stats`` counts the captures and replays.
+``stats`` counts the captures and the replays: those of decode steps
+(``replays``) apart from those of prefill chunks (``prefills``).
+
+The prefill is captured too (the counterpart of JAX's fused prepare call,
+``jax.jit(self._make_fused(None))``, whose prefill is a ``fori_loop``): one
+chunk reads its start from device counters and advances them, so the
+prompt's chunks are replays of one graph. :func:`upload` is the
+host-to-device copy that a request's preparation makes before them: from
+pinned memory and without a wait, so nothing between a request's start
+and its first decode replay stops the host.
 
 :func:`cond` is the counterpart of ``lax.cond``: inside a capture it records
 its body as a CUDA-graph IF node (``ops/graph_cond.py``), which the device
@@ -64,10 +73,12 @@ from ..ops import (graph_cond, int4_micro, lookahead_attention, quant,
                    quant_matmul)
 from ..parallel import collectives
 
-# Captures made, replays run, cond branches evaluated (eagerly, or by a
-# replay's IF nodes) and their bodies run. Read with read_stats() and reset
-# with reset_stats(), which fold in the bodies that replays ran.
-stats = {"captured": 0, "replays": 0, "branches": 0, "taken": 0}
+# Captures made, replays run (decode steps; prefill chunks apart), cond
+# branches evaluated (eagerly, or by a replay's IF nodes) and their bodies
+# run. Read with read_stats() and reset with reset_stats(), which fold in
+# the bodies that replays ran.
+stats = {"captured": 0, "replays": 0, "prefills": 0, "branches": 0,
+         "taken": 0}
 
 # every launch counter of the port's kernels, and the collectives' calls
 _TALLIES = (lookahead_attention.counts, lookahead_attention.paged_counts,
@@ -203,17 +214,20 @@ class EagerSteps:
 
 
 class StepGraph:
-    """One decode step captured over ``state``, a tree whose tensors the
-    step reads and writes in place and whose generators it draws from.
-    ``run(n)`` runs ``n`` steps: on first use one warm step and the
-    capture, then replays. ``pool`` is a graph memory pool
-    (``torch.cuda.graph_pool_handle()``) shared by an engine's graphs, which
-    never run at once and keep no output alive past a replay."""
+    """One decode step (or prefill chunk) captured over ``state``, a tree
+    whose tensors the step reads and writes in place and whose generators
+    it draws from. ``run(n)`` runs ``n`` steps: on first use one warm step
+    and the capture, then replays, each counted in ``stats[counter]``.
+    ``pool`` is a graph memory pool (``torch.cuda.graph_pool_handle()``)
+    shared by an engine's graphs, which never run at once and keep no
+    output alive past a replay."""
 
-    def __init__(self, step: Callable[[], object], state, pool=None):
+    def __init__(self, step: Callable[[], object], state, pool=None,
+                 counter: str = "replays"):
         self.step = step
         self.state = state
         self.pool = pool
+        self.counter = counter
         self.graph = None
         self.replays = 0
         # (tally, key, launches a replay) of each kernel the step launches
@@ -232,7 +246,7 @@ class StepGraph:
         for _ in range(n):
             self.graph.replay()
         self.replays += n
-        stats["replays"] += n
+        stats[self.counter] += n
         stats["branches"] += n * self.conds
         for tally, key, k in self.launches:
             tally[key] += k * n
@@ -314,17 +328,32 @@ def capturable(device, mesh=None) -> bool:
 
 
 def runner(cache: dict, key, step: Callable[[], object], state, graphed: bool,
-           pool=None):
+           pool=None, counter: str = "replays"):
     """The step runner of ``key`` in ``cache``: a :class:`StepGraph` when
     ``graphed`` (:func:`capturable`) and not inside :func:`eager`, else
     :class:`EagerSteps`. Graphs are cached; the step
     closure must read only ``state`` and tensors that outlive the cache.
     ``ops.quant.INT4_PIPELINE`` picks the int4 kernel inside the step, so
-    it is part of the key too."""
+    it is part of the key too. ``counter`` is the ``stats`` entry that
+    counts the graph's replays."""
     if not graphed or eager_depth():
         return EagerSteps(step)
     key = (key, quant.INT4_PIPELINE)
     got = cache.get(key)
     if got is None:
-        got = cache[key] = StepGraph(step, state, pool)
+        got = cache[key] = StepGraph(step, state, pool, counter)
     return got
+
+
+def upload(array, device, dtype=None) -> torch.Tensor:
+    """A host array (numpy, or a CPU tensor) on ``device``. To the card the
+    copy goes from pinned memory with ``non_blocking=True``: it is queued
+    behind the work before it and the host goes on (a pageable copy would
+    wait for that work); the caching host allocator keeps the pinned block
+    until the copy has run. On the CPU it is the array itself."""
+    t = torch.as_tensor(array)
+    if dtype is not None:
+        t = t.to(dtype)
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

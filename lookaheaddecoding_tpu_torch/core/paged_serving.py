@@ -43,7 +43,7 @@ from .paged import (BlockAllocator, OutOfPages, copy_page, make_paged_pool,
                     pages_needed)
 from .paged_step import PagedLaneState, build_paged_step_fns
 from .pool import (PoolState, apply_host_fill, host_prompt_fill, pool_init,
-                   pool_table_rows)
+                   pool_table_rows, upload_fill)
 from .serving import Request
 
 
@@ -367,7 +367,8 @@ class PagedServingEngine:
                 lane_pool.clock.fill_(1)
             fill = self._host_fill(prompt, prefix)
             if fill is not None:
-                apply_host_fill(lane_pool, *fill, merge=True)
+                apply_host_fill(lane_pool, *upload_fill(*fill, dev),
+                                merge=True)
             self._fns.init_lane(st, lane, table_t, cap, out_buf, len(prompt),
                                 req.seed)
             st.kv_len[lane] = self._fns.prefill_from(

@@ -260,6 +260,15 @@ def host_prompt_fill(prompt_tokens, level: int, guess_set_size: int,
     return keys, rows, ages, clock
 
 
+def upload_fill(keys, rows, ages, clock, device):
+    """A host fill (:func:`host_prompt_fill`) with its arrays on ``device``
+    as :func:`apply_host_fill` takes them: int64 keys, int32 rows and ages,
+    from pinned memory without a wait (``graphs.upload``)."""
+    return (graphs.upload(np.asarray(keys, np.int64), device),
+            graphs.upload(np.asarray(rows), device, torch.int32),
+            graphs.upload(np.asarray(ages), device, torch.int32), clock)
+
+
 def apply_host_fill(pool: PoolState, keys, rows, ages, clock,
                     merge: bool = False) -> PoolState:
     """Write host-computed fill rows in one scatter, in place, the clock
@@ -270,13 +279,11 @@ def apply_host_fill(pool: PoolState, keys, rows, ages, clock,
     refreshes its slot, else the first empty or oldest slot is taken), so a
     carried warm pool keeps every entry the fill does not displace. On
     empty rows both forms give the same content; paged admission always
-    merges."""
+    merges. ``keys``, ``rows`` and ``ages`` are on the pool's device:
+    :func:`upload_fill` puts a host fill there."""
     dev = pool.values.device
     trash = pool.values.shape[0] - 1
-    keys = torch.as_tensor(np.where(np.asarray(keys) < 0, trash, keys),
-                           dtype=torch.long).to(dev)
-    ages = torch.as_tensor(np.asarray(ages), dtype=torch.int32).to(dev)
-    rows = torch.as_tensor(np.asarray(rows), dtype=torch.int32).to(dev)
+    keys = torch.where(keys < 0, trash, keys)
     if merge:
         new_rows, new_ages = pool.values[keys], pool.age[keys]
         slot_id = torch.arange(new_ages.shape[1], device=dev)

@@ -272,9 +272,8 @@ def keep_if_finished(state, updates: dict):
 
 class StepFns(NamedTuple):
     init_state: Callable      # a request's window and counters, in place
-    prefill_chunk: Callable
-    prefill_all: Callable     # whole-prompt prefill
-    prefill_from: Callable    # suffix prefill (prefix caching)
+    prefill_chunk: Callable   # one prompt chunk, its start on the device
+    prefill_from: Callable    # the prompt's chunks from row start0
     decode_step: Callable     # one greedy lookahead step
     sample_step: Callable     # one sampling lookahead step
     baseline_step: Callable   # one AR step
@@ -333,6 +332,7 @@ def build_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
         np.array([0]), np.arange(layout.inp_start, layout.inp_stop),
         np.arange(layout.guess_start, layout.seq_len)])).to(device)
     no_rows = torch.zeros(0, dtype=torch.long, device=device)
+    chunk_rows = torch.arange(C, device=device)     # a prefill chunk's rows
     # the attention's visibility (ops/lookahead_attention.py), computed by
     # the kernel or the plain version from kv_len on the device
     meta = dict(level=N, window=W, guess_size=GS, sliding_window=SW)
@@ -343,9 +343,12 @@ def build_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
     # ------------------------------------------------------------------
     def init_state(state: DecodeState, out_buf, prompt_len: int) -> DecodeState:
         """A request's output buffer (``out_buf`` [M + GS], the prompt and
-        zeros), its window seeded at steady-state level sizes by
-        ``window_init`` from ``state.rng``, and its counters, written into
-        ``state`` in place; the caches and the pool are the caller's."""
+        zeros: best already on the device, see ``graphs.upload``), its
+        window seeded at steady-state level sizes by ``window_init`` from
+        ``state.rng``, and its counters, written into ``state`` in place;
+        the caches and the pool are the caller's. It stays eager: the
+        seeding draws ``randint(0, prompt_len)``, whose bound a capture
+        would fix."""
         out_buf = state.out_buf.copy_(out_buf)
         rng = state.rng
         if lcfg.window_init == "random_set":
@@ -367,41 +370,51 @@ def build_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
         return state
 
     # ------------------------------------------------------------------
-    def prefill_chunk(params, state: DecodeState, tokens, start: int,
-                      prompt_len: int) -> DecodeState:
-        """Prompt tokens [start, start+C) into the KV cache (causal). The
-        caller feeds prompt[:-1]; the last prompt token is the first
-        step's ``lst``."""
-        positions = start + torch.arange(C, device=device)
-        kv_len = torch.tensor([start], dtype=torch.int32, device=device)
-        llama.forward(params, mcfg, tokens, positions, state.k_cache,
-                      state.v_cache, start, rope_cos, rope_sin,
-                      dict(meta, causal=True, kv_len=kv_len),
+    def prefill_chunk(params, state: DecodeState, start0: torch.Tensor,
+                      chunk: torch.Tensor) -> DecodeState:
+        """Chunk ``chunk`` of :func:`prefill_from` in place, then
+        ``chunk += 1``: the body of JAX's prefill ``fori_loop``. ``start0``
+        and ``chunk`` are 0-d int32 tensors on the device and the chunk
+        reads its start from them, ``min(start0 + chunk * C, max(n - C,
+        0))`` with ``n = init_len - 1``, and its tokens from ``out_buf``
+        through a device index: nothing of it is host data, so one
+        captured chunk replays every chunk of every prompt. The prompt's
+        K/V go into the cache at that start (causal), and ``kv_len`` is
+        ``min(start + C, n)``."""
+        n = state.init_len - 1
+        start = torch.minimum(start0 + chunk * C, (n - C).clamp(min=0))
+        positions = start + chunk_rows
+        llama.forward(params, mcfg, state.out_buf.index_select(0, positions),
+                      positions, state.k_cache, state.v_cache, start,
+                      rope_cos, rope_sin,
+                      dict(meta, causal=True, kv_len=start.view(1)),
                       logits_rows=no_rows, attn_impl=impl,
-                      rope_seq_len=prompt_len, mesh=mesh)
-        state.kv_len.fill_(min(start + C, prompt_len - 1))
+                      rope_seq_len=state.init_len, mesh=mesh)
+        state.kv_len.copy_(torch.minimum(start + C, n))
+        chunk.add_(1)
         return state
 
     def prefill_from(params, state: DecodeState, prompt_len: int,
-                     start0: int) -> DecodeState:
-        """prompt[start0:-1] in C-sized chunks; ``start0 > 0`` is the prefix
-        path, whose rows [0, start0) are already in the caches. The prompt
-        length is host data, so the chunk starts are host ints; the last
-        chunk is aligned to end at the prompt (start = n - C) and may
-        rewrite a few prefix rows (K/V depend on the position alone, so the
-        rewrite changes nothing), and a prompt shorter than C pads within
-        [0, C), whose tail slots stay masked until overwritten."""
-        n = prompt_len - 1
-        for c in range(-(-max(n - start0, 0) // C)):
-            start = min(start0 + c * C, max(n - C, 0))
-            state = prefill_chunk(params, state, state.out_buf[start:start + C],
-                                  start, prompt_len)
-        state.kv_len.fill_(max(n, 0))
+                     start0: int, counters, run) -> DecodeState:
+        """prompt[start0:-1] in C-sized chunks (JAX's ``prefill_from``);
+        ``start0 > 0`` is the prefix path, whose rows [0, start0) are
+        already in the caches. The last chunk is aligned to end at the
+        prompt (start = n - C) and may rewrite a few prefix rows (K/V depend
+        on the position alone, so the rewrite changes nothing), and a
+        prompt shorter than C pads within [0, C), whose tail slots stay
+        masked until overwritten. The prompt length is host data, as in
+        JAX's caller, so the host knows the number of chunks; each chunk
+        finds its start on the device (:func:`prefill_chunk`).
+        ``counters`` are the (start0, chunk) tensors the chunks read, which
+        this call sets; ``run(k)`` runs k chunks over them (the engine's
+        runner: the captured chunk replayed, or the chunk called k times).
+        ``kv_len`` ends at ``max(n, 0)``."""
+        first, chunk = counters
+        first.fill_(start0)
+        chunk.zero_()
+        run(-(-max(prompt_len - 1 - start0, 0) // C))
+        state.kv_len.copy_((state.init_len - 1).clamp(min=0))
         return state
-
-    def prefill_all(params, state: DecodeState, prompt_len: int) -> DecodeState:
-        """The whole prompt: :func:`prefill_from` at 0."""
-        return prefill_from(params, state, prompt_len, 0)
 
     # ------------------------------------------------------------------
     def step(params, state: DecodeState, max_new, eos_id, mode: str,
@@ -488,7 +501,6 @@ def build_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
     return StepFns(
         init_state=init_state,
         prefill_chunk=prefill_chunk,
-        prefill_all=prefill_all,
         prefill_from=prefill_from,
         decode_step=decode_step,
         sample_step=sample_step,

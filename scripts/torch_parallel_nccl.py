@@ -27,14 +27,18 @@ weights):
    pp2_tp2, la2_tp2, and int8_weights_tp4) every rank runs, on one
    engine, eagerly (inside ``graphs.eager()``) and graphed: greedy
    ``generate``, ``generate_baseline``, ``generate_sample`` at T*, a
-   two-lane ``generate_batch`` and (tp4) a ``ContinuousBatchingEngine`` of
-   four requests on two lanes. Each call is warmed once (the graphed warm
-   call captures), then run and counted alone. Checks: tokens equal
-   across ranks, to the eager run and to the one-process run; steps, the
-   pool's rows and the branch counts (``graphs.read_stats()``) equal
-   across ranks and to the eager run; the timed graphed call captures
-   nothing and replays once a step. Prints kernels and collectives a
-   replay, and the call's wall over its steps (prefill included).
+   two-lane ``generate_batch``, two greedy ``generate_stream`` calls of
+   which the second runs on a second slot while the first is suspended,
+   a greedy ``generate`` from a ``precompute_prefix`` cache and (tp4) a
+   ``ContinuousBatchingEngine`` of four requests on two lanes. Each call
+   is warmed once (the graphed warm call captures), then run and counted
+   alone. Checks: tokens equal across ranks, to the eager run and to the
+   one-process run; steps, the pool's rows and the branch counts
+   (``graphs.read_stats()``) equal across ranks and to the eager run; the
+   timed graphed call captures nothing, replays once a step and replays
+   its prefill chunks (``stats["prefills"]``: every prefill is a replay
+   of the slot's captured chunk). Prints kernels and collectives a replay,
+   and the call's wall over its steps (prefill included).
 4. On each decode mesh, and on rank 0's one process, the lookahead and
    the AR step alone in windows, as chip_smoke's phase 13 times it
    (``chip_smoke.step_windows``: a prefilled state, two timed windows of
@@ -75,6 +79,8 @@ TRAIN = {"dp4": dict(dp=4), "dp2_tp2": dict(dp=2, tp=2)}
 SERVING_MESH = "tp4"         # the mesh that also runs the scheduler
 SERVING_LANES, SERVING_REQUESTS, SERVING_NEW = 2, 4, 0.25
 NEW, WARM = 32, 8            # new tokens of a call, and of its warm-up
+PREFIX_LEN = 40              # tokens of the "prefix" call's prefix
+MULTI = ("batch", "streams")  # calls of two results
 TRAIN_TIMED = 20             # steps of each timed train window
 WORLD = 4
 COLLECTIVES = ("all_reduce", "all_gather", "send", "recv", "broadcast")
@@ -97,10 +103,26 @@ def _engine(mcfg, tree, mesh, axes):
                         prefill_chunk=cs.PREFILL_CHUNK, **axes), mesh=mesh)
 
 
+def _streams(eng, first, second, n):
+    """Two greedy streams of ``n`` new tokens: ``first`` suspended after its
+    first part while ``second`` runs to its end on a second slot, then
+    ``first`` resumed. Each stream's tokens and steps (its slot's)."""
+    from types import SimpleNamespace
+    a = eng.generate_stream(first, n)
+    parts = [next(a)]                           # holds the first slot
+    b = [t for part in eng.generate_stream(second, n) for t in part]
+    parts += list(a)
+    return [SimpleNamespace(tokens=np.array(first + [int(t) for part in parts
+                                                     for t in part]),
+                            steps=int(eng._slots[0].state.step_idx)),
+            SimpleNamespace(tokens=np.array(second + [int(t) for t in b]),
+                            steps=int(eng._slots[1].state.step_idx))]
+
+
 def _calls(eng, prompt, nxt, t_star, serving):
     """kind -> call(n): a list of GenerationResults of ``n`` new tokens
     (the scheduler's run takes its own budgets, two requests when ``n``
-    is below NEW)."""
+    is below NEW; the streams give each stream's tokens and steps)."""
     import lookaheaddecoding_tpu_torch as lt
     sc = lt.SamplingConfig(temperature=t_star, top_k=cs.TOP_K)
     second = cs.make_prompt(nxt, start=5, n=cs.PROMPT_LEN // 2)
@@ -110,6 +132,10 @@ def _calls(eng, prompt, nxt, t_star, serving):
         "sample": lambda n: [eng.generate_sample(prompt, n, sc, seed=0)],
         "batch": lambda n: eng.generate_batch(
             [prompt, second], min(n, cs.PAR_BATCH_NEW)),
+        "streams": lambda n: _streams(eng, prompt, second, n),
+        # the prefill covers the prompt past the prefix's PREFIX_LEN rows
+        "prefix": lambda n: [eng.generate(
+            prompt, n, prefix=eng.precompute_prefix(prompt[:PREFIX_LEN]))],
     }
     if serving:
         # one scheduler, whose lanes (and their graph) every call reuses
@@ -134,7 +160,8 @@ def _replay_launches(eng, kind, t_star):
             return eng._lane_runner(eng._lane_slots[2], False, False,
                                     0).launches_per_replay()
         mode = {"lookahead": "greedy", "ar_baseline": "ar",
-                "sample": "sample"}[kind]
+                "sample": "sample", "streams": "greedy",
+                "prefix": "greedy"}[kind]
         sc = lt.SamplingConfig(temperature=t_star, top_k=cs.TOP_K)
         return eng._flat_runner(eng._free_slot(), mode, NEW, None,
                                 sc if mode == "sample" else None
@@ -272,9 +299,11 @@ def check_decode(ranks, refs, meshes, card, fail):
                    for x, y in zip(e, g)):
                 fail(f"{name} {kind}: a rank's graphed call counted other "
                      f"collectives than its eager call")
-            if e[0]["stats"]["captured"] or e[0]["stats"]["replays"]:
+            if (e[0]["stats"]["captured"] or e[0]["stats"]["replays"]
+                    or e[0]["stats"]["prefills"]):
                 fail(f"{name} {kind}: the eager call replayed a graph")
-            steps = max(g[0]["steps"])
+            # streams each step their own slot; lanes step together
+            steps = (sum if kind == "streams" else max)(g[0]["steps"])
             if g[0]["stats"]["captured"] or (
                     kind != "serving" and g[0]["stats"]["replays"] != steps):
                 fail(f"{name} {kind}: graphed call captured "
@@ -282,6 +311,11 @@ def check_decode(ranks, refs, meshes, card, fail):
                      f"{g[0]['stats']['replays']} times for {steps} steps")
             if not g[0]["stats"]["replays"]:
                 fail(f"{name} {kind}: the graphed call replayed nothing")
+            if not g[0]["stats"]["prefills"] or any(
+                    x["stats"]["prefills"] != g[0]["stats"]["prefills"]
+                    for x in g):
+                fail(f"{name} {kind}: prefill chunks replayed by rank "
+                     f"{[x['stats']['prefills'] for x in g]}")
             want = refs[config].get(kind)
             if want is not None:
                 want = want if isinstance(want[0], list) else [want]
@@ -304,6 +338,7 @@ def check_decode(ranks, refs, meshes, card, fail):
                 f"over its steps (prefill included), ms by rank graphed "
                 f"{', '.join(f'{x['call_ms_step']:.3f}' for x in g)} | eager "
                 f"{', '.join(f'{x['call_ms_step']:.3f}' for x in e)}; "
+                f"prefill chunks replayed {g[0]['stats']['prefills']}; "
                 f"collectives of the call {g[0]['collectives']}; branches "
                 f"{g[0]['stats']['branches']}, chains taken "
                 f"{g[0]['stats']['taken']}; the call's launches (attention, "
@@ -554,7 +589,7 @@ def references(mcfg, params, prompt, nxt, configs):
             torch.cuda.synchronize()
             res = call(NEW)
             refs[config][kind] = ([r.tokens.tolist() for r in res]
-                                  if kind == "batch" else
+                                  if kind in MULTI else
                                   res[0].tokens.tolist())
         refs[config]["serving"] = [
             eng.generate(r.prompt, r.max_new_tokens).tokens.tolist()

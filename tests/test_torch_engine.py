@@ -216,3 +216,41 @@ def test_build_checks(ecfg, match):
     with pytest.raises(ValueError, match=match):
         tlt.LookaheadEngine(tcfg, tparams, tlt.LookaheadConfig(),
                             tlt.EngineConfig(**ecfg), device="cpu")
+
+
+@pytest.mark.parametrize("prompt_len,start0", [
+    (1, 0), (9, 0), (17, 0), (18, 0), (49, 0), (200, 0), (30, 20), (60, 32)],
+    ids=["one", "below_C", "C_rows", "C_plus_1_rows", "three_C_rows",
+         "long", "prefix_overlap", "prefix_aligned"])
+def test_device_start_prefill_from_matches_jax(prompt_len, start0):
+    """The port's ``prefill_from``, whose chunks find their start on the
+    device (``min(start0 + c*C, max(n - C, 0))`` from the slot's
+    counters), run as the engine runs it (``_prefill``), against JAX's
+    ``fori_loop`` on the same output buffer and zeroed caches (rows below a
+    prefix's ``start0`` stay zero in both): ``kv_len`` equal, the caches
+    within atol 1e-4 / rtol 1e-4 (float32: the same math summed in another
+    order, whose differences in the first layer's output reach the second
+    layer's K/V at ~6e-5 relative; the forward's logits tolerance of
+    ``tests/test_torch_kv_quant.py``)."""
+    jeng, teng = engines(window_init="order_copy_from")
+    M, lay = teng.ecfg.max_seq_len, teng.layout
+    out_buf = np.zeros((M + lay.guess_size,), np.int32)
+    out_buf[:prompt_len] = prompt(7, prompt_len)
+    from lookaheaddecoding_tpu.core.pool import pool_init
+    from lookaheaddecoding_tpu.models.llama import make_kv_cache
+    jk, jv = make_kv_cache(jeng.mcfg, M)
+    jstate = jeng._fns.init_state(
+        jk, jv, pool_init(teng.mcfg.vocab_size, lay.guess_set_size,
+                          lay.guess_size), jnp.asarray(out_buf),
+        jnp.int32(prompt_len), jax.random.PRNGKey(0))
+    jstate = jeng._fns.prefill_from(jeng.params, jstate, jnp.int32(start0))
+    slot = teng._free_slot()
+    st = slot.state
+    with torch.inference_mode():
+        teng._fns.init_state(st, torch.from_numpy(out_buf), prompt_len)
+        teng._prefill(slot, prompt_len, start0)
+    assert int(st.kv_len) == int(jstate.kv_len) == max(prompt_len - 1, 0)
+    for got, want in ((st.k_cache, jstate.k_cache),
+                      (st.v_cache, jstate.v_cache)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                                   atol=1e-4)

@@ -12,8 +12,10 @@ over gloo, and a one-rank NCCL mesh engine (chip_smoke's phase 14) and
 train step captured; the CUDA-graph IF node (``ops/graph_cond.py``)
 against its plain version, the pool's chain as an IF node of captured
 steps (taken and skipped, tables and branch counts equal to eager), a
-capture whose IF node fails raising, and the captured train step
-bit-equal to the eager one.
+capture whose IF node fails raising, the captured train step
+bit-equal to the eager one, and the captured prefill (the slot after a
+request's preparation bit-equal to eager, a replay a chunk, no host sync
+up to the first decode replay).
 They skip without a CUDA device. This file imports no
 JAX, so on a machine without JAX it runs without the suite's conftest:
 
@@ -1103,6 +1105,58 @@ def test_graphed_entry_points_equal_eager(config):
         assert graphed_counts == eager_counts, (name, graphed_counts,
                                                 eager_counts)
     assert graphs.stats["replays"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("config", ["bf16", "int8_kv", "int8_weights"])
+def test_captured_prefill_equals_eager_without_a_sync(config):
+    """The request's preparation on the card, JAX's fused prepare call: at
+    prompt lengths 1 (no chunk), 9, 17, 100 and 230 (15 chunks of 16,
+    within a slot of the capacity), and past a 40-token prefix, the slot
+    after ``_prepare`` is bit-equal to the eager one (caches, ``kv_len``,
+    pool, window, output buffer); a warm engine's graphed preparation
+    replays the slot's captured chunk once a chunk and captures nothing;
+    and from its start to the first decode replay nothing waits for the
+    card (``torch.cuda.set_sync_debug_mode("error")`` raises on a sync)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from lookaheaddecoding_tpu_torch.core import graphs
+    eng = _graph_engine(kv_quant="int8" if config == "int8_kv" else None,
+                        bits=8 if config == "int8_weights" else None)
+    base = list(np.random.RandomState(2).randint(0, 256, size=230))
+    pc = eng.precompute_prefix(base[:40])
+
+    def prepare(p, prefix, checked=False):
+        """The slot's tensors after ``_prepare``; then one decode step."""
+        out_buf, n, fill = eng._host_args(p, 16, prefix)
+        if checked:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.inference_mode():
+                slot = eng._free_slot()
+                eng._prepare(out_buf, n, 0, fill, prefix, slot=slot)
+                kept = [t.clone() for t in graphs.state_tensors(slot.state)]
+                eng._flat_runner(slot, "greedy", 16, None).run(1)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        return kept
+
+    for n in (1, 9, 17, 100, 230):
+        for prefix in (None, pc) if n > 41 else (None,):
+            p = base[:n]
+            with graphs.eager():
+                want = prepare(p, prefix)
+            prepare(p, prefix)             # the first graphed call captures
+            before = dict(graphs.stats)
+            got = prepare(p, prefix, checked=True)
+            torch.cuda.synchronize()
+            start0 = 0 if prefix is None else prefix.length
+            chunks = -(-max(n - 1 - start0, 0) // 16)
+            assert graphs.stats["captured"] == before["captured"], n
+            assert graphs.stats["prefills"] - before["prefills"] == chunks
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), \
+                (config, n, start0)
 
 
 @pytest.mark.gpu

@@ -394,7 +394,8 @@ def test_apply_host_fill_merge_bit_equal(warm, key_len):
                               torch.from_numpy(tups),
                               torch.ones(9, dtype=torch.bool))
     jp = jpool.apply_host_fill(jp, *fill, merge=True)
-    tpool.apply_host_fill(tp, *fill, merge=True)
+    tfill = tpool.upload_fill(*fill, "cpu")
+    tpool.apply_host_fill(tp, *tfill, merge=True)
     np.testing.assert_array_equal(np.asarray(jp.values)[:rows],
                                   tp.values.numpy()[:rows])
     np.testing.assert_array_equal(np.asarray(jp.age)[:rows],
@@ -403,7 +404,7 @@ def test_apply_host_fill_merge_bit_equal(warm, key_len):
     if not warm:
         # on an empty pool the merging and the replacing fill agree
         rp = tpool.apply_host_fill(
-            tpool.pool_init(rows, g, level - 1, device="cpu"), *fill)
+            tpool.pool_init(rows, g, level - 1, device="cpu"), *tfill)
         assert torch.equal(rp.values[:rows], tp.values[:rows])
         assert torch.equal(rp.age[:rows], tp.age[:rows])
 

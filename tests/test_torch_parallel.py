@@ -345,12 +345,22 @@ def test_every_rank_takes_the_same_branches(world, mesh):
         assert g == got[0]
 
 
-# graphs the first graphed call of each kind captures on the engine, which
-# has run the kinds before it: the streams' first resumes on the first
-# slot, whose greedy graph ``generate`` captured, and the second captures
-# on a second slot; the prefix call replays the first slot's greedy graph
+# decode graphs the first graphed call of each kind captures on the engine,
+# which has run the kinds before it: the streams' first resumes on the
+# first slot, whose greedy graph ``generate`` captured, and the second
+# captures on a second slot; the prefix call replays the first slot's
+# greedy graph
 NEW_GRAPHS = {"generate": 1, "baseline": 1, "sample": 1, "batch": 1,
               "streams": 1, "prefix": 0}
+# prefill graphs it captures (one a slot: ``generate`` the first slot's,
+# the second stream the second slot's), and the prefill chunks of each
+# call (chunks of 16 rows: the prompts of 12 and 9 tokens, the prefix of 8
+# and the rows past it take one each; the batch and the streams prefill
+# two prompts, the prefix call its prefix and then its prompt)
+NEW_PREFILL_GRAPHS = {"generate": 1, "baseline": 0, "sample": 0, "batch": 0,
+                      "streams": 1, "prefix": 0}
+CHUNKS = {"generate": 1, "baseline": 1, "sample": 1, "batch": 2,
+          "streams": 2, "prefix": 2}
 
 
 @pytest.mark.parametrize("mesh", CAPTURE)
@@ -363,9 +373,11 @@ def test_faked_capture_of_mesh_steps_equals_eager(world, mesh):
     one engine: tokens, steps and (once captured) branches; the
     collectives a call counts are the eager call's (a capture takes its
     own back, each replay adds the step's once); the first call captures
-    its new graphs (``NEW_GRAPHS``), and a step is one replay (a capture's
-    first step is the warm one). Every rank gives the same tokens, steps,
-    branches and replays (the collectives differ between pp stages)."""
+    its new decode and prefill graphs (``NEW_GRAPHS``,
+    ``NEW_PREFILL_GRAPHS``), a step is one replay and a prefill chunk one
+    replay of the prefill graph (a capture's first step or chunk is the
+    warm one). Every rank gives the same tokens, steps, branches and
+    replays (the collectives differ between pp stages)."""
     ranks, _, _, _ = world
     for r in ranks:
         got_kinds = r["fake_captured"][mesh]
@@ -376,6 +388,7 @@ def test_faked_capture_of_mesh_steps_equals_eager(world, mesh):
         for kind, got in got_kinds.items():
             eager = got["eager"]
             assert eager["captured"] == eager["replays"] == 0, kind
+            assert eager["prefills"] == 0, kind
             # the warm step runs the chain's body unconditionally and
             # counts no branch, so a capturing call's branches differ
             first_keys = ("tokens", "steps", "collectives") + (
@@ -388,14 +401,18 @@ def test_faked_capture_of_mesh_steps_equals_eager(world, mesh):
                                                            which, key)
             # lanes step together; streams each step their own slot
             steps = (sum if kind == "streams" else max)(eager["steps"])
-            assert got["first"]["captured"] == NEW_GRAPHS[kind], kind
+            new = NEW_GRAPHS[kind] + NEW_PREFILL_GRAPHS[kind]
+            assert got["first"]["captured"] == new, kind
             assert got["graphed"]["captured"] == 0, kind
             assert got["graphed"]["replays"] == steps, kind
             assert got["first"]["replays"] == steps - NEW_GRAPHS[kind], kind
+            assert got["graphed"]["prefills"] == CHUNKS[kind], kind
+            assert got["first"]["prefills"] == (CHUNKS[kind]
+                                                - NEW_PREFILL_GRAPHS[kind])
             first = ranks[0]["fake_captured"][mesh][kind]
             for which in got:
                 for key in ("tokens", "steps", "branches", "taken",
-                            "replays"):
+                            "replays", "prefills"):
                     assert got[which][key] == first[which][key], (kind, key)
 
 

@@ -82,7 +82,7 @@ def test_host_prompt_fill_bit_equal(key_len, seed):
                            torch.from_numpy(warm_tups),
                            torch.ones(3, dtype=torch.bool))
     jp = jpool.apply_host_fill(jp, *jfill)
-    tpool.apply_host_fill(tp, *tfill)
+    tpool.apply_host_fill(tp, *tpool.upload_fill(*tfill, "cpu"))
     assert_same(jp, tp, rows)
 
 

@@ -712,7 +712,7 @@ def _fake_captured(name, data, device):
     ``generate`` from a ``precompute_prefix`` cache, each eager
     (``graphs.eager()``), then graphed twice. Each call's tokens, steps,
     collectives called and branch counts, and the graphed calls' captures
-    and replays."""
+    and replays of decode steps and of prefill chunks."""
     from lookaheaddecoding_tpu_torch.core import graphs
     sc = lt.SamplingConfig(**SAMPLING)
     p, q = prompt_of("la"), prompt_of("small")[:9]
@@ -737,7 +737,8 @@ def _fake_captured(name, data, device):
                 "tokens": [r.tokens.tolist() for r in res],
                 "steps": [r.steps for r in res], "collectives": calls_,
                 "branches": st["branches"], "taken": st["taken"],
-                "captured": st["captured"], "replays": st["replays"]}
+                "captured": st["captured"], "replays": st["replays"],
+                "prefills": st["prefills"]}
                 for which, (res, calls_, st) in runs.items()}
     return out
 
