@@ -69,7 +69,8 @@ target). It imports no JAX. Phases, each printed as it runs:
    must equal the flat ``generate`` on the same prompt, admission must have
    waited for pages at least once, every page must be free at the end, and
    the path must have gone through the paged attention kernel with no
-   plain-version call; then a profile of the batched step;
+   plain-version call (prints tok/s summed over the lanes and TTFT p50 and
+   max); then a profile of the batched step;
 7. head_dim 256: ``bf16_head_dim_256``, the LLaMA layer at Gemma-2B's
    published widths (hidden 2048, intermediate 16384, 18 layers, 8 query
    heads, 1 KV head, head_dim 256; SwiGLU and a synthetic vocab of 32000
@@ -187,7 +188,18 @@ target). It imports no JAX. Phases, each printed as it runs:
    replay must not sync the host (``set_sync_debug_mode("error")``). It
    prints ms a prefill chunk eager and graphed, ms from the request's
    start to its first decode step each way, and the call's wall over its
-   steps beside the step alone;
+   steps beside the step alone. Paged admission is captured the same way
+   (JAX's ``_get_prepare``): for paged_bf16, paged_int8_weights_int8_kv
+   and paged_bf16_head_dim_256, a 64-token and a 700-token prompt (6
+   chunks across 6 pages), a request on a 200-token ``precompute_prefix``
+   (copy on write) and a turn carried from a ``return_prefix`` result, each
+   admitted while three other lanes are live: the lane's row and its data
+   pages must be bit-equal eager and graphed, the graphed admission must
+   replay the engine's captured chunk once a chunk, one paged attention
+   launch a layer and chunk counted from the replays, and from the lane's
+   choice to the first batched replay nothing may sync the host. It prints
+   ms a paged chunk each way, kernels and device busy a chunk, and ms from
+   admission to the first batched step done each way;
 14. the mesh step captured: a world of one rank over NCCL
    (``parallel/launch.py --nproc 1 --backend nccl``; the card takes one
    NCCL rank) builds the headline model and runs an engine on
@@ -1425,6 +1437,7 @@ def paged_path(name, mcfg, params, flat, nxt, card, kv_quant, full):
     assert eng.pages_free == N_PAGES, eng.memory_stats()
 
     tokens = sum(r.num_generated for r in results.values())
+    ttft = np.array([r.ttft_s for r in results.values()])
     assert all(r.num_generated == PAGED_NEW for r in results.values())
     np.testing.assert_array_equal(
         np.concatenate([prompts["stream"]] + streamed),
@@ -1440,6 +1453,8 @@ def paged_path(name, mcfg, params, flat, nxt, card, kv_quant, full):
         f"{steps_run} batched steps, {tokens / wall:.1f} tok/s summed over "
         f"{LANES} lanes (prefix prefills, admissions and host reads "
         f"included), wall {1e3 * wall / steps_run:.2f} ms a batched step; "
+        f"TTFT p50 {1e3 * np.median(ttft):.1f} ms, max "
+        f"{1e3 * ttft.max():.1f} ms (from submission, queueing included); "
         f"admission waited {waits} times, fewest free pages {low}; every "
         f"request == flat generate; launches {got}; memory {stats}; peak "
         f"device memory {peak_mb:.0f} MiB")
@@ -1450,7 +1465,8 @@ def paged_shared_prefix(name, mcfg, params, flat, nxt, card, n_new):
     """A short run of ``PagedServingEngine``: four requests of ``n_new``
     tokens, two of them on one shared prefix (a partial tail page). Each
     must equal ``flat.generate`` on the same prompt and every page must be
-    free at the end. Returns the launches of the paged run."""
+    free at the end. Returns the launches of the paged run and the
+    engine."""
     import torch
     import lookaheaddecoding_tpu_torch as lt
 
@@ -1498,7 +1514,7 @@ def paged_shared_prefix(name, mcfg, params, flat, nxt, card, n_new):
         f"batched steps, {tokens / wall:.1f} tok/s summed over {LANES} lanes "
         f"(prefix prefill and admissions included); every request == flat "
         f"generate; every page free; launches {got}")
-    return got
+    return got, eng
 
 
 def profile_paged(name, eng, nxt, card, step_s):
@@ -2894,6 +2910,10 @@ PREFILL_PROFILED = ("bf16",)   # configurations whose graphed prefill is
                                # profiled (each profiler run costs seconds)
 # phase 13's long prompt: the headline model at M=2048 (B2), 12 chunks
 LONG_PROMPT, LONG_SEQ, LONG_NEW = 1536, 2048, 128
+# phase 13's paged admissions: their budget, the long prompt (6 chunks
+# across 6 pages), the precomputed prefix (it ends inside its second page)
+# and the requests live on the other lanes meanwhile
+ADMIT_NEW, ADMIT_LONG, ADMIT_PREFIX, ADMIT_LIVE = 64, 700, 200, LANES - 1
 
 
 def profile_steps(run, n):
@@ -3311,17 +3331,208 @@ def captured_paged(name, srv, nxt, card):
     return (stats["taken"], stats["branches"]), windows["graphed"][1]
 
 
-def captured_phase(configs, prompt, paged_engine, nxt, card, t_star,
+def admit_lane(srv, req):
+    """``req`` admitted by ``srv._admit`` onto the first free lane, which is
+    returned."""
+    import torch
+    lane = min(set(range(srv.num_lanes)) - set(srv._meta))
+    srv.submit(req)
+    with torch.inference_mode():
+        srv._admit()
+    assert lane in srv._meta and srv._meta[lane]["req"] is req, \
+        (f"the request was not admitted onto lane {lane}", srv.memory_stats())
+    return lane
+
+
+def evict_lane(srv, lane):
+    """Undo lane ``lane``'s admission: its pages back to the allocator in the
+    reverse order of their allocation (so the next admission gets the same
+    pages) and the lane idle."""
+    meta = srv._meta.pop(lane)
+    srv.alloc.release(list(reversed(meta["shared"] + meta["priv"])))
+    srv._idle(lane)
+
+
+def admitted_lane(srv, lane):
+    """Clones of lane ``lane``'s row (table, capacity, trash slot, kv_len,
+    window, output buffer, counters, the pool's rows [0, R) and clock, its
+    budget and EOS ids) and of the K/V of every data page in its table."""
+    import torch
+    from lookaheaddecoding_tpu_torch.core import graphs
+    st = srv._states
+    out = [t[lane].clone() for t in (
+        st.table, st.cap, st.trash, st.kv_len, st.window, st.out_buf,
+        st.n_confirmed, st.init_len, st.step_idx, st.finished, st.pool.clock,
+        srv._max_new, srv._eos)]
+    out += [st.pool.values[lane, :-1].clone(), st.pool.age[lane, :-1].clone()]
+    pages = sorted(set(st.table[lane].tolist()) - {lane})
+    idx = (torch.tensor(pages)[:, None] * PAGE
+           + torch.arange(PAGE)).reshape(-1).to(st.table.device)
+    return out + [t.index_select(2, idx) for t in graphs.state_tensors(
+        (srv._k_pool, srv._v_pool))]
+
+
+def admission_to_first_step(srv, req, no_sync):
+    """(ms until the host has queued the first batched step, ms until the
+    card has run it) from admission: ``_admit`` of ``req`` and one batched
+    step of every lane; then the lane is evicted. With ``no_sync`` the host
+    must not wait for the card on the way: the calls run under
+    ``torch.cuda.set_sync_debug_mode("error")``, so a sync raises."""
+    import torch
+    torch.cuda.synchronize()
+    if no_sync:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            lane = admit_lane(srv, req)
+            srv._runner().run(1)
+            queued = time.perf_counter()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    done = time.perf_counter()
+    evict_lane(srv, lane)
+    return 1e3 * (queued - t0), 1e3 * (done - t0)
+
+
+def captured_admission(name, srv, nxt, card):
+    """``PagedServingEngine``'s admission (JAX's ``_get_prepare``: lane
+    init, pool fill, the prefill fori_loop and the insertion), eager and
+    graphed on one warm engine, for a 64-token prompt, an ADMIT_LONG-token
+    one (6 chunks across 6 pages), a request on an ADMIT_PREFIX-token
+    ``precompute_prefix`` (its tail page copied on write) and a turn on a
+    ``return_prefix`` result (its warm pool carried), each admitted while
+    ADMIT_LIVE other lanes are live: the lane's row and its data pages
+    bit-equal both ways; graphed, a replay of the engine's captured chunk a
+    chunk (``stats["prefills"]``, nothing captured), whose paged attention
+    launches, one a layer and chunk, and products the kernels' counts take
+    from the replays, no plain version; ms a chunk each way; and from
+    admission to the first batched step done, ms each way, graphed under
+    the sync check (``admission_to_first_step``). Every page is free at the
+    end. Returns the captured chunk's launches a replay."""
+    import torch
+    import lookaheaddecoding_tpu_torch as lt
+    from lookaheaddecoding_tpu_torch.core import graphs
+    from lookaheaddecoding_tpu_torch.ops import quant_matmul as qm
+
+    layers = srv.mcfg.num_hidden_layers
+    px = srv.precompute_prefix(make_prompt(nxt, start=3, n=ADMIT_PREFIX))
+    carried = srv.generate(make_prompt(nxt, start=7, n=40), 32,
+                           return_prefix=True).prefix
+    assert carried.pool is not None
+
+    def more(p, n):                 # p continued along the cycle
+        return list(p) + make_prompt(nxt, start=int(p[-1]), n=n)
+    cases = {"64": (make_prompt(nxt, start=40, n=64), None),
+             str(ADMIT_LONG): (make_prompt(nxt, start=41, n=ADMIT_LONG),
+                               None),
+             "prefix": (more(px.tokens, 40), px),
+             "carried": (more(carried.tokens, 8), carried)}
+    for i in range(ADMIT_LIVE):
+        srv.submit(lt.Request(prompt=make_prompt(nxt, start=20 + i, n=64),
+                              max_new_tokens=PAGED_NEW))
+    srv.step()                      # the other lanes live
+    assert len(srv._meta) == ADMIT_LIVE, len(srv._meta)
+    for case, (prompt, prefix) in cases.items():
+        start0 = 0 if prefix is None else prefix.length
+        k = prefill_chunks(srv, len(prompt), start0)
+
+        def req():
+            return lt.Request(prompt=prompt, max_new_tokens=ADMIT_NEW,
+                              prefix=prefix)
+        snaps, stats, got, chunk_ms, first_ms = {}, {}, {}, {}, {}
+        profiled, prof = case == str(ADMIT_LONG), None
+        for which in ("eager", "graphed"):
+            with _mode(which):
+                torch.cuda.synchronize()
+                reset_counts()
+                graphs.reset_stats()
+                lane = admit_lane(srv, req())
+                snaps[which] = admitted_lane(srv, lane)
+                torch.cuda.synchronize()
+                stats[which] = graphs.read_stats()
+                got[which] = dict(read_counts(),
+                                  int8_mma=qm.counts["int8_mma"])
+                chunk_ms[which] = timed_steps(
+                    lambda n: prefills_paged(srv, len(prompt), start0, n),
+                    PREFILL_REPS) / k
+                if which == "graphed" and profiled:
+                    prof = profile_steps(
+                        lambda n: prefills_paged(srv, len(prompt), start0, n),
+                        1)
+                evict_lane(srv, lane)
+        differ = [i for i, (a, b) in enumerate(zip(snaps["eager"],
+                                                   snaps["graphed"]))
+                  if not torch.equal(a, b)]
+        assert not differ, (f"{name} {case}: the lane after the graphed "
+                            f"admission differs (tensors {differ})")
+        # a step writes the lane's pages past its prompt: after the
+        # comparison
+        for which in ("eager", "graphed"):
+            with _mode(which):
+                first_ms[which] = admission_to_first_step(
+                    srv, req(), which == "graphed")
+        e, g = stats["eager"], stats["graphed"]
+        assert e["prefills"] == e["captured"] == 0, (name, case, e)
+        assert g["prefills"] == k and g["captured"] == 0, (name, case, k, g)
+        assert got["graphed"]["paged_attention"] == k * layers \
+            == got["eager"]["paged_attention"], (name, case, got)
+        assert got["graphed"]["int8_mma"] == got["eager"]["int8_mma"], got
+        for which in got:
+            assert got[which]["plain"] == got[which]["attention_fma"] == 0, \
+                (name, case, which, got)
+        per_replay = next(graph for key, graph in srv._graphs.items()
+                          if key[0] == "prefill").launches_per_replay()
+        log(f"  [{card}] {name} admission, {case} ({len(prompt)}-token "
+            f"prompt, {k} chunk{'s' if k > 1 else ''} of "
+            f"{srv.ecfg.prefill_chunk} from row {start0}, "
+            f"{ADMIT_LIVE} other lanes live): the lane's row and data pages "
+            f"bit-equal eager and graphed; graphed {g['prefills']} replays "
+            f"of the captured chunk, launches a replay {per_replay}; ms a "
+            f"chunk eager {chunk_ms['eager']:.3f}, graphed "
+            f"{chunk_ms['graphed']:.3f} "
+            f"({chunk_ms['eager'] / chunk_ms['graphed']:.1f}x)"
+            + (f"; a graphed chunk under the profiler: "
+               f"{profile_line(prof, chunk_ms, k)}" if profiled else "")
+            + f"; from admission to the first batched step ({LANES} lanes) "
+            f"done, ms queued / run: eager {first_ms['eager'][0]:.3f} / "
+            f"{first_ms['eager'][1]:.3f}, graphed "
+            f"{first_ms['graphed'][0]:.3f} / {first_ms['graphed'][1]:.3f} "
+            f"(no host sync from the lane's choice to the first batched "
+            f"replay, set_sync_debug_mode('error'))")
+    while srv.step():
+        pass
+    srv._results = []
+    srv.release_prefix(px)
+    srv.release_prefix(carried)
+    assert srv.pages_free == N_PAGES, srv.memory_stats()
+    return per_replay
+
+
+def prefills_paged(srv, prompt_len, start0, n):
+    """``n`` prefills of the admission in ``srv``'s record (each rewrites
+    the same rows of the admitted lane's pages)."""
+    import torch
+    with torch.inference_mode():
+        for _ in range(n):
+            srv._prefill(prompt_len, start0)
+
+
+def captured_phase(configs, prompt, paged_engines, nxt, card, t_star,
                    learned, headline):
     """Phase 13 over bf16, int8_weights, int4_weights,
     int8_weights_int8_kv (greedy lookahead), bf16's AR baseline and
     sampling at T*, phase 10's dynamic-NTK engine and a LONG_PROMPT-token
     prompt at M=LONG_SEQ (their calls and prefills; no step alone),
-    paged_bf16, and phase 11's learned model in bf16 at each autotune
-    candidate: 16 active tokens over K = W + GS harvest lanes, so its steps
-    chain. Each configuration's IF-body share is printed; the learned
-    model must chain, and the headline's first steps (no window lane
-    harvested yet) must take the parallel insert."""
+    paged_bf16, the paged admission of each of ``paged_engines`` ({name:
+    (engine, its model's cycle)}: paged_bf16, paged_int8_weights_int8_kv
+    and paged_bf16_head_dim_256), and phase 11's learned model in bf16 at
+    each autotune candidate: 16 active tokens over K = W + GS harvest
+    lanes, so its steps chain. Each configuration's IF-body share is
+    printed; the learned model must chain, and the headline's first steps
+    (no window lane harvested yet) must take the parallel insert. Returns
+    each paged configuration's captured chunk's launches a replay."""
     import lookaheaddecoding_tpu_torch as lt
     from lookaheaddecoding_tpu_torch.applications import train_synthetic
     from lookaheaddecoding_tpu_torch.core import graphs
@@ -3354,8 +3565,10 @@ def captured_phase(configs, prompt, paged_engine, nxt, card, t_star,
                   build_engine(mcfg, params, max_seq=LONG_SEQ),
                   make_prompt(nxt, start=11, n=LONG_PROMPT), "greedy", card,
                   LONG_NEW, alone=False)
-    shares["paged_bf16"] = captured_paged("paged_bf16", paged_engine, nxt,
-                                          card)
+    shares["paged_bf16"] = captured_paged(
+        "paged_bf16", paged_engines["paged_bf16"][0], nxt, card)
+    admissions = {name: captured_admission(name, srv, cycle, card)
+                  for name, (srv, cycle) in paged_engines.items()}
     cfg, params = learned
     sampler = train_synthetic.make_markov_sampler(
         cfg.vocab_size, order=LEARNED_ORDER, active_vocab=LEARNED_ACTIVE)
@@ -3381,6 +3594,7 @@ def captured_phase(configs, prompt, paged_engine, nxt, card, t_star,
     log(f"  [{card}] the pool's chain ran in (IF bodies of steps, whole "
         f"calls): " + "; ".join(f"{k} {share(*v[0])}"
                                 for k, v in shares.items()))
+    return admissions
 
 
 def main() -> int:
@@ -3536,9 +3750,9 @@ def main() -> int:
                  ("lookahead", "ar_baseline"))
     log(f"[paged serving, head_dim 256] ({card}); {LANES} lanes, pages of "
         f"{PAGE}, {N_PAGES} data pages, {PAGED_NEW_256} new tokens a request")
-    paged256 = paged_shared_prefix("paged_bf16_head_dim_256", mcfg256,
-                                   params256, eng256, nxt256, card,
-                                   PAGED_NEW_256)
+    paged256, paged256_engine = paged_shared_prefix(
+        "paged_bf16_head_dim_256", mcfg256, params256, eng256, nxt256, card,
+        PAGED_NEW_256)
     lap("head_dim 256 paths")
 
     log(f"[sampling] ({card}); the headline bf16 engine (L{LEVEL}/W{WINDOW}/"
@@ -3592,9 +3806,16 @@ def main() -> int:
         f"int4_weights, int8_weights_int8_kv, bf16's AR baseline and "
         f"sampling at T*, paged_bf16, the learned model in bf16 at "
         f"{LEARNED_CANDIDATES}; ms a step of the step alone in windows of "
-        f"{CAPTURE_STEPS} steps (8 paged), eager, graphed, graphed, eager")
-    captured_phase(configs, prompt, paged_stats["paged_bf16"]["engine"], nxt,
-                   card, samp_info["t_star"], learned16, (mcfg, params))
+        f"{CAPTURE_STEPS} steps (8 paged), eager, graphed, graphed, eager; "
+        f"the paged admission of paged_bf16, paged_int8_weights_int8_kv and "
+        f"paged_bf16_head_dim_256 ({ADMIT_NEW} new tokens a request)")
+    admissions = captured_phase(
+        configs, prompt,
+        {"paged_bf16": (paged_stats["paged_bf16"]["engine"], nxt),
+         "paged_int8_weights_int8_kv": (
+             paged_stats["paged_int8_weights_int8_kv"]["engine"], nxt),
+         "paged_bf16_head_dim_256": (paged256_engine, nxt256)},
+        nxt, card, samp_info["t_star"], learned16, (mcfg, params))
     lap("captured step")
 
     log(f"[mesh step captured] ({card}); a one-rank NCCL world "
@@ -3683,6 +3904,7 @@ def main() -> int:
                                         for name, per in par.items()},
              tp2_heads_max_abs_err=patt_tp2[False]["max_abs_err"],
              tp2_heads_int8_kv_max_abs_err=patt_tp2[True]["max_abs_err"],
+             admission_launches_a_chunk=admissions,
              **patt[False]),
         dict(name="paged_lookahead_attention_int8_kv", route="cuda",
              source=CSRC + "lookahead_attention.cu",

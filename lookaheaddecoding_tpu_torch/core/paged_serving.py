@@ -19,6 +19,16 @@ and ``top_p``. On the card the batched step is a replayed CUDA graph
 (``core/graphs.py``) over the lanes, pools and buffers made here, which
 admission and harvest write in place.
 
+Admission is JAX's one-dispatch prepare (``_get_prepare``: lane init, pool
+fill, the prefill ``fori_loop`` and the insertion into the batched lanes),
+and nothing on its way to the first batched step reads the device from the
+host: the request's arrays go into the engine's admission record
+(``core/paged_step.py:PagedAdmission``) from pinned memory
+(``graphs.upload``); the lane's pool reset or warm copy, its fill and its
+row are launched eagerly; then the prefill replays one captured chunk a
+chunk, its start read from the record's counters. ``precompute_prefix``
+takes the same record and chunk.
+
 The engine runs on ``cuda`` unless it is given ``device="cpu"``; without a
 CUDA device it raises rather than carry on on the CPU.
 """
@@ -41,7 +51,7 @@ from .engine import _INT32_MAX, MAX_EOS_IDS, GenerationResult, _eos_vec
 from .layout import build_layout
 from .paged import (BlockAllocator, OutOfPages, copy_page, make_paged_pool,
                     pages_needed)
-from .paged_step import PagedLaneState, build_paged_step_fns
+from .paged_step import PagedLaneState, build_paged_step_fns, new_admission
 from .pool import (PoolState, apply_host_fill, host_prompt_fill, pool_init,
                    pool_table_rows, upload_fill)
 from .serving import Request
@@ -176,8 +186,15 @@ class PagedServingEngine:
         self._temp = torch.ones(B, dtype=torch.float32, device=dev)
         self._topp = torch.ones(B, dtype=torch.float32, device=dev)
         self._topp_host = np.ones(B, np.float32)
+        # each lane's finished flag on the host, as the last host read saw
+        # it and as admission changed it since
+        self._finished = np.ones(B, bool)
+        # the admission record the prefill chunk reads (core/paged_step.py)
+        self._rec = new_admission(NB, M + GS, dev)
         # on the card the batched step is a replayed CUDA graph over the
-        # fields above (core/graphs.py), by mode, top-p and top-k
+        # fields above (core/graphs.py), by mode, top-p and top-k, and so is
+        # the prefill chunk (key "prefill")
+        self._graphed = graphs.capturable(self.device)
         self._graphs: dict = {}
         self._graph_pool = None
 
@@ -244,7 +261,7 @@ class PagedServingEngine:
             # an out-of-range id would be a device-side assert on CUDA
             raise ValueError(
                 f"prompt token ids must lie in [0, {self.mcfg.vocab_size})")
-        eos = _eos_vec(req.eos_token_id, self.device)
+        eos = _eos_vec(req.eos_token_id)
         if self.sampling is None and (req.temperature is not None
                                       or req.top_p is not None):
             raise ValueError(
@@ -292,17 +309,19 @@ class PagedServingEngine:
         return PoolState(pool.values[lane], pool.age[lane], pool.clock[lane])
 
     def _admit(self) -> None:
+        """Requests onto free lanes while pages last: JAX's one-dispatch
+        prepare, with no host read on the way (see the module's
+        docstring)."""
         if not (self._queue or self._iqueue):
             return
-        st = self._states
-        finished = st.finished.tolist()
+        st, rec = self._states, self._rec
         BS, dev = self.page_size, self.device
         S, M = self.layout.seq_len, self.ecfg.max_seq_len
         for lane in range(self.num_lanes):
             src = self._iqueue if self._iqueue else self._queue
             if not src:
                 break
-            if lane in self._meta or not finished[lane]:
+            if lane in self._meta or not self._finished[lane]:
                 continue
             req, t_submit = src[0]
             try:
@@ -353,8 +372,7 @@ class PagedServingEngine:
 
             out_buf = np.zeros((M + self.layout.guess_size,), np.int32)
             out_buf[:len(prompt)] = prompt
-            out_buf = torch.from_numpy(out_buf).to(dev)
-            table_t = torch.from_numpy(table).to(dev)
+            self._record(table, lane * BS, out_buf, len(prompt))
 
             lane_pool = self._lane_pool(lane)
             if prefix is not None and prefix.pool is not None:
@@ -369,15 +387,14 @@ class PagedServingEngine:
             if fill is not None:
                 apply_host_fill(lane_pool, *upload_fill(*fill, dev),
                                 merge=True)
-            self._fns.init_lane(st, lane, table_t, cap, out_buf, len(prompt),
-                                req.seed)
-            st.kv_len[lane] = self._fns.prefill_from(
-                self.params, (self._k_pool, self._v_pool), table_t,
-                lane * BS, out_buf, len(prompt), plen)
-            self._max_new[lane] = min(req.max_new_tokens, _INT32_MAX)
-            self._eos[lane] = eos
-            self._temp[lane] = temp
-            self._topp[lane] = topp
+            self._fns.init_lane(st, lane, rec, cap, len(prompt), req.seed)
+            self._prefill(len(prompt), plen)
+            st.kv_len[lane].copy_(rec.kv_len)
+            self._finished[lane] = False
+            self._max_new[lane].fill_(min(req.max_new_tokens, _INT32_MAX))
+            self._eos[lane] = graphs.upload(eos, dev)
+            self._temp[lane].fill_(temp)
+            self._topp[lane].fill_(topp)
             self._topp_host[lane] = topp
             self._first_tok.pop(lane, None)
             self._meta[lane] = dict(
@@ -385,13 +402,46 @@ class PagedServingEngine:
                 t0=time.perf_counter(), t_submit=t_submit,
                 served=len(prompt) if req.on_tokens is not None else None)
 
+    def _record(self, table: np.ndarray, trash: int, out_buf: np.ndarray,
+                prompt_len: int) -> None:
+        """An admission's host arrays and numbers into the admission record,
+        without a wait."""
+        rec, dev = self._rec, self.device
+        rec.table[0].copy_(graphs.upload(table, dev))
+        rec.out_buf.copy_(graphs.upload(out_buf, dev))
+        rec.trash.fill_(trash)
+        rec.init_len.fill_(prompt_len)
+
+    def _prefill(self, prompt_len: int, start0: int) -> None:
+        """prompt[start0:-1] of the admission record's lane into the pool:
+        on the card the engine's captured prefill chunk (captured by the
+        first chunk that needs it, which is its warm step) replayed once a
+        chunk, over the record's ``start0`` and ``chunk`` counters; a
+        prompt with no row past ``start0`` has no chunk."""
+        fns, params, rec = self._fns, self.params, self._rec
+        pools = (self._k_pool, self._v_pool)
+
+        def chunk():
+            fns.prefill_chunk(params, pools, rec, rec.start0, rec.chunk)
+        steps = self._graph_runner("prefill", chunk, (pools, rec), "prefills")
+        fns.prefill_from(params, pools, rec, prompt_len, start0,
+                         (rec.start0, rec.chunk), steps.run)
+
+    def _graph_runner(self, key, step, state, counter="replays"):
+        if self._graphed and self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        return graphs.runner(self._graphs, key, step, state, self._graphed,
+                             self._graph_pool, counter)
+
     # ------------------------------------------------------------------
     def _observe(self):
         """finished, n_confirmed, init_len, kv_len and step_idx of every
-        lane, in one device-to-host transfer."""
+        lane, in one device-to-host transfer; the host's copy of
+        ``finished`` follows it."""
         st = self._states
         host = torch.stack([st.finished.int(), st.n_confirmed, st.init_len,
                             st.kv_len, st.step_idx]).cpu().numpy()
+        self._finished[:] = host[0] != 0
         now = time.perf_counter()
         for lane in self._meta:
             if lane not in self._first_tok and host[1, lane] > host[2, lane]:
@@ -426,7 +476,7 @@ class PagedServingEngine:
             out_buf = st.out_buf.cpu().numpy()
         tables = None
         now = time.perf_counter()
-        BS, S = self.page_size, self.layout.seq_len
+        BS = self.page_size
         for lane in done:
             meta = self._meta.pop(lane)
             req = meta["req"]
@@ -458,17 +508,25 @@ class PagedServingEngine:
                     pool=PoolState(warm.values.clone(), warm.age.clone(),
                                    warm.clock.clone()))
             self.alloc.release(meta["shared"] + meta["priv"])
-            # back to idle before the next step: the lane's unconditional
-            # writes must never touch pages that are handed out again
-            st.table[lane] = lane
-            st.cap[lane] = S + 1
-            st.kv_len[lane] = 0
-            st.n_confirmed[lane] = 1
-            st.init_len[lane] = 1
-            st.step_idx[lane] = 0
+            self._idle(lane)
             self._results.append(res)
             if self.log is not None:
                 self.log.append(res)
+
+    def _idle(self, lane: int) -> None:
+        """Lane ``lane`` back to idle, in place, before the next step:
+        finished, every logical page on its trash page (a finished lane's
+        step still writes its composite rows, which must never touch pages
+        that are handed out again)."""
+        st = self._states
+        st.table[lane].fill_(lane)
+        st.cap[lane].fill_(self.layout.seq_len + 1)
+        st.kv_len[lane].fill_(0)
+        st.n_confirmed[lane].fill_(1)
+        st.init_len[lane].fill_(1)
+        st.step_idx[lane].fill_(0)
+        st.finished[lane].fill_(True)
+        self._finished[lane] = True
 
     # ------------------------------------------------------------------
     def step(self) -> bool:
@@ -503,12 +561,8 @@ class PagedServingEngine:
 
             def step():
                 fns.sample_batch(params, *bufs, self._temp, top_p, top_k)
-        graphed = self.device.type == "cuda"
-        if graphed and self._graph_pool is None:
-            self._graph_pool = torch.cuda.graph_pool_handle()
-        return graphs.runner(self._graphs, (top_p_on, top_k), step,
-                             bufs + (self._temp, self._topp), graphed,
-                             self._graph_pool)
+        return self._graph_runner((top_p_on, top_k), step,
+                                  bufs + (self._temp, self._topp))
 
     def run(self, requests: Sequence[Request]) -> List[GenerationResult]:
         for r in requests:
@@ -556,14 +610,12 @@ class PagedServingEngine:
         table[:n_px] = pages
         out_buf = np.zeros((M + self.layout.guess_size,), np.int32)
         out_buf[:P0] = prefix
-        # a prompt length of P0 + 1 makes the prefill cover [0, P0): every
-        # prefix row lands in its page; the padded rows go to lane 0's
-        # trash page
+        # JAX's "precompute" prepare: a prompt length of P0 + 1 makes the
+        # prefill cover [0, P0), every prefix row in its page; the padded
+        # rows go to lane 0's trash page
         with torch.inference_mode():
-            self._fns.prefill_from(
-                self.params, (self._k_pool, self._v_pool),
-                torch.from_numpy(table).to(self.device), 0,
-                torch.from_numpy(out_buf).to(self.device), P0 + 1, 0)
+            self._record(table, 0, out_buf, P0 + 1)
+            self._prefill(P0 + 1, 0)
         return PagedPrefix(tokens=prefix.astype(np.int32),
                            pages=tuple(int(p) for p in pages), length=P0)
 

@@ -14,6 +14,12 @@ to a page another lane owns.
 The state and the pools are updated in place (every field keeps its
 address, so the engines can replay the step as a CUDA graph), and a step
 reads nothing back to the host.
+
+A lane's prefill (JAX's ``prefill_from``, a ``fori_loop`` of
+``prefill_chunk_lane``) is one chunk that reads every input from a
+:class:`PagedAdmission` record on the device, its start from the record's
+counters, and advances them: the paged engine replays one captured chunk a
+chunk, for every prompt and every lane.
 """
 
 from __future__ import annotations
@@ -53,8 +59,36 @@ class PagedLaneState:
     rng: List[torch.Generator]  # one a lane
 
 
+@dataclasses.dataclass
+class PagedAdmission:
+    """One admission at fixed addresses: what the prefill chunk reads (the
+    lane's page table, its trash slot, its output buffer and the prompt's
+    length), what it writes (``kv_len``) and its counters (``start0``, the
+    first row, and ``chunk``, the chunk under way). An engine owns one and
+    writes each admission into it in place."""
+
+    table: torch.Tensor        # [1, NB] int32
+    trash: torch.Tensor        # [1] int32: base slot of a trash page
+    out_buf: torch.Tensor      # [M + GS] int32: the prompt, then zeros
+    init_len: torch.Tensor     # 0-d int32: the prompt's length
+    kv_len: torch.Tensor       # 0-d int32
+    start0: torch.Tensor       # 0-d int32
+    chunk: torch.Tensor        # 0-d int32
+
+
+def new_admission(n_pages: int, buf_len: int, device) -> PagedAdmission:
+    """An admission record of ``n_pages`` table entries and an output
+    buffer of ``buf_len`` tokens, zeros, on ``device``."""
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.int32, device=device)
+    return PagedAdmission(table=zeros(1, n_pages), trash=zeros(1),
+                          out_buf=zeros(buf_len), init_len=zeros() + 1,
+                          kv_len=zeros(), start0=zeros(), chunk=zeros())
+
+
 class PagedStepFns(NamedTuple):
     init_lane: Callable
+    prefill_chunk: Callable   # one chunk of a lane's prefill, in place
     prefill_from: Callable    # one lane's suffix prefill into the pool
     decode_batch: Callable    # one batched greedy step over all lanes
     sample_batch: Callable    # one batched sampling step over all lanes
@@ -88,6 +122,7 @@ def build_paged_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
         np.array([0]), np.arange(layout.inp_start, layout.inp_stop),
         np.arange(layout.guess_start, layout.seq_len)])).to(device)
     no_rows = torch.zeros(0, dtype=torch.long, device=device)
+    chunk_rows = torch.arange(C, device=device)     # a prefill chunk's rows
     meta = dict(level=N, window=W, guess_size=GS, sliding_window=SW)
     impl = "kernel" if lcfg.attention_impl == "kernel" else "dense"
     posts = {mode: make_post_forward(mcfg, lcfg, layout, device, mode)
@@ -96,16 +131,19 @@ def build_paged_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
                            lcfg.pool_hash_size)
 
     # ------------------------------------------------------------------
-    def init_lane(states: PagedLaneState, lane: int, table, cap: int,
-                  out_buf, prompt_len: int, seed: int):
+    def init_lane(states: PagedLaneState, lane: int, rec: PagedAdmission,
+                  cap: int, prompt_len: int, seed: int):
         """Lane ``lane`` of ``states`` set up for a new request, in place:
-        the counterpart of ``core/step.py:init_state``. ``table`` [NB] and
-        ``out_buf`` [M + GS] are device tensors; the lane's own generator
-        is reseeded with ``seed`` (never swapped: a captured step draws
-        from the generators it was captured with); the lane's n-gram pool
+        the counterpart of ``core/step.py:init_state`` and of JAX's
+        insertion of the new lane into the batched states
+        (``dynamic_update_index_in_dim``). The lane's table and output
+        buffer are copied from the admission record ``rec``; its own
+        generator is reseeded with ``seed`` (never swapped: a captured step
+        draws from the generators it was captured with); its n-gram pool
         is left as the caller prepared it."""
         rng = states.rng[lane]
         rng.manual_seed(seed)
+        out_buf = rec.out_buf
         if lcfg.window_init == "random_set":
             window = torch.randint(0, mcfg.vocab_size, (n_window,),
                                    generator=rng, device=device)
@@ -116,46 +154,70 @@ def build_paged_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
         else:  # copy_from: random copies of prompt tokens
             window = out_buf[torch.randint(0, prompt_len, (n_window,),
                                            generator=rng, device=device)]
-        states.table[lane] = table
-        states.cap[lane] = cap
-        states.kv_len[lane] = 0
+        # host numbers go in by fill_ (an item assignment of a Python
+        # number copies it to the card from pageable memory: a sync)
+        states.table[lane].copy_(rec.table[0])
+        states.cap[lane].fill_(cap)
+        states.kv_len[lane].fill_(0)
         states.window[lane] = window
         states.out_buf[lane] = out_buf
-        states.n_confirmed[lane] = prompt_len
-        states.init_len[lane] = prompt_len
-        states.step_idx[lane] = 0
-        states.finished[lane] = False
+        states.n_confirmed[lane].fill_(prompt_len)
+        states.init_len[lane].fill_(prompt_len)
+        states.step_idx[lane].fill_(0)
+        states.finished[lane].fill_(False)
         return states
 
     # ------------------------------------------------------------------
-    def prefill_from(params, pools, table, trash: int, out_buf,
-                     prompt_len: int, start0: int) -> int:
-        """prompt[start0:-1] of one lane into the pool (causal, one-lane
-        forwards of C tokens), through ``table`` [NB]. Unlike the flat
-        prefill, chunks never start below the suffix start (shared prefix
-        pages are read-only) and never write past the prompt: the last
-        chunk pads past it, and the padded rows' K/V go to the lane's trash
-        page. The prompt length is host data, so the chunk starts are host
-        ints. Returns the lane's ``kv_len`` after the prefill."""
+    def prefill_chunk(params, pools, rec: PagedAdmission,
+                      start0: torch.Tensor, chunk: torch.Tensor):
+        """Chunk ``chunk`` of :func:`prefill_from` in place, then
+        ``chunk += 1``: the body of JAX's prefill ``fori_loop``
+        (``prefill_chunk_lane``), a causal one-lane forward of C tokens
+        through ``rec.table``. Its start is ``start0 + chunk * C`` (0-d
+        int32 tensors on the device). Unlike the flat chunk it is not
+        aligned to end at the prompt: shared prefix pages are read-only.
+        Its tokens come from ``rec.out_buf`` through a device index
+        (clamped to the buffer; those rows are padding), and the rows at or
+        past ``n = init_len - 1`` write their K/V to the trash page at
+        ``rec.trash``. Nothing of it is host data, so one captured chunk
+        serves every chunk of every prompt and every lane. ``rec.kv_len``
+        becomes ``min(start + C, n)``. (No dynamic-NTK rows: the paged
+        engine refuses that rope.)"""
         k_pool, v_pool = pools
-        n = prompt_len - 1
-        tables = table[None]
-        limit = torch.tensor([n], dtype=torch.int32, device=device)
-        trash_slot = torch.tensor([trash], dtype=torch.int32, device=device)
-        for start in range(start0, n, C):
-            tokens = out_buf[start:start + C]
-            if tokens.shape[0] < C:     # the buffer ends inside the chunk
-                tokens = torch.cat([tokens, tokens.new_zeros(
-                    C - tokens.shape[0])])
-            kv_lens = torch.tensor([start], dtype=torch.int32, device=device)
-            positions = start + torch.arange(C, device=device)
-            llama.forward_paged(
-                params, mcfg, tokens[None], positions[None], k_pool, v_pool,
-                tables, kv_lens, page_size, rope_cos, rope_sin,
-                dict(meta, causal=True, kv_lens=kv_lens),
-                logits_rows=no_rows, attn_impl=impl, write_limit=limit,
-                trash_slot=trash_slot, rope_seq_len=prompt_len, mesh=mesh)
-        return max(n, 0)
+        n = rec.init_len - 1
+        start = start0 + chunk * C
+        positions = start + chunk_rows
+        tokens = rec.out_buf.index_select(
+            0, positions.clamp(max=rec.out_buf.shape[0] - 1))
+        kv_lens = start.view(1)
+        llama.forward_paged(
+            params, mcfg, tokens[None], positions[None], k_pool, v_pool,
+            rec.table, kv_lens, page_size, rope_cos, rope_sin,
+            dict(meta, causal=True, kv_lens=kv_lens), logits_rows=no_rows,
+            attn_impl=impl, write_limit=n.view(1), trash_slot=rec.trash,
+            mesh=mesh)
+        rec.kv_len.copy_(torch.minimum(start + C, n))
+        chunk.add_(1)
+        return rec
+
+    def prefill_from(params, pools, rec: PagedAdmission, prompt_len: int,
+                     start0: int, counters, run) -> PagedAdmission:
+        """prompt[start0:-1] of the lane in ``rec`` into the pool, in C-sized
+        chunks (JAX's ``prefill_from``); ``start0 > 0`` is the prefix path,
+        whose rows [0, start0) are already in the lane's pages. The prompt
+        length is host data, as in JAX's caller, so the host knows the
+        number of chunks; each chunk finds its start on the device
+        (:func:`prefill_chunk`). ``counters`` are the (start0, chunk)
+        tensors the chunks read, which this call sets; ``run(k)`` runs k
+        chunks over them (the engine's runner: the captured chunk
+        replayed, or the chunk called k times). ``rec.kv_len`` ends at
+        ``max(n, 0)``."""
+        first, chunk = counters
+        first.fill_(start0)
+        chunk.zero_()
+        run(-(-max(prompt_len - 1 - start0, 0) // C))
+        rec.kv_len.copy_((rec.init_len - 1).clamp(min=0))
+        return rec
 
     # ------------------------------------------------------------------
     def batch_step(params, k_pool, v_pool, states: PagedLaneState, max_new,
@@ -224,5 +286,6 @@ def build_paged_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
                           "sample", dict(temperature=temperature, top_p=top_p,
                                          top_k=top_k))
 
-    return PagedStepFns(init_lane=init_lane, prefill_from=prefill_from,
-                        decode_batch=decode_batch, sample_batch=sample_batch)
+    return PagedStepFns(init_lane=init_lane, prefill_chunk=prefill_chunk,
+                        prefill_from=prefill_from, decode_batch=decode_batch,
+                        sample_batch=sample_batch)

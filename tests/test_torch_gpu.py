@@ -1160,6 +1160,95 @@ def test_captured_prefill_equals_eager_without_a_sync(config):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("config", ["bf16", "int8_kv_int8_weights"])
+def test_captured_paged_admission_equals_eager_without_a_sync(config):
+    """Paged admission on the card (JAX's ``_get_prepare``) at the
+    headline's widths (TinyLlama-1.1B: hidden 2048, intermediate 5632, 32
+    query and 4 KV heads of 64, vocab 32000; 2 layers), L7/W20/G20, M=1024,
+    chunks and pages of 128, four lanes: a 64-token and a 700-token prompt
+    (6 chunks across 6 pages) with another lane live, and a request on a
+    200-token prefix (its tail page copied on write). The lane's row and
+    its data pages after ``_admit`` are bit-equal to the eager admission's;
+    a warm engine's graphed admission replays the captured chunk once a
+    chunk and captures nothing; and from the lane's choice to the first
+    batched replay nothing waits for the card
+    (``torch.cuda.set_sync_debug_mode("error")`` raises on a sync)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import lookaheaddecoding_tpu_torch as lt
+    from lookaheaddecoding_tpu_torch.core import graphs
+    cfg = lt.LlamaConfig(vocab_size=32000, hidden_size=2048,
+                         intermediate_size=5632, num_hidden_layers=2,
+                         num_attention_heads=32, num_key_value_heads=4,
+                         max_position_embeddings=2048, dtype=torch.bfloat16)
+    params = lt.init_params(cfg, seed=0, scale=0.02, device="cuda")
+    int8 = config != "bf16"
+    if int8:
+        params = lt.quantize_params(params, bits=8)
+    srv = lt.PagedServingEngine(
+        cfg, params, lt.LookaheadConfig(level=7, window_size=20,
+                                        guess_set_size=20,
+                                        pool_from_prompt=True),
+        lt.EngineConfig(max_seq_len=1024, prefill_chunk=128,
+                        kv_quant="int8" if int8 else None),
+        num_lanes=4, page_size=128, n_pages=24)
+    rng = np.random.RandomState(3)
+    base = list(rng.randint(0, 32000, size=700))
+    srv.generate(base[:300], 8)                 # captures chunk and step
+    px = srv.precompute_prefix(base[:200])
+    srv.submit(lt.Request(prompt=base[:64], max_new_tokens=64))
+    srv.step()                                  # lane 0 live
+    st = srv._states
+
+    def admit(p, prefix, checked=False):
+        """Lane 1's row and data pages after ``_admit`` (then, checked,
+        one batched step), and graphs.stats of the call; then lane 1 is
+        undone: its pages back in reverse order, the lane idle."""
+        srv.submit(lt.Request(prompt=p, max_new_tokens=32, prefix=prefix))
+        graphs.reset_stats()
+        torch.cuda.synchronize()
+        if checked:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.inference_mode():
+                srv._admit()
+                row = [t[1].clone() for t in (
+                    st.table, st.kv_len, st.window, st.out_buf,
+                    st.n_confirmed, st.init_len, st.pool.values, st.pool.age,
+                    st.pool.clock, srv._eos)]
+                if checked:
+                    srv._runner().run(1)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        stats = graphs.read_stats()
+        pages = sorted(set(st.table[1].tolist()) - {1})
+        idx = (torch.tensor(pages)[:, None] * 128
+               + torch.arange(128)).reshape(-1).cuda()
+        kv = [t.index_select(2, idx).clone()
+              for t in graphs.state_tensors((srv._k_pool, srv._v_pool))]
+        meta = srv._meta.pop(1)
+        srv.alloc.release(list(reversed(meta["shared"] + meta["priv"])))
+        srv._idle(1)
+        return row + kv, stats
+
+    for p, prefix in ((base[:64], None), (base, None),
+                      (base[:240], px)):
+        with graphs.eager():
+            want, _ = admit(p, prefix)
+        got, stats = admit(p, prefix)
+        start0 = 0 if prefix is None else prefix.length
+        chunks = -(-(len(p) - 1 - start0) // 128)
+        assert stats["captured"] == 0 and stats["prefills"] == chunks
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), \
+            (config, len(p))
+        admit(p, prefix, checked=True)
+    while srv.step():
+        pass
+    srv.release_prefix(px)
+    assert srv.pages_free == 24
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sample"])
 def test_graphed_serving_engines_equal_eager(sampled):
     """PagedServingEngine and ContinuousBatchingEngine on the card replay
