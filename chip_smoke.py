@@ -42,7 +42,11 @@ target). It imports no JAX. Phases, each printed as it runs:
    (``ops/graph_cond.py``, the pool's ``lax.cond``): three nodes in one
    captured graph over every pattern of their predicates, each body run
    exactly when its plain version runs it, and ms a node taken and
-   skipped on the device alone;
+   skipped on the device alone; and the CUDA-graph WHILE node (the decode
+   loop's ``lax.while_loop``): n, 0 and 1 iterations of a one-add body
+   and three lanes finishing after 2, 5 and 3, each as its plain version
+   counts, and ms an iteration on the device alone beside adds captured
+   in a row;
 4. main path: the headline configuration, a synthetic TinyLlama-1.1B
    model at full width (random weights from a seed, with an embedding and
    head that make greedy decoding follow a token cycle), greedy lookahead
@@ -57,8 +61,11 @@ target). It imports no JAX. Phases, each printed as it runs:
    1, and each path must have gone through the kernels' tensor-core
    designs (counted for each path alone: launches > 0, FMA designs and
    plain-version calls 0);
-5. profile: lookahead and AR runs under ``torch.profiler``, for the
-   device's busy and idle share and the kernels that take the most time
+5. profile: lookahead and AR requests under ``torch.profiler``, decoded
+   by the host loop (the profiler records no kernel inside a CUDA-graph
+   WHILE body, so not the device loop's), for the host loop's device busy
+   and idle share (against the same host-loop request unprofiled) and the
+   kernels that take the most time
    (bfloat16, and the lookahead runs of ``int8_weights`` and
    ``int4_weights``);
 6. paged serving: ``PagedServingEngine`` on the same model (4 lanes, pages
@@ -133,8 +140,9 @@ target). It imports no JAX. Phases, each printed as it runs:
    candidate's tokens against ``generate_baseline`` (float32 exact, or a
    teacher-forced top-2 margin within 1e-5 of the logit scale; bf16
    reported), through B1 (FMA design in float32), no plain version; and
-   one lookahead and one AR ``generate`` under ``utils.profiling.trace``,
-   whose file must name the attention kernel. On the card the train step
+   one lookahead and one AR request under ``utils.profiling.trace``
+   (decoded by the host loop, as phase 5's), whose file must name the
+   attention kernel. On the card the train step
    replays a CUDA graph (forward, backward and Adam captured,
    ``training/train_step.py``): the card-against-CPU steps and the
    training above run it; then on a batch already on the card it runs
@@ -199,7 +207,17 @@ target). It imports no JAX. Phases, each printed as it runs:
    launch a layer and chunk counted from the replays, and from the lane's
    choice to the first batched replay nothing may sync the host. It prints
    ms a paged chunk each way, kernels and device busy a chunk, and ms from
-   admission to the first batched step done each way;
+   admission to the first batched step done each way. The decode loop
+   runs on the device (JAX's ``lax.while_loop``): every greedy and AR call
+   above (and in phases 4-11) launches its loop once, a WHILE node around
+   the captured step; here each must run as many iterations as it takes
+   steps, launch the WHILE condition kernel once more than that, and make
+   one read back with no host sync before it (a second call under
+   ``set_sync_debug_mode("error")`` until ``graphs.fetch``); a greedy
+   ``generate_batch`` of four lanes is held the same way against its
+   eager call (tokens, steps, pool rows, branches), and a headline call
+   ended by an EOS id runs exactly the steps it needs, beside the host
+   loop (``_run(..., host_loop=True)``) on the same request;
 14. the mesh step captured: a world of one rank over NCCL
    (``parallel/launch.py --nproc 1 --backend nccl``; the card takes one
    NCCL rank) builds the headline model and runs an engine on
@@ -428,14 +446,15 @@ def reset_counts():
 
 
 def read_counts():
-    """The attention kernels' launches by design, the IF node's condition
-    kernel's, and the plain versions' calls, since the last
+    """The attention kernels' launches by design, the IF and WHILE nodes'
+    condition kernels', and the plain versions' calls, since the last
     ``reset_counts``."""
     from lookaheaddecoding_tpu_torch.ops import graph_cond
     from lookaheaddecoding_tpu_torch.ops import lookahead_attention as la
     from lookaheaddecoding_tpu_torch.ops import quant_matmul as qm
     return dict(attention_mma=la.counts["mma"],
                 set_if=graph_cond.counts["set_if"],
+                set_while=graph_cond.counts["set_while"],
                 paged_attention=la.paged_counts["mma"],
                 attention_fma=la.counts["fma"] + la.paged_counts["fma"],
                 plain=(la.counts["plain"] + la.paged_counts["plain"]
@@ -917,6 +936,108 @@ def check_graph_cond(device):
                 library_ms=None)
 
 
+WHILE_ITERS = 200     # iterations of phase 3's timed WHILE node
+
+
+def check_graph_while(device):
+    """The WHILE node (``ops/graph_cond.py``, ``csrc/graph_cond.cu``; the
+    decode loop's ``lax.while_loop``) against its plain version: one node
+    over a one-add body, replayed with its flag clear (``cap`` iterations),
+    set (none) and at a cap of 1, and over three lanes whose flags the body
+    sets after 2, 5 and 3 iterations (the body's allocations in a
+    MemPool), must run its body and count its iterations exactly as
+    ``while_node_ref`` does. Then ms an iteration on the device alone (a
+    loop of WHILE_ITERS one-add iterations) beside WHILE_ITERS adds
+    captured one after another, whose difference is the node's overhead an
+    iteration; the plain version's ms an iteration (the flags and the
+    counter read on the host, then the add); and the bound: the condition
+    kernel reads a flag, the counter and the cap and writes the counter, 13
+    bytes over the memory rate. No PyTorch call runs a graph loop:
+    library_ms is null."""
+    import torch
+    from lookaheaddecoding_tpu_torch.ops import graph_cond
+
+    stream = graph_cond.body_stream(device)
+
+    def while_graph(body, finished, cap, iters, pool=None):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            graph_cond.while_node(finished, cap, iters, body, stream, pool)
+        return graph
+
+    x = torch.zeros((), dtype=torch.int64, device=device)
+    flag = torch.zeros(1, dtype=torch.bool, device=device)
+    cap = torch.tensor([7], dtype=torch.int32, device=device)
+    iters = torch.zeros(1, dtype=torch.int32, device=device)
+    graph = while_graph(lambda: x.add_(1), flag, cap, iters)
+    err = 0
+    for finished, n in ((False, 7), (True, 0), (False, 1)):
+        cap.fill_(n if n else 7)
+        flag.fill_(finished)
+        before = int(x)
+        graph.replay()
+        runs = []
+        graph_cond.while_node(torch.tensor([finished]), cap.cpu(),
+                              torch.zeros(1, dtype=torch.int32),
+                              lambda: runs.append(1), None)
+        err = max(err, abs(int(x) - before - len(runs)),
+                  abs(int(iters) - len(runs)))
+    counter = torch.zeros(3, dtype=torch.int32, device=device)
+    lanes = torch.zeros(3, dtype=torch.bool, device=device)
+    limit = torch.tensor([2, 5, 3], dtype=torch.int32, device=device)
+    cap.fill_(100)
+
+    def body():
+        counter.add_((~lanes).int())
+        lanes.copy_(counter >= limit)
+    pool = torch.cuda.MemPool()
+    while_graph(body, lanes, cap, iters, pool).replay()
+    err = max(err, int((counter.cpu() - torch.tensor([2, 5, 3])).abs().max()),
+              abs(int(iters) - 5))
+    assert err == 0, (counter, iters)
+
+    count = torch.zeros((), dtype=torch.int64, device=device)
+    flag.fill_(False)
+    cap.fill_(WHILE_ITERS)
+    loop = while_graph(lambda: count.add_(1), flag, cap, iters)
+    straight = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(straight):
+        for _ in range(WHILE_ITERS):
+            count.add_(1)
+
+    def per_iteration(g, replays=5):
+        g.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(replays):
+            g.replay()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / (WHILE_ITERS * replays)
+    ms, ms_straight = per_iteration(loop), per_iteration(straight)
+    assert int(iters) == WHILE_ITERS
+
+    def plain():
+        done = torch.zeros(1, dtype=torch.int32)
+        graph_cond.while_node_ref(
+            lambda: not bool(flag.any()) and int(done) < 20,
+            lambda: (count.add_(1), done.add_(1)))
+    plain_ms = time_ms(plain, reps=20) / 20
+    bound_ms = 1e3 * (1 + 4 + 4 + 4) / HBM_BYTES_S
+    log(f"  graph_cond WHILE node: every run as the plain version's (n, 0 "
+        f"and 1 iterations, three lanes finishing after 2, 5 and 3); "
+        f"{ms:.5f} ms an iteration (device alone, {WHILE_ITERS} iterations, "
+        f"the body one add) against {ms_straight:.5f} ms an add captured "
+        f"in a row: the node's overhead {ms - ms_straight:.5f} ms an "
+        f"iteration; plain version (host reads) {plain_ms:.5f} ms an "
+        f"iteration; bound {bound_ms:.2e} ms (bytes)")
+    return dict(max_abs_err=float(err), ms=ms, ms_straight_add=ms_straight,
+                overhead_ms=ms - ms_straight, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by="bytes", library_ms=None)
+
+
 def check_int4_micro(device):
     """The int4 product's two variants: held against their plain versions
     and the int4 kernel by the micro-benchmark's own checks on its four
@@ -1225,15 +1346,19 @@ def main_path(name, eng, prompt, nxt, card, matmul_kernels, n_new=N_NEW):
         runs[path] = gen(prompt, n_new)
         got = dict(qm.counts, attention_mma=la.counts["mma"],
                    set_if=graph_cond.counts["set_if"],
+                   set_while=graph_cond.counts["set_while"],
                    attention_fma=la.counts["fma"],
                    plain=qm.counts["plain"] + la.counts["plain"])
         launches[path] = got
         assert got["attention_mma"] > 0 and got["attention_fma"] == 0, \
             (name, path, got)
         assert got["plain"] == 0, (name, path, got)
-        # the pool's chain is an IF node of every captured lookahead step
+        # the pool's chain is an IF node of every captured lookahead step;
+        # both paths loop on the device: one WHILE condition kernel before
+        # the loop and one an iteration
         assert (got["set_if"] > 0) == (path == "lookahead"), (name, path,
                                                               got)
+        assert got["set_while"] == runs[path].steps + 1, (name, path, got)
         # bf16 on the tensor cores: the FMA matmul kernels never run
         for kernel in qm.counts:
             if kernel != "plain":
@@ -1285,23 +1410,39 @@ def family_line(by_name, steps):
         for label, key in FAMILIES)
 
 
-def profile_path(name, eng, prompt, card, step_s, paths):
-    """Where a generate call's time goes: one run of PROFILE_NEW tokens for
-    each of ``paths`` under torch.profiler. Device busy time is the sum of
-    the kernels' durations (one stream, so they do not overlap). The idle
-    share is given against the wall time per step of the unprofiled runs
-    (``step_s``), and against the profiled run's own wall time, which the
+def host_loop_call(eng, prompt, mode, n_new, eos=None):
+    """A ``mode`` ("greedy" or "ar") call of ``eng`` decoded by the host loop
+    (``LookaheadEngine._run(..., host_loop=True)``: the slot's captured step
+    replayed in batches, as sampling calls decode), which the profiler can
+    see into: it records no kernel inside a CUDA-graph WHILE body, so not
+    the device loop's. Returns the call's result."""
+    return eng._run(mode, prompt, n_new, eos, 0, host_loop=True)
+
+
+def profile_path(name, eng, prompt, card, paths):
+    """Where a host-loop call's time goes: one request of PROFILE_NEW tokens
+    for each of ``paths`` under torch.profiler, decoded by the host loop
+    (``host_loop_call``: the profiler records no kernel inside the device
+    loop's WHILE body; phase 13 times that loop with CUDA events), so the
+    kernels and the idle share are the host loop's, not those of the device
+    loop that greedy calls run. Device busy time is the sum of the kernels'
+    durations (one stream, so they do not overlap). The idle share is given
+    against the wall time per step of the same host-loop request
+    unprofiled, and against the profiled run's own wall time, which the
     profiler lengthens. Prints "not measured" if the profiler records no
     kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for path in paths:
-        gen = eng.generate if path == "lookahead" else eng.generate_baseline
+        mode = "greedy" if path == "lookahead" else "ar"
+        host_loop_call(eng, prompt, mode, PROFILE_NEW)   # its step graph
+        r0 = host_loop_call(eng, prompt, mode, PROFILE_NEW)
+        step_ms = 1e3 * r0.wall_time_s / r0.steps
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            r = gen(prompt, PROFILE_NEW)
+            r = host_loop_call(eng, prompt, mode, PROFILE_NEW)
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
         kernels = [e for e in prof.events()
@@ -1316,9 +1457,9 @@ def profile_path(name, eng, prompt, card, step_s, paths):
             by_name[e.name] = by_name.get(e.name, 0.0) + \
                 e.time_range.elapsed_us() / 1e3
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-        step_ms = 1e3 * step_s[path]
-        log(f"  [{card}] {name} {path}: {r.steps} steps, {len(kernels)} "
-            f"kernels ({len(kernels) / r.steps:.0f} a step); device busy "
+        log(f"  [{card}] {name} {path} (host loop): {r.steps} steps, "
+            f"{len(kernels)} kernels ({len(kernels) / r.steps:.0f} a "
+            f"step); device busy "
             f"{busy_ms / r.steps:.3f} ms a step, idle "
             f"{1 - busy_ms / r.steps / step_ms:.3f} of the unprofiled "
             f"{step_ms:.2f} ms wall a step (idle {1 - busy_ms / wall_ms:.3f} "
@@ -2479,20 +2620,23 @@ def build_learned_engine(mcfg, params, cand):
 
 
 def profile_learned(eng, ar_eng, prompt, card, tmpdir):
-    """One lookahead and one AR ``generate`` of PROFILE_NEW tokens through
-    the port's ``utils.profiling.trace``: the trace file must exist and
-    name the attention kernel; kernels a step, device busy (the sum of the
-    kernels' durations) and idle against the wall a step of the same call
-    unprofiled."""
+    """One lookahead and one AR request of PROFILE_NEW tokens through the
+    port's ``utils.profiling.trace``, decoded by the host loop
+    (``host_loop_call``: the profiler records no kernel inside the device
+    loop's WHILE body): the trace file must exist and name the attention
+    kernel; kernels a step, device busy (the sum of the kernels'
+    durations) and idle against the wall a step of the same host-loop
+    call unprofiled."""
     import glob
     from lookaheaddecoding_tpu_torch.utils import profiling
 
-    for path, gen in (("lookahead", eng.generate),
-                      ("ar_baseline", ar_eng.generate_baseline)):
-        r0 = gen(prompt, PROFILE_NEW)           # unprofiled, same shapes
+    for path, e, mode in (("lookahead", eng, "greedy"),
+                          ("ar_baseline", ar_eng, "ar")):
+        host_loop_call(e, prompt, mode, PROFILE_NEW)      # its step graph
+        r0 = host_loop_call(e, prompt, mode, PROFILE_NEW)   # unprofiled
         d = f"{tmpdir}/trace_{path}"
         with profiling.trace(d):
-            r = gen(prompt, PROFILE_NEW)
+            r = host_loop_call(e, prompt, mode, PROFILE_NEW)
         files = glob.glob(f"{d}/*.pt.trace.json")
         assert len(files) == 1, files
         with open(files[0]) as f:
@@ -2505,7 +2649,7 @@ def profile_learned(eng, ar_eng, prompt, card, tmpdir):
         att = sum(e["dur"] for e in kernels
                   if "attention" in e["name"]) / 1e3 / r.steps
         wall = 1e3 * r0.wall_time_s / r0.steps
-        log(f"  [{card}] learned bf16 {path} under profiling.trace "
+        log(f"  [{card}] learned bf16 {path} (host loop) under profiling.trace "
             f"({os.path.getsize(files[0]) / 2**20:.1f} MiB trace, names "
             f"attention_mma_kernel): {r.steps} steps, "
             f"{len(kernels) / r.steps:.0f} kernels a step, device busy "
@@ -2899,6 +3043,8 @@ def nccl_phase(card, tokens=None):
 # ---------------------------------------------------------------------------
 
 CAPTURE_STEPS = 24    # decode steps of a timed window of the step alone
+BATCH_LANES = 4       # phase 13's greedy generate_batch
+EOS_AT = 100          # the new position of phase 13's EOS id
 CAPTURE_PROFILED = 6  # of a profiled one
 # steps profiled first in a fresh state: fewer than the headline's N-2 = 5
 # steps whose window lanes are not yet harvested, so they take the parallel
@@ -3146,6 +3292,8 @@ def captured_prefill(name, eng, prompt, mode, card, n_new, sampling=None):
             if which == "graphed" and profiled:
                 prof = profile_steps(
                     lambda n: prefills(eng, slot, prompt, n), 1)
+            # the step graph captured first: the calls loop on the device
+            to_first_step(eng, prompt, mode, n_new, sampling, False)
             first_ms[which] = to_first_step(eng, prompt, mode, n_new,
                                             sampling, which == "graphed")
     assert all(torch.equal(a, b) for a, b in zip(snaps["eager"],
@@ -3187,6 +3335,69 @@ def profile_line(prof, chunk_ms, k):
     kernels, busy, _ = prof
     return (f"{kernels / k:.0f} kernels, device busy {busy / k:.3f} ms, "
             f"idle {1 - busy / k / chunk_ms['graphed']:.3f}")
+
+
+def one_read(call):
+    """(``call()``, its reads back from the card) with the host's waits for
+    the card refused (``torch.cuda.set_sync_debug_mode("error")``) from the
+    call's start to its first read back (``graphs.fetch``), which ends the
+    check."""
+    import torch
+    from lookaheaddecoding_tpu_torch.core import graphs
+    fetch, reads = graphs.fetch, []
+
+    def read(tensor):
+        reads.append(1)
+        torch.cuda.set_sync_debug_mode("default")
+        return fetch(tensor)
+    torch.cuda.synchronize()
+    graphs.fetch = read
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        graphs.fetch = fetch
+    return out, len(reads)
+
+
+def loop_iteration(eng, prompt, mode, n_new):
+    """(device ms an iteration, iterations) of one launch of the slot's
+    device loop over ``prompt`` prepared for ``n_new`` tokens: CUDA events
+    around the launch, the card's time for the whole loop over its
+    iterations."""
+    import torch
+    with torch.inference_mode():
+        slot = eng._free_slot()
+        out_buf, n, fill = eng._host_args(prompt, n_new)
+        eng._prepare(out_buf, n, 0, fill, slot=slot)
+        loop = eng._flat_loop(slot, mode, n_new, None)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loop.run()
+        end.record()
+        end.synchronize()
+        iters = int(loop.iters)
+        loop.account(iters)
+    return start.elapsed_time(end) / iters, iters
+
+
+def pool_mib(pool):
+    """MiB the segments of a ``torch.cuda.MemPool`` hold, or None where
+    this PyTorch has no snapshot of one pool."""
+    try:
+        return sum(seg["total_size"] for seg in pool.snapshot()) / 2**20
+    except (AttributeError, TypeError, RuntimeError):
+        return None
+
+
+def loop_line(stats, steps, reads):
+    """The device loop's account of one graphed call."""
+    return (f"the decode loop on the device: {stats['loops']} launch, "
+            f"{stats['replays']} iterations for {steps} steps, {reads} read "
+            f"back a call and no host sync before it")
 
 
 def captured_flat(name, eng, prompt, mode, card, n_new, sampling=None,
@@ -3246,6 +3457,25 @@ def captured_flat(name, eng, prompt, mode, card, n_new, sampling=None,
     assert got["plain"] == 0 and got["attention_fma"] == 0, (name, got)
     # one condition kernel a replay's IF node, one IF node a branch
     assert got["set_if"] == stats["branches"], (name, got, stats)
+    loop = "the decode loop on the host (sampling)"
+    if mode == "sample":
+        assert stats["loops"] == 0, (name, stats)
+    else:
+        # greedy and AR loop on the device: one launch, an iteration a
+        # step (no step past the one that finished), one read back
+        steps = runs["graphed"].steps
+        assert stats["loops"] == 1 and stats["replays"] == steps, (name,
+                                                                   stats)
+        assert got["set_while"] == steps + 1, (name, got)
+        again, reads = one_read(call)
+        assert reads == 1 and np.array_equal(again.tokens,
+                                             runs["graphed"].tokens), name
+        loop_ms, iters = loop_iteration(eng, prompt, mode, n_new)
+        held = pool_mib(eng._loop_pool)
+        loop = (f"{loop_line(stats, steps, reads)}; in the loop "
+                f"{loop_ms:.3f} ms an iteration (CUDA events, {iters} "
+                f"iterations); the loop bodies' MemPool holds "
+                + ("not measured" if held is None else f"{held:.1f} MiB"))
     with torch.inference_mode():     # the graph that call replayed
         per_replay = eng._flat_runner(eng._free_slot(), mode, n_new, None,
                                       sampling).launches_per_replay()
@@ -3256,7 +3486,9 @@ def captured_flat(name, eng, prompt, mode, card, n_new, sampling=None,
         log(f"  [{card}] {name}: tokens == eager, {runs['graphed'].steps} "
             f"steps; the call's wall over its steps, ms: graphed "
             f"{call_ms['graphed']:.3f}, eager {call_ms['eager']:.3f}; "
-            f"{tok_s['graphed']:.1f} / {tok_s['eager']:.1f} tok/s")
+            f"{tok_s['graphed']:.1f} / {tok_s['eager']:.1f} tok/s; {loop}; "
+            f"peak {peak['graphed']:.0f} MiB graphed, {peak['eager']:.0f} "
+            f"eager")
         return (stats["taken"], stats["branches"]), None
     windows = step_windows(flat_step_run(eng, prompt, mode, sampling),
                            CAPTURE_STEPS, CAPTURE_PROFILED,
@@ -3266,7 +3498,8 @@ def captured_flat(name, eng, prompt, mode, card, n_new, sampling=None,
         f"{call_ms['graphed']:.3f} ms ({runs['graphed'].steps} steps, its "
         f"prefill {prefill['chunk_ms']['graphed']:.3f} ms a chunk) against "
         f"the step alone {min(windows['graphed'][0]):.3f}; eager "
-        f"{call_ms['eager']:.3f} against {min(windows['eager'][0]):.3f}")
+        f"{call_ms['eager']:.3f} against {min(windows['eager'][0]):.3f}; "
+        f"{loop}")
     return (stats["taken"], stats["branches"]), windows["graphed"][1]
 
 
@@ -3519,6 +3752,93 @@ def prefills_paged(srv, prompt_len, start0, n):
             srv._prefill(prompt_len, start0)
 
 
+def captured_batch(name, eng, prompts, card, n_new):
+    """A greedy ``generate_batch`` of len(prompts) lanes eager and graphed
+    on one engine (each way after a warm call): every lane's tokens and
+    steps, the lanes' pool rows [0, R) and clocks, the branches evaluated
+    and chains taken equal; graphed, one device loop whose iterations are
+    the slowest lane's steps, the kernels' launches counted from them, and
+    a call's one read back with no host sync before it. Prints the call's
+    wall over its steps and peak memory each way."""
+    import torch
+    from lookaheaddecoding_tpu_torch.core import graphs
+
+    res, st, pools, peak, got = {}, {}, {}, {}, {}
+    for which in ("eager", "graphed"):
+        with _mode(which):
+            eng.generate_batch(prompts, n_new)          # warm (captures)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            graphs.reset_stats()
+            res[which] = eng.generate_batch(prompts, n_new)
+            torch.cuda.synchronize()
+            st[which], got[which] = graphs.read_stats(), read_counts()
+            pool = eng._lane_slots[len(prompts)].states.pool
+            pools[which] = [pool.values[:, :-1].clone(),
+                            pool.age[:, :-1].clone(), pool.clock.clone()]
+        peak[which] = torch.cuda.max_memory_allocated() / 2**20
+    e, g = res["eager"], res["graphed"]
+    for a, b in zip(e, g):
+        assert np.array_equal(a.tokens, b.tokens) and a.steps == b.steps, \
+            f"{name}: a graphed lane differs from eager"
+    assert all(torch.equal(a, b) for a, b in zip(pools["eager"],
+                                                 pools["graphed"])), \
+        f"{name}: the lanes' pool rows differ"
+    same_branches(name, st)
+    steps = max(r.steps for r in g)
+    assert st["graphed"]["loops"] == 1 and \
+        st["graphed"]["replays"] == steps, (name, st["graphed"])
+    assert got["graphed"]["paged_attention"] == \
+        got["eager"]["paged_attention"] > 0, (name, got)
+    assert got["graphed"]["set_while"] == steps + 1, (name, got)
+    again, reads = one_read(lambda: eng.generate_batch(prompts, n_new))
+    assert reads == 1 and all(np.array_equal(a.tokens, b.tokens)
+                              for a, b in zip(again, g)), name
+    call_ms = {w: 1e3 * res[w][0].wall_time_s / max(r.steps for r in res[w])
+               for w in res}
+    log(f"  [{card}] {name}: every lane == eager (tokens, steps "
+        f"{[r.steps for r in g]}, pool rows, branches "
+        f"{share(st['graphed']['taken'], st['graphed']['branches'])}); "
+        f"{loop_line(st['graphed'], steps, reads)}; the call's wall over "
+        f"its steps, ms: graphed {call_ms['graphed']:.3f}, eager "
+        f"{call_ms['eager']:.3f}; peak {peak['graphed']:.0f} MiB graphed, "
+        f"{peak['eager']:.0f} eager")
+
+
+def eos_run(name, eng, prompt, card, n_new):
+    """A greedy call that an EOS id ends (the token the run emits at new
+    position EOS_AT): the device loop's iterations against the steps the
+    run needs, beside the host loop (the slot's captured step replayed
+    in batches, ``step.run_loop``) on the same request, whose last batch
+    runs on past the EOS; the call's wall over its steps each way."""
+    import torch
+    from lookaheaddecoding_tpu_torch.core import graphs
+
+    eos = int(eng.generate(prompt, n_new).tokens[len(prompt) + EOS_AT])
+    eng.generate(prompt, n_new, eos_token_id=eos)
+    torch.cuda.synchronize()
+    graphs.reset_stats()
+    r = eng.generate(prompt, n_new, eos_token_id=eos)
+    loop = graphs.read_stats()
+    host_loop_call(eng, prompt, "greedy", n_new, eos)       # warm
+    graphs.reset_stats()
+    host = host_loop_call(eng, prompt, "greedy", n_new, eos)
+    ran = graphs.read_stats()["replays"]
+    needed = host.steps
+    assert np.array_equal(r.tokens, host.tokens), name
+    assert r.steps == needed == loop["replays"], (name, r.steps, needed,
+                                                  loop)
+    assert ran >= needed, (name, ran, needed)
+    log(f"  [{card}] {name} to an EOS id at new position "
+        f"{r.num_generated}: {needed} steps needed; the device loop ran "
+        f"{loop['replays']} ({loop['loops']} launch), the host loop "
+        f"{ran} ({ran - needed} past the EOS); the call's wall "
+        f"over the steps needed: device loop {1e3 * r.wall_time_s / needed:.3f}"
+        f" ms, host loop {1e3 * host.wall_time_s / needed:.3f}")
+    return dict(needed=needed, device=loop["replays"], host=ran)
+
+
 def captured_phase(configs, prompt, paged_engines, nxt, card, t_star,
                    learned, headline):
     """Phase 13 over bf16, int8_weights, int4_weights,
@@ -3548,6 +3868,10 @@ def captured_phase(configs, prompt, paged_engines, nxt, card, t_star,
             N_NEW if name == "bf16" else N_NEW_QUANT)
     bf16 = configs["bf16"][0]
     captured_flat("bf16 AR baseline", bf16, prompt, "ar", card, N_NEW_QUANT)
+    captured_batch(f"bf16 generate_batch of {BATCH_LANES} lanes", bf16,
+                   [make_prompt(nxt, start=50 + i, n=PROMPT_LEN - 8 * i)
+                    for i in range(BATCH_LANES)], card, N_NEW_QUANT)
+    eos_run("bf16", bf16, prompt, card, N_NEW)
     shares["sampling"] = captured_flat(
         f"bf16 sampling at T*={t_star:.4f}", bf16, prompt, "sample", card,
         N_SAMPLE, lt.SamplingConfig(temperature=t_star, top_k=TOP_K))
@@ -3677,6 +4001,9 @@ def main() -> int:
     log(f"[kernels] the CUDA-graph IF node (the pool's lax.cond) vs plain "
         f"version ({card})")
     gcond = check_graph_cond(device)
+    log(f"[kernels] the CUDA-graph WHILE node (the decode loop's "
+        f"lax.while_loop) vs plain version ({card})")
+    gwhile = check_graph_while(device)
     lap("kernels")
 
     log(f"[main path] ({card}); one timed run a path after a warm-up pass")
@@ -3712,11 +4039,10 @@ def main() -> int:
     lap("main path")
 
     log(f"[profile] ({card})")
-    profile_path("bf16", configs["bf16"][0], prompt, card, step_s["bf16"],
+    profile_path("bf16", configs["bf16"][0], prompt, card,
                  ("lookahead", "ar_baseline"))
     for name in ("int8_weights", "int4_weights"):
-        profile_path(name, configs[name][0], prompt, card, step_s[name],
-                     ("lookahead",))
+        profile_path(name, configs[name][0], prompt, card, ("lookahead",))
     lap("profile")
 
     log(f"[paged serving] ({card}); {LANES} lanes, pages of {PAGE}, "
@@ -3744,9 +4070,9 @@ def main() -> int:
         f"prompt, {N_NEW_256} new tokens")
     mcfg256, params256, prompt256, nxt256 = build_headline(device, ARCH_256)
     eng256 = build_engine(mcfg256, params256)
-    launches256, _, step_s256 = main_path(
+    launches256, _, _ = main_path(
         "bf16_head_dim_256", eng256, prompt256, nxt256, card, (), N_NEW_256)
-    profile_path("bf16_head_dim_256", eng256, prompt256, card, step_s256,
+    profile_path("bf16_head_dim_256", eng256, prompt256, card,
                  ("lookahead", "ar_baseline"))
     log(f"[paged serving, head_dim 256] ({card}); {LANES} lanes, pages of "
         f"{PAGE}, {N_PAGES} data pages, {PAGED_NEW_256} new tokens a request")
@@ -3947,6 +4273,14 @@ def main() -> int:
              "captured lookahead step (phase 4; phase 13 adds the sampling, "
              "paged and learned-model steps)",
              **on_main_path("set_if"), **gcond),
+        dict(name="graph_cond_while_node", route="cuda",
+             source=CSRC + "graph_cond.cu",
+             replaces="lookaheaddecoding_tpu/core/step.py:520 (lax.while_loop "
+             "of decode_loop; :568 baseline_loop; not a pl.pallas_call)",
+             main_path="the decode loop of greedy generate and "
+             "generate_baseline (phase 4; phase 13 adds dynamic_ntk, the "
+             "learned model and a greedy generate_batch), one launch a call",
+             **on_main_path("set_while"), **gwhile),
         dict(name="int4_matmul_shift", route="cuda",
              source=CSRC + "int4_micro.cu", replaces="scripts/int4_micro.py:53",
              main_path="scripts/torch_int4_micro.py (micro-benchmark only)",

@@ -35,6 +35,18 @@ and the fill, launched eagerly; then the prefill, whose chunks read their
 start from device counters, replays of one captured chunk a slot. Every
 step runs eagerly on the CPU, on a mesh with a gloo group and inside
 ``graphs.eager()``.
+
+The decode loop is JAX's ``lax.while_loop`` on ``~finished``: on one card
+(no mesh, outside ``graphs.eager()``) greedy ``generate``,
+``generate_baseline`` and greedy ``generate_batch`` launch their whole
+loop once, a ``graphs.LoopGraph`` (a CUDA-graph WHILE node around the
+captured step), and read the device once, in the call's final transfer,
+which also brings back the loop's iteration count. The rest loops on the
+host (``step.run_loop``), replaying the captured step: sampling (each
+step draws from generators whose philox offsets a replay advances on the
+host, so a device loop would repeat the noise), ``generate_stream``
+(which yields every ``steps_per_yield`` steps, as JAX's does), meshes,
+the CPU and ``graphs.eager()``.
 """
 
 from __future__ import annotations
@@ -56,7 +68,7 @@ from .paged_step import PagedLaneState, build_paged_step_fns
 from .pool import (PoolState, apply_host_fill, host_prompt_fill, pool_init,
                    pool_table_rows, upload_fill)
 from .state import DecodeState
-from .step import build_step_fns, run_loop
+from .step import build_step_fns, host_batch, run_loop
 
 MAX_EOS_IDS = 4
 _INT32_MAX = 2**31 - 1
@@ -252,6 +264,19 @@ def write_lane(slot: LaneSlot, lane: int, state: DecodeState) -> None:
     st.rng[lane].set_state(state.rng.get_state())
 
 
+def _loop_done(loop: graphs.LoopGraph, finished: bool, iters: int,
+               max_new: int) -> None:
+    """Count a device loop's ``iters`` iterations, read in the call's final
+    transfer, and refuse a loop that stopped at its cap (``max_new``
+    iterations: every live step confirms a token) with a lane unfinished;
+    it is never run again from the host."""
+    loop.account(iters)
+    if not finished:
+        raise RuntimeError(
+            f"the device decode loop stopped at its cap of "
+            f"{min(max_new, _INT32_MAX)} iterations with a lane unfinished")
+
+
 class LookaheadEngine:
     def __init__(
         self,
@@ -340,6 +365,7 @@ class LookaheadEngine:
         # captured) it runs eagerly.
         self._graphed = graphs.capturable(self.device, mesh)
         self._graph_pool = None     # the graphs' memory pool, at first use
+        self._loop_pool = None      # the loop bodies' MemPool, at first use
         self._slots = []            # FlatSlot: one, or one a live stream
         self._lane_slots = {}       # generate_batch's LaneSlot, by lanes
 
@@ -518,11 +544,46 @@ class LookaheadEngine:
         return graphs.runner(cache, key, step, state, self._graphed,
                              self._graph_pool, counter)
 
+    def _loops(self, mode: str) -> bool:
+        """Whether a ``mode`` call runs its decode loop on the device: a
+        greedy or AR loop, captured (on the card, outside
+        ``graphs.eager()``) and on one card."""
+        return (mode in ("greedy", "ar") and self._graphed
+                and self.mesh is None and not graphs.eager_depth())
+
+    def _loop(self, cache: dict, key, step, state, finished, cap):
+        """The :class:`graphs.LoopGraph` of ``key`` in ``cache``; its body
+        allocates in the engine's MemPool (made at first use)."""
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        if self._loop_pool is None and self.device.type == "cuda":
+            self._loop_pool = torch.cuda.MemPool()
+        return graphs.loop_runner(cache, key, step, state, finished, cap,
+                                  self._graph_pool, self._loop_pool,
+                                  self.mesh)
+
     def _flat_runner(self, slot: FlatSlot, mode: str, max_new: int,
                      eos_token_id, sampling: Optional[SamplingConfig] = None):
         """The step runner of ``mode`` ("greedy", "sample" or "ar") over
         ``slot``, with the call's ``max_new``, EOS ids and warpers written
         into the slot's buffers."""
+        step, key = self._flat_step(slot, mode, max_new, eos_token_id,
+                                    sampling)
+        return self._runner(slot.graphs, key, step, slot)
+
+    def _flat_loop(self, slot: FlatSlot, mode: str, max_new: int,
+                   eos_token_id) -> graphs.LoopGraph:
+        """The decode loop of ``mode`` ("greedy" or "ar") over ``slot`` on
+        the device, with the call's ``max_new`` (the loop's cap) and EOS
+        ids written into the slot's buffers."""
+        step, key = self._flat_step(slot, mode, max_new, eos_token_id)
+        return self._loop(slot.graphs, key, step, slot, slot.state.finished,
+                          slot.max_new)
+
+    def _flat_step(self, slot: FlatSlot, mode: str, max_new: int,
+                   eos_token_id, sampling: Optional[SamplingConfig] = None):
+        """(one step of ``mode`` over ``slot``, its graph key), with the
+        call's buffers written."""
         fns, params, st = self._fns, self.params, slot.state
         slot.max_new.fill_(min(max_new, _INT32_MAX))
         slot.eos.copy_(graphs.upload(_eos_vec(eos_token_id), self.device))
@@ -542,14 +603,27 @@ class LookaheadEngine:
             def step():
                 fns.sample_step(params, st, slot.max_new, slot.eos,
                                 slot.temperature, top_p, top_k)
-        return self._runner(slot.graphs, (mode, top_p is not None, top_k),
-                            step, slot)
+        return step, (mode, top_p is not None, top_k)
 
     def _lane_runner(self, slot: LaneSlot, sampled: bool, top_p_on: bool,
                      top_k: int):
         """The batched step runner over ``slot``'s lanes: greedy, or
         sampling with the slot's temperatures, its top_p when
         ``top_p_on`` and ``top_k``."""
+        step, key = self._lane_step(slot, sampled, top_p_on, top_k)
+        return self._runner(slot.graphs, key, step, slot)
+
+    def _lane_loop(self, slot: LaneSlot) -> graphs.LoopGraph:
+        """The greedy batched decode loop over ``slot``'s lanes on the
+        device, while any lane is unfinished; its cap is the lanes' shared
+        ``max_new`` (lane 0's)."""
+        step, key = self._lane_step(slot, False, False, 0)
+        return self._loop(slot.graphs, key, step, slot, slot.states.finished,
+                          slot.max_new)
+
+    def _lane_step(self, slot: LaneSlot, sampled: bool, top_p_on: bool,
+                   top_k: int):
+        """(one batched step over ``slot``'s lanes, its graph key)."""
         fns, params = self._batch_fns(), self.params
         top_p = slot.top_p if top_p_on else None
         if sampled:
@@ -561,22 +635,28 @@ class LookaheadEngine:
             def step():
                 fns.decode_batch(params, slot.k_pool, slot.v_pool,
                                  slot.states, slot.max_new, slot.eos)
-        return self._runner(slot.graphs, (sampled, top_p_on, top_k), step,
-                            slot)
+        return step, (sampled, top_p_on, top_k)
 
     def _finalize(self, state: DecodeState, max_new: int, t0: float,
-                  return_prefix: bool = False) -> GenerationResult:
-        # one device-to-host transfer for the scalars and the tokens
-        host = torch.cat([torch.stack([state.n_confirmed, state.init_len,
-                                       state.step_idx, state.kv_len]),
-                          state.out_buf]).cpu().numpy()
+                  return_prefix: bool = False,
+                  loop: Optional[graphs.LoopGraph] = None) -> GenerationResult:
+        # one device-to-host transfer for the scalars and the tokens (and,
+        # after a device loop, ``finished`` and its iterations)
+        scalars = [state.n_confirmed, state.init_len, state.step_idx,
+                   state.kv_len]
+        if loop is not None:
+            scalars += [state.finished.int(), loop.iters[0]]
+        host = graphs.fetch(torch.cat([torch.stack(scalars), state.out_buf]))
         n_confirmed, init_len, steps, kv_len = (int(x) for x in host[:4])
+        if loop is not None:
+            _loop_done(loop, bool(host[4]), int(host[5]), max_new)
+        host = host[len(scalars):]
         total = min(n_confirmed, init_len + max_new)   # trim overshoot
-        res = GenerationResult(tokens=host[4:4 + total].copy(),
+        res = GenerationResult(tokens=host[:total].copy(),
                                prompt_len=init_len, steps=steps,
                                wall_time_s=time.perf_counter() - t0)
         if return_prefix:
-            res.prefix = self._prefix_of(state, host[4:], kv_len, total)
+            res.prefix = self._prefix_of(state, host, kv_len, total)
         if self.log is not None:
             self.log.append(res)
         return res
@@ -611,18 +691,38 @@ class LookaheadEngine:
         return temps, top_p if min(tops) < 1.0 else None, sampling.top_k
 
     def _run(self, mode, prompt_ids, max_new_tokens, eos_token_id, seed,
-             prefix=None, return_prefix=False, sampling=None):
+             prefix=None, return_prefix=False, sampling=None,
+             host_loop=False):
+        """One call of ``mode``. ``host_loop`` decodes a greedy or AR call
+        by the host loop even where it would loop on the device: a profiler
+        records no kernel inside a CUDA-graph WHILE body
+        (``chip_smoke.py``'s profiles)."""
         t0 = time.perf_counter()
         if return_prefix:
             self._reject_dynamic_prefix()
         out_buf, P, fill = self._host_args(prompt_ids, max_new_tokens, prefix)
         with torch.inference_mode(), self._slot() as slot:
             state = self._prepare(out_buf, P, seed, fill, prefix, slot=slot)
+            if self._loops(mode) and not host_loop:
+                loop = self._flat_loop(slot, mode, max_new_tokens,
+                                       eos_token_id)
+                loop.run()
+                return self._finalize(state, max_new_tokens, t0,
+                                      return_prefix, loop)
             steps = self._flat_runner(slot, mode, max_new_tokens,
                                       eos_token_id, sampling)
-            run_loop(steps.run, state, max_new_tokens,
-                     1 if mode == "ar" else self.layout.guess_size)
+            run_loop(steps.run, state, max_new_tokens, P - 1,
+                     *self._per_step(mode))
             return self._finalize(state, max_new_tokens, t0, return_prefix)
+
+    def _per_step(self, mode: str):
+        """(tokens a ``mode`` step confirms at most, the largest ``kv_len``
+        at which it runs without a capacity stop: M - S, the AR step's S
+        being 1)."""
+        if mode == "ar":
+            return 1, self.ecfg.max_seq_len - 1
+        return (self.layout.guess_size,
+                self.ecfg.max_seq_len - self.layout.seq_len)
 
     # ------------------------------------------------------------------
     def precompute_prefix(self, prefix_ids: Sequence[int]) -> PrefixCache:
@@ -724,14 +824,17 @@ class LookaheadEngine:
                                       slot=slot)
                 steps = self._flat_runner(slot, mode, max_new_tokens,
                                           eos_token_id, sampling)
-            served, end = P, P + max_new_tokens
+            served, end, kv_len = P, P + max_new_tokens, P - 1
+            per_step, last_start = self._per_step(mode)
             while True:
                 with torch.inference_mode():
-                    steps.run(steps_per_yield)
-                    host = torch.cat([torch.stack([
+                    # no step after a capacity stop (step.host_batch)
+                    steps.run(host_batch(steps_per_yield * per_step,
+                                         per_step, kv_len, last_start))
+                    host = graphs.fetch(torch.cat([torch.stack([
                         state.finished.int(), state.n_confirmed,
-                        state.kv_len]), state.out_buf]).cpu().numpy()
-                n = min(int(host[1]), end)
+                        state.kv_len]), state.out_buf]))
+                n, kv_len = min(int(host[1]), end), int(host[2])
                 if n > served:
                     yield host[3 + served:3 + n].copy()
                     served = n
@@ -817,24 +920,33 @@ class LookaheadEngine:
                 lanes.temperature.copy_(temps)
                 if top_p is not None:
                     lanes.top_p.copy_(top_p)
-            steps = self._lane_runner(lanes, sampling is not None,
-                                      top_p is not None, top_k)
             states = lanes.states
-            # as run_loop, over the slowest unfinished lane
-            generated = 0
-            while True:
-                steps.run(max(1, -(-(max_new_tokens - generated)
-                                   // self.layout.guess_size)))
-                host = torch.stack([states.finished.int(),
-                                    states.n_confirmed - states.init_len]
-                                   ).cpu().numpy()
-                if host[0].all():
-                    break
-                generated = int(host[1][host[0] == 0].min())
-            host = torch.cat([torch.stack([states.n_confirmed,
-                                           states.init_len,
-                                           states.step_idx], dim=1),
-                              states.out_buf], dim=1).cpu().numpy()
+            columns = [states.n_confirmed, states.init_len, states.step_idx]
+            loop = None
+            if sampling is None and self._loops("greedy"):
+                loop = self._lane_loop(lanes)
+                loop.run()
+                columns += [states.finished.int(), loop.iters.expand(B)]
+            else:
+                steps = self._lane_runner(lanes, sampling is not None,
+                                          top_p is not None, top_k)
+                # as run_loop, over the slowest unfinished lane
+                generated = 0
+                while True:
+                    steps.run(max(1, -(-(max_new_tokens - generated)
+                                       // self.layout.guess_size)))
+                    host = graphs.fetch(torch.stack([
+                        states.finished.int(),
+                        states.n_confirmed - states.init_len]))
+                    if host[0].all():
+                        break
+                    generated = int(host[1][host[0] == 0].min())
+            host = graphs.fetch(torch.cat([torch.stack(columns, dim=1),
+                                           states.out_buf], dim=1))
+            if loop is not None:
+                _loop_done(loop, bool(host[:, 3].all()), int(host[0, 4]),
+                           max_new_tokens)
+                host = np.concatenate([host[:, :3], host[:, 5:]], axis=1)
         wall = time.perf_counter() - t0
         out = []
         for row in host:

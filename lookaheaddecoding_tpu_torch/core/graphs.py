@@ -50,6 +50,18 @@ host-to-device copy that a request's preparation makes before them: from
 pinned memory and without a wait, so nothing between a request's start
 and its first decode replay stops the host.
 
+:class:`LoopGraph` is the counterpart of the JAX decode loop's
+``lax.while_loop`` on ``~finished``: the whole loop of greedy and AR
+decode steps captured as one graph, a WHILE node around the step
+(``ops/graph_cond.py``), launched once a call; the iterations it ran stay
+on the device until the caller's final transfer reads them
+(:meth:`LoopGraph.account`). The step is captured straight into the
+node's body, whose allocations go to a ``torch.cuda.MemPool`` of the
+engine (PyTorch's allocator routes a capture's allocations to its graph's
+pool only on the capturing stream, and the body captures on a stream of
+its own); the step's IF nodes nest in the body, captured on a second
+body stream.
+
 :func:`cond` is the counterpart of ``lax.cond``: inside a capture it records
 its body as a CUDA-graph IF node (``ops/graph_cond.py``), which the device
 runs or skips on each replay by a predicate it computed itself; eagerly it
@@ -73,12 +85,13 @@ from ..ops import (graph_cond, int4_micro, lookahead_attention, quant,
                    quant_matmul)
 from ..parallel import collectives
 
-# Captures made, replays run (decode steps; prefill chunks apart), cond
-# branches evaluated (eagerly, or by a replay's IF nodes) and their bodies
-# run. Read with read_stats() and reset with reset_stats(), which fold in
-# the bodies that replays ran.
-stats = {"captured": 0, "replays": 0, "prefills": 0, "branches": 0,
-         "taken": 0}
+# Captures made, replays run (decode steps, a device loop's iterations
+# included; prefill chunks apart), device loops launched (LoopGraph
+# replays), cond branches evaluated (eagerly, or by a replay's IF nodes)
+# and their bodies run. Read with read_stats() and reset with
+# reset_stats(), which fold in the bodies that replays ran.
+stats = {"captured": 0, "replays": 0, "prefills": 0, "loops": 0,
+         "branches": 0, "taken": 0}
 
 # every launch counter of the port's kernels, and the collectives' calls
 _TALLIES = (lookahead_attention.counts, lookahead_attention.paged_counts,
@@ -222,6 +235,9 @@ class StepGraph:
     shared by an engine's graphs, which never run at once and keep no
     output alive past a replay."""
 
+    # nesting depth of the graph's IF bodies (graph_cond.body_stream)
+    if_depth = 0
+
     def __init__(self, step: Callable[[], object], state, pool=None,
                  counter: str = "replays"):
         self.step = step
@@ -233,7 +249,7 @@ class StepGraph:
         # (tally, key, launches a replay) of each kernel the step launches
         self.launches: list = []
         self.conds = 0           # IF nodes (graphs.cond) in the capture
-        self.body_stream = None
+        self.body_stream = None  # the stream IF bodies capture on
         self.taken = None        # device counter: IF bodies replays ran
         self.taken_read = 0      # what read_stats() has counted of it
 
@@ -245,6 +261,10 @@ class StepGraph:
             n -= 1
         for _ in range(n):
             self.graph.replay()
+        self._count(n)
+
+    def _count(self, n: int) -> None:
+        """Fold ``n`` steps that replays ran into the counts."""
         self.replays += n
         stats[self.counter] += n
         stats["branches"] += n * self.conds
@@ -264,20 +284,28 @@ class StepGraph:
             out[key] = out.get(key, 0) + k
         return out
 
+    def _warm(self) -> None:
+        """The warm step before the capture: a real step of the run."""
+        self.step()
+
+    def _record(self) -> None:
+        """What the capture records: one step."""
+        self.step()
+
     def _capture(self) -> None:
         global _active
         tensors = state_tensors(self.state)
         ptrs = [t.data_ptr() for t in tensors]
         device = tensors[0].device if tensors else torch.device("cuda")
         self.conds = 0
-        self.body_stream = graph_cond.body_stream(device)
+        self.body_stream = graph_cond.body_stream(device, self.if_depth)
         self.taken = torch.zeros((), dtype=torch.int64, device=device)
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             _active = (self, False)
             try:
-                self.step()                 # the warm step, a real one
+                self._warm()                # the warm step, a real one
             finally:
                 _active = None
         torch.cuda.current_stream().wait_stream(side)
@@ -297,7 +325,7 @@ class StepGraph:
                                   capture_error_mode="thread_local"):
                 _active = (self, True)
                 try:
-                    self.step()
+                    self._record()
                 finally:
                     _active = None
         finally:
@@ -316,6 +344,81 @@ class StepGraph:
                          for key in tally if captured[i][key] != old[key]]
         self.graph = graph
         stats["captured"] += 1
+
+
+class LoopGraph(StepGraph):
+    """The whole decode loop of one static state captured as one graph: the
+    counterpart of the JAX decode loop's ``lax.while_loop`` on
+    ``~finished``. A WHILE node (``ops/graph_cond.py``) runs the step while
+    any of the bool flags ``finished`` is clear and fewer than ``cap`` (an
+    int32 tensor of the state, the call's ``max_new``: every live step
+    confirms a token) iterations have run; the step's own IF nodes nest in
+    its body. ``run()`` launches the loop once (on first use after one warm
+    step, a real step of the run, and the capture); the iterations it ran
+    are on the device, in ``iters``, which the caller reads in its final
+    transfer and hands to :meth:`account`, which counts them in ``stats``
+    (``replays``, ``branches``) and the kernels' launches. ``body_pool``
+    (a ``torch.cuda.MemPool``) takes the step's allocations in the body.
+
+    A capture raises instead of looping on the host: on a step that draws
+    random numbers (its warm step moved a generator: a replay advances
+    philox offsets on the host, so every iteration would draw the same
+    numbers), on a ``mesh``, and where the WHILE node or a node of its body
+    cannot be made."""
+
+    if_depth = 1
+
+    def __init__(self, step: Callable[[], object], state,
+                 finished: torch.Tensor, cap: torch.Tensor, pool=None,
+                 body_pool=None, mesh=None):
+        if mesh is not None:
+            raise ValueError(
+                "the decode loop runs on the device on one card only: a "
+                "mesh steps its captured step from the host")
+        super().__init__(step, state, pool)
+        self.finished, self.cap = finished, cap
+        self.body_pool = body_pool
+        # device counter: the last launch's iterations
+        self.iters = torch.zeros(1, dtype=torch.int32, device=finished.device)
+
+    def run(self) -> None:
+        """Launch the loop once (the first call: after one warm step and
+        the capture). Reads nothing back."""
+        if self.graph is None:
+            self._capture()
+        self.graph.replay()
+        stats["loops"] += 1
+
+    def account(self, iters: int) -> None:
+        """Count the ``iters`` iterations of the last launch, read by the
+        caller from ``self.iters``: each is a step, with its branches and
+        launches, and the WHILE node's condition kernel ran once more."""
+        self._count(iters)
+        graph_cond.counts["set_while"] += 1
+
+    def _warm(self) -> None:
+        gens = state_generators(self.state)
+        before = [g.get_state() for g in gens]
+        self.step()
+        if any(not torch.equal(g.get_state(), b)
+               for g, b in zip(gens, before)):
+            raise RuntimeError(
+                "the step drew random numbers: a device loop would draw "
+                "the same ones every iteration (a replay advances the "
+                "philox offsets on the host); step it from the host")
+
+    def _record(self) -> None:
+        graph_cond.while_node(self.finished, self.cap, self.iters, self.step,
+                              graph_cond.body_stream(self.iters.device),
+                              self.body_pool)
+
+    def _capture(self) -> None:
+        super()._capture()
+        # the condition kernel before the loop runs once a launch, the one
+        # at the body's end once an iteration (account)
+        self.launches = [(tally, key, k - (tally is graph_cond.counts
+                                           and key == "set_while"))
+                         for tally, key, k in self.launches]
 
 
 def capturable(device, mesh=None) -> bool:
@@ -343,6 +446,28 @@ def runner(cache: dict, key, step: Callable[[], object], state, graphed: bool,
     if got is None:
         got = cache[key] = StepGraph(step, state, pool, counter)
     return got
+
+
+def loop_runner(cache: dict, key, step: Callable[[], object], state,
+                finished: torch.Tensor, cap: torch.Tensor, pool=None,
+                body_pool=None, mesh=None) -> LoopGraph:
+    """The :class:`LoopGraph` of ``key`` in ``cache`` (made at first use;
+    keyed with ``ops.quant.INT4_PIPELINE`` as :func:`runner`): the whole
+    decode loop of ``step`` over ``state`` while any of ``finished`` is
+    clear, at most ``cap`` iterations. Only on the card outside
+    :func:`eager`, and never on a mesh: the caller chooses it by mode."""
+    key = ("loop", key, quant.INT4_PIPELINE)
+    got = cache.get(key)
+    if got is None:
+        got = cache[key] = LoopGraph(step, state, finished, cap, pool,
+                                     body_pool, mesh)
+    return got
+
+
+def fetch(tensor: torch.Tensor):
+    """``tensor`` as a numpy array on the host: a call's read back from the
+    device (a copy, which waits for the work queued before it)."""
+    return tensor.to("cpu", copy=True).numpy()
 
 
 def upload(array, device, dtype=None) -> torch.Tensor:

@@ -6,14 +6,17 @@ forward -> verification -> KV commit -> window slide -> pool harvest ->
 output append. Every tensor it makes has a shape fixed when the engine is
 built, and it reads nothing back to the host, so the host can queue many
 steps ahead of the device, and the engines capture the step in a CUDA
-graph. The generation loops read ``finished`` from the device once per
-batch of steps, never on every step.
+graph. On one card a greedy or AR generation runs its whole loop on the
+device (``graphs.LoopGraph``); the other loops read ``finished`` from the
+device once per batch of steps (:func:`run_loop`), never on every step.
 
 A step taken after ``finished`` leaves the state as it was (the JAX
 package's ``lax.cond(state.finished, ...)``): scalars and the window are
 selected with ``torch.where``, the pool update and the output append are
-masked. Only cache slots past the committed ones are rewritten (and, once
-the capacity stop has ended a run, the last S slots), which no read sees.
+masked. Only cache slots past the committed ones are rewritten, which no
+read sees; once the capacity stop has ended a run, a step would rewrite
+the last S slots, committed rows among them, so no loop takes one then
+(:func:`host_batch`; the device loop stops at the step that finished).
 
 The state is updated in place: every field, the caches, the pool and the
 output buffer are written where they lie, so a step allocates no second
@@ -47,6 +50,7 @@ from ..models import llama
 from ..ops.sampling import (lane_uniforms, rejection_sample_verify_core,
                             split_verify_noise, verify_noise_size,
                             warp_logits)
+from . import graphs
 from .layout import Layout
 from .pool import (PoolState, bigram_key, pool_lookup, pool_table_rows,
                    pool_update)
@@ -279,19 +283,37 @@ class StepFns(NamedTuple):
     baseline_step: Callable   # one AR step
 
 
+def host_batch(left: int, per_step: int, kv_len: int, last_start: int) -> int:
+    """Steps the host may queue before its next read of the state: as many
+    as cannot confirm ``left`` more tokens (a step confirms at most
+    ``per_step``) and whose every step but the last starts at a ``kv_len``
+    of at most ``last_start`` (``M - S``; the AR step's S is 1), so that
+    none follows a capacity stop; at least one. A step after a capacity
+    stop would rewrite the cache's last S slots, committed rows among them
+    (its start is clamped as ``lax.dynamic_update_slice`` clamps it), which
+    a ``return_prefix`` carries."""
+    return max(1, min(-(-left // per_step),
+                      (last_start - kv_len) // per_step + 1))
+
+
 def run_loop(run: Callable[[int], None], state: DecodeState, max_new: int,
-             per_step: int) -> DecodeState:
-    """Steps until ``finished``; ``run(n)`` takes n steps of ``state`` in
-    place (eagerly, or as replays of a captured step). Each batch runs as
-    many steps as cannot reach ``max_new`` (a step confirms at most
-    ``per_step`` tokens), then reads ``finished`` and ``n_confirmed`` in
-    one host transfer, so the last batch overshoots only when EOS or the
-    capacity stop ends the run; the overshooting steps change nothing."""
+             kv_len: int, per_step: int, last_start: int) -> DecodeState:
+    """The decode loop on the host: steps until ``finished``; ``run(n)``
+    takes n steps of ``state`` in place (eagerly, or as replays of a
+    captured step). Each batch runs :func:`host_batch` steps (``kv_len``
+    the state's at the start), then reads ``finished``, ``n_confirmed``
+    and ``kv_len`` in one host transfer, so the last batch overshoots only
+    when EOS ends the run; the overshooting steps change nothing that is
+    read. On one card a greedy or AR loop runs on the device instead
+    (``graphs.LoopGraph``, JAX's ``lax.while_loop``), with no overshoot and
+    no read until the call's last; this loop serves sampling, meshes, the
+    CPU and ``graphs.eager()``."""
     generated = 0
     while True:
-        run(max(1, -(-(max_new - generated) // per_step)))
-        finished, n_conf, init_len = torch.stack(
-            [state.finished.int(), state.n_confirmed, state.init_len]).tolist()
+        run(host_batch(max_new - generated, per_step, kv_len, last_start))
+        finished, n_conf, init_len, kv_len = (int(x) for x in graphs.fetch(
+            torch.stack([state.finished.int(), state.n_confirmed,
+                         state.init_len, state.kv_len])))
         if finished:
             return state
         generated = n_conf - init_len

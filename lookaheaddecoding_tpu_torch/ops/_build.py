@@ -46,8 +46,10 @@ SIGNATURES = {
         [_P] * 5 + [_I] * 8 + [_P]),
     "graph_cond": (
         "graph_cond_launch",
-        # op (0 begin an IF node, 1 end its body), stream, pred, body_stream
-        [_I] + [_P] * 3),
+        # op (0 begin an IF node, 1 end its body, 2 make a body stream, 3
+        # begin a WHILE node, 4 end its body), stream, pred, n, iters, cap,
+        # body_stream, handle, info
+        [_I, _P, _P, _I] + [_P] * 5),
 }
 
 _libs: dict = {}       # name -> loaded ctypes.CDLL (one load per process)

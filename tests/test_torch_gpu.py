@@ -15,7 +15,10 @@ steps (taken and skipped, tables and branch counts equal to eager), a
 capture whose IF node fails raising, the captured train step
 bit-equal to the eager one, and the captured prefill (the slot after a
 request's preparation bit-equal to eager, a replay a chunk, no host sync
-up to the first decode replay).
+up to the first decode replay); the CUDA-graph WHILE node (n, 0 and 1
+iterations, flags set by the body, a forbidden body node refused) and the
+decode loop on the device (greedy, AR, prefix and batch calls bit-equal
+to eager, one loop launch and one read a call, no sync before it).
 They skip without a CUDA device. This file imports no
 JAX, so on a machine without JAX it runs without the suite's conftest:
 
@@ -1453,3 +1456,181 @@ def test_captured_train_step_equals_eager_on_the_card(optimizer):
     assert torch.equal(out["eager"][1], out["graphed"][1])
     assert all(torch.equal(x, y) for x, y in zip(out["eager"][0],
                                                   out["graphed"][0]))
+
+
+def _while_graph(body, finished, cap, iters, pool=None):
+    """A captured graph of one WHILE node (``ops/graph_cond.py``) over
+    ``body``."""
+    from lookaheaddecoding_tpu_torch.ops import graph_cond
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        graph_cond.while_node(finished, cap, iters, body,
+                              graph_cond.body_stream("cuda"), pool)
+    return graph
+
+
+@pytest.mark.gpu
+def test_while_node_runs_its_body_n_times():
+    """The WHILE node (csrc/graph_cond.cu) over a one-add body: a replay
+    runs it exactly ``cap`` times while the flag stays clear, 0 times when
+    the flag starts set (the condition kernel upstream of the node reads
+    it), and 1 at a cap of 1; three flags that the body sets after 2, 5 and
+    3 iterations stop it after 5, the body's allocations in a MemPool; each
+    as its plain version counts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from lookaheaddecoding_tpu_torch.ops import graph_cond
+    x = torch.zeros((), dtype=torch.int64, device="cuda")
+    finished = torch.zeros(1, dtype=torch.bool, device="cuda")
+    cap = torch.tensor([7], dtype=torch.int32, device="cuda")
+    iters = torch.zeros(1, dtype=torch.int32, device="cuda")
+    graph = _while_graph(lambda: x.add_(1), finished, cap, iters)
+    for flag, n in ((False, 7), (True, 0), (False, 1)):
+        if n == 1:
+            cap.fill_(1)
+        finished.fill_(flag)
+        before = int(x)
+        graph.replay()
+        runs = []
+        plain = torch.tensor([flag])
+        graph_cond.while_node(plain, cap.cpu(), torch.zeros(1,
+                              dtype=torch.int32), lambda: runs.append(1),
+                              None)
+        assert (int(x) - before, int(iters)) == (n, n) == (len(runs), n)
+    counter = torch.zeros(3, dtype=torch.int32, device="cuda")
+    lanes = torch.zeros(3, dtype=torch.bool, device="cuda")
+    limit = torch.tensor([2, 5, 3], dtype=torch.int32, device="cuda")
+    cap.fill_(100)
+
+    def body():
+        counter.add_((~lanes).int())
+        lanes.copy_(counter >= limit)        # allocates: the pool holds it
+    pool = torch.cuda.MemPool()
+    graph = _while_graph(body, lanes, cap, iters, pool)
+    graph.replay()
+    assert counter.tolist() == [2, 5, 3] and int(iters) == 5
+
+
+@pytest.mark.gpu
+def test_while_body_holding_a_host_copy_raises():
+    """A WHILE body that copies to pinned host memory (a node a
+    conditional body cannot hold) fails its capture, naming the node."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x = torch.zeros(4, device="cuda")
+    host = torch.zeros(4).pin_memory()
+    finished = torch.zeros(1, dtype=torch.bool, device="cuda")
+    cap = torch.tensor([2], dtype=torch.int32, device="cuda")
+    iters = torch.zeros(1, dtype=torch.int32, device="cuda")
+    with pytest.raises(RuntimeError, match="memcpy node"):
+        _while_graph(lambda: host.copy_(x, non_blocking=True), finished,
+                     cap, iters)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("config", ["bf16", "f32", "int8_kv",
+                                    "int8_weights"])
+def test_device_loop_equals_eager_without_a_sync(config, monkeypatch):
+    """Greedy ``generate`` (from a prefix too, and with ``return_prefix``),
+    ``generate_baseline`` and a three-lane greedy ``generate_batch`` on the
+    card launch their decode loop once (``graphs.LoopGraph``: a WHILE node
+    around the captured step, the pool's chain an IF node in its body) and
+    equal the same call run eagerly on the same engine bit for bit:
+    tokens, steps, pool tables (rows [0, R), clock), branches taken and
+    the kernels' launches; a step is an iteration; and from the request's
+    start to its final transfer (``graphs.fetch``, one a call) nothing
+    waits for the card (``torch.cuda.set_sync_debug_mode("error")``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from lookaheaddecoding_tpu_torch.core import graphs
+    eng = _graph_engine(
+        dtype=torch.float32 if config == "f32" else torch.bfloat16,
+        kv_quant="int8" if config == "int8_kv" else None,
+        bits=8 if config == "int8_weights" else None)
+    rng = np.random.RandomState(1)
+    p = list(rng.randint(0, 256, size=20))
+    q = list(rng.randint(0, 256, size=37))
+    pc = eng.precompute_prefix(q[:14])
+    calls = {
+        "generate": lambda: [eng.generate(p, 48, return_prefix=True)],
+        "prefix": lambda: [eng.generate(q, 40, prefix=pc,
+                                        return_prefix=True)],
+        "generate_baseline": lambda: [eng.generate_baseline(p, 32)],
+        "baseline_prefix": lambda: [eng.generate_baseline(q, 24,
+                                                          prefix=pc)],
+        "batch": lambda: eng.generate_batch([p, q, p[:9]], 32),
+    }
+
+    def pools(name, res):
+        if name == "batch":
+            pool = eng._lane_slots[3].states.pool
+            return [pool.values[:, :-1].clone(), pool.age[:, :-1].clone(),
+                    pool.clock.clone()]
+        return [t for r in res if r.prefix is not None for t in (
+            r.prefix.pool.values[:-1], r.prefix.pool.age[:-1],
+            r.prefix.pool.clock)]
+
+    fetches, fetch = [], graphs.fetch
+
+    def first_read(tensor):
+        fetches.append(1)
+        torch.cuda.set_sync_debug_mode("default")   # the call's one read
+        return fetch(tensor)
+    monkeypatch.setattr(graphs, "fetch", first_read)
+    for name, call in calls.items():
+        with graphs.eager():
+            graphs.reset_stats()
+            want, eager_counts = _counted(call)
+            eager_st, eager_pools = graphs.read_stats(), pools(name, want)
+        call()                   # the first graphed call captures
+        torch.cuda.synchronize()
+        graphs.reset_stats()
+        for t in _tallies():
+            t.update(dict.fromkeys(t, 0))
+        fetches.clear()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = call()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        graphed_counts = [dict(t) for t in _tallies()]
+        assert fetches == [1], name
+        st = graphs.read_stats()
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.tokens, w.tokens, name)
+            assert g.steps == w.steps, name
+        assert all(torch.equal(a, b) for a, b in zip(pools(name, got),
+                                                     eager_pools)), name
+        assert st["loops"] == 1 and st["captured"] == 0, (name, st)
+        assert st["replays"] == max(r.steps for r in got), (name, st)
+        assert (st["branches"], st["taken"]) == (eager_st["branches"],
+                                                 eager_st["taken"]), name
+        assert graphed_counts == eager_counts, (name, graphed_counts,
+                                                eager_counts)
+
+
+@pytest.mark.gpu
+def test_loop_graph_refuses_a_random_step_and_a_mesh_on_the_card():
+    """A step that draws from a CUDA generator of its state (a replay
+    advances philox offsets on the host, so a device loop would repeat
+    the noise) fails the loop's capture before anything is recorded; a
+    mesh is refused when the loop is made; neither steps from the host
+    instead."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from lookaheaddecoding_tpu_torch.core import graphs
+    x = torch.zeros(4, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    finished = torch.zeros(1, dtype=torch.bool, device="cuda")
+    cap = torch.tensor([8], dtype=torch.int32, device="cuda")
+    loop = graphs.LoopGraph(
+        lambda: x.add_(torch.rand(4, generator=gen, device="cuda")),
+        {"x": x, "rng": gen}, finished, cap, body_pool=torch.cuda.MemPool())
+    before = dict(graphs.stats)
+    with pytest.raises(RuntimeError, match="drew random numbers"):
+        loop.run()
+    assert loop.graph is None
+    assert graphs.stats["loops"] == before["loops"]
+    with pytest.raises(ValueError, match="one card"):
+        graphs.LoopGraph(lambda: None, {"x": x}, finished, cap,
+                         mesh=object())

@@ -416,6 +416,21 @@ def test_faked_capture_of_mesh_steps_equals_eager(world, mesh):
                     assert got[which][key] == first[which][key], (kind, key)
 
 
+@pytest.mark.parametrize("mesh", CAPTURE)
+def test_meshes_keep_the_host_loop(world, mesh):
+    """A mesh engine whose steps capture (faked here; NCCL on the cards)
+    still loops on the host, by its mode and not by an error: every call,
+    greedy ``generate``, ``generate_baseline`` and ``generate_batch``
+    included, launches no device loop (``graphs.LoopGraph``) and replays
+    its captured step once a step, on every rank."""
+    ranks, _, _, _ = world
+    for r in ranks:
+        for kind, got in r["fake_captured"][mesh].items():
+            for which in ("eager", "first", "graphed"):
+                assert got[which]["loops"] == 0, (r["rank"], kind, which)
+            assert got["graphed"]["replays"] > 0, (r["rank"], kind)
+
+
 def test_faked_capture_of_the_dp_tp_train_step_equals_eager(world):
     """Three Adam steps at dp=2 x tp=2 through a faked capture equal three
     eager steps bit for bit on every rank (losses, parameters and optimizer

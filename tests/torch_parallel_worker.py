@@ -19,6 +19,7 @@ import torch.distributed as dist
 
 import lookaheaddecoding_tpu_torch as lt
 from lookaheaddecoding_tpu_torch.core.graphs import state_tensors
+from lookaheaddecoding_tpu_torch.ops.graph_cond import if_node as _if_node
 from lookaheaddecoding_tpu_torch.parallel import collectives
 from lookaheaddecoding_tpu_torch.parallel.sharding import (
     AXES, Mesh, _coords, make_mesh, make_multihost_mesh, shard_params)
@@ -460,7 +461,9 @@ def _step_kinds(eng, n_new=24):
 
 class HostReads(torch.utils._python_dispatch.TorchDispatchMode):
     """Records the ops that read a tensor's value back to the host or
-    whose output shape depends on data: a captured step may make none."""
+    whose output shape depends on data: a captured step may make none.
+    A copy to the CPU device (``graphs.fetch``, a call's read back) is
+    recorded as ``fetch``."""
 
     SYNCING = ("_local_scalar_dense", "nonzero", "masked_select", "unique",
                "item")
@@ -473,6 +476,9 @@ class HostReads(torch.utils._python_dispatch.TorchDispatchMode):
         name = func.__name__.split(".")[0]
         if name.lstrip("_") in self.SYNCING or name in self.SYNCING:
             self.seen.append(func.__name__)
+        elif (name in ("to", "_to_copy") and (kwargs or {}).get("copy")
+              and kwargs.get("device") == torch.device("cpu")):
+            self.seen.append("fetch")
         return func(*args, **(kwargs or {}))
 
 
@@ -582,13 +588,56 @@ def _branches(name, data, device):
     return {"preds": preds, "branches": got["branches"], "taken": got["taken"]}
 
 
+# set while a faked graph replays: a faked WHILE node then loops
+_replaying: list = []
+
+
+def _fake_while(finished, cap, iters, body, body_stream, pool=None):
+    """``ops.graph_cond.while_node`` under :func:`faked_capture`. Captured,
+    it records its body as the card does: the body runs once (a faked
+    capture restores the state after it) and the WHILE node's two
+    condition kernels are counted. Replayed, it runs its body while any of
+    ``finished`` is clear and fewer than ``cap`` iterations have run,
+    counting them in ``iters``, as the device would."""
+    from torch.utils._python_dispatch import _disable_current_modes
+    from lookaheaddecoding_tpu_torch.ops import graph_cond
+    if not _replaying:
+        graph_cond.counts["set_while"] += 2
+        body()
+        return
+
+    def live():                 # the condition kernel's: no host read
+        with _disable_current_modes():
+            return (bool((~finished).any())
+                    and int(iters) < int(cap.view(-1)[0]))
+    iters.zero_()
+    while live():
+        body()
+        iters.add_(1)
+
+
+def _fake_if(pred, body, body_stream):
+    """``ops.graph_cond.if_node`` under :func:`faked_capture`: the real one
+    (its plain version on the CPU) but in a replay, whose predicate the IF
+    node's condition kernel reads on the device, not the host."""
+    from torch.utils._python_dispatch import _disable_current_modes
+    if not _replaying:
+        return _if_node(pred, body, body_stream)
+    with _disable_current_modes():
+        taken = bool(pred)
+    if taken:
+        body()
+
+
 class _FakeGraph:
     """Stands in for torch.cuda.CUDAGraph on the CPU. It records the
-    generators registered with it, and a replay runs ``step`` (the captured
-    step, or one a test puts there) as the graph would: its conds as IF
-    nodes (the body runs when the predicate holds and ticks the graph's
-    device counter) and no launch counted by Python (a replay runs
-    none)."""
+    generators registered with it, and a replay runs ``step`` (what the
+    capture recorded, or one a test puts there) as the graph would: its
+    conds as IF nodes (the body runs when the predicate holds and ticks
+    the graph's device counter: :func:`_fake_if`), a loop graph's WHILE
+    node as a loop (:func:`_fake_while`) and no launch counted by Python (a
+    replay runs none). The nodes' own condition reads are hidden from a
+    dispatch mode (:class:`HostReads`), the step's ops are not."""
 
     def __init__(self):
         self.owner, self.step, self.generators = None, None, []
@@ -602,9 +651,11 @@ class _FakeGraph:
         tallies = [dict(t) for t in graphs._TALLIES]
         conds = owner.conds
         graphs._active = (owner, True)
+        _replaying.append(True)
         try:
             self.step()
         finally:
+            _replaying.pop()
             graphs._active = None
             for t, old in zip(graphs._TALLIES, tallies):
                 t.update(old)
@@ -615,12 +666,15 @@ class _FakeGraph:
 def faked_capture():
     """torch.cuda's streams and graphs on the CPU, and ``graphs.capturable``
     true: engines and train steps made inside capture. The warm step runs;
-    the capture (with the cycle collector off) runs the step, its
-    collectives too on every rank alike, and then restores the state, its
-    generators and the counts (a capture launches nothing); a replay is
-    :class:`_FakeGraph`'s. Yields the graphs made, in order."""
+    the capture (with the cycle collector off) runs what it records (the
+    step, or a loop graph's WHILE node with its body once:
+    :func:`_fake_while`), its collectives too on every rank alike, and then
+    restores the state, its generators and the counts (a capture launches
+    nothing); a replay is :class:`_FakeGraph`'s. Yields the graphs made, in
+    order."""
     import gc
     from lookaheaddecoding_tpu_torch.core import graphs
+    from lookaheaddecoding_tpu_torch.ops import graph_cond
     from lookaheaddecoding_tpu_torch.training import train_step
 
     made, capturing = [], []
@@ -644,7 +698,7 @@ def faked_capture():
         assert not gc.isenabled()
         made.append(g)
         owner = g.owner = capturing[-1]
-        g.step = owner.step
+        g.step = owner._record
         kept = [(t, t.clone()) for t in graphs.state_tensors(owner.state)]
         gens = [(x, x.get_state())
                 for x in graphs.state_generators(owner.state)]
@@ -664,6 +718,8 @@ def faked_capture():
                (torch.cuda, "current_stream", lambda: Stream()),
                (torch.cuda, "stream", lambda s: contextlib.nullcontext()),
                (torch.cuda, "CUDAGraph", _FakeGraph),
+               (graph_cond, "while_node", _fake_while),
+               (graph_cond, "if_node", _fake_if),
                (torch.cuda, "graph", graph),
                (torch.cuda, "graph_pool_handle", lambda: None)]
     saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in patches]
@@ -712,7 +768,8 @@ def _fake_captured(name, data, device):
     ``generate`` from a ``precompute_prefix`` cache, each eager
     (``graphs.eager()``), then graphed twice. Each call's tokens, steps,
     collectives called and branch counts, and the graphed calls' captures
-    and replays of decode steps and of prefill chunks."""
+    and replays of decode steps and of prefill chunks, and the device
+    loops it launched (none: a mesh loops on the host)."""
     from lookaheaddecoding_tpu_torch.core import graphs
     sc = lt.SamplingConfig(**SAMPLING)
     p, q = prompt_of("la"), prompt_of("small")[:9]
@@ -738,7 +795,7 @@ def _fake_captured(name, data, device):
                 "steps": [r.steps for r in res], "collectives": calls_,
                 "branches": st["branches"], "taken": st["taken"],
                 "captured": st["captured"], "replays": st["replays"],
-                "prefills": st["prefills"]}
+                "prefills": st["prefills"], "loops": st["loops"]}
                 for which, (res, calls_, st) in runs.items()}
     return out
 
