@@ -46,7 +46,11 @@ target). It imports no JAX. Phases, each printed as it runs:
    loop's ``lax.while_loop``): n, 0 and 1 iterations of a one-add body
    and three lanes finishing after 2, 5 and 3, each as its plain version
    counts, and ms an iteration on the device alone beside adds captured
-   in a row;
+   in a row; and the Philox kernel (``ops/philox.py``, the decode
+   state's random stream): its raw words and uniforms bit-equal to the
+   plain version's at the headline's draw (192,140 uniforms a lane, 1 and
+   4 lanes, both tags), ms a call from a Python loop and on the device
+   alone beside the plain version's and ``torch.rand``'s;
 4. main path: the headline configuration, a synthetic TinyLlama-1.1B
    model at full width (random weights from a seed, with an embedding and
    head that make greedy decoding follow a token cycle), greedy lookahead
@@ -85,15 +89,15 @@ target). It imports no JAX. Phases, each printed as it runs:
    tokens), then four requests of 64 tokens through ``PagedServingEngine``,
    two on one shared prefix, each equal to the flat ``generate``;
 8. sampling, on the headline bfloat16 engine: (a) the SpecInfer
-   verification on the card, 20,000 lanes of one call (first-token TV <
-   0.02, conditional TV < 0.08), and ``warp_logits`` keeping the CPU's
-   support; (b) ``generate_sample`` at temperature 0.01 equal to
-   ``generate`` for seeds 0-2; (c) sampling at T*, the temperature that
-   gives the cycle token probability 0.85 (from the measured top-2
-   margin): a seed repeats its tokens, another seed differs, every token
-   lies in the top-50 support, and a profile of ``sample_step`` alone
-   (kernels, busy and idle, one device-to-host copy a step: the eager
-   read of the pool chain's predicate); (d)
+   verification on the card, 20,000 lanes of one call, each its own Philox
+   stream (first-token TV < 0.02, conditional TV < 0.08), and
+   ``warp_logits`` keeping the CPU's support; (b) ``generate_sample`` at
+   temperature 0.01 equal to ``generate`` for seeds 0-2; (c) sampling at
+   T*, the temperature that gives the cycle token probability 0.85 (from
+   the measured top-2 margin): a seed repeats its tokens, another seed
+   differs, every token lies in the top-50 support, and a profile of
+   ``sample_step`` alone (kernels, busy and idle, one device-to-host copy a
+   step: the eager read of the pool chain's predicate); (d)
    ``generate_stream`` (sampling with ``steps_per_yield`` 1 and 4, greedy,
    ``lookahead=False``) equal to the one-shot calls; (e) ``generate_batch``
    of four prompts, greedy and sampling with per-lane temperatures, each
@@ -101,9 +105,9 @@ target). It imports no JAX. Phases, each printed as it runs:
    ``return_prefix`` second turn equal to the full prefill, the prefixes'
    tensors unchanged; (g) ``PagedServingEngine(sampling=...)`` with five
    requests (a shared prefix, a request ``top_p`` on an engine at 1.0,
-   streaming), each equal to the flat ``generate_sample``, every page
-   free. Each path of b-g launches the attention kernel (the paged one
-   for e and g) and no plain version or FMA design; path a runs no model;
+   streaming), each equal to the flat ``generate_sample``, every page free.
+   Each path of b-g launches the attention kernel (the paged one for e and
+   g) and no plain version or FMA design; path a runs no model;
 9. continuous batching, on the headline bf16 engine:
    ``ContinuousBatchingEngine(num_lanes=4, steps_per_sync=4)`` with ten
    requests of staggered prompts (32-104 tokens) and budgets (32-128 new
@@ -156,7 +160,7 @@ target). It imports no JAX. Phases, each printed as it runs:
    from its seed and keeping its shard, on four meshes: ``tp2``, ``pp2``,
    ``la2`` (S=240, 120 rows a rank) and ``int8_weights_tp2``. On each
    rank, ``generate`` equals ``generate_baseline``, follows the cycle and
-   equals the first 128 new tokens of phase 4's run of the same
+   equals the first 64 new tokens of phase 4's run of the same
    configuration (a mismatch raises with the teacher-forced top-2
    margin); every rank's tokens and steps are equal; the attention
    kernel's tensor-core design is launched and its FMA design and the
@@ -217,7 +221,18 @@ target). It imports no JAX. Phases, each printed as it runs:
    ``generate_batch`` of four lanes is held the same way against its
    eager call (tokens, steps, pool rows, branches), and a headline call
    ended by an EOS id runs exactly the steps it needs, beside the host
-   loop (``_run(..., host_loop=True)``) on the same request;
+   loop (``_run(..., host_loop=True)``) on the same request. Sampling
+   loops on the device too (JAX's ``sample_loop``; the state's Philox
+   stream, whose kernel reads the draw counter on the device): the
+   headline ``generate_sample`` at T*, int8_weights' at T*, a four-lane
+   sampled ``generate_batch`` with per-lane temperatures, a sampling call
+   ended by an EOS id and a greedy ``always_fwd_one=False`` call (its
+   window refill draws; its tokens equal ``generate``'s) each run on the
+   device loop, by the host loop and eagerly, bit-equal in tokens, steps,
+   pool rows and final draw counters, with one launch, an iteration a
+   step, a Philox launch a step, one read and no sync before it; each
+   prints the call's wall over its steps three ways and the device ms an
+   iteration beside the host loop's ms a step;
 14. the mesh step captured: a world of one rank over NCCL
    (``parallel/launch.py --nproc 1 --backend nccl``; the card takes one
    NCCL rank) builds the headline model and runs an engine on
@@ -369,7 +384,9 @@ CHECK_LOSS_RTOL, CHECK_SGD_ATOL = 1e-4, 1e-6
 # phase 12: two ranks on the one card over gloo (NCCL takes one rank a
 # card), each mesh of the headline model at full width and depth; new
 # tokens compared with phase 4's run of the same configuration
-PAR_RANKS, PAR_NEW, PAR_WARM, PAR_TIMEOUT_S = 2, 128, 16, 420
+# (64 new tokens: two eager ranks over gloo take hundreds of ms a step,
+# which the AR baseline pays once a token)
+PAR_RANKS, PAR_NEW, PAR_WARM, PAR_TIMEOUT_S = 2, 64, 16, 420
 PAR_BATCH_NEW = 32    # new tokens of each mesh's two-lane generate_batch
 PAR_MESHES = (("tp2", dict(tp=2), "bf16"), ("pp2", dict(pp=2), "bf16"),
               ("la2", dict(la=2), "bf16"),     # S=240: 120 rows a rank
@@ -438,27 +455,29 @@ def graph_ms(enqueue, calls=20, replays=5) -> float:
 
 
 def reset_counts():
-    from lookaheaddecoding_tpu_torch.ops import graph_cond
+    from lookaheaddecoding_tpu_torch.ops import graph_cond, philox
     from lookaheaddecoding_tpu_torch.ops import lookahead_attention as la
     from lookaheaddecoding_tpu_torch.ops import quant_matmul as qm
-    for tally in (la.counts, la.paged_counts, qm.counts, graph_cond.counts):
+    for tally in (la.counts, la.paged_counts, qm.counts, graph_cond.counts,
+                  philox.counts):
         tally.update(dict.fromkeys(tally, 0))
 
 
 def read_counts():
     """The attention kernels' launches by design, the IF and WHILE nodes'
-    condition kernels', and the plain versions' calls, since the last
-    ``reset_counts``."""
-    from lookaheaddecoding_tpu_torch.ops import graph_cond
+    condition kernels', the Philox kernel's, and the plain versions'
+    calls, since the last ``reset_counts``."""
+    from lookaheaddecoding_tpu_torch.ops import graph_cond, philox
     from lookaheaddecoding_tpu_torch.ops import lookahead_attention as la
     from lookaheaddecoding_tpu_torch.ops import quant_matmul as qm
     return dict(attention_mma=la.counts["mma"],
                 set_if=graph_cond.counts["set_if"],
                 set_while=graph_cond.counts["set_while"],
+                philox=philox.counts["kernel"],
                 paged_attention=la.paged_counts["mma"],
                 attention_fma=la.counts["fma"] + la.paged_counts["fma"],
                 plain=(la.counts["plain"] + la.paged_counts["plain"]
-                       + qm.counts["plain"]))
+                       + qm.counts["plain"] + philox.counts["plain"]))
 
 
 # ---------------------------------------------------------------------------
@@ -1038,6 +1057,75 @@ def check_graph_while(device):
                 bound_ms=bound_ms, bound_by="bytes", library_ms=None)
 
 
+# a lane's uniforms a headline sampling step: the verification's
+# (ops/sampling.py:verify_noise_size(G=20, GS=6, V=32000)) and the EOS
+# filter's W=20 (always_fwd_one: no refill)
+PHILOX_N = (LEVEL - 1) * (GUESS + ARCH["vocab_size"]) + WINDOW   # 192,140
+# a block's integer operations: 10 rounds of two 32-bit products (high
+# and low words: four multiplies) and four XORs, 9 key bumps of two adds,
+# and four outputs' shift, conversion and scale
+PHILOX_OPS = 10 * 8 + 9 * 2 + 4 * 3
+
+
+def check_philox(device):
+    """The Philox kernel (``ops/philox.py``, ``csrc/philox.cu``; the
+    state's random stream, JAX's ``jax.random`` draws from
+    ``DecodeState.rng``) against its plain version at the headline's draw,
+    PHILOX_N uniforms a lane, at 1 lane (a flat call) and 4 (phase 8e's
+    batch): the raw words bit-equal to the plain version's on the CPU, for
+    both tags and random keys and counters past 2**32, and the uniforms
+    bit-equal to theirs. Then ms a call from a Python loop and on the
+    device alone, the plain version's ms on the card (its int64 tensor
+    arithmetic on CUDA tensors), ``torch.rand`` of the same count as the
+    library yardstick (device alone), and the bound: the larger of the
+    floats written and the keys and counters read over the memory rate,
+    and the integer work (PHILOX_OPS a block of four outputs) over the
+    card's 32-bit rate off the tensor cores (the float32 peak; Hopper's
+    integer multiply runs no faster). Returns {lanes: numbers}."""
+    import torch
+    from lookaheaddecoding_tpu_torch.ops import philox
+
+    out = {}
+    for lanes in (1, 4):
+        rng = np.random.RandomState(lanes)
+        key = torch.from_numpy(rng.randint(-2**31, 2**31, size=(lanes, 2))
+                               .astype(np.int32))
+        draws = torch.from_numpy(rng.randint(0, 2**40, size=lanes)
+                                 .astype(np.int64))
+        kd, dd = key.to(device), draws.to(device)
+        bad = 0
+        for tag in (philox.STEP, philox.WINDOW):
+            want = philox.bits(key, draws, PHILOX_N, tag)
+            got = philox.bits(kd, dd, PHILOX_N, tag).cpu()
+            u = philox.uniforms(kd, dd, PHILOX_N, tag).cpu()
+            bad += int((got != want).sum())
+            bad += int((u != philox.to_uniform(want)).sum())
+        assert bad == 0, f"philox: {bad} words differ from the plain version"
+        ms_loop = time_ms(lambda: philox.uniforms(kd, dd, PHILOX_N), reps=200)
+        ms = graph_ms(lambda i: philox.uniforms(kd, dd, PHILOX_N))
+        plain_ms = time_ms(lambda: philox.to_uniform(philox.bits_ref(
+            kd, dd, PHILOX_N, philox.STEP)), reps=10, rounds=2)
+        library_ms = graph_ms(lambda i: torch.rand(lanes, PHILOX_N,
+                                                   device=device))
+        moved = lanes * (4 * PHILOX_N + 8 + 8)
+        ops = lanes * -(-PHILOX_N // 4) * PHILOX_OPS
+        by = {"bytes": 1e3 * moved / HBM_BYTES_S,
+              "operations": 1e3 * ops / PEAK_FLOPS["float32"]}
+        bound_by = max(by, key=by.get)
+        bound_ms = by[bound_by]
+        log(f"  philox, {lanes} lane{'s' if lanes > 1 else ''} x {PHILOX_N} "
+            f"uniforms: the raw words and uniforms bit-equal to the plain "
+            f"version (both tags); {ms:.5f} ms a call on the device alone, "
+            f"{ms_loop:.5f} from a Python loop; plain version on the card "
+            f"{plain_ms:.4f} ms; torch.rand of the same count {library_ms:.5f}"
+            f" ms (device alone); bound {bound_ms:.5f} ms ({bound_by}: "
+            f"{moved} bytes, {ops} integer operations)")
+        out[lanes] = dict(max_abs_err=0.0, ms=ms, ms_python_loop=ms_loop,
+                          plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=library_ms)
+    return out
+
+
 def check_int4_micro(device):
     """The int4 product's two variants: held against their plain versions
     and the int4 kernel by the micro-benchmark's own checks on its four
@@ -1328,7 +1416,7 @@ def main_path(name, eng, prompt, nxt, card, matmul_kernels, n_new=N_NEW):
     and both plain versions 0). One warm-up pass of WARM_NEW tokens, then
     one timed run of ``n_new`` tokens of each path."""
     import torch
-    from lookaheaddecoding_tpu_torch.ops import graph_cond
+    from lookaheaddecoding_tpu_torch.ops import graph_cond, philox
     from lookaheaddecoding_tpu_torch.ops import lookahead_attention as la
     from lookaheaddecoding_tpu_torch.ops import quant_matmul as qm
 
@@ -1343,12 +1431,15 @@ def main_path(name, eng, prompt, nxt, card, matmul_kernels, n_new=N_NEW):
         la.counts.update(dict.fromkeys(la.counts, 0))
         qm.counts.update(dict.fromkeys(qm.counts, 0))
         graph_cond.counts.update(dict.fromkeys(graph_cond.counts, 0))
+        philox.counts.update(dict.fromkeys(philox.counts, 0))
         runs[path] = gen(prompt, n_new)
         got = dict(qm.counts, attention_mma=la.counts["mma"],
                    set_if=graph_cond.counts["set_if"],
                    set_while=graph_cond.counts["set_while"],
+                   philox=philox.counts["kernel"],
                    attention_fma=la.counts["fma"],
-                   plain=qm.counts["plain"] + la.counts["plain"])
+                   plain=(qm.counts["plain"] + la.counts["plain"]
+                          + philox.counts["plain"]))
         launches[path] = got
         assert got["attention_mma"] > 0 and got["attention_fma"] == 0, \
             (name, path, got)
@@ -1359,6 +1450,9 @@ def main_path(name, eng, prompt, nxt, card, matmul_kernels, n_new=N_NEW):
         assert (got["set_if"] > 0) == (path == "lookahead"), (name, path,
                                                               got)
         assert got["set_while"] == runs[path].steps + 1, (name, path, got)
+        # the window's copy_from seeding draws once a request; a greedy
+        # step (always_fwd_one) draws nothing
+        assert got["philox"] == 1, (name, path, got)
         # bf16 on the tensor cores: the FMA matmul kernels never run
         for kernel in qm.counts:
             if kernel != "plain":
@@ -1766,10 +1860,12 @@ def assert_same_tokens(name, eng, got, want, temperature):
 def check_sampling_function(device, card):
     """Phase 8a: ``rejection_sample_verify`` on the card with
     tests/test_sampling.py's setup (V=8, three candidates) as 20,000 lanes
-    of one batched call, each lane with its own generator; and
+    of one batched call, each lane with its own stream (key i, its first
+    draw: the Philox kernel); and
     ``warp_logits`` on the card against the CPU on the same logits."""
     import torch
     from lookaheaddecoding_tpu_torch.ops import sampling as ts
+    from lookaheaddecoding_tpu_torch.ops.philox import seed_key
 
     V, N = 8, 20_000
     rng = np.random.RandomState(0)
@@ -1789,18 +1885,15 @@ def check_sampling_function(device, card):
     gp[0, 0] = gp[1, 0] = q2
     gp[2, 0] = q3
     gp[:, 1] = 1.0 / V
-    gens = []
-    for i in range(N):
-        g = torch.Generator(device=device)
-        g.manual_seed(i)
-        gens.append(g)
 
     def dev_t(x, dtype=torch.float32):
         return torch.tensor(x, dtype=dtype, device=device)
     res = ts.rejection_sample_verify(
         dev_t(probs_next).expand(N, V), dev_t(gp).expand(N, 3, 2, V),
         dev_t([[2, 5], [2, 6], [3, 1]], torch.int32).expand(N, 3, 2),
-        torch.ones(N, 3, dtype=torch.bool, device=device), gens)
+        torch.ones(N, 3, dtype=torch.bool, device=device),
+        dev_t([seed_key(i) for i in range(N)], torch.int32),
+        torch.zeros(N, dtype=torch.int64, device=device))
     hits, max_hit = res.hits.cpu().numpy(), res.max_hit.cpu().numpy()
     tv0 = 0.5 * np.abs(np.bincount(hits[:, 0], minlength=V) / N
                        - probs_next).sum()
@@ -3045,6 +3138,7 @@ def nccl_phase(card, tokens=None):
 CAPTURE_STEPS = 24    # decode steps of a timed window of the step alone
 BATCH_LANES = 4       # phase 13's greedy generate_batch
 EOS_AT = 100          # the new position of phase 13's EOS id
+EOS_AT_SAMPLE = 40    # ... of its sampling call's (a step a token at T*)
 CAPTURE_PROFILED = 6  # of a profiled one
 # steps profiled first in a fresh state: fewer than the headline's N-2 = 5
 # steps whose window lanes are not yet harvested, so they take the parallel
@@ -3361,17 +3455,17 @@ def one_read(call):
     return out, len(reads)
 
 
-def loop_iteration(eng, prompt, mode, n_new):
+def loop_iteration(eng, prompt, mode, n_new, sampling=None, eos=None):
     """(device ms an iteration, iterations) of one launch of the slot's
-    device loop over ``prompt`` prepared for ``n_new`` tokens: CUDA events
-    around the launch, the card's time for the whole loop over its
+    device loop over ``prompt`` prepared for ``n_new`` tokens (seed 0): CUDA
+    events around the launch, the card's time for the whole loop over its
     iterations."""
     import torch
     with torch.inference_mode():
         slot = eng._free_slot()
         out_buf, n, fill = eng._host_args(prompt, n_new)
         eng._prepare(out_buf, n, 0, fill, slot=slot)
-        loop = eng._flat_loop(slot, mode, n_new, None)
+        loop = eng._flat_loop(slot, mode, n_new, eos, sampling)
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -3422,7 +3516,7 @@ def captured_flat(name, eng, prompt, mode, card, n_new, sampling=None,
             "ar": lambda: eng.generate_baseline(prompt, n_new),
             "sample": lambda: eng.generate_sample(prompt, n_new, sampling,
                                                   seed=0)}[mode]
-    runs, peak, tok_s, branch, pools = {}, {}, {}, {}, {}
+    runs, peak, tok_s, branch, pools, draws = {}, {}, {}, {}, {}, {}
     for which in ("eager", "graphed"):
         with _mode(which):
             call()                                   # warm (captures)
@@ -3439,13 +3533,15 @@ def captured_flat(name, eng, prompt, mode, card, n_new, sampling=None,
                     else eng._free_slot().state.pool)    # the call's slot
             pools[which] = [t.clone() for t in (pool.values[:-1],
                                                 pool.age[:-1], pool.clock)]
+            draws[which] = int(eng._free_slot().state.draws)
         peak[which] = torch.cuda.max_memory_allocated() / 2**20
         tok_s[which] = runs[which].tokens_per_sec
     got, stats = read_counts(), branch["graphed"]
     assert np.array_equal(runs["graphed"].tokens, runs["eager"].tokens), \
         f"{name}: the graphed step's tokens differ from the eager step's"
     assert runs["graphed"].steps == runs["eager"].steps, name
-    if mode == "greedy":
+    assert draws["graphed"] == draws["eager"], (name, draws)
+    if mode != "ar":
         for field, a, b in zip(("values", "age", "clock"), pools["eager"],
                                pools["graphed"]):
             assert torch.equal(a, b), f"{name}: pool {field} rows differ"
@@ -3457,25 +3553,23 @@ def captured_flat(name, eng, prompt, mode, card, n_new, sampling=None,
     assert got["plain"] == 0 and got["attention_fma"] == 0, (name, got)
     # one condition kernel a replay's IF node, one IF node a branch
     assert got["set_if"] == stats["branches"], (name, got, stats)
-    loop = "the decode loop on the host (sampling)"
-    if mode == "sample":
-        assert stats["loops"] == 0, (name, stats)
-    else:
-        # greedy and AR loop on the device: one launch, an iteration a
-        # step (no step past the one that finished), one read back
-        steps = runs["graphed"].steps
-        assert stats["loops"] == 1 and stats["replays"] == steps, (name,
-                                                                   stats)
-        assert got["set_while"] == steps + 1, (name, got)
-        again, reads = one_read(call)
-        assert reads == 1 and np.array_equal(again.tokens,
-                                             runs["graphed"].tokens), name
-        loop_ms, iters = loop_iteration(eng, prompt, mode, n_new)
-        held = pool_mib(eng._loop_pool)
-        loop = (f"{loop_line(stats, steps, reads)}; in the loop "
-                f"{loop_ms:.3f} ms an iteration (CUDA events, {iters} "
-                f"iterations); the loop bodies' MemPool holds "
-                + ("not measured" if held is None else f"{held:.1f} MiB"))
+    # greedy, sampling and AR loop on the device: one launch, an iteration
+    # a step (no step past the one that finished), one read back
+    steps = runs["graphed"].steps
+    assert stats["loops"] == 1 and stats["replays"] == steps, (name, stats)
+    assert got["set_while"] == steps + 1, (name, got)
+    if mode == "sample":     # a draw a step, and the window's seeding
+        assert got["philox"] == steps + 1 == draws["graphed"] + 1, (name,
+                                                                    got)
+    again, reads = one_read(call)
+    assert reads == 1 and np.array_equal(again.tokens,
+                                         runs["graphed"].tokens), name
+    loop_ms, iters = loop_iteration(eng, prompt, mode, n_new, sampling)
+    held = pool_mib(eng._loop_pool)
+    loop = (f"{loop_line(stats, steps, reads)}; in the loop "
+            f"{loop_ms:.3f} ms an iteration (CUDA events, {iters} "
+            f"iterations); the loop bodies' MemPool holds "
+            + ("not measured" if held is None else f"{held:.1f} MiB"))
     with torch.inference_mode():     # the graph that call replayed
         per_replay = eng._flat_runner(eng._free_slot(), mode, n_new, None,
                                       sampling).launches_per_replay()
@@ -3839,6 +3933,155 @@ def eos_run(name, eng, prompt, card, n_new):
     return dict(needed=needed, device=loop["replays"], host=ran)
 
 
+def three_ways(name, eng, call, card, lanes=0):
+    """A call that draws from the state's stream (``call(host_loop)``: a
+    flat call of ``eng`` with seed 0, whose ``call.loop`` are
+    :func:`loop_iteration`'s arguments after the engine, or, with
+    ``lanes``, a
+    ``generate_batch`` of that many lanes) on the device loop, by the host
+    loop (the slot's captured step replayed from the host, ``_run`` or
+    ``_batch`` with ``host_loop=True``) and eagerly (``graphs.eager()``),
+    the graphed ones after a warm call: tokens, steps, pool rows [0, R)
+    and clocks and
+    the final draw counters bit-equal; the device loop one launch whose
+    iterations are the steps, the Philox kernel a launch an iteration
+    beside one a request for its window, and one read back with no host
+    sync before it; the host loop as many replays as the steps or more
+    (past an EOS). Prints the call's wall over its steps each way and, for
+    a flat call, the device ms an iteration (CUDA events around one
+    launch) beside the host loop's wall a step. Returns the device loop's
+    kernel launches and the steps, device against host loop."""
+    import torch
+    from lookaheaddecoding_tpu_torch.core import graphs
+
+    def outcome(res):
+        st = (eng._lane_slots[lanes].states if lanes
+              else eng._free_slot().state)
+        pool = st.pool
+        tabs = ([pool.values[:, :-1], pool.age[:, :-1], pool.clock] if lanes
+                else [pool.values[:-1], pool.age[:-1], pool.clock])
+        return ([r.tokens for r in res], [r.steps for r in res],
+                [t.clone() for t in tabs], st.draws.cpu().view(-1).tolist())
+
+    res, out, st, got = {}, {}, {}, {}
+    for which in ("eager", "host", "device"):
+        with _mode(which):
+            if which != "eager":
+                call(which == "host")                   # warm (captures)
+            torch.cuda.synchronize()
+            reset_counts()
+            graphs.reset_stats()
+            res[which] = call(which == "host")
+            torch.cuda.synchronize()
+            st[which], got[which] = graphs.read_stats(), read_counts()
+            out[which] = outcome(res[which])
+    want = out["eager"]
+    for which in ("host", "device"):
+        tokens, steps, tabs, draws = out[which]
+        assert all(np.array_equal(a, b) for a, b in zip(tokens, want[0])), \
+            f"{name}: the {which} loop's tokens differ from eager"
+        assert steps == want[1] and draws == want[3], (name, which, steps,
+                                                       draws, want)
+        assert all(torch.equal(a, b) for a, b in zip(tabs, want[2])), \
+            f"{name}: the {which} loop's pool rows differ from eager"
+        assert got[which]["plain"] == got[which]["attention_fma"] == 0, \
+            (name, which, got[which])
+    steps = max(want[1])
+    assert want[3] == want[1], (name, "a draw a step", want[3], want[1])
+    dev, host = st["device"], st["host"]
+    assert dev["loops"] == 1 and dev["replays"] == steps, (name, dev)
+    assert host["loops"] == 0 and host["replays"] >= steps, (name, host)
+    assert got["device"]["philox"] == steps + len(want[1]), (name, got)
+    assert got["device"]["set_while"] == steps + 1, (name, got)
+    again, reads = one_read(lambda: call(False))
+    assert reads == 1 and all(np.array_equal(a.tokens, b) for a, b in
+                              zip(again, want[0])), name
+    wall = {w: 1e3 * res[w][0].wall_time_s / steps for w in res}
+    iteration = ""
+    if not lanes:
+        loop_ms, iters = loop_iteration(eng, *call.loop)
+        iteration = (f"; in the loop {loop_ms:.3f} ms an iteration (CUDA "
+                     f"events, {iters} iterations) against the host loop's "
+                     f"{wall['host']:.3f} ms wall a step")
+    log(f"  [{card}] {name}: device loop == host loop == eager (tokens, "
+        f"steps {want[1]}, pool rows, draws {want[3]}); the device loop "
+        f"{dev['loops']} launch, {dev['replays']} iterations, {reads} read "
+        f"back and no host sync before it, Philox {got['device']['philox']} "
+        f"launches; the host loop {host['replays']} replays "
+        f"({host['replays'] - steps} past the last needed step); the call's "
+        f"wall over its steps, ms: device loop {wall['device']:.3f}, host "
+        f"loop {wall['host']:.3f}, eager {wall['eager']:.3f}" + iteration)
+    return dict(launches=got["device"], steps=steps,
+                host_replays=host["replays"], tokens=want[0])
+
+
+def sampled_loops(configs, prompt, nxt, card, t_star):
+    """The sampling decode loop on the device (JAX's ``sample_loop``,
+    whose noise the state's Philox stream gives): the headline bf16
+    ``generate_sample`` at T*, int8_weights' at T*, a four-lane sampled
+    ``generate_batch`` with per-lane temperatures, a sampling call ended
+    by an EOS id (the token its run emits at new position EOS_AT_SAMPLE),
+    and a
+    greedy ``always_fwd_one=False`` call (the window refill draws), each by
+    :func:`three_ways`; the refilling call's tokens also equal the bf16
+    engine's greedy ``generate``. Returns {name: the device loop's
+    launches}."""
+    import dataclasses
+    import lookaheaddecoding_tpu_torch as lt
+
+    cfg = lt.SamplingConfig(temperature=t_star, top_k=TOP_K)
+    bf16 = configs["bf16"][0]
+
+    def flat(eng, mode, n_new, sampling=None, eos=None):
+        def call(host_loop):
+            return [eng._run(mode, prompt, n_new, eos, 0, sampling=sampling,
+                             host_loop=host_loop)]
+        call.loop = (prompt, mode, n_new, sampling, eos)
+        return call
+
+    prompts = [make_prompt(nxt, start=60 + i, n=PROMPT_LEN - 8 * i)
+               for i in range(BATCH_LANES)]
+    temps = [t_star, 0.8 * t_star, 1.25 * t_star, t_star]
+
+    def batch(host_loop):
+        return bf16._batch(prompts, N_SAMPLE_SHORT, None, 0,
+                           list(range(BATCH_LANES)), None, cfg, temps, None,
+                           host_loop=host_loop)
+    eos = int(bf16.generate_sample(prompt, N_SAMPLE, cfg).tokens[
+        len(prompt) + EOS_AT_SAMPLE])
+    refill = lt.LookaheadEngine(
+        bf16.mcfg, bf16.params,
+        dataclasses.replace(bf16.lcfg, always_fwd_one=False), bf16.ecfg)
+    out = {}
+    out["bf16 generate_sample"] = three_ways(
+        f"bf16 generate_sample at T*={t_star:.4f}", bf16,
+        flat(bf16, "sample", N_SAMPLE_SHORT, cfg), card)
+    out["int8_weights generate_sample"] = three_ways(
+        f"int8_weights generate_sample at T*={t_star:.4f}",
+        configs["int8_weights"][0],
+        flat(configs["int8_weights"][0], "sample", N_SAMPLE_SHORT, cfg),
+        card)
+    out["bf16 sampled generate_batch"] = three_ways(
+        f"bf16 sampled generate_batch of {BATCH_LANES} lanes (temperatures "
+        f"{[round(t, 4) for t in temps]})", bf16, batch, card,
+        lanes=BATCH_LANES)
+    got = out["bf16 generate_sample to an EOS id"] = three_ways(
+        f"bf16 generate_sample to an EOS id (token {eos})", bf16,
+        flat(bf16, "sample", N_SAMPLE, cfg, eos), card)
+    ended = got["tokens"][0]
+    assert ended[-1] == eos and len(ended) < len(prompt) + N_SAMPLE, \
+        ("the sampling call did not end at its EOS id", len(ended))
+    log(f"  [{card}] the EOS-ended sampling call: {got['steps']} steps "
+        f"needed, the device loop ran {got['steps']}, the host loop "
+        f"{got['host_replays']}")
+    got = out["bf16 always_fwd_one=False"] = three_ways(
+        "bf16 generate, always_fwd_one=False", refill,
+        flat(refill, "greedy", N_SAMPLE), card)
+    assert_same_tokens("always_fwd_one=False", refill, got["tokens"][0],
+                       bf16.generate(prompt, N_SAMPLE).tokens, 1.0)
+    return {name: got["launches"] for name, got in out.items()}
+
+
 def captured_phase(configs, prompt, paged_engines, nxt, card, t_star,
                    learned, headline):
     """Phase 13 over bf16, int8_weights, int4_weights,
@@ -3851,8 +4094,10 @@ def captured_phase(configs, prompt, paged_engines, nxt, card, t_star,
     each autotune candidate: 16 active tokens over K = W + GS harvest
     lanes, so its steps chain. Each configuration's IF-body share is
     printed; the learned model must chain, and the headline's first steps
-    (no window lane harvested yet) must take the parallel insert. Returns
-    each paged configuration's captured chunk's launches a replay."""
+    (no window lane harvested yet) must take the parallel insert. Then
+    the sampling loops on the device (:func:`sampled_loops`). Returns
+    each paged configuration's captured chunk's launches a replay, and the
+    sampling loops' launches."""
     import lookaheaddecoding_tpu_torch as lt
     from lookaheaddecoding_tpu_torch.applications import train_synthetic
     from lookaheaddecoding_tpu_torch.core import graphs
@@ -3875,6 +4120,7 @@ def captured_phase(configs, prompt, paged_engines, nxt, card, t_star,
     shares["sampling"] = captured_flat(
         f"bf16 sampling at T*={t_star:.4f}", bf16, prompt, "sample", card,
         N_SAMPLE, lt.SamplingConfig(temperature=t_star, top_k=TOP_K))
+    sampled = sampled_loops(configs, prompt, nxt, card, t_star)
     # the prefill of phase 10's dynamic-NTK engine (its rotation keyed on
     # the prompt's length, on the device) and of a long prompt at M=2048
     # (12 chunks through B2)
@@ -3918,7 +4164,7 @@ def captured_phase(configs, prompt, paged_engines, nxt, card, t_star,
     log(f"  [{card}] the pool's chain ran in (IF bodies of steps, whole "
         f"calls): " + "; ".join(f"{k} {share(*v[0])}"
                                 for k, v in shares.items()))
-    return admissions
+    return admissions, sampled
 
 
 def main() -> int:
@@ -4004,6 +4250,9 @@ def main() -> int:
     log(f"[kernels] the CUDA-graph WHILE node (the decode loop's "
         f"lax.while_loop) vs plain version ({card})")
     gwhile = check_graph_while(device)
+    log(f"[kernels] the Philox kernel (the state's random stream, JAX's "
+        f"jax.random draws) vs plain version ({card})")
+    rand = check_philox(device)
     lap("kernels")
 
     log(f"[main path] ({card}); one timed run a path after a warm-up pass")
@@ -4135,7 +4384,7 @@ def main() -> int:
         f"{CAPTURE_STEPS} steps (8 paged), eager, graphed, graphed, eager; "
         f"the paged admission of paged_bf16, paged_int8_weights_int8_kv and "
         f"paged_bf16_head_dim_256 ({ADMIT_NEW} new tokens a request)")
-    admissions = captured_phase(
+    admissions, sampled = captured_phase(
         configs, prompt,
         {"paged_bf16": (paged_stats["paged_bf16"]["engine"], nxt),
          "paged_int8_weights_int8_kv": (
@@ -4278,9 +4527,23 @@ def main() -> int:
              replaces="lookaheaddecoding_tpu/core/step.py:520 (lax.while_loop "
              "of decode_loop; :568 baseline_loop; not a pl.pallas_call)",
              main_path="the decode loop of greedy generate and "
-             "generate_baseline (phase 4; phase 13 adds dynamic_ntk, the "
-             "learned model and a greedy generate_batch), one launch a call",
+             "generate_baseline (phase 4; phase 8's sampling calls; phase "
+             "13 adds dynamic_ntk, the learned model, greedy and sampled "
+             "generate_batch, generate_sample and always_fwd_one=False), "
+             "one launch a call",
              **on_main_path("set_while"), **gwhile),
+        dict(name="philox", route="cuda", source=CSRC + "philox.cu",
+             replaces="lookaheaddecoding_tpu/core/step.py:104 (jax.random "
+             "draws from DecodeState.rng; :207, :217, key :318; not a "
+             "pl.pallas_call)",
+             main_path="the window's copy_from seeding of every request "
+             "(phase 4: one launch a call); every sampling step (phase 8, "
+             "phase 13's sampling loops on the device) and every "
+             "always_fwd_one=False step; numbers at 1 lane, batch4 at 4",
+             **on_main_path("philox", {
+                 **launches, "sampling": samp_launches,
+                 "captured sampling loops": sampled}),
+             batch4=rand[4], **rand[1]),
         dict(name="int4_matmul_shift", route="cuda",
              source=CSRC + "int4_micro.cu", replaces="scripts/int4_micro.py:53",
              main_path="scripts/torch_int4_micro.py (micro-benchmark only)",

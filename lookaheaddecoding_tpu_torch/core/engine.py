@@ -37,14 +37,15 @@ step runs eagerly on the CPU, on a mesh with a gloo group and inside
 ``graphs.eager()``.
 
 The decode loop is JAX's ``lax.while_loop`` on ``~finished``: on one card
-(no mesh, outside ``graphs.eager()``) greedy ``generate``,
-``generate_baseline`` and greedy ``generate_batch`` launch their whole
-loop once, a ``graphs.LoopGraph`` (a CUDA-graph WHILE node around the
-captured step), and read the device once, in the call's final transfer,
-which also brings back the loop's iteration count. The rest loops on the
-host (``step.run_loop``), replaying the captured step: sampling (each
-step draws from generators whose philox offsets a replay advances on the
-host, so a device loop would repeat the noise), ``generate_stream``
+(no mesh, outside ``graphs.eager()``) ``generate``, ``generate_sample``,
+``generate_baseline`` and ``generate_batch``, greedy or sampled, launch
+their whole loop once, a ``graphs.LoopGraph`` (a CUDA-graph WHILE node
+around the captured step), and read the device once, in the call's final
+transfer, which also brings back the loop's iteration count. A sampling
+step draws from the request's Philox stream in the state
+(``ops/philox.py``), whose kernel reads the draw counter on the device, so
+every iteration draws fresh numbers. The rest loops on the host
+(``step.run_loop``), replaying the captured step: ``generate_stream``
 (which yields every ``steps_per_yield`` steps, as JAX's does), meshes,
 the CPU and ``graphs.eager()``.
 """
@@ -62,6 +63,7 @@ import torch
 from ..config import EngineConfig, LookaheadConfig, SamplingConfig
 from ..models import llama
 from ..ops.lookahead_attention import KERNEL_HEAD_DIMS
+from ..ops import philox
 from . import graphs
 from .layout import Layout, build_layout
 from .paged_step import PagedLaneState, build_paged_step_fns
@@ -217,7 +219,7 @@ class LaneSlot:
 
 def lane_slot(eng: "LookaheadEngine", lanes: int) -> LaneSlot:
     """``lanes`` idle lanes of ``eng``: finished, each on its own page, with
-    an empty pool and its own generator."""
+    an empty pool and its own stream (``key``, ``draws``)."""
     B, dev = lanes, eng.device
     M, lay = eng.ecfg.max_seq_len, eng.layout
     # B lanes and a trash page of M slots; on a mesh, the rank's shard
@@ -240,7 +242,7 @@ def lane_slot(eng: "LookaheadEngine", lanes: int) -> LaneSlot:
         out_buf=zeros(B, M + lay.guess_size),
         n_confirmed=zeros(B) + 1, init_len=zeros(B) + 1, step_idx=zeros(B),
         finished=torch.ones(B, dtype=torch.bool, device=dev),
-        rng=[torch.Generator(device=dev) for _ in range(B)])
+        key=zeros(B, 2), draws=torch.zeros(B, dtype=torch.int64, device=dev))
     return LaneSlot(k_pool=k_pool, v_pool=v_pool, states=states,
                     max_new=zeros(B), eos=zeros(B, MAX_EOS_IDS) - 1,
                     temperature=torch.ones(B, dtype=torch.float32, device=dev),
@@ -248,7 +250,7 @@ def lane_slot(eng: "LookaheadEngine", lanes: int) -> LaneSlot:
 
 
 def write_lane(slot: LaneSlot, lane: int, state: DecodeState) -> None:
-    """A prepared flat state (caches, bookkeeping, pool, generator) copied
+    """A prepared flat state (caches, bookkeeping, pool, stream) copied
     into lane ``lane`` of ``slot``, in place."""
     M = _leaf_pairs(state.k_cache, state.k_cache)[0][0].shape[2]
     for pool, cache in ((slot.k_pool, state.k_cache),
@@ -257,11 +259,10 @@ def write_lane(slot: LaneSlot, lane: int, state: DecodeState) -> None:
             dst[:, :, lane * M:(lane + 1) * M] = src
     st = slot.states
     for name in ("kv_len", "window", "out_buf", "n_confirmed", "init_len",
-                 "step_idx", "finished"):
+                 "step_idx", "finished", "key", "draws"):
         getattr(st, name)[lane] = getattr(state, name)
     for name in ("values", "age", "clock"):
         getattr(st.pool, name)[lane] = getattr(state.pool, name)
-    st.rng[lane].set_state(state.rng.get_state())
 
 
 def _loop_done(loop: graphs.LoopGraph, finished: bool, iters: int,
@@ -459,7 +460,7 @@ class LookaheadEngine:
             out_buf=zeros(M + lay.guess_size), n_confirmed=zeros(),
             init_len=zeros(), step_idx=zeros(),
             finished=torch.ones((), dtype=torch.bool, device=dev),
-            rng=torch.Generator(device=dev))
+            key=zeros(2), draws=zeros(dtype=torch.int64))
         return FlatSlot(state=state, max_new=zeros(),
                         eos=zeros(MAX_EOS_IDS) - 1,
                         temperature=zeros(1, dtype=torch.float32) + 1,
@@ -493,9 +494,9 @@ class LookaheadEngine:
         returned: JAX's fused prepare call. The caches and the pool start as
         new ones would, or as copies of a prefix's (the prefill's last chunk
         may rewrite some of its rows, and the fill merges into its pool's
-        rows); the generator is reseeded with ``seed``. The host's arrays
-        go to the device first, without a wait; the prefill replays the
-        slot's captured chunk (:meth:`_prefill`)."""
+        rows); the stream's key is ``seed`` and its counter 0. The host's
+        arrays go to the device first, without a wait; the prefill replays
+        the slot's captured chunk (:meth:`_prefill`)."""
         slot = slot or self._free_slot()
         state, dev = slot.state, self.device
         out_buf = graphs.upload(out_buf, dev)
@@ -516,7 +517,7 @@ class LookaheadEngine:
             pool.values.zero_()
             pool.age.zero_()
             pool.clock.fill_(1)
-        state.rng.manual_seed(seed)
+        philox.start(state.key, state.draws, seed)
         self._fns.init_state(state, out_buf, prompt_len)
         if fill is not None:
             apply_host_fill(pool, *fill, merge=prefix is not None)
@@ -545,10 +546,12 @@ class LookaheadEngine:
                              self._graph_pool, counter)
 
     def _loops(self, mode: str) -> bool:
-        """Whether a ``mode`` call runs its decode loop on the device: a
-        greedy or AR loop, captured (on the card, outside
-        ``graphs.eager()``) and on one card."""
-        return (mode in ("greedy", "ar") and self._graphed
+        """Whether a ``mode`` call ("greedy", "sample" or "ar") runs its
+        decode loop on the device: captured (on the card, outside
+        ``graphs.eager()``) and on one card. Every mode qualifies: the
+        random draws of a sampling step and of the ``always_fwd_one=False``
+        refill read their counter on the device."""
+        return (mode in ("greedy", "sample", "ar") and self._graphed
                 and self.mesh is None and not graphs.eager_depth())
 
     def _loop(self, cache: dict, key, step, state, finished, cap):
@@ -572,11 +575,14 @@ class LookaheadEngine:
         return self._runner(slot.graphs, key, step, slot)
 
     def _flat_loop(self, slot: FlatSlot, mode: str, max_new: int,
-                   eos_token_id) -> graphs.LoopGraph:
-        """The decode loop of ``mode`` ("greedy" or "ar") over ``slot`` on
-        the device, with the call's ``max_new`` (the loop's cap) and EOS
-        ids written into the slot's buffers."""
-        step, key = self._flat_step(slot, mode, max_new, eos_token_id)
+                   eos_token_id, sampling: Optional[SamplingConfig] = None
+                   ) -> graphs.LoopGraph:
+        """The decode loop of ``mode`` ("greedy", "sample" or "ar") over
+        ``slot`` on the device, with the call's ``max_new`` (the loop's
+        cap: every live step confirms a token), EOS ids and warpers written
+        into the slot's buffers."""
+        step, key = self._flat_step(slot, mode, max_new, eos_token_id,
+                                    sampling)
         return self._loop(slot.graphs, key, step, slot, slot.state.finished,
                           slot.max_new)
 
@@ -613,11 +619,12 @@ class LookaheadEngine:
         step, key = self._lane_step(slot, sampled, top_p_on, top_k)
         return self._runner(slot.graphs, key, step, slot)
 
-    def _lane_loop(self, slot: LaneSlot) -> graphs.LoopGraph:
-        """The greedy batched decode loop over ``slot``'s lanes on the
-        device, while any lane is unfinished; its cap is the lanes' shared
-        ``max_new`` (lane 0's)."""
-        step, key = self._lane_step(slot, False, False, 0)
+    def _lane_loop(self, slot: LaneSlot, sampled: bool, top_p_on: bool,
+                   top_k: int) -> graphs.LoopGraph:
+        """The batched decode loop over ``slot``'s lanes on the device
+        (greedy, or sampling as :meth:`_lane_runner`), while any lane is
+        unfinished; its cap is the lanes' shared ``max_new`` (lane 0's)."""
+        step, key = self._lane_step(slot, sampled, top_p_on, top_k)
         return self._loop(slot.graphs, key, step, slot, slot.states.finished,
                           slot.max_new)
 
@@ -693,10 +700,10 @@ class LookaheadEngine:
     def _run(self, mode, prompt_ids, max_new_tokens, eos_token_id, seed,
              prefix=None, return_prefix=False, sampling=None,
              host_loop=False):
-        """One call of ``mode``. ``host_loop`` decodes a greedy or AR call
-        by the host loop even where it would loop on the device: a profiler
-        records no kernel inside a CUDA-graph WHILE body
-        (``chip_smoke.py``'s profiles)."""
+        """One call of ``mode``. ``host_loop`` decodes the call by the host
+        loop even where it would loop on the device: a profiler records no
+        kernel inside a CUDA-graph WHILE body (``chip_smoke.py``'s
+        profiles), and the host loop is the device loop's comparison."""
         t0 = time.perf_counter()
         if return_prefix:
             self._reject_dynamic_prefix()
@@ -705,7 +712,7 @@ class LookaheadEngine:
             state = self._prepare(out_buf, P, seed, fill, prefix, slot=slot)
             if self._loops(mode) and not host_loop:
                 loop = self._flat_loop(slot, mode, max_new_tokens,
-                                       eos_token_id)
+                                       eos_token_id, sampling)
                 loop.run()
                 return self._finalize(state, max_new_tokens, t0,
                                       return_prefix, loop)
@@ -773,9 +780,11 @@ class LookaheadEngine:
                         return_prefix: bool = False) -> GenerationResult:
         """Sampling lookahead generation with SpecInfer verification: the
         tokens follow the model's temperature / top-k / top-p distribution.
-        ``seed`` seeds the run's generator (window seeding and every draw);
-        on a CUDA device the stream is the card's, so the tokens differ
-        from the CPU's (and from the JAX package's) for the same seed."""
+        ``seed`` is the key of the run's Philox stream (``ops/philox.py``:
+        the window seeding and every draw), which gives the same numbers on
+        the CPU and on the card; the tokens differ from the JAX package's
+        (threefry) for the same seed. On one card the whole loop runs on
+        the device, one launch and one read a call."""
         return self._run("sample", prompt_ids, max_new_tokens, eos_token_id,
                          seed, prefix, return_prefix,
                          sampling or SamplingConfig())
@@ -864,7 +873,7 @@ class LookaheadEngine:
                        temperatures: Optional[Sequence[float]] = None,
                        top_ps: Optional[Sequence[float]] = None) -> list:
         """Decode several prompts together: each lane keeps its own window,
-        pool, generator and KV cache, and every decode step is one batched
+        pool, stream and KV cache, and every decode step is one batched
         forward over all lanes. Lane i gives the tokens of a lone call with
         ``seed=seeds[i]`` (default ``seed + i``): ``generate``, or
         ``generate_sample`` with ``sampling`` and the lane's
@@ -876,6 +885,12 @@ class LookaheadEngine:
         step is the paged engine's batched step (``core/paged_step.py``,
         the paged attention kernel on the card). The prefill is each
         lane's own, as in the lone call."""
+        return self._batch(prompts, max_new_tokens, eos_token_id, seed,
+                           seeds, prefix, sampling, temperatures, top_ps)
+
+    def _batch(self, prompts, max_new_tokens, eos_token_id, seed, seeds,
+               prefix, sampling, temperatures, top_ps, host_loop=False):
+        """:meth:`generate_batch`; ``host_loop`` as in :meth:`_run`."""
         t0 = time.perf_counter()
         if not prompts:
             raise ValueError("generate_batch needs at least one prompt")
@@ -923,8 +938,10 @@ class LookaheadEngine:
             states = lanes.states
             columns = [states.n_confirmed, states.init_len, states.step_idx]
             loop = None
-            if sampling is None and self._loops("greedy"):
-                loop = self._lane_loop(lanes)
+            if (self._loops("greedy" if sampling is None else "sample")
+                    and not host_loop):
+                loop = self._lane_loop(lanes, sampling is not None,
+                                       top_p is not None, top_k)
                 loop.run()
                 columns += [states.finished.int(), loop.iters.expand(B)]
             else:

@@ -51,8 +51,8 @@ pinned memory and without a wait, so nothing between a request's start
 and its first decode replay stops the host.
 
 :class:`LoopGraph` is the counterpart of the JAX decode loop's
-``lax.while_loop`` on ``~finished``: the whole loop of greedy and AR
-decode steps captured as one graph, a WHILE node around the step
+``lax.while_loop`` on ``~finished``: the whole loop of greedy, sampling
+and AR decode steps captured as one graph, a WHILE node around the step
 (``ops/graph_cond.py``), launched once a call; the iterations it ran stay
 on the device until the caller's final transfer reads them
 (:meth:`LoopGraph.account`). The step is captured straight into the
@@ -81,8 +81,8 @@ from typing import Callable, List, Tuple
 import torch
 import torch.distributed as dist
 
-from ..ops import (graph_cond, int4_micro, lookahead_attention, quant,
-                   quant_matmul)
+from ..ops import (graph_cond, int4_micro, lookahead_attention, philox,
+                   quant, quant_matmul)
 from ..parallel import collectives
 
 # Captures made, replays run (decode steps, a device loop's iterations
@@ -96,7 +96,7 @@ stats = {"captured": 0, "replays": 0, "prefills": 0, "loops": 0,
 # every launch counter of the port's kernels, and the collectives' calls
 _TALLIES = (lookahead_attention.counts, lookahead_attention.paged_counts,
             quant_matmul.counts, int4_micro.counts, graph_cond.counts,
-            collectives.counts)
+            philox.counts, collectives.counts)
 
 _eager_depth = 0
 
@@ -360,11 +360,14 @@ class LoopGraph(StepGraph):
     (``replays``, ``branches``) and the kernels' launches. ``body_pool``
     (a ``torch.cuda.MemPool``) takes the step's allocations in the body.
 
-    A capture raises instead of looping on the host: on a step that draws
-    random numbers (its warm step moved a generator: a replay advances
+    A step draws its random numbers from the state's Philox streams
+    (``ops/philox.py``), whose kernel reads the draw counter that the step
+    advances on the device, so each iteration draws fresh numbers. A
+    capture raises instead of looping on the host: on a step that moves a
+    ``torch.Generator`` of its state (a replay advances a generator's
     philox offsets on the host, so every iteration would draw the same
-    numbers), on a ``mesh``, and where the WHILE node or a node of its body
-    cannot be made."""
+    numbers: any draw that bypasses the state's stream), on a ``mesh``,
+    and where the WHILE node or a node of its body cannot be made."""
 
     if_depth = 1
 
@@ -403,9 +406,11 @@ class LoopGraph(StepGraph):
         if any(not torch.equal(g.get_state(), b)
                for g, b in zip(gens, before)):
             raise RuntimeError(
-                "the step drew random numbers: a device loop would draw "
-                "the same ones every iteration (a replay advances the "
-                "philox offsets on the host); step it from the host")
+                "the step drew random numbers from a torch.Generator: a "
+                "device loop would draw the same ones every iteration (a "
+                "replay advances its philox offsets on the host); draw "
+                "from the state's stream (ops/philox.py) or step it from "
+                "the host")
 
     def _record(self) -> None:
         graph_cond.while_node(self.finished, self.cap, self.iters, self.step,

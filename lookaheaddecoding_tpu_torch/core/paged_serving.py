@@ -178,7 +178,8 @@ class PagedServingEngine:
             n_confirmed=zeros(B) + 1, init_len=zeros(B) + 1,
             step_idx=zeros(B),
             finished=torch.ones(B, dtype=torch.bool, device=dev),
-            rng=[torch.Generator(device=dev) for _ in range(B)])
+            key=zeros(B, 2),
+            draws=torch.zeros(B, dtype=torch.int64, device=dev))
         self._max_new = zeros(B)
         self._eos = zeros(B, MAX_EOS_IDS) - 1
         # each lane's temperature and top_p (sampling engines), on the

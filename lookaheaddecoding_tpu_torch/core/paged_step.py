@@ -25,17 +25,18 @@ chunk, for every prompt and every lane.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from ..config import EngineConfig, LookaheadConfig
 from ..models import llama
+from ..ops import philox
 from .layout import Layout
 from .paged import paged_commit, phys_slots
 from .pool import PoolState, bigram_key, pool_lookup, pool_table_rows
-from .step import keep_if_finished, make_post_forward
+from .step import keep_if_finished, make_post_forward, seed_window
 
 
 @dataclasses.dataclass
@@ -56,7 +57,8 @@ class PagedLaneState:
     init_len: torch.Tensor     # [B] int32
     step_idx: torch.Tensor     # [B] int32
     finished: torch.Tensor     # [B] bool
-    rng: List[torch.Generator]  # one a lane
+    key: torch.Tensor          # [B, 2] int32: each lane's stream's seed
+    draws: torch.Tensor        # [B] int64: the draws each lane has made
 
 
 @dataclasses.dataclass
@@ -137,30 +139,21 @@ def build_paged_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
         the counterpart of ``core/step.py:init_state`` and of JAX's
         insertion of the new lane into the batched states
         (``dynamic_update_index_in_dim``). The lane's table and output
-        buffer are copied from the admission record ``rec``; its own
-        generator is reseeded with ``seed`` (never swapped: a captured step
-        draws from the generators it was captured with); its n-gram pool
-        is left as the caller prepared it."""
-        rng = states.rng[lane]
-        rng.manual_seed(seed)
-        out_buf = rec.out_buf
-        if lcfg.window_init == "random_set":
-            window = torch.randint(0, mcfg.vocab_size, (n_window,),
-                                   generator=rng, device=device)
-        elif lcfg.window_init == "order_copy_from":
-            window = out_buf[torch.arange(n_window, device=device) % prompt_len]
-        elif lcfg.window_init == "copy_from_last":
-            window = out_buf[prompt_len - 1].expand(n_window)
-        else:  # copy_from: random copies of prompt tokens
-            window = out_buf[torch.randint(0, prompt_len, (n_window,),
-                                           generator=rng, device=device)]
+        buffer are copied from the admission record ``rec``; its stream's
+        key becomes ``seed`` and its counter 0, in place (a captured step
+        reads them where they lie), and its window is seeded from them
+        (``core/step.py:seed_window``); its n-gram pool is left as the
+        caller prepared it."""
+        philox.start(states.key[lane], states.draws[lane], seed)
+        states.window[lane] = seed_window(
+            lcfg, mcfg.vocab_size, n_window, rec.out_buf, states.key[lane],
+            states.draws[lane], prompt_len)
         # host numbers go in by fill_ (an item assignment of a Python
         # number copies it to the card from pageable memory: a sync)
         states.table[lane].copy_(rec.table[0])
         states.cap[lane].fill_(cap)
         states.kv_len[lane].fill_(0)
-        states.window[lane] = window
-        states.out_buf[lane] = out_buf
+        states.out_buf[lane] = rec.out_buf
         states.n_confirmed[lane].fill_(prompt_len)
         states.init_len[lane].fill_(prompt_len)
         states.step_idx[lane].fill_(0)

@@ -22,8 +22,8 @@ read every ``steps_per_sync`` steps brings back finished, n_confirmed,
 init_len and step_idx of every lane; the output buffers are read only when
 a lane streams new tokens or finishes, once for both. On the card the
 batched step is a replayed CUDA graph over the lanes (``core/graphs.py``),
-which never move: admission writes a lane in place, its generator
-reseeded, never swapped.
+which never move: admission writes a lane in place, its stream's key and
+counter too (``ops/philox.py``).
 
 The engine runs where its ``LookaheadEngine`` runs (the card unless that
 engine was built with ``device="cpu"``).
@@ -142,7 +142,7 @@ class ContinuousBatchingEngine:
 
     def _ensure_lanes(self) -> None:
         """The lanes (``engine.lane_slot``: the shared pool, bookkeeping,
-        generators and the captured steps, at fixed addresses), every lane
+        streams and the captured steps, at fixed addresses), every lane
         idle: finished, on its own page, with an empty pool."""
         if self._lanes is not None:
             return

@@ -2,7 +2,7 @@
 
 Fixed-shape tensors on the engine's device, so a decode step reads and
 writes them without a host round trip. Scalars are 0-d tensors; tokens and
-counters are int32.
+counters are int32, the stream's draw counter int64.
 """
 
 from __future__ import annotations
@@ -26,4 +26,7 @@ class DecodeState:
     init_len: torch.Tensor     # int32: prompt length
     step_idx: torch.Tensor     # int32: decode steps taken
     finished: torch.Tensor     # bool
-    rng: torch.Generator       # window seeding and refills, on the device
+    # the request's random stream (ops/philox.py): its seed as two u32
+    # words, and the draws made (one a step that draws), on the device
+    key: torch.Tensor          # [2] int32
+    draws: torch.Tensor        # int64

@@ -6,9 +6,10 @@ forward -> verification -> KV commit -> window slide -> pool harvest ->
 output append. Every tensor it makes has a shape fixed when the engine is
 built, and it reads nothing back to the host, so the host can queue many
 steps ahead of the device, and the engines capture the step in a CUDA
-graph. On one card a greedy or AR generation runs its whole loop on the
-device (``graphs.LoopGraph``); the other loops read ``finished`` from the
-device once per batch of steps (:func:`run_loop`), never on every step.
+graph. On one card a greedy, sampling or AR generation runs its whole
+loop on the device (``graphs.LoopGraph``); the other loops read
+``finished`` from the device once per batch of steps (:func:`run_loop`),
+never on every step.
 
 A step taken after ``finished`` leaves the state as it was (the JAX
 package's ``lax.cond(state.finished, ...)``): scalars and the window are
@@ -30,11 +31,18 @@ rejection sampling (``ops/sampling.py``), so greedy output equals the AR
 baseline's whatever the window seeding, and sampled output follows the
 model's warped distribution.
 
-Randomness: each lane draws its uniforms from its own generator once a
-step, a count fixed by the configuration and never by the data, in a fixed
-order: the sampling verification, then the ``always_fwd_one=False`` refill,
-then the sampling mode's EOS filter. A lane therefore draws the same
-numbers alone as in a batch.
+Randomness: each lane has its own Philox stream in the state
+(``ops/philox.py``: ``key``, its seed, and ``draws``, the draws made), the
+counterpart of JAX's ``DecodeState.rng``. A step that draws takes one draw
+of a count fixed by the configuration and never by the data, in a fixed
+order (the sampling verification, then the ``always_fwd_one=False``
+refill, then the sampling mode's EOS filter), and advances ``draws`` by
+one, which a finished lane keeps as it was. The kernel reads the counter
+on the device, so a captured step draws fresh numbers on every replay and
+every iteration of a device loop, and the device loop, which stops at
+``finished``, and the host loop, which may overshoot, end in the same
+state. A lane draws the same numbers alone as in a batch. The window
+seeding draws from the same stream under its own tag.
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ import torch
 
 from ..config import EngineConfig, LookaheadConfig
 from ..models import llama
+from ..ops import philox
 from ..ops.sampling import (lane_uniforms, rejection_sample_verify_core,
                             split_verify_noise, verify_noise_size,
                             warp_logits)
@@ -77,17 +86,17 @@ def make_post_forward(mcfg, lcfg: LookaheadConfig, layout: Layout, device,
     for ``mode="sample"``), EOS truncation, output append, pool harvest and
     window slide, for B lanes at once. Returns ``post(state, logits,
     guesses, guess_valid, lst, prev, max_new, eos_id, cap, temperature=None,
-    top_p=None, top_k=0) -> (updates, winner, max_hit)``. Every tensor has a
-    leading lane axis: ``state`` holds [B]-shaped scalars, a [B, n_window]
-    window, a [B, len] output buffer, a stacked pool and a list of B
-    generators (``PagedLaneState``, or :func:`_as_lanes` of one
-    ``DecodeState``); logits [B, rows, V]; lst, prev [B]; eos_id
-    [B, n_eos]; ``max_new`` and ``cap`` ints or [B] tensors. The sampling
-    mode takes ``temperature`` [B], ``top_p`` [B] or None (no lane asks for
-    top-p: the sort is skipped) and an int ``top_k`` (0: off). ``updates``
-    holds the new bookkeeping fields (not yet selected against
-    ``finished``), while the output buffer and the pool are written in
-    place, masked for finished lanes."""
+    top_p=None, top_k=0) -> (updates, winner, max_hit)``. Every tensor has
+    a leading lane axis: ``state`` holds [B]-shaped scalars, a [B,
+    n_window] window, a [B, len] output buffer, a stacked pool and the
+    lanes' streams, ``key`` [B, 2] and ``draws`` [B] (``PagedLaneState``,
+    or :func:`_as_lanes` of one ``DecodeState``); logits [B, rows, V]; lst,
+    prev [B]; eos_id [B, n_eos]; ``max_new`` and ``cap`` ints or [B]
+    tensors. The sampling mode takes ``temperature`` [B], ``top_p`` [B] or
+    None (no lane asks for top-p: the sort is skipped) and an int ``top_k``
+    (0: off). ``updates`` holds the new bookkeeping fields (not yet
+    selected against ``finished``), while the output buffer and the pool
+    are written in place, masked for finished lanes."""
     assert mode in ("greedy", "sample"), mode
     W, N = layout.window, layout.level
     G, GS, S = layout.guess_set_size, layout.guess_size, layout.seq_len
@@ -120,7 +129,7 @@ def make_post_forward(mcfg, lcfg: LookaheadConfig, layout: Layout, device,
         fin = state.finished
         new_results = logits[:, inp_rows].argmax(dim=-1).int()    # [B, W]
         u_verify, u_refill, u_filter = (
-            lane_uniforms(state.rng, sum(noise_sizes), dev).split(
+            lane_uniforms(state.key, state.draws, sum(noise_sizes)).split(
                 noise_sizes, dim=1) if sum(noise_sizes) else (None,) * 3)
         if mode == "sample":
             probs_next = torch.softmax(warp_logits(
@@ -234,6 +243,8 @@ def make_post_forward(mcfg, lcfg: LookaheadConfig, layout: Layout, device,
         updates = dict(kv_len=new_kv_len, window=window,
                        n_confirmed=n_confirmed,
                        step_idx=state.step_idx + 1, finished=finished)
+        if sum(noise_sizes):
+            updates["draws"] = state.draws + 1
         return updates, winner, max_hit
 
     return post
@@ -252,10 +263,32 @@ def _as_lanes(state: DecodeState) -> SimpleNamespace:
     pool = PoolState(state.pool.values[None], state.pool.age[None],
                      state.pool.clock.view(1))
     return SimpleNamespace(
-        pool=pool, rng=[state.rng], out_buf=state.out_buf[None],
+        pool=pool, key=state.key[None], out_buf=state.out_buf[None],
         window=state.window[None],
         **{name: getattr(state, name).view(1) for name in (
-            "kv_len", "n_confirmed", "init_len", "step_idx", "finished")})
+            "kv_len", "n_confirmed", "init_len", "step_idx", "finished",
+            "draws")})
+
+
+def seed_window(lcfg: LookaheadConfig, vocab: int, n_window: int,
+                out_buf: torch.Tensor, key: torch.Tensor, draws: torch.Tensor,
+                prompt_len: int) -> torch.Tensor:
+    """A request's window [n_window] by ``lcfg.window_init``, from its
+    output buffer (the prompt first) and, for ``copy_from`` (random copies
+    of prompt tokens) and ``random_set`` (random ids), the lane's stream
+    (``key`` [2], ``draws`` 0-d) under the window's own tag. Eager and
+    without a host read; ``prompt_len`` is host data, as JAX's bound of
+    its ``randint``."""
+    device = out_buf.device
+    if lcfg.window_init == "order_copy_from":
+        return out_buf[torch.arange(n_window, device=device) % prompt_len]
+    if lcfg.window_init == "copy_from_last":
+        return out_buf[prompt_len - 1].expand(n_window)
+    u = lane_uniforms(key.view(1, 2), draws.view(1), n_window,
+                      philox.WINDOW)[0]
+    bound = vocab if lcfg.window_init == "random_set" else prompt_len
+    idx = (u * bound).long().clamp(max=bound - 1)
+    return idx if lcfg.window_init == "random_set" else out_buf[idx]
 
 
 def keep_if_finished(state, updates: dict):
@@ -304,10 +337,11 @@ def run_loop(run: Callable[[int], None], state: DecodeState, max_new: int,
     the state's at the start), then reads ``finished``, ``n_confirmed``
     and ``kv_len`` in one host transfer, so the last batch overshoots only
     when EOS ends the run; the overshooting steps change nothing that is
-    read. On one card a greedy or AR loop runs on the device instead
-    (``graphs.LoopGraph``, JAX's ``lax.while_loop``), with no overshoot and
-    no read until the call's last; this loop serves sampling, meshes, the
-    CPU and ``graphs.eager()``."""
+    read. On one card a greedy, sampling or AR call loops on the device
+    instead (``graphs.LoopGraph``, JAX's ``lax.while_loop``), with no
+    overshoot and no read until the call's last; this loop serves streams,
+    the paged engine and the scheduler's lanes, meshes, the CPU and
+    ``graphs.eager()``."""
     generated = 0
     while True:
         run(host_batch(max_new - generated, per_step, kv_len, last_start))
@@ -367,23 +401,15 @@ def build_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
         """A request's output buffer (``out_buf`` [M + GS], the prompt and
         zeros: best already on the device, see ``graphs.upload``), its
         window seeded at steady-state level sizes by ``window_init`` from
-        ``state.rng``, and its counters, written into ``state`` in place;
-        the caches and the pool are the caller's. It stays eager: the
-        seeding draws ``randint(0, prompt_len)``, whose bound a capture
-        would fix."""
+        the state's stream (:func:`seed_window`; the caller has written
+        ``key`` and zeroed ``draws``), and its counters, written into
+        ``state`` in place; the caches and the pool are the caller's. It
+        stays eager: the seeding's bound, the prompt's length, is host
+        data that a capture would fix."""
         out_buf = state.out_buf.copy_(out_buf)
-        rng = state.rng
-        if lcfg.window_init == "random_set":
-            window = torch.randint(0, mcfg.vocab_size, (n_window,),
-                                   generator=rng, device=device)
-        elif lcfg.window_init == "order_copy_from":
-            window = out_buf[torch.arange(n_window, device=device) % prompt_len]
-        elif lcfg.window_init == "copy_from_last":
-            window = out_buf[prompt_len - 1].expand(n_window)
-        else:  # copy_from: random copies of prompt tokens
-            window = out_buf[torch.randint(0, prompt_len, (n_window,),
-                                           generator=rng, device=device)]
-        state.window.copy_(window)
+        state.window.copy_(seed_window(lcfg, mcfg.vocab_size, n_window,
+                                       out_buf, state.key, state.draws,
+                                       prompt_len))
         state.kv_len.fill_(0)
         state.n_confirmed.fill_(prompt_len)
         state.init_len.fill_(prompt_len)

@@ -50,6 +50,10 @@ SIGNATURES = {
         # begin a WHILE node, 4 end its body), stream, pred, n, iters, cap,
         # body_stream, handle, info
         [_I, _P, _P, _I] + [_P] * 5),
+    "philox": (
+        "philox_launch",
+        # key, draws, out, lanes, n, tag, raw, stream
+        [_P] * 3 + [_I] * 4 + [_P]),
 }
 
 _libs: dict = {}       # name -> loaded ctypes.CDLL (one load per process)

@@ -8,18 +8,20 @@ propose. Plain PyTorch on a leading lane axis ``[B, ...]`` in float32; the
 JAX package has no kernel here either.
 
 Every random number comes from explicit noise: ``rejection_sample_verify``
-draws it from each lane's ``torch.Generator`` and hands it to
-``rejection_sample_verify_core``, which the tests also feed the JAX
-package's own noise. A residual draw is Gumbel-max, ``argmax(log p + g)``,
-as ``jax.random.categorical`` computes it; nothing here reads a tensor back
-to the host.
+draws it from each lane's Philox stream (``ops/philox.py``: the lane's key
+and draw counter) and hands it to ``rejection_sample_verify_core``, which
+the tests also feed the JAX package's own noise. A residual draw is
+Gumbel-max, ``argmax(log p + g)``, as ``jax.random.categorical`` computes
+it; nothing here reads a tensor back to the host.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional
+from typing import NamedTuple, Optional
 
 import torch
+
+from . import philox
 
 NEG_INF = float("-inf")
 _TINY = torch.finfo(torch.float32).tiny
@@ -61,12 +63,13 @@ def warp_logits(logits: torch.Tensor, temperature, top_k: int = 0,
     return logits.masked_fill(~keep, NEG_INF)
 
 
-def lane_uniforms(rngs: List[torch.Generator], n: int,
-                  device) -> torch.Tensor:
-    """[B, n] uniforms in [0, 1), row b drawn from ``rngs[b]``: every lane
-    draws the same numbers alone as in a batch."""
-    return torch.stack([torch.rand(n, generator=g, device=device)
-                        for g in rngs])
+def lane_uniforms(key: torch.Tensor, draws: torch.Tensor, n: int,
+                  tag: int = philox.STEP) -> torch.Tensor:
+    """[B, n] uniforms in [0, 1), row b lane b's draw number ``draws[b]``
+    under ``key[b]`` (int32 [B, 2], int64 [B]; ``ops/philox.py``): every
+    lane draws the same numbers alone as in a batch, and a captured draw
+    reads the counter on the device."""
+    return philox.uniforms(key, draws, n, tag)
 
 
 def gumbel(uniforms: torch.Tensor) -> torch.Tensor:
@@ -180,25 +183,24 @@ def split_verify_noise(u: torch.Tensor, g: int, gs: int, vocab: int):
 
 
 def rejection_sample_verify(probs_next, guess_probs, guess_tokens,
-                            guess_valid,
-                            rngs: List[torch.Generator]) -> AcceptResult:
+                            guess_valid, key: torch.Tensor,
+                            draws: torch.Tensor) -> AcceptResult:
     """:func:`rejection_sample_verify_core` with its noise drawn from each
-    lane's generator (``rngs[b]`` for lane b)."""
+    lane's stream (lane b's draw ``draws[b]`` under ``key[b]``)."""
     b, g, gs = guess_tokens.shape
     vocab = probs_next.shape[-1]
-    u = lane_uniforms(rngs, verify_noise_size(g, gs, vocab),
-                      probs_next.device)
+    u = lane_uniforms(key, draws, verify_noise_size(g, gs, vocab))
     return rejection_sample_verify_core(
         probs_next, guess_probs, guess_tokens, guess_valid,
         *split_verify_noise(u, g, gs, vocab))
 
 
 def sample_token(logits: torch.Tensor, temperature, top_k: int,
-                 top_p: Optional[object],
-                 rngs: List[torch.Generator]) -> torch.Tensor:
+                 top_p: Optional[object], key: torch.Tensor,
+                 draws: torch.Tensor) -> torch.Tensor:
     """One warped sample a lane from logits [B, V] (Gumbel-max on the
-    warped logits), with lane b's noise from ``rngs[b]``. Returns [B]
-    int32."""
+    warped logits), with lane b's noise its draw ``draws[b]`` under
+    ``key[b]``. Returns [B] int32."""
     warped = warp_logits(logits.float(), temperature, top_k, top_p)
-    u = lane_uniforms(rngs, logits.shape[-1], logits.device)
+    u = lane_uniforms(key, draws, logits.shape[-1])
     return (warped + gumbel(u)).argmax(dim=-1).int()

@@ -16,13 +16,16 @@ same as a function that returns the results, for tests and scripts that
 need them in the parent.
 
 Every rank has a time limit: the process group's collectives time out
-after it, a rank still running five seconds before it prints every
-thread's stack, and the parent kills the whole world once any rank fails
-or the limit has passed, reporting the logs of the ranks at fault. A
-rank that is done frees its CUDA graphs before it tears its process group
-down (a graph that captured NCCL collectives holds the communicator); a
-teardown that still outlives ``TEARDOWN_S`` fails the rank, and with it
-the world. A rank whose function raises prints its traceback and exits at
+after it, and the parent kills the whole world once any rank fails or
+the limit has passed, reporting the logs of the ranks at fault. At the
+limit the parent first signals each rank still running (``SIGUSR1``),
+whose handler, registered before the rank imports anything else, prints
+every thread's stack into its log, and waits up to ``DUMP_GRACE_S`` for
+the stacks to arrive: the report says where each rank waits, however long
+the rank took to start. A rank that is done frees its CUDA graphs before
+it tears its process group down (a graph that captured NCCL collectives
+holds the communicator); a teardown that still outlives ``TEARDOWN_S``
+fails the rank, and with it the world. A rank whose function raises prints its traceback and exits at
 once, without tearing down its process group (which could wait on a
 collective it left open), so the world ends with that rank's error even
 when the others wait in a collective, a captured one included.
@@ -35,12 +38,12 @@ from __future__ import annotations
 import argparse
 import contextlib
 import datetime
-import faulthandler
 import gc
 import importlib
 import importlib.util
 import json
 import os
+import signal
 import socket
 import subprocess
 import sys
@@ -54,6 +57,13 @@ from typing import Dict, List, Optional
 ROOT = Path(__file__).resolve().parents[2]
 _MODULE = "lookaheaddecoding_tpu_torch.parallel.launch"
 TEARDOWN_S = 30.0   # seconds a rank's teardown may take once it is done
+DUMP_GRACE_S = 5.0  # seconds the parent waits for a late rank's stacks
+# A rank's interpreter: the stack dump on SIGUSR1 comes first, then this
+# module as __main__ (the package's import, torch's included, after it)
+_RANK_BOOT = (
+    "import faulthandler, runpy, signal\n"
+    "faulthandler.register(signal.SIGUSR1, all_threads=True)\n"
+    f"runpy.run_module({_MODULE!r}, run_name='__main__', alter_sys=True)\n")
 
 
 class WorldError(RuntimeError):
@@ -97,7 +107,7 @@ def launch(target: str, nproc: int, backend: str = "gloo",
         try:
             for spec, log in zip(specs, logs):
                 procs.append(subprocess.Popen(
-                    [sys.executable, "-m", _MODULE, "--rank-spec", spec],
+                    [sys.executable, "-c", _RANK_BOOT, "--rank-spec", spec],
                     env=env, stdout=log, stderr=subprocess.STDOUT))
             _wait(procs, logs, timeout)
         finally:
@@ -129,13 +139,39 @@ def _wait(procs, logs, timeout: float) -> None:
             return
         if time.monotonic() > deadline:
             running = [r for r, c in enumerate(codes) if c is None]
+            _dump_stacks([procs[r] for r in running],
+                         [logs[r] for r in running])
             parts = [f"the world did not finish within {timeout} s (ranks "
                      f"still running: {running})"]
-            for rank in running:        # each with its stacks (_run_rank)
+            for rank in running:        # each with its stacks
                 logs[rank].seek(0)
                 parts.append(f"rank {rank}:\n{logs[rank].read()[-6000:]}")
             raise WorldError("\n".join(parts))
         time.sleep(0.05)
+
+
+def _dump_stacks(procs, logs) -> None:
+    """Have each running rank print every thread's stack into its log (the
+    ``SIGUSR1`` handler of ``_RANK_BOOT``) and wait, at most
+    ``DUMP_GRACE_S``, until each log holds its dump or the rank is gone."""
+    marks = []
+    for p, log in zip(procs, logs):
+        marks.append(os.fstat(log.fileno()).st_size)
+        with contextlib.suppress(ProcessLookupError):
+            p.send_signal(signal.SIGUSR1)
+    waiting = list(zip(procs, logs, marks))
+    end = time.monotonic() + DUMP_GRACE_S
+    while waiting and time.monotonic() < end:
+        time.sleep(0.05)
+        left = []
+        for p, log, mark in waiting:
+            # a file of its own: the log's offset is the rank's too
+            with open(log.name, "rb") as f:
+                f.seek(mark)
+                dumped = b"most recent call first" in f.read()
+            if p.poll() is None and not dumped:
+                left.append((p, log, mark))
+        waiting = left
 
 
 def _function(target: str):
@@ -157,9 +193,6 @@ def _run_rank(spec: Dict) -> None:
     import torch.distributed as dist
 
     rank, world = spec["rank"], spec["world"]
-    # a rank still running near the time limit prints every thread's
-    # stack into its log, which the parent reports
-    faulthandler.dump_traceback_later(max(spec["timeout"] - 5, 1))
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
                       LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
     if spec["threads"]:

@@ -19,11 +19,20 @@ the port computes in float32 against the JAX package:
 - a call reads the device once after its preparation (``HostReads``);
 - the replays, branches and each kernel's launches a call counts are its
   steps times those of an iteration, beside the prefill's;
+- sampled ``generate_sample`` (top-k, top-p, EOS-ended, on a prefix) and
+  a sampled two-lane ``generate_batch`` loop on the device too, their
+  noise from the state's Philox stream (``ops/philox.py``), and equal the
+  host loop and ``graphs.eager()`` in tokens, steps, pool rows [0, R) and
+  the final draw counters, with one read a call;
+- greedy calls with ``always_fwd_one=False`` (whose window refill draws
+  from the stream), with the ``copy_from`` and ``order_copy_from``
+  seedings, loop on the device, give JAX's tokens and equal eager;
 - a loop that stops at its cap with a lane unfinished raises and is not
-  run again from the host; a step that draws random numbers and a mesh
-  are refused; a failing WHILE node raises and runs no host loop;
-- sampling, streams, sampled batches and ``graphs.eager()`` keep the host
-  loop, by their mode (gloo meshes: ``tests/test_torch_parallel.py``);
+  run again from the host; a step that draws from a ``torch.Generator``
+  and a mesh are refused; a failing WHILE node raises and runs no host
+  loop;
+- streams, a call that asks for the host loop and ``graphs.eager()`` keep
+  the host loop (gloo meshes: ``tests/test_torch_parallel.py``);
 - ``while_node_ref`` runs 0, 1 and n iterations;
 - the host loop takes no step past a capacity stop, whose cache write
   would overwrite committed rows that a ``return_prefix`` carries.
@@ -389,16 +398,21 @@ HOST_LOOP = {
     "asked_for": lambda e: [e._run("greedy", P1, 30, None, 0,
                                    host_loop=True)],
 }
+# the cases of HOST_LOOP that loop on the device: sampling draws from the
+# state's stream, whose counter the kernel reads on the device
+DEVICE_LOOP = ("sample", "sampled_batch")
 
 
 @pytest.mark.parametrize("kind", list(HOST_LOOP))
 def test_sampling_and_streams_keep_the_host_loop(kind):
-    """Sampling (a replay advances the philox offsets on the host), streams
-    (a yield every ``steps_per_yield`` steps, as JAX's), sampled lanes and
-    a greedy call that asks for the host loop (``host_loop=True``, which
+    """Which loop each call takes on an engine whose graphs are captured.
+    Streams (a yield every ``steps_per_yield`` steps, as JAX's) and a
+    greedy call that asks for the host loop (``host_loop=True``, which
     ``chip_smoke.py``'s profiles take) replay their captured step from the
     host loop, reading the device more than once, and launch no device
-    loop; ``graphs.eager()`` steps every call op by op, greedy ones too."""
+    loop. Sampling and sampled lanes, whose noise comes from the state's
+    Philox stream, launch one device loop and read the device once.
+    ``graphs.eager()`` steps every call op by op, greedy ones too."""
     call = HOST_LOOP[kind]
     with faked_capture():
         eng = port_engine()
@@ -410,9 +424,132 @@ def test_sampling_and_streams_keep_the_host_loop(kind):
         with graphs.eager():
             _, eager = counted(lambda: CALLS["generate"][0](eng)
                                + CALLS["batch"][0](eng))
-    assert st["loops"] == 0 and st["replays"] > 0
-    assert len(mode.seen) > 1 and set(mode.seen) == {"fetch"}
+    if kind in DEVICE_LOOP:
+        assert st["loops"] == 1 and st["replays"] > 0
+        assert mode.seen == ["fetch"]
+    else:
+        assert st["loops"] == 0 and st["replays"] > 0
+        assert len(mode.seen) > 1 and set(mode.seen) == {"fetch"}
     assert (eager["loops"], eager["replays"], eager["captured"]) == (0, 0, 0)
+
+
+SC_K = tlt.SamplingConfig(temperature=0.9, top_k=20)
+SC_P = tlt.SamplingConfig(temperature=0.8, top_p=0.9)
+
+
+@functools.lru_cache(maxsize=None)
+def sampled_eos():
+    """A token that the sampled run of P1 (top-k, seed 3) emits at its 6th
+    new position, eagerly on the CPU: an EOS id that ends that run
+    early."""
+    res = port_engine().generate_sample(P1, 30, SC_K, seed=3)
+    return int(res.tokens[len(P1) + 5])
+
+
+# call -> its results on an engine, by the device loop or (host=True) by
+# the host loop
+SAMPLED = {
+    "top_k": lambda e, host: [e._run("sample", P1, 30, None, 3,
+                                     return_prefix=True, sampling=SC_K,
+                                     host_loop=host)],
+    "top_p": lambda e, host: [e._run("sample", P1, 30, None, 4,
+                                     return_prefix=True, sampling=SC_P,
+                                     host_loop=host)],
+    "eos": lambda e, host: [e._run("sample", P1, 40, sampled_eos(), 3,
+                                   return_prefix=True, sampling=SC_K,
+                                   host_loop=host)],
+    "prefix": lambda e, host: [e._run(
+        "sample", P1, 30, None, 5, prefix=e.precompute_prefix(P1[:12]),
+        return_prefix=True, sampling=SC_K, host_loop=host)],
+    "batch": lambda e, host: e._batch([P1, P2], 24, None, 0, [1, 2], None,
+                                      SC_P, [0.7, 1.2], None,
+                                      host_loop=host),
+}
+
+
+def outcome(eng, kind, res):
+    """What a call ended with: each result's tokens and steps, its pool
+    rows [0, R) and clock (the returned prefix's, or a batch lane's) and
+    its final draw counter."""
+    draws = (eng._lane_slots[2].states.draws.tolist() if kind == "batch"
+             else [int(eng._slots[0].state.draws)])
+    return ([r.tokens.tolist() for r in res], [r.steps for r in res],
+            [[x.tolist() for x in lane] for lane in pools(eng, kind, res)],
+            draws)
+
+
+@pytest.mark.parametrize("kind", list(SAMPLED))
+def test_sampling_device_loop_equals_host_loop_and_eager(kind):
+    """A sampling call on the device loop (captured, then replayed) equals
+    the same call by the host loop and by ``graphs.eager()``: tokens,
+    steps, pool rows and the final draw counter, bit for bit (a step after
+    ``finished`` keeps the counter, so the host loop's overshoot changes
+    nothing). It launches one loop, runs a replay a step, and reads the
+    device once; the host loop none and more."""
+    call = SAMPLED[kind]
+    with faked_capture():
+        eng = port_engine()
+        call(eng, False)
+        dev, dev_st = counted(lambda: outcome(eng, kind, call(eng, False)))
+        host, host_st = counted(lambda: outcome(eng, kind, call(eng, True)))
+        with graphs.eager():
+            eager, eager_st = counted(lambda: outcome(eng, kind,
+                                                      call(eng, False)))
+        pc = eng.precompute_prefix(P1[:12])
+        again = call if kind != "prefix" else (lambda e, host: [e._run(
+            "sample", P1, 30, None, 5, prefix=pc, return_prefix=True,
+            sampling=SC_K)])
+        with HostReads() as mode:
+            again(eng, False)
+    assert dev == host == eager
+    assert (dev_st["loops"], host_st["loops"], eager_st["loops"]) == (1, 0, 0)
+    assert dev_st["replays"] == max(dev[1]) and dev_st["captured"] == 0
+    assert eager_st["replays"] == 0
+    assert mode.seen == ["fetch"]
+    assert min(dev[3]) > 0 and all(d == s for d, s in zip(dev[3], dev[1]))
+    if kind == "eos":
+        assert dev[0][0][-1] == sampled_eos() and len(dev[0][0]) < len(P1) + 40
+
+
+@functools.lru_cache(maxsize=None)
+def jax_refill_engine(init):
+    return jlt.LookaheadEngine(
+        jlt.LlamaConfig(**ARCH, dtype=jnp.float32), tree(),
+        jlt.LookaheadConfig(**dict(LOOK, always_fwd_one=False,
+                                   window_init=init)),
+        jlt.EngineConfig(max_seq_len=M, prefill_chunk=C, dtype="float32"))
+
+
+REFILL = {
+    "generate": lambda e: [e.generate(P1, 40, return_prefix=True)],
+    "prefix": lambda e: [e.generate(P1, 30, prefix=e.precompute_prefix(
+        P1[:12]), return_prefix=True)],
+    "batch": lambda e: e.generate_batch([P1, P2], 24),
+}
+
+
+@pytest.mark.parametrize("init", ["copy_from", "order_copy_from"])
+@pytest.mark.parametrize("kind", list(REFILL))
+def test_refilling_greedy_loops_on_the_device(kind, init):
+    """A greedy call with ``always_fwd_one=False``, whose window refill
+    draws random copies of confirmed tokens every step (and, with
+    ``copy_from``, whose seeding draws too), is captured into a device
+    loop: it gives JAX's tokens at float32, launches one loop, and equals
+    ``graphs.eager()`` in tokens, steps, pool rows and draw counters."""
+    call = REFILL[kind]
+    jeng = jax_refill_engine(init)
+    want = ([jeng.generate(p, 24) for p in (P1, P2)] if kind == "batch"
+            else call(jeng))
+    with faked_capture():
+        eng = port_engine(always_fwd_one=False, window_init=init)
+        call(eng)
+        dev, st = counted(lambda: outcome(eng, kind, call(eng)))
+        with graphs.eager():
+            eager, eager_st = counted(lambda: outcome(eng, kind, call(eng)))
+    assert dev[0] == [np.asarray(r.tokens).tolist() for r in want]
+    assert dev == eager
+    assert (st["loops"], eager_st["loops"]) == (1, 0)
+    assert st["replays"] == max(dev[1])
 
 
 @pytest.mark.parametrize("mode", ["greedy", "ar"])

@@ -18,13 +18,19 @@ request's preparation bit-equal to eager, a replay a chunk, no host sync
 up to the first decode replay); the CUDA-graph WHILE node (n, 0 and 1
 iterations, flags set by the body, a forbidden body node refused) and the
 decode loop on the device (greedy, AR, prefix and batch calls bit-equal
-to eager, one loop launch and one read a call, no sync before it).
+to eager, one loop launch and one read a call, no sync before it); the
+Philox kernel of the decode state's random stream bit-equal to its plain
+version, a captured launch reading the current draw counter on each
+replay, and the sampling loop on the device (sampled calls, a sampled
+batch and an ``always_fwd_one=False`` call bit-equal to the host loop and
+eager, draw counters included, one read and no sync before it).
 They skip without a CUDA device. This file imports no
 JAX, so on a machine without JAX it runs without the suite's conftest:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -1634,3 +1640,160 @@ def test_loop_graph_refuses_a_random_step_and_a_mesh_on_the_card():
     with pytest.raises(ValueError, match="one card"):
         graphs.LoopGraph(lambda: None, {"x": x}, finished, cap,
                          mesh=object())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes,n", [(1, 192_140), (4, 192_140), (3, 13),
+                                     (2, 1)])
+def test_philox_kernel_matches_plain_version(lanes, n):
+    """The Philox kernel (``ops/csrc/philox.cu``) gives the plain version's
+    words bit for bit, and its uniforms, for both tags and counters past
+    2**32; 192,140 uniforms a lane is the headline's draw (a verification
+    at G = 20, GS = 6, V = 32000, and the EOS filter's W = 20)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from lookaheaddecoding_tpu_torch.ops import philox
+    rng = np.random.RandomState(lanes + n)
+    key = torch.from_numpy(rng.randint(-2**31, 2**31, size=(lanes, 2))
+                           .astype(np.int32))
+    draws = torch.from_numpy(np.array([0, 1, 2**32 + 5, 77][:lanes]
+                                      + [3] * max(0, lanes - 4), np.int64))
+    for tag in (philox.STEP, philox.WINDOW):
+        want_bits = philox.bits(key, draws, n, tag)
+        want_u = philox.uniforms(key, draws, n, tag)
+        before = philox.counts["kernel"]
+        got_bits = philox.bits(key.cuda(), draws.cuda(), n, tag)
+        got_u = philox.uniforms(key.cuda(), draws.cuda(), n, tag)
+        torch.cuda.synchronize()
+        assert philox.counts["kernel"] == before + 2
+        assert torch.equal(got_bits.cpu(), want_bits), tag
+        assert torch.equal(got_u.cpu(), want_u), tag
+
+
+@pytest.mark.gpu
+def test_captured_philox_launch_reads_the_current_counter():
+    """A launch captured in a CUDA graph reads ``draws`` from device memory:
+    each replay, after the graph's own ``draws += 1``, draws the next
+    counter's numbers, which equal the plain version's at that counter."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from lookaheaddecoding_tpu_torch.ops import philox
+    key = torch.tensor([[11, -3], [5, 0]], dtype=torch.int32, device="cuda")
+    draws = torch.zeros(2, dtype=torch.int64, device="cuda")
+    out = torch.zeros(2, 1000, device="cuda")
+    philox.uniforms(key, draws, 1000)              # build and load first
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out.copy_(philox.uniforms(key, draws, 1000))
+        draws.add_(1)
+    draws.zero_()
+    for i in range(4):
+        graph.replay()
+        torch.cuda.synchronize()
+        want = philox.uniforms(key.cpu(), torch.full((2,), i), 1000)
+        assert torch.equal(out.cpu(), want), i
+    assert draws.tolist() == [4, 4]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("config", ["bf16", "int8_weights"])
+def test_sampling_device_loop_equals_eager_without_a_sync(config,
+                                                          monkeypatch):
+    """``generate_sample`` (top-k, top-p, EOS-ended, on a prefix with
+    ``return_prefix``), a three-lane sampled ``generate_batch`` with
+    per-lane temperatures and a greedy ``always_fwd_one=False`` call on the
+    card launch their decode loop once, draw from the Philox kernel inside
+    it, and equal the host loop and the same call run eagerly, bit for
+    bit: tokens, steps, pool rows [0, R) and clock, and the final draw
+    counters; a step is an iteration; the EOS-ended call runs the steps it
+    needs; and nothing waits for the card before the call's one read."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import lookaheaddecoding_tpu_torch as lt
+    from lookaheaddecoding_tpu_torch.core import graphs
+    from lookaheaddecoding_tpu_torch.ops import philox
+    bits = 8 if config == "int8_weights" else None
+    eng = _graph_engine(bits=bits)
+    refill = lt.LookaheadEngine(
+        eng.mcfg, eng.params, dataclasses.replace(eng.lcfg,
+                                                  always_fwd_one=False),
+        eng.ecfg)
+    rng = np.random.RandomState(2)
+    p = list(rng.randint(0, 256, size=20))
+    q = list(rng.randint(0, 256, size=37))
+    pc = eng.precompute_prefix(q[:14])
+    top_k = lt.SamplingConfig(temperature=0.9, top_k=30)
+    top_p = lt.SamplingConfig(temperature=0.8, top_p=0.9)
+    with graphs.eager():
+        eos = int(eng.generate_sample(p, 48, top_k, seed=3).tokens[len(p) + 6])
+    calls = {
+        "top_k": (eng, lambda h: [eng._run("sample", p, 48, None, 3,
+                                           sampling=top_k, host_loop=h,
+                                           return_prefix=True)]),
+        "top_p": (eng, lambda h: [eng._run("sample", q, 40, None, 4,
+                                           sampling=top_p, host_loop=h,
+                                           return_prefix=True)]),
+        "eos": (eng, lambda h: [eng._run("sample", p, 48, eos, 3,
+                                         sampling=top_k, host_loop=h,
+                                         return_prefix=True)]),
+        "prefix": (eng, lambda h: [eng._run("sample", q, 40, None, 5,
+                                            prefix=pc, sampling=top_k,
+                                            host_loop=h,
+                                            return_prefix=True)]),
+        "batch": (eng, lambda h: eng._batch([p, q, p[:9]], 32, None, 0,
+                                            [6, 7, 8], None, top_p,
+                                            [0.7, 1.0, 1.2], None,
+                                            host_loop=h)),
+        "refill": (refill, lambda h: [refill._run("greedy", p, 48, None, 1,
+                                                  host_loop=h,
+                                                  return_prefix=True)]),
+    }
+
+    def outcome(e, name, res):
+        if name == "batch":
+            st = e._lane_slots[3].states
+            tabs = [st.pool.values[:, :-1], st.pool.age[:, :-1],
+                    st.pool.clock]
+            draws = st.draws
+        else:
+            pool = res[0].prefix.pool
+            tabs = [pool.values[:-1], pool.age[:-1], pool.clock]
+            draws = e._slots[0].state.draws
+        return ([r.tokens.tolist() for r in res], [r.steps for r in res],
+                [t.cpu() for t in tabs], draws.cpu().view(-1).tolist())
+
+    fetches, fetch = [], graphs.fetch
+
+    def first_read(tensor):
+        fetches.append(1)
+        torch.cuda.set_sync_debug_mode("default")   # the call's one read
+        return fetch(tensor)
+    monkeypatch.setattr(graphs, "fetch", first_read)
+    for name, (e, call) in calls.items():
+        with graphs.eager():
+            want = outcome(e, name, call(False))
+        host = outcome(e, name, call(True))
+        call(False)              # the first graphed call captures
+        torch.cuda.synchronize()
+        graphs.reset_stats()
+        launches = philox.counts["kernel"]
+        fetches.clear()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = call(False)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert fetches == [1], name
+        got = outcome(e, name, res)
+        st = graphs.read_stats()
+        for a, b in ((got, want), (got, host)):
+            assert a[0] == b[0] and a[1] == b[1] and a[3] == b[3], name
+            assert all(torch.equal(x, y) for x, y in zip(a[2], b[2])), name
+        assert st["loops"] == 1 and st["captured"] == 0, (name, st)
+        assert st["replays"] == max(got[1]), (name, st)
+        # a launch a step, and one a request for its window seeding
+        assert philox.counts["kernel"] - launches == max(got[1]) + len(res)
+        assert got[3] == got[1], name
+        if name == "eos":
+            assert got[0][0][-1] == eos and len(got[0][0]) < len(p) + 48

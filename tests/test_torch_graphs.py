@@ -199,8 +199,8 @@ def test_a_suspended_stream_keeps_its_slot():
 
 
 def test_continuous_batching_lanes_keep_their_addresses():
-    """The scheduler's lanes (and their generators) stay the objects they
-    were made as across admissions, steps and harvests."""
+    """The scheduler's lanes (their streams' keys and draw counters too)
+    keep their addresses across admissions, steps and harvests."""
     eng = port_engine()
     cb = tlt.ContinuousBatchingEngine(eng, num_lanes=2, steps_per_sync=2)
     reqs = [tlt.Request(prompt=prompt(i, 9 + i), max_new_tokens=16,
@@ -208,13 +208,13 @@ def test_continuous_batching_lanes_keep_their_addresses():
     cb.submit(reqs[0])
     cb.step()
     before = ptrs(cb._lanes)
-    gens = list(cb._lanes.states.rng)
+    streams = ptrs((cb._lanes.states.key, cb._lanes.states.draws))
     for r in reqs[1:]:
         cb.submit(r)
     while cb.step():
         pass
     assert ptrs(cb._lanes) == before
-    assert all(a is b for a, b in zip(cb._lanes.states.rng, gens))
+    assert ptrs((cb._lanes.states.key, cb._lanes.states.draws)) == streams
     for r in cb._results:
         np.testing.assert_array_equal(
             r.tokens, eng.generate(reqs[r.request_id].prompt, 16,
@@ -222,8 +222,8 @@ def test_continuous_batching_lanes_keep_their_addresses():
 
 
 def test_paged_serving_keeps_its_addresses():
-    """PagedServingEngine's pools, lanes, generators and buffers keep their
-    addresses across admission (a prefix, a reseeded lane generator),
+    """PagedServingEngine's pools, lanes, streams and buffers keep their
+    addresses across admission (a prefix, a lane's stream rewritten),
     steps and harvest."""
     eng = port_engine()
     srv = tlt.PagedServingEngine(
@@ -231,7 +231,8 @@ def test_paged_serving_keeps_its_addresses():
         n_pages=8, device="cpu", sampling=SC)
     bufs = (srv._k_pool, srv._v_pool, srv._states, srv._max_new, srv._eos,
             srv._temp, srv._topp)
-    before, gens = ptrs(bufs), list(srv._states.rng)
+    before = ptrs(bufs)
+    streams = ptrs((srv._states.key, srv._states.draws))
     px = srv.precompute_prefix(prompt(0, 40)[:12])
     res = srv.run([tlt.Request(prompt=prompt(0, 40), max_new_tokens=24,
                                prefix=px, seed=5, request_id=0),
@@ -239,7 +240,7 @@ def test_paged_serving_keeps_its_addresses():
                                seed=6, top_p=0.8, request_id=1)])
     srv.release_prefix(px)
     assert ptrs(bufs) == before
-    assert all(a is b for a, b in zip(srv._states.rng, gens))
+    assert ptrs((srv._states.key, srv._states.draws)) == streams
     assert all(r.error is None for r in res)
 
 

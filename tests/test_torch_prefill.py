@@ -79,14 +79,13 @@ def chunks(prompt_len, start0=0):
 
 
 def prepared(eng, p):
-    """Every tensor of the first slot, and its generator's state, after
-    ``_prepare`` of ``p``."""
+    """Every tensor of the first slot (its stream's key and draw counter
+    among them) after ``_prepare`` of ``p``."""
     out_buf, n, fill = eng._host_args(p, N_NEW)
     slot = eng._free_slot()
     with torch.inference_mode():
         eng._prepare(out_buf, n, 0, fill, slot=slot)
-    return ([t.clone() for t in graphs.state_tensors(slot)]
-            + [slot.state.rng.get_state()])
+    return [t.clone() for t in graphs.state_tensors(slot)]
 
 
 def bit_equal(a, b):

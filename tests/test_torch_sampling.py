@@ -22,6 +22,7 @@ from lookaheaddecoding_tpu.ops.sampling import (
 from lookaheaddecoding_tpu_torch.core.pool import pool_lookup
 from lookaheaddecoding_tpu_torch.models import llama as tllama
 from lookaheaddecoding_tpu_torch.ops import sampling as ts
+from lookaheaddecoding_tpu_torch.ops.philox import seed_key
 
 GRID = [(1.0, 0, 1.0), (0.7, 0, 1.0), (1.0, 5, 1.0), (1.0, 0, 0.8),
         (0.9, 7, 0.85)]
@@ -205,18 +206,11 @@ def test_verify_without_candidates_is_jax_categorical():
 def test_sample_token_is_gumbel_max_of_the_warped_logits():
     logits = torch.from_numpy(
         np.random.RandomState(8).randn(3, 30).astype(np.float32) * 2)
-    seeds = (1, 2, 3)
-
-    def gens():
-        out = []
-        for s in seeds:
-            g = torch.Generator()
-            g.manual_seed(s)
-            out.append(g)
-        return out
-    got = ts.sample_token(logits, 0.8, 5, 0.9, gens())
+    key = torch.tensor([seed_key(s) for s in (1, 2, 3)], dtype=torch.int32)
+    draws = torch.tensor([0, 4, 9])
+    got = ts.sample_token(logits, 0.8, 5, 0.9, key, draws)
     warped = ts.warp_logits(logits, 0.8, 5, 0.9)
-    want = (warped + ts.gumbel(ts.lane_uniforms(gens(), 30, "cpu"))).argmax(-1)
+    want = (warped + ts.gumbel(ts.lane_uniforms(key, draws, 30))).argmax(-1)
     assert torch.equal(got, want.int())
     assert torch.isfinite(warped.gather(1, got.long()[:, None])).all()
 
@@ -228,9 +222,9 @@ def test_sample_token_is_gumbel_max_of_the_warped_logits():
 def test_mid_ngram_conditional_distribution_preserved():
     """tests/test_sampling.py's mid-n-gram check through the port's
     rejection_sample_verify: 20,000 lanes of one batched call, each with
-    its own generator. The first-token marginal within TV 0.02, and the
-    token after an accepted draft tau following q(. | tau) within TV
-    0.08."""
+    its own stream (key i, the first draw). The first-token marginal
+    within TV 0.02, and the token after an accepted draft tau following
+    q(. | tau) within TV 0.08."""
     V, N = 8, 20_000
     rng = np.random.RandomState(0)
 
@@ -252,15 +246,12 @@ def test_mid_ngram_conditional_distribution_preserved():
     gp[2, 0] = q_after3
     gp[:, 1] = 1.0 / V
     tokens = torch.tensor([[2, 5], [2, 6], [3, 1]], dtype=torch.int32)
-    gens = []
-    for i in range(N):
-        g = torch.Generator()
-        g.manual_seed(i)
-        gens.append(g)
+    key = torch.tensor([seed_key(i) for i in range(N)], dtype=torch.int32)
     res = ts.rejection_sample_verify(
         torch.tensor(probs_next, dtype=torch.float32).expand(N, V),
         torch.tensor(gp, dtype=torch.float32).expand(N, 3, 2, V),
-        tokens.expand(N, 3, 2), torch.ones(N, 3, dtype=torch.bool), gens)
+        tokens.expand(N, 3, 2), torch.ones(N, 3, dtype=torch.bool), key,
+        torch.zeros(N, dtype=torch.int64))
     hits, max_hit = res.hits.numpy(), res.max_hit.numpy()
     emp0 = np.bincount(hits[:, 0], minlength=V) / N
     assert 0.5 * np.abs(emp0 - probs_next).sum() < 0.02
