@@ -233,16 +233,22 @@ target). It imports no JAX. Phases, each printed as it runs:
    step, a Philox launch a step, one read and no sync before it; each
    prints the call's wall over its steps three ways and the device ms an
    iteration beside the host loop's ms a step;
-14. the mesh step captured: a world of one rank over NCCL
-   (``parallel/launch.py --nproc 1 --backend nccl``; the card takes one
-   NCCL rank) builds the headline model and runs an engine on
-   ``make_mesh(tp=1)`` (an NCCL process group, no collective) beside one
-   without a mesh: ``generate`` and ``generate_baseline`` eagerly and
-   graphed on the mesh engine must give the no-mesh engine's and phase
-   4's tokens, steps and (greedy) pool rows, and the graphed calls must
-   capture and replay (``graphs.stats``), their prefill chunk too.
-   Meshes of more than one NCCL rank need a card a rank:
-   ``scripts/torch_parallel_nccl.py`` on four.
+14. the mesh step captured and the decode loop on a mesh: a world of one
+   rank over NCCL (``parallel/launch.py --nproc 1 --backend nccl``; the
+   card takes one NCCL rank) builds the headline model and runs an engine
+   on ``make_mesh(tp=1)`` (an NCCL process group, no collective) beside
+   one without a mesh: ``generate``, ``generate_baseline``,
+   ``generate_sample`` at T* and a two-lane ``generate_batch`` eagerly and
+   graphed on the mesh engine must give the no-mesh engine's (and, greedy,
+   phase 4's) tokens, steps and (greedy) pool rows; the graphed calls
+   capture, replay their prefill chunks and run their decode loop on the
+   device (``graphs.stats``: one loop, an iteration a step), with one read
+   back and no host sync before it. Then one WHILE node whose body calls
+   ``collectives.all_reduce``, ``all_gather`` and ``broadcast`` on the
+   world's NCCL group (ProcessGroupNCCL inside a conditional body) runs
+   its iterations twice with the plain version's result. Meshes of more
+   than one NCCL rank need a card a rank: ``scripts/torch_parallel_nccl.py``
+   on four.
 
 Each phase's seconds are printed as ``[seconds]`` lines.
 
@@ -3036,14 +3042,79 @@ def pool_hash(pool) -> str:
     return h.hexdigest()
 
 
-def nccl_one_rank(device, one_process):
+# phase 14's WHILE node over collectives of the one-rank world group:
+# iterations of a launch (the warm step, a real one, comes before the first)
+COLLECTIVE_LOOP_ITERS = 12
+
+
+def collective_loop(device):
+    """One ``graphs.LoopGraph`` whose body calls ``collectives.all_reduce``,
+    ``all_gather`` and ``broadcast`` on the world's NCCL group (a group of
+    one rank, not None: ProcessGroupNCCL runs each collective inside the
+    WHILE body) and adds their results into an accumulator, which sets the
+    flag after COLLECTIVE_LOOP_ITERS iterations. Launched twice from a
+    fresh state; each launch's iterations, its accumulator's largest
+    difference from the plain version (the same loop on the host, where
+    each collective of one rank returns its input) and the collectives the
+    loop counted."""
+    import torch
+    import torch.distributed as dist
+    from lookaheaddecoding_tpu_torch.core import graphs
+    from lookaheaddecoding_tpu_torch.parallel import collectives
+
+    group, n = dist.group.WORLD, COLLECTIVE_LOOP_ITERS
+    x = torch.zeros(64, dtype=torch.float32, device=device)
+    acc = torch.zeros_like(x)
+    count = torch.zeros(1, dtype=torch.int32, device=device)
+    finished = torch.zeros(1, dtype=torch.bool, device=device)
+    cap = torch.tensor([4 * n], dtype=torch.int32, device=device)
+
+    def body():
+        acc.add_(collectives.all_reduce(x, group)
+                 + collectives.all_gather(x, group)
+                 + 2 * collectives.broadcast(x, 0, group))
+        x.add_(1)
+        count.add_(1)
+        finished.copy_(count >= n)
+
+    def reset():
+        x.copy_(torch.arange(64, dtype=torch.float32, device=device))
+        acc.zero_()
+        count.zero_()
+        finished.fill_(False)
+    want = torch.zeros(64, dtype=torch.float32)
+    for i in range(n):                  # the plain version
+        want += 4 * (torch.arange(64, dtype=torch.float32) + i)
+    loop = graphs.LoopGraph(body, {"x": x, "acc": acc, "count": count},
+                            finished, cap, body_pool=torch.cuda.MemPool())
+    out = []
+    for _ in range(2):
+        reset()
+        before = dict(collectives.counts)
+        loop.run()
+        torch.cuda.synchronize()
+        iters = int(loop.iters)
+        loop.account(iters)
+        # the first launch's warm step ran one iteration's body eagerly
+        out.append(dict(iters=iters, steps=int(count),
+                        err=float((acc.cpu() - want).abs().max()),
+                        collectives={k: collectives.counts[k] - before[k]
+                                     for k in before}))
+    return out
+
+
+def nccl_one_rank(device, one_process, t_star=None):
     """Phase 14 on its one rank: the headline engine on ``make_mesh(tp=1)``
     (the world's NCCL group; no axis has a group, so no collective runs)
-    and one without a mesh, ``generate`` and ``generate_baseline`` of
-    PAR_NEW tokens each way on the mesh engine (eager, graphed) and
-    graphed on the other. Returns each run's tokens, steps, pool hash
-    (greedy) and ``graphs.stats`` of the call and its warm-up, and whether
-    the graphed greedy tokens are ``one_process``'s (when given)."""
+    and one without a mesh: ``generate``, ``generate_baseline``,
+    ``generate_sample`` at ``t_star`` (T*; computed here when None) and a
+    two-lane ``generate_batch``, each way on the mesh engine (eager,
+    graphed: on the device loop) and graphed on the other, then the
+    graphed mesh call once more with its reads counted and no host sync
+    allowed before the first (``one_read``); and :func:`collective_loop`.
+    Returns each run's tokens, steps, pool hash (greedy) and
+    ``graphs.stats`` of the call and its warm-up, and whether the graphed
+    greedy tokens are ``one_process``'s (when given)."""
     import torch
     import torch.distributed as dist
     import lookaheaddecoding_tpu_torch as lt
@@ -3051,84 +3122,133 @@ def nccl_one_rank(device, one_process):
     from lookaheaddecoding_tpu_torch.parallel import make_mesh
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    mcfg, params, prompt, _ = synthetic.build_headline(device)
+    mcfg, params, prompt, nxt = synthetic.build_headline(device)
     plain = build_engine(mcfg, params)
     engines = {"mesh": lt.LookaheadEngine(mcfg, params, plain.lcfg,
                                           plain.ecfg,
                                           mesh=make_mesh(tp=1,
                                                          devices=device)),
                "no_mesh": plain}
+    if t_star is None:
+        t_star = cycle_temperature(plain, prompt)[0]
+    sc = lt.SamplingConfig(temperature=t_star, top_k=TOP_K)
+    second = make_prompt(nxt, start=5, n=PROMPT_LEN // 2)
     out = {"backend": dist.get_backend(), "graphed_engine": {
         k: e._graphed for k, e in engines.items()}}
     for name, which in (("mesh", "eager"), ("mesh", "graphed"),
                         ("no_mesh", "graphed")):
         eng = engines[name]
-        for path, gen in (("lookahead", lambda n: eng.generate(
-                prompt, n, return_prefix=True)),
-                ("ar_baseline", lambda n: eng.generate_baseline(prompt, n))):
+        paths = {"lookahead": lambda n: [eng.generate(
+                     prompt, n, return_prefix=True)],
+                 "ar_baseline": lambda n: [eng.generate_baseline(prompt, n)],
+                 "sample": lambda n: [eng.generate_sample(prompt, n, sc,
+                                                          seed=0)],
+                 "batch": lambda n: eng.generate_batch(
+                     [prompt, second], min(n, PAR_BATCH_NEW))}
+        for path, gen in paths.items():
             with _mode(which):
                 graphs.reset_stats()
                 gen(PAR_WARM)
                 warm = graphs.read_stats()
                 graphs.reset_stats()
-                r = gen(PAR_NEW)
+                res = gen(PAR_NEW)
                 torch.cuda.synchronize()
                 got = graphs.read_stats()
-            rec = dict(tokens=r.tokens.tolist(), steps=r.steps,
-                       ms_step=1e3 * r.wall_time_s / r.steps, warm=warm,
-                       call=got)
+            rec = dict(tokens=[r.tokens.tolist() for r in res],
+                       steps=[r.steps for r in res],
+                       ms_step=1e3 * res[0].wall_time_s / max(
+                           r.steps for r in res), warm=warm, call=got)
             if path == "lookahead":
-                rec["pool"] = pool_hash(r.prefix.pool)
+                rec["pool"] = pool_hash(res[0].prefix.pool)
+            if (name, which) == ("mesh", "graphed"):
+                again, rec["reads"] = one_read(lambda: gen(PAR_NEW))
+                rec["again_tokens"] = [r.tokens.tolist() for r in again]
             out[f"{name} {which} {path}"] = rec
     if one_process is not None:
         out["one_process"] = one_process[:len(prompt) + PAR_NEW] == \
-            out["mesh graphed lookahead"]["tokens"]
+            out["mesh graphed lookahead"]["tokens"][0]
+    out["collective_loop"] = collective_loop(device)
+    out["t_star"] = t_star
     return out
 
 
-def nccl_phase(card, tokens=None):
+PHASE14_PATHS = ("lookahead", "ar_baseline", "sample", "batch")
+
+
+def nccl_phase(card, tokens=None, t_star=None):
     """Phase 14: ``nccl_one_rank`` in a one-rank NCCL world. The mesh
-    engine captures and replays; its graphed and eager runs and the no-mesh
-    engine's give the same tokens, steps and pool rows, and phase 4's
-    tokens (``tokens``, when given)."""
+    engine captures its steps and runs every decode loop on the device: its
+    graphed and eager runs and the no-mesh engine's give the same tokens,
+    steps and pool rows, and phase 4's tokens (``tokens``, when given); a
+    graphed call launches one loop whose iterations are its steps and
+    reads the card once, with no host sync before. The WHILE node over
+    the world group's collectives runs its iterations with the plain
+    version's result on each launch."""
     from lookaheaddecoding_tpu_torch.parallel.launch import launch
 
     one = None if tokens is None else [int(t) for t in tokens["bf16"]]
     r, = launch(f"{os.path.abspath(__file__)}:nccl_one_rank", 1, "nccl",
-                "cuda", dict(one_process=one), timeout=PAR_TIMEOUT_S)
+                "cuda", dict(one_process=one, t_star=t_star),
+                timeout=PAR_TIMEOUT_S)
     assert r["backend"] == "nccl", r["backend"]
     assert r["graphed_engine"] == {"mesh": True, "no_mesh": True}, r
-    for path in ("lookahead", "ar_baseline"):
+    for path in PHASE14_PATHS:
         eager, graphed, plain = (r[f"{k} {path}"] for k in (
             "mesh eager", "mesh graphed", "no_mesh graphed"))
         for key in ("tokens", "steps") + (("pool",) if path == "lookahead"
                                           else ()):
             assert graphed[key] == eager[key] == plain[key], (path, key)
+        steps = max(graphed["steps"])
         assert eager["warm"]["captured"] == eager["call"]["captured"] == 0
-        assert eager["call"]["replays"] == 0, (path, eager)
+        assert eager["call"]["replays"] == eager["call"]["loops"] == 0, (
+            path, eager)
         assert graphed["warm"]["captured"] > 0, (path, graphed)
         assert graphed["call"]["captured"] == 0, (path, graphed)
-        assert graphed["call"]["replays"] == graphed["steps"], (path,
-                                                                graphed)
-        # the prefill's one chunk a replay of the slot's captured chunk
+        # the device loop: one launch, an iteration a step
+        assert graphed["call"]["loops"] == plain["call"]["loops"] == 1, (
+            path, graphed, plain)
+        assert graphed["call"]["replays"] == steps, (path, graphed)
+        assert graphed["reads"] == 1, (path, graphed["reads"])
+        assert graphed["again_tokens"] == graphed["tokens"], path
+        # each prompt's chunks replays of the slot's captured chunk
+        lens = (PROMPT_LEN, PROMPT_LEN // 2) if path == "batch" else (
+            PROMPT_LEN,)
         assert eager["call"]["prefills"] == 0, (path, eager)
-        assert graphed["call"]["prefills"] == -(-(PROMPT_LEN - 1)
-                                                // PREFILL_CHUNK), graphed
+        assert graphed["call"]["prefills"] == sum(
+            -(-(n - 1) // PREFILL_CHUNK) for n in lens), (path, graphed)
         assert graphed["call"]["branches"] == eager["call"]["branches"]
         assert graphed["call"]["taken"] == eager["call"]["taken"]
         log(f"  [{card}] mesh engine (tp=1, one NCCL rank) {path}: "
             f"{graphed['steps']} steps; graphs captured at the warm-up "
-            f"{graphed['warm']['captured']}, replays "
-            f"{graphed['call']['replays']} and prefill chunks replayed "
-            f"{graphed['call']['prefills']}; tokens, steps"
-            f"{', pool rows' if path == 'lookahead' else ''} and branches "
-            f"({graphed['call']['branches']}, chains taken "
+            f"{graphed['warm']['captured']}; "
+            f"{loop_line(graphed['call'], steps, graphed['reads'])}; "
+            f"prefill chunks replayed {graphed['call']['prefills']}; "
+            f"tokens, steps{', pool rows' if path == 'lookahead' else ''} "
+            f"and branches ({graphed['call']['branches']}, chains taken "
             f"{graphed['call']['taken']}) equal to its eager run and the "
-            f"no-mesh engine's; ms a step graphed {graphed['ms_step']:.3f},"
-            f" eager {eager['ms_step']:.3f}, no mesh {plain['ms_step']:.3f}")
+            f"no-mesh engine's; the call's wall over its steps, ms: "
+            f"graphed {graphed['ms_step']:.3f}, eager "
+            f"{eager['ms_step']:.3f}, no mesh {plain['ms_step']:.3f}")
     if one is not None:
         assert r["one_process"], \
             "the mesh engine's tokens differ from phase 4's"
+    first, second = r["collective_loop"]
+    n = COLLECTIVE_LOOP_ITERS
+    # the first launch follows the warm step (a real iteration)
+    assert (first["iters"], first["steps"]) == (n - 1, n), first
+    assert (second["iters"], second["steps"]) == (n, n), second
+    kinds = ("all_reduce", "all_gather", "broadcast")
+    for got, warm in ((first, 1), (second, 0)):
+        assert got["err"] == 0.0, got
+        # a call an iteration, and the warm step's
+        assert all(got["collectives"][k] == got["iters"] + warm
+                   for k in kinds), got
+    log(f"  [{card}] WHILE node over the world group's NCCL collectives "
+        f"(all_reduce, all_gather, broadcast on one rank): "
+        f"{first['iters']} iterations after the warm step, then "
+        f"{second['iters']}, each launch's result == the plain version's "
+        f"(max abs err {max(first['err'], second['err'])}); collectives "
+        f"counted {second['collectives']}")
 
 
 # ---------------------------------------------------------------------------
@@ -4396,9 +4516,11 @@ def main() -> int:
     log(f"[mesh step captured] ({card}); a one-rank NCCL world "
         f"(parallel/launch.py --nproc 1 --backend nccl), the headline "
         f"model on make_mesh(tp=1) and without a mesh, {PAR_NEW} new "
-        f"tokens, eager and graphed")
+        f"tokens ({PAR_BATCH_NEW} a batch lane), eager and graphed (the "
+        f"decode loop on the device); a WHILE node over the world group's "
+        f"collectives")
     torch.cuda.empty_cache()
-    nccl_phase(card, tokens)
+    nccl_phase(card, tokens, samp_info["t_star"])
     lap("mesh step captured")
 
     # phase 8's paths that step through the paged kernel (generate_batch

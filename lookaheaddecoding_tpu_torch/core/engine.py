@@ -36,18 +36,20 @@ start from device counters, replays of one captured chunk a slot. Every
 step runs eagerly on the CPU, on a mesh with a gloo group and inside
 ``graphs.eager()``.
 
-The decode loop is JAX's ``lax.while_loop`` on ``~finished``: on one card
-(no mesh, outside ``graphs.eager()``) ``generate``, ``generate_sample``,
-``generate_baseline`` and ``generate_batch``, greedy or sampled, launch
-their whole loop once, a ``graphs.LoopGraph`` (a CUDA-graph WHILE node
-around the captured step), and read the device once, in the call's final
-transfer, which also brings back the loop's iteration count. A sampling
-step draws from the request's Philox stream in the state
-(``ops/philox.py``), whose kernel reads the draw counter on the device, so
-every iteration draws fresh numbers. The rest loops on the host
-(``step.run_loop``), replaying the captured step: ``generate_stream``
-(which yields every ``steps_per_yield`` steps, as JAX's does), meshes,
-the CPU and ``graphs.eager()``.
+The decode loop is JAX's ``lax.while_loop`` on ``~finished``: on the card
+outside ``graphs.eager()``, on one card or on a mesh whose groups are all
+NCCL (each rank its own loop, the collectives inside it),
+``generate``, ``generate_sample``, ``generate_baseline`` and
+``generate_batch``, greedy or sampled, launch their whole loop once, a
+``graphs.LoopGraph`` (a CUDA-graph WHILE node around the captured step),
+and read the device once, in the call's final transfer, which also brings
+back the loop's iteration count. A sampling step draws from the request's
+Philox stream in the state (``ops/philox.py``), whose kernel reads the
+draw counter on the device, so every iteration draws fresh numbers. The
+rest loops on the host (``step.run_loop``), replaying the captured step
+where it captures: ``generate_stream`` (which yields every
+``steps_per_yield`` steps, as JAX's does), meshes with a gloo group, the
+CPU and ``graphs.eager()``.
 """
 
 from __future__ import annotations
@@ -547,12 +549,14 @@ class LookaheadEngine:
 
     def _loops(self, mode: str) -> bool:
         """Whether a ``mode`` call ("greedy", "sample" or "ar") runs its
-        decode loop on the device: captured (on the card, outside
-        ``graphs.eager()``) and on one card. Every mode qualifies: the
-        random draws of a sampling step and of the ``always_fwd_one=False``
-        refill read their counter on the device."""
+        decode loop on the device: wherever its step is captured (on the
+        card, on one card or a mesh whose groups are all NCCL, outside
+        ``graphs.eager()``). Every mode qualifies: the random draws of a
+        sampling step and of the ``always_fwd_one=False`` refill read
+        their counter on the device, and on a mesh every rank's loop runs
+        the same iterations (``graphs.LoopGraph``)."""
         return (mode in ("greedy", "sample", "ar") and self._graphed
-                and self.mesh is None and not graphs.eager_depth())
+                and not graphs.eager_depth())
 
     def _loop(self, cache: dict, key, step, state, finished, cap):
         """The :class:`graphs.LoopGraph` of ``key`` in ``cache``; its body
@@ -783,8 +787,9 @@ class LookaheadEngine:
         ``seed`` is the key of the run's Philox stream (``ops/philox.py``:
         the window seeding and every draw), which gives the same numbers on
         the CPU and on the card; the tokens differ from the JAX package's
-        (threefry) for the same seed. On one card the whole loop runs on
-        the device, one launch and one read a call."""
+        (threefry) for the same seed. On one card, and on a mesh whose
+        groups are all NCCL, the whole loop runs on the device, one launch
+        and one read a call."""
         return self._run("sample", prompt_ids, max_new_tokens, eos_token_id,
                          seed, prefix, return_prefix,
                          sampling or SamplingConfig())

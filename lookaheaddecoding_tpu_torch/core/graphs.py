@@ -60,7 +60,9 @@ node's body, whose allocations go to a ``torch.cuda.MemPool`` of the
 engine (PyTorch's allocator routes a capture's allocations to its graph's
 pool only on the capturing stream, and the body captures on a stream of
 its own); the step's IF nodes nest in the body, captured on a second
-body stream.
+body stream. On a mesh that captures, each rank captures its own loop,
+the step's collectives inside the body (the counterpart of JAX's
+``while_loop`` under ``jit`` over the mesh), and launches it once a call.
 
 :func:`cond` is the counterpart of ``lax.cond``: inside a capture it records
 its body as a CUDA-graph IF node (``ops/graph_cond.py``), which the device
@@ -261,6 +263,7 @@ class StepGraph:
             n -= 1
         for _ in range(n):
             self.graph.replay()
+        collectives.graph_launched()
         self._count(n)
 
     def _count(self, n: int) -> None:
@@ -366,18 +369,51 @@ class LoopGraph(StepGraph):
     capture raises instead of looping on the host: on a step that moves a
     ``torch.Generator`` of its state (a replay advances a generator's
     philox offsets on the host, so every iteration would draw the same
-    numbers: any draw that bypasses the state's stream), on a ``mesh``,
-    and where the WHILE node or a node of its body cannot be made."""
+    numbers: any draw that bypasses the state's stream), and where the
+    WHILE node or a node of its body cannot be made (NCCL's graph mixing
+    on, which puts event nodes into a captured collective, for one:
+    ``parallel/collectives.py``).
+
+    On a ``mesh`` (one for which :func:`capturable` holds: its groups are
+    all NCCL; any other raises) each rank captures and launches its own
+    loop, the step's collectives inside the body, and no rank reads or
+    sends its condition to another. Every rank must therefore run the same
+    iterations, or one that stopped early would leave the others blocked
+    in a collective. JAX has that for free (the ``while_loop``'s predicate
+    under ``jit`` over a mesh is a replicated value); here it holds by
+    construction, because ``finished``, like all of the state, is written
+    from values that are bit-equal on every rank:
+
+    - tp: the LM head's vocabulary shards are all-gathered (a copy), so
+      every rank holds the same logits; the hidden rows before it come
+      from NCCL all-reduces, whose result is the same on every rank
+      (NCCL's algorithms reduce each element once and pass the sum on),
+      and from the same kernels on the same inputs;
+    - la: each rank's share of the composite rows, and their K/V, are
+      all-gathered before the logits and the cache write, so every rank
+      holds all rows;
+    - pp: the last stage broadcasts its hidden rows to every stage, which
+      applies the replicated final norm and LM head;
+    - sampling: the noise comes from the state's Philox stream, whose key
+      and counter are state too.
+
+    The tokens, EOS ids, budgets and ``kv_len`` that ``finished`` is
+    computed from are thus the same on every rank, and so is the
+    condition; the checks compare the iterations each rank ran (the
+    ``replays`` a call counts). The collectives in the body need NCCL's
+    graph mixing off, which ``make_mesh`` sets; how the port keeps the
+    two conditions NCCL then sets is in ``parallel/collectives.py``."""
 
     if_depth = 1
 
     def __init__(self, step: Callable[[], object], state,
                  finished: torch.Tensor, cap: torch.Tensor, pool=None,
                  body_pool=None, mesh=None):
-        if mesh is not None:
+        if mesh is not None and not capturable(finished.device, mesh):
             raise ValueError(
-                "the decode loop runs on the device on one card only: a "
-                "mesh steps its captured step from the host")
+                "the decode loop runs on the device on a mesh only when the "
+                "mesh captures (every process group NCCL, on the card): "
+                "this mesh steps from the host")
         super().__init__(step, state, pool)
         self.finished, self.cap = finished, cap
         self.body_pool = body_pool
@@ -390,6 +426,7 @@ class LoopGraph(StepGraph):
         if self.graph is None:
             self._capture()
         self.graph.replay()
+        collectives.graph_launched()
         stats["loops"] += 1
 
     def account(self, iters: int) -> None:
@@ -460,7 +497,8 @@ def loop_runner(cache: dict, key, step: Callable[[], object], state,
     keyed with ``ops.quant.INT4_PIPELINE`` as :func:`runner`): the whole
     decode loop of ``step`` over ``state`` while any of ``finished`` is
     clear, at most ``cap`` iterations. Only on the card outside
-    :func:`eager`, and never on a mesh: the caller chooses it by mode."""
+    :func:`eager`, on one card or a ``mesh`` that captures: the caller
+    chooses it by mode."""
     key = ("loop", key, quant.INT4_PIPELINE)
     got = cache.get(key)
     if got is None:

@@ -337,11 +337,12 @@ def run_loop(run: Callable[[int], None], state: DecodeState, max_new: int,
     the state's at the start), then reads ``finished``, ``n_confirmed``
     and ``kv_len`` in one host transfer, so the last batch overshoots only
     when EOS ends the run; the overshooting steps change nothing that is
-    read. On one card a greedy, sampling or AR call loops on the device
-    instead (``graphs.LoopGraph``, JAX's ``lax.while_loop``), with no
-    overshoot and no read until the call's last; this loop serves streams,
-    the paged engine and the scheduler's lanes, meshes, the CPU and
-    ``graphs.eager()``."""
+    read. Where its step is captured (one card, or a mesh whose groups are
+    all NCCL) a greedy, sampling or AR call loops on the device instead
+    (``graphs.LoopGraph``, JAX's ``lax.while_loop``), with no overshoot
+    and no read until the call's last; this loop serves streams, the paged
+    engine and the scheduler's lanes, meshes with a gloo group, the CPU
+    and ``graphs.eager()``."""
     generated = 0
     while True:
         run(host_batch(max_new - generated, per_step, kv_len, last_start))

@@ -26,6 +26,36 @@ calls that moved data, by kind; a capture records a step's calls, takes
 them back and adds them again on each replay, as it does the kernels'
 launch counts.
 
+NCCL inside CUDA graphs. With NCCL's default graph mixing
+(``NCCL_GRAPH_MIXING_SUPPORT=1``) every collective captured into a graph
+joins a serial event of its communicator, which puts an event-wait and an
+event-record node into the graph; a conditional body (the decode loop's
+WHILE node, ``core/graphs.py``'s ``LoopGraph``) cannot hold either (on
+four H100s with NCCL 2.28 the body held an event-wait node, and
+``ops/graph_cond``'s check of the body raised, naming it). So the port
+turns mixing off (``GRAPH_MIXING``): ``parallel.make_mesh`` sets it before
+it makes its groups, whatever started the ranks, and
+``parallel/launch.py`` before the process group. NCCL reads it once a
+process, when its first communicator is made or used (PyTorch makes them
+at a group's first collective), so a program that runs a collective
+before either sets it itself; if it does not, that check raises. With
+mixing off NCCL is correct only while a communicator never has
+
+1. outstanding graph launches in parallel (on streams with no dependency
+   that orders them), nor
+2. an outstanding graph launch followed by a launch outside any graph,
+   whatever the dependencies between their streams.
+
+The port keeps 1 because a rank launches every graph on the current
+stream of its one thread (``StepGraph.run``, ``LoopGraph.run``), so each
+ends before the next starts. It keeps 2 here: each graph launch calls
+:func:`graph_launched`, and the next collective launched outside a capture
+first waits for the card (``torch.cuda.synchronize``), once. Such a
+collective belongs to a warm step before a capture (the prefill chunk's
+graph may still run when the decode loop's warm step starts) or to an
+eager step after graphed ones; a replay runs no Python, so a graphed call
+after its capture makes no such wait.
+
 Megatron's f/g pair for training. The loss is computed whole on every tp
 rank (replicated), so the gradient that reaches a replicated activation is
 the same on every rank: ``copy_to_region`` (identity forward, all-reduce
@@ -50,6 +80,30 @@ GLOO_CUDA_OPS = frozenset({"all_reduce", "broadcast", "all_gather"})
 
 counts = {"all_reduce": 0, "all_gather": 0, "send": 0, "recv": 0,
           "broadcast": 0}
+
+# NCCL's graph mixing off (module docstring: NCCL inside CUDA graphs)
+GRAPH_MIXING = ("NCCL_GRAPH_MIXING_SUPPORT", "0")
+
+# a CUDA graph was launched since the last wait for the card (graph_launched)
+_graph_pending = False
+
+
+def graph_launched() -> None:
+    """Note a CUDA graph's launch: the next collective launched outside a
+    capture waits for the card first (NCCL's condition 2, module
+    docstring)."""
+    global _graph_pending
+    _graph_pending = True
+
+
+def _after_graphs(x: torch.Tensor) -> None:
+    """Before a collective on ``x``: outside a capture, wait for the card
+    if a graph was launched since the last wait."""
+    global _graph_pending
+    if _graph_pending and x.is_cuda and \
+            not torch.cuda.is_current_stream_capturing():
+        torch.cuda.synchronize(x.device)
+        _graph_pending = False
 
 
 def staged(group, x: torch.Tensor, op: str) -> bool:
@@ -78,6 +132,7 @@ def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     """The sum of ``x`` over the group's ranks, a new tensor."""
     if group is None:
         return x
+    _after_graphs(x)
     out = x.clone()
     dist.all_reduce(out, group=group)
     counts["all_reduce"] += 1
@@ -92,6 +147,7 @@ def all_gather(x: torch.Tensor, group, dim: int = 0,
     every part travels padded to the longest, into one buffer."""
     if group is None:
         return x
+    _after_graphs(x)
     n = dist.get_world_size(group)
     sizes = sizes or [x.shape[dim]] * n
     part = x.movedim(dim, 0)
@@ -114,6 +170,7 @@ def all_gather(x: torch.Tensor, group, dim: int = 0,
 
 def send(x: torch.Tensor, dst: int, group) -> None:
     """Send ``x`` to global rank ``dst`` of ``group``."""
+    _after_graphs(x)
     if staged(group, x, "send"):
         x = x.cpu()
     dist.send(_bits(x.contiguous()), dst, group=group)
@@ -122,6 +179,7 @@ def send(x: torch.Tensor, dst: int, group) -> None:
 
 def recv(like: torch.Tensor, src: int, group) -> torch.Tensor:
     """A tensor shaped like ``like`` received from global rank ``src``."""
+    _after_graphs(like)
     buf = torch.empty_like(like)
     host = buf.cpu() if staged(group, buf, "recv") else buf
     dist.recv(_bits(host), src, group=group)
@@ -134,6 +192,7 @@ def broadcast(x: torch.Tensor, src: int, group) -> torch.Tensor:
     the shape elsewhere)."""
     if group is None:
         return x
+    _after_graphs(x)
     out = x.contiguous().clone()
     dist.broadcast(_bits(out), src, group=group)
     counts["broadcast"] += 1

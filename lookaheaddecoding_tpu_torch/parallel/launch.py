@@ -31,6 +31,11 @@ collective it left open), so the world ends with that rank's error even
 when the others wait in a collective, a captured one included.
 ``torchrun`` starts the same ranks (the functions read their rank from
 the process group), but returns nothing to its caller.
+
+Each rank starts with NCCL's graph mixing off (``GRAPH_MIXING``, which
+``parallel/collectives.py`` explains), set before the process group
+exists, so that a rank's collectives before its mesh are made with it too
+(``make_mesh`` sets it again for ranks that ``torchrun`` started).
 """
 
 from __future__ import annotations
@@ -191,9 +196,10 @@ def _run_rank(spec: Dict) -> None:
     """One rank: the environment, the process group, the function."""
     import torch
     import torch.distributed as dist
+    from .collectives import GRAPH_MIXING
 
     rank, world = spec["rank"], spec["world"]
-    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+    os.environ.update([GRAPH_MIXING], RANK=str(rank), WORLD_SIZE=str(world),
                       LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
     if spec["threads"]:
         torch.set_num_threads(spec["threads"])

@@ -51,6 +51,8 @@ from typing import ClassVar, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .collectives import GRAPH_MIXING
+
 AXES = ("dp", "pp", "la", "tp")
 
 _LAYER_SPECS = {
@@ -159,6 +161,10 @@ def _build(ranks: np.ndarray, devices) -> Mesh:
     order; a rank outside the grid keeps none."""
     dist = _world()
 
+    # before the groups' first collective: NCCL's graph mixing off, so a
+    # captured collective can sit in a decode loop's WHILE body
+    # (parallel/collectives.py)
+    os.environ.update([GRAPH_MIXING])
     me = dist.get_rank()
     groups = {}
     for ai, axis in enumerate(AXES):

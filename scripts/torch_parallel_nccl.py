@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""The mesh step captured over NCCL, one rank a card, on four cards.
+"""The mesh step and the decode loop captured over NCCL, one rank a card,
+on four cards.
 
     python3 scripts/torch_parallel_nccl.py [--timeout SECONDS]
 
 The counterpart of JAX's ``jit`` over a mesh: on a mesh whose process
 groups are NCCL every rank replays its decode step and its train step as
-one CUDA graph, collectives included (``core/graphs.py``). This script
-holds that on four H100s:
+one CUDA graph, collectives included, and runs each call's decode loop
+as one CUDA-graph WHILE node, its collectives inside the body (the
+``lax.while_loop`` under ``jit``; ``core/graphs.py``). This script holds
+that on four H100s:
 
 Builds the kernels, then starts one world of four ranks over NCCL
 (``parallel/launch.py --backend nccl``), a rank a card, each building the
@@ -14,10 +17,13 @@ headline model (chip_smoke's phase 4 widths, bfloat16; and its int8
 weights):
 
 1. Rank 0 runs the one-process references on its card first: greedy
-   ``generate`` and ``generate_baseline`` (tokens, graphed ms a step),
-   ``generate_sample`` at T* (the temperature at which the cycle token has
-   probability 0.85), a two-lane ``generate_batch`` and four requests'
-   lone ``generate``; every rank receives them and T*.
+   ``generate`` and ``generate_baseline`` (tokens, graphed ms a step, ms
+   an iteration of the device loop), ``generate_sample`` at T* (the
+   temperature at which the cycle token has probability 0.85), greedy and
+   sampled two-lane ``generate_batch``, a greedy call ended by an EOS id
+   (the token at new position EOS_AT), a greedy ``always_fwd_one=False``
+   call and four requests' lone ``generate``; every rank receives them,
+   T* and the EOS id.
 2. The train step (Adam; chip_smoke's check model, float32, TF32 off) on
    dp4 and dp2_tp2: three steps eager and three graphed from the same
    start, bit-equal on every rank, each within chip_smoke's card against
@@ -25,20 +31,26 @@ weights):
    train step, graphed and eager.
 3. On each decode mesh (tp4, la4 with S=240 split 60 rows a rank,
    pp2_tp2, la2_tp2, and int8_weights_tp4) every rank runs, on one
-   engine, eagerly (inside ``graphs.eager()``) and graphed: greedy
-   ``generate``, ``generate_baseline``, ``generate_sample`` at T*, a
-   two-lane ``generate_batch``, two greedy ``generate_stream`` calls of
-   which the second runs on a second slot while the first is suspended,
-   a greedy ``generate`` from a ``precompute_prefix`` cache and (tp4) a
-   ``ContinuousBatchingEngine`` of four requests on two lanes. Each call
-   is warmed once (the graphed warm call captures), then run and counted
-   alone. Checks: tokens equal across ranks, to the eager run and to the
-   one-process run; steps, the pool's rows and the branch counts
-   (``graphs.read_stats()``) equal across ranks and to the eager run; the
-   timed graphed call captures nothing, replays once a step and replays
-   its prefill chunks (``stats["prefills"]``: every prefill is a replay
-   of the slot's captured chunk). Prints kernels and collectives a replay,
-   and the call's wall over its steps (prefill included).
+   engine (and one with ``always_fwd_one=False``), eagerly (inside
+   ``graphs.eager()``), graphed (each decode loop on the device) and, for
+   every call that loops on the device (LOOP_KINDS), by the host loop
+   (``host_loop=True``): the calls of step 1, two greedy
+   ``generate_stream`` calls of which the second runs on a second slot
+   while the first is suspended, a greedy ``generate`` from a
+   ``precompute_prefix`` cache and (tp4) a ``ContinuousBatchingEngine``
+   of four requests on two lanes. Each call is warmed once (the graphed
+   warm call captures), then run and counted alone. Checks: tokens,
+   steps, the pool rows and the draw counters the states ended with,
+   branches and the iterations (replays) equal across ranks, the three
+   ways equal each other and the tokens the one-process run's; the
+   graphed call launches one device loop whose iterations are its steps
+   (the EOS-ended call's: the steps to its EOS id, where the host loop
+   runs its batch out), captures nothing and replays its prefill chunks
+   (``stats["prefills"]``); the host loop and the eager call count the
+   same collectives and branches, and so does the device loop but for
+   the EOS-ended call. Prints kernels and collectives a replay (a loop's
+   iteration), and the call's wall over its steps (prefill included)
+   each way.
 4. On each decode mesh, and on rank 0's one process, the lookahead and
    the AR step alone in windows, as chip_smoke's phase 13 times it
    (``chip_smoke.step_windows``: a prefilled state, two timed windows of
@@ -47,7 +59,9 @@ weights):
    a rank, kernels a step, device busy a step, the NCCL kernels' share
    of it (an NCCL kernel runs until every rank's has started, so its
    time includes waiting for the other ranks) and the idle share (1 -
-   busy / the timed window's wall).
+   busy / the timed window's wall); beside them the device loop's ms an
+   iteration (``chip_smoke.loop_iteration``: CUDA events around one
+   launch over LOOP_NEW tokens, twice).
 
 Every failed check is printed; the script exits non-zero if any failed.
 Needs four CUDA cards; no test or default of chip_smoke.py depends on it.
@@ -80,7 +94,12 @@ SERVING_MESH = "tp4"         # the mesh that also runs the scheduler
 SERVING_LANES, SERVING_REQUESTS, SERVING_NEW = 2, 4, 0.25
 NEW, WARM = 32, 8            # new tokens of a call, and of its warm-up
 PREFIX_LEN = 40              # tokens of the "prefix" call's prefix
-MULTI = ("batch", "streams")  # calls of two results
+EOS_AT = 20                  # new position of the "eos" call's EOS id
+MULTI = ("batch", "batch_sample", "streams")  # calls of two results
+# calls that loop on the device, each also run by the host loop
+LOOP_KINDS = ("lookahead", "ar_baseline", "sample", "batch", "batch_sample",
+              "eos", "refill", "prefix")
+LOOP_NEW = {"lookahead": 128, "ar_baseline": 64}   # a timed loop's tokens
 TRAIN_TIMED = 20             # steps of each timed train window
 WORLD = 4
 COLLECTIVES = ("all_reduce", "all_gather", "send", "recv", "broadcast")
@@ -92,13 +111,14 @@ def _serving_requests(nxt):
         nxt, SERVING_REQUESTS, SERVING_NEW)]
 
 
-def _engine(mcfg, tree, mesh, axes):
+def _engine(mcfg, tree, mesh, axes, **lkw):
     import lookaheaddecoding_tpu_torch as lt
     from lookaheaddecoding_tpu_torch.parallel import shard_params
     return lt.LookaheadEngine(
         mcfg, tree if mesh is None else shard_params(tree, mesh, mcfg),
         lt.LookaheadConfig(level=cs.LEVEL, window_size=cs.WINDOW,
-                           guess_set_size=cs.GUESS, pool_from_prompt=True),
+                           guess_set_size=cs.GUESS, pool_from_prompt=True,
+                           **lkw),
         lt.EngineConfig(max_seq_len=cs.MAX_SEQ,
                         prefill_chunk=cs.PREFILL_CHUNK, **axes), mesh=mesh)
 
@@ -119,23 +139,44 @@ def _streams(eng, first, second, n):
                             steps=int(eng._slots[1].state.step_idx))]
 
 
-def _calls(eng, prompt, nxt, t_star, serving):
-    """kind -> call(n): a list of GenerationResults of ``n`` new tokens
-    (the scheduler's run takes its own budgets, two requests when ``n``
-    is below NEW; the streams give each stream's tokens and steps)."""
+def _calls(eng, refill, prompt, nxt, t_star, eos, serving):
+    """kind -> call(n, host_loop=False): a list of GenerationResults of
+    ``n`` new tokens (the scheduler's run takes its own budgets, two
+    requests when ``n`` is below NEW; the streams give each stream's
+    tokens and steps). A LOOP_KINDS call loops on the device where its
+    step captures, and by the host loop with ``host_loop``; ``refill``
+    is the engine with ``always_fwd_one=False``, ``eos`` the "eos" call's
+    EOS id."""
     import lookaheaddecoding_tpu_torch as lt
     sc = lt.SamplingConfig(temperature=t_star, top_k=cs.TOP_K)
     second = cs.make_prompt(nxt, start=5, n=cs.PROMPT_LEN // 2)
+
+    def batch(n, hl, sampled):
+        return eng._batch([prompt, second], min(n, cs.PAR_BATCH_NEW), None,
+                          0, [0, 1] if sampled else None, None,
+                          sc if sampled else None,
+                          [t_star, 0.8 * t_star] if sampled else None, None,
+                          host_loop=hl)
     out = {
-        "lookahead": lambda n: [eng.generate(prompt, n, return_prefix=True)],
-        "ar_baseline": lambda n: [eng.generate_baseline(prompt, n)],
-        "sample": lambda n: [eng.generate_sample(prompt, n, sc, seed=0)],
-        "batch": lambda n: eng.generate_batch(
-            [prompt, second], min(n, cs.PAR_BATCH_NEW)),
+        "lookahead": lambda n, hl=False: [eng._run(
+            "greedy", prompt, n, None, 0, return_prefix=True,
+            host_loop=hl)],
+        "ar_baseline": lambda n, hl=False: [eng._run(
+            "ar", prompt, n, None, 0, host_loop=hl)],
+        "sample": lambda n, hl=False: [eng._run(
+            "sample", prompt, n, None, 0, sampling=sc, host_loop=hl)],
+        "batch": lambda n, hl=False: batch(n, hl, False),
+        "batch_sample": lambda n, hl=False: batch(n, hl, True),
+        "eos": lambda n, hl=False: [eng._run(
+            "greedy", prompt, n, eos, 0, return_prefix=True, host_loop=hl)],
+        "refill": lambda n, hl=False: [refill._run(
+            "greedy", prompt, n, None, 0, host_loop=hl)],
         "streams": lambda n: _streams(eng, prompt, second, n),
         # the prefill covers the prompt past the prefix's PREFIX_LEN rows
-        "prefix": lambda n: [eng.generate(
-            prompt, n, prefix=eng.precompute_prefix(prompt[:PREFIX_LEN]))],
+        "prefix": lambda n, hl=False: [eng._run(
+            "greedy", prompt, n, None, 0,
+            prefix=eng.precompute_prefix(prompt[:PREFIX_LEN]),
+            host_loop=hl)],
     }
     if serving:
         # one scheduler, whose lanes (and their graph) every call reuses
@@ -150,22 +191,40 @@ def _calls(eng, prompt, nxt, t_star, serving):
     return out
 
 
+def _end_state(eng, refill, kind):
+    """(a hash of the pool rows [0, R) and clocks, the draw counters) that
+    the states of a ``kind`` call ended with: the two-lane slot's lanes, or
+    the first flat slot (``refill``'s for its kind)."""
+    import hashlib
+    if kind.startswith("batch"):
+        st = eng._lane_slots[2].states
+        h = hashlib.sha256()
+        for t in (st.pool.values[:, :-1], st.pool.age[:, :-1],
+                  st.pool.clock):
+            h.update(t.cpu().numpy().tobytes())
+        return h.hexdigest(), st.draws.tolist()
+    st = (refill if kind == "refill" else eng)._slots[0].state
+    return cs.pool_hash(st.pool), [int(st.draws)]
+
+
 def _replay_launches(eng, kind, t_star):
-    """{counter: launches a replay} of the graph the call of ``kind``
-    replayed (the port's kernels and the collectives)."""
+    """{counter: launches a replay} of the graph the timed call of
+    ``kind`` replayed (the port's kernels and the collectives): a device
+    loop's iteration, or the streams' step; None for the other kinds."""
     import torch
     import lookaheaddecoding_tpu_torch as lt
+    mode = {"lookahead": "greedy", "ar_baseline": "ar", "sample": "sample",
+            "streams": "greedy", "prefix": "greedy"}.get(kind)
     with torch.inference_mode():
         if kind == "batch":
-            return eng._lane_runner(eng._lane_slots[2], False, False,
-                                    0).launches_per_replay()
-        mode = {"lookahead": "greedy", "ar_baseline": "ar",
-                "sample": "sample", "streams": "greedy",
-                "prefix": "greedy"}[kind]
+            return eng._lane_loop(eng._lane_slots[2], False, False,
+                                  0).launches_per_replay()
+        if mode is None:
+            return None
         sc = lt.SamplingConfig(temperature=t_star, top_k=cs.TOP_K)
-        return eng._flat_runner(eng._free_slot(), mode, NEW, None,
-                                sc if mode == "sample" else None
-                                ).launches_per_replay()
+        get = eng._flat_runner if kind == "streams" else eng._flat_loop
+        return get(eng._free_slot(), mode, NEW, None,
+                   sc if mode == "sample" else None).launches_per_replay()
 
 
 # ---------------------------------------------------------------------------
@@ -197,13 +256,13 @@ def world_rank(device):
     out = {"build_s": time.perf_counter() - t0, "mismatch": []}
     shared = [None]
     if dist.get_rank() == 0:
-        refs, t_star, p_star = references(
+        refs, t_star, p_star, eos = references(
             mcfg, params, prompt, nxt, {config for _, config in
                                         DECODE.values()})
-        shared = [dict(refs=refs, t_star=t_star, p_star=p_star)]
+        shared = [dict(refs=refs, t_star=t_star, p_star=p_star, eos=eos)]
         out.update(shared[0])
     dist.broadcast_object_list(shared, src=0)
-    refs, t_star = shared[0]["refs"], shared[0]["t_star"]
+    refs, t_star, eos = (shared[0][k] for k in ("refs", "t_star", "eos"))
     out["refs_s"] = time.perf_counter() - t0 - out["build_s"]
 
     print(f"{time.perf_counter() - t0:8.2f} s train", flush=True)
@@ -215,23 +274,30 @@ def world_rank(device):
                                                lm_head_bits=8)
         mesh = make_mesh(**axes, devices=device)
         eng = _engine(mcfg, trees[config], mesh, axes)
-        calls = _calls(eng, prompt, nxt, t_star, name == SERVING_MESH)
+        refill = _engine(mcfg, trees[config], mesh, axes,
+                         always_fwd_one=False)
+        calls = _calls(eng, refill, prompt, nxt, t_star, eos,
+                       name == SERVING_MESH)
         got = {}
         for kind, call in calls.items():
             got[kind] = {}
-            for which in ("eager", "graphed"):
+            ways = ("eager", "graphed") + (("host",) if kind in LOOP_KINDS
+                                           else ())
+            for which in ways:
                 # progress in the rank's log, which a hung world reports
                 print(f"{time.perf_counter() - t0:8.2f} s {name} {kind} "
                       f"{which}", flush=True)
+                run = ((lambda n: call(n, True)) if which == "host"
+                       else call)
                 with cs._mode(which):
-                    call(WARM)            # graphed: captures
+                    run(WARM)             # graphed: captures
                     torch.cuda.synchronize()
                     cs.reset_counts()
                     qm.counts.update(dict.fromkeys(qm.counts, 0))
                     before = dict(collectives.counts)
                     graphs.reset_stats()
                     t1 = time.perf_counter()
-                    res = call(NEW)
+                    res = run(NEW)
                     torch.cuda.synchronize()
                     wall = time.perf_counter() - t1
                     stats = graphs.read_stats()
@@ -243,8 +309,8 @@ def world_rank(device):
                                  for k in before},
                     launches=dict(cs.read_counts(), **{
                         k: v for k, v in qm.counts.items() if k != "plain"}))
-                if kind == "lookahead":
-                    rec["pool"] = cs.pool_hash(res[0].prefix.pool)
+                if kind in LOOP_KINDS:
+                    rec["pool"], rec["draws"] = _end_state(eng, refill, kind)
                 if which == "graphed" and kind != "serving":
                     rec["per_replay"] = _replay_launches(eng, kind, t_star)
                 got[kind][which] = rec
@@ -258,7 +324,7 @@ def world_rank(device):
               flush=True)
         got["steps"] = step_figures(eng, prompt)
         out[name] = got
-        del eng, calls
+        del eng, refill, calls
         torch.cuda.empty_cache()
     return out
 
@@ -271,44 +337,68 @@ def check_decode(ranks, refs, meshes, card, fail):
         for kind in (k for k in per[0] if k != "steps"):
             e = [p[kind]["eager"] for p in per]
             g = [p[kind]["graphed"] for p in per]
+            h = [p[kind]["host"] for p in per] if kind in LOOP_KINDS else []
 
             def same(key, recs, label):
                 if any(x[key] != recs[0][key] for x in recs):
                     fail(f"{name} {kind}: {label} {key} differ across "
                          f"ranks")
-            for label, recs in (("eager", e), ("graphed", g)):
-                for key in ("tokens", "steps"):
+            state = ("pool", "draws") if kind in LOOP_KINDS else ()
+            for label, recs in (("eager", e), ("graphed", g), ("host", h)):
+                if not recs:
+                    continue
+                for key in ("tokens", "steps") + state:
                     same(key, recs, label)
-                if any(x["stats"]["branches"] != recs[0]["stats"]["branches"]
-                       or x["stats"]["taken"] != recs[0]["stats"]["taken"]
-                       for x in recs):
-                    fail(f"{name} {kind}: {label} branch counts differ "
-                         f"across ranks")
-                if kind == "lookahead":
-                    same("pool", recs, label)
-            for key in ("tokens", "steps") + (("pool",) if kind ==
-                                               "lookahead" else ()):
-                if g[0][key] != e[0][key]:
-                    fail(f"{name} {kind}: graphed {key} != eager")
-            for key in ("branches", "taken"):
-                if g[0]["stats"][key] != e[0]["stats"][key]:
-                    fail(f"{name} {kind}: graphed {key} "
-                         f"{g[0]['stats'][key]} != eager "
-                         f"{e[0]['stats'][key]}")
-            if any(x["collectives"] != y["collectives"]
-                   for x, y in zip(e, g)):
-                fail(f"{name} {kind}: a rank's graphed call counted other "
-                     f"collectives than its eager call")
+                for key in ("branches", "taken", "replays", "loops"):
+                    if any(x["stats"][key] != recs[0]["stats"][key]
+                           for x in recs):
+                        fail(f"{name} {kind}: {label} {key} differ across "
+                             f"ranks (the iterations each rank ran: "
+                             f"{[x['stats']['replays'] for x in recs]})")
+            for label, other in (("graphed", g), ("host", h)):
+                for key in ("tokens", "steps") + state:
+                    if other and other[0][key] != e[0][key]:
+                        fail(f"{name} {kind}: {label} {key} != eager")
+            # the EOS call's device loop stops at the step that ended it;
+            # the host loop (and the eager call) runs its batch out
+            counted = (("graphed", g),) if kind != "eos" else ()
+            for label, other in counted + (("host", h),):
+                for key in ("branches", "taken"):
+                    if other and other[0]["stats"][key] != e[0]["stats"][key]:
+                        fail(f"{name} {kind}: {label} {key} "
+                             f"{other[0]['stats'][key]} != eager "
+                             f"{e[0]['stats'][key]}")
+                if other and any(x["collectives"] != y["collectives"]
+                                 for x, y in zip(e, other)):
+                    fail(f"{name} {kind}: a rank's {label} call counted "
+                         f"other collectives than its eager call")
             if (e[0]["stats"]["captured"] or e[0]["stats"]["replays"]
-                    or e[0]["stats"]["prefills"]):
+                    or e[0]["stats"]["prefills"] or e[0]["stats"]["loops"]):
                 fail(f"{name} {kind}: the eager call replayed a graph")
             # streams each step their own slot; lanes step together
             steps = (sum if kind == "streams" else max)(g[0]["steps"])
-            if g[0]["stats"]["captured"] or (
-                    kind != "serving" and g[0]["stats"]["replays"] != steps):
+            # the scheduler's fused drains loop on the device, its lanes
+            # on the host
+            loops = (1 if kind in LOOP_KINDS else
+                     g[0]["stats"]["loops"] if kind == "serving" else 0)
+            if g[0]["stats"]["captured"] or g[0]["stats"]["loops"] != loops \
+                    or (kind != "serving"
+                        and g[0]["stats"]["replays"] != steps):
                 fail(f"{name} {kind}: graphed call captured "
-                     f"{g[0]['stats']['captured']} and replayed "
+                     f"{g[0]['stats']['captured']}, launched "
+                     f"{g[0]['stats']['loops']} device loops and replayed "
                      f"{g[0]['stats']['replays']} times for {steps} steps")
+            if h and (h[0]["stats"]["loops"] or h[0]["stats"]["captured"]
+                      or h[0]["stats"]["replays"] < steps
+                      or (kind != "eos"
+                          and h[0]["stats"]["replays"] != steps)):
+                fail(f"{name} {kind}: the host loop launched "
+                     f"{h[0]['stats']['loops']} device loops and replayed "
+                     f"{h[0]['stats']['replays']} times for {steps} steps")
+            if kind in ("sample", "batch_sample", "refill") and \
+                    g[0]["draws"] != g[0]["steps"]:
+                fail(f"{name} {kind}: draws {g[0]['draws']} != steps "
+                     f"{g[0]['steps']}")
             if not g[0]["stats"]["replays"]:
                 fail(f"{name} {kind}: the graphed call replayed nothing")
             if not g[0]["stats"]["prefills"] or any(
@@ -326,30 +416,42 @@ def check_decode(ranks, refs, meshes, card, fail):
             if launches["plain"] or launches["attention_fma"]:
                 fail(f"{name} {kind}: a plain version or the FMA design ran: "
                      f"{launches}")
-            key = ("paged_attention" if kind in ("batch", "serving")
-                   else "attention_mma")
+            key = ("paged_attention" if kind.startswith("batch")
+                   or kind == "serving" else "attention_mma")
             if not launches[key]:
                 fail(f"{name} {kind}: {key} never launched")
             if config == "int8_weights" and not launches["int8_mma"]:
                 fail(f"{name} {kind}: int8_mma never launched")
-            per_replay = g[0].get("per_replay", {})
+            per_replay = g[0].get("per_replay") or {}
+            host_ms = (" | host loop " + ", ".join(
+                f"{x['call_ms_step']:.3f}" for x in h)) if h else ""
+            eos_line = (f"; the device loop ran {g[0]['stats']['replays']} "
+                        f"iterations for the {steps} steps to the EOS id, "
+                        f"the host loop {h[0]['stats']['replays']} replays"
+                        if kind == "eos" else "")
             cs.log(
-                f"  [{card}] {name} {kind}: {steps} steps; the call's wall "
-                f"over its steps (prefill included), ms by rank graphed "
-                f"{', '.join(f'{x['call_ms_step']:.3f}' for x in g)} | eager "
+                f"  [{card}] {name} {kind}: {steps} steps; device loops "
+                f"{g[0]['stats']['loops']}, iterations and replays by rank "
+                f"{[x['stats']['replays'] for x in g]}"
+                f"{eos_line}; the call's wall over its steps (prefill "
+                f"included), ms by rank graphed "
+                f"{', '.join(f'{x['call_ms_step']:.3f}' for x in g)}{host_ms}"
+                f" | eager "
                 f"{', '.join(f'{x['call_ms_step']:.3f}' for x in e)}; "
                 f"prefill chunks replayed {g[0]['stats']['prefills']}; "
                 f"collectives of the call {g[0]['collectives']}; branches "
                 f"{g[0]['stats']['branches']}, chains taken "
-                f"{g[0]['stats']['taken']}; the call's launches (attention, "
-                f"paged attention, int8 products) by rank "
+                f"{g[0]['stats']['taken']}"
+                + (f"; draws {g[0]['draws']}" if kind in LOOP_KINDS else "")
+                + f"; the call's launches (attention, paged attention, int8 "
+                f"products) by rank "
                 f"{[(x['launches']['attention_mma'], x['launches']['paged_attention'], x['launches']['int8_mma']) for x in g]}"
                 + (f"; a replay launches {per_replay}, collectives "
                    f"{sum(per_replay.get(k, 0) for k in COLLECTIVES)}"
                    if per_replay else ""))
         cs.log(f"  [{card}] {name}: tokens equal across the {len(per)} "
-               f"ranks, graphed == eager, and against the one-process "
-               f"{config} run as checked above")
+               f"ranks, device loop == host loop == eager, and against the "
+               f"one-process {config} run as checked above")
 
 
 # ---------------------------------------------------------------------------
@@ -389,9 +491,13 @@ def profile_mesh_steps(run, n):
 
 def step_figures(eng, prompt):
     """The lookahead and the AR step of ``eng`` alone in windows
-    (``chip_smoke.step_windows``): {kind: {"eager"|"graphed": {"ms": the
-    two timed windows' ms a step, "profile": profile_mesh_steps' numbers
-    of the profiled window}}}."""
+    (``chip_smoke.step_windows``), and its decode loop on the device:
+    {kind: {"eager"|"graphed": {"ms": the two timed windows' ms a step,
+    "profile": profile_mesh_steps' numbers of the profiled window},
+    "loop": [(device ms an iteration, iterations) of two launches of the
+    loop over LOOP_NEW[kind] tokens, CUDA events around each]}}: the
+    graphed window's replays are queued by the host, the loop's
+    iterations by the WHILE node."""
     out = {}
     for kind, mode in STEP_MODES.items():
         windows = cs.step_windows(cs.flat_step_run(eng, prompt, mode),
@@ -399,6 +505,9 @@ def step_figures(eng, prompt):
                                   profiler=profile_mesh_steps)
         out[kind] = {which: dict(ms=walls, profile=profs[-1][0])
                      for which, (walls, profs) in windows.items()}
+        out[kind]["loop"] = [cs.loop_iteration(eng, prompt, mode,
+                                               LOOP_NEW[kind])
+                             for _ in range(2)]
     return out
 
 
@@ -419,7 +528,13 @@ def step_line(label, figures):
                      f"idle {1 - p['busy_ms'] / wall:.3f}")
         parts.append(line)
     ratio = min(figures["eager"]["ms"]) / min(figures["graphed"]["ms"])
-    return f"{label}: " + " | ".join(parts) + f"; eager / graphed {ratio:.2f}x"
+    loop = figures["loop"]
+    return (f"{label}: " + " | ".join(parts) + f"; eager / graphed "
+            f"{ratio:.2f}x; the device loop (CUDA events) "
+            f"{'/'.join(f'{ms:.3f}' for ms, _ in loop)} ms an iteration "
+            f"({loop[0][1]} iterations) against "
+            f"{'/'.join(f'{ms:.3f}' for ms in figures['graphed']['ms'])} "
+            f"ms a host-queued replay")
 
 
 def report_steps(ranks, refs, meshes, card):
@@ -575,14 +690,16 @@ def references(mcfg, params, prompt, nxt, configs):
     import torch
     import lookaheaddecoding_tpu_torch as lt
 
-    refs, t_star, p_star = {}, None, None
+    refs, t_star, p_star, eos = {}, None, None, None
     for config in sorted(configs):
         tree = params if config == "bf16" else lt.quantize_params(
             params, bits=8, quantize_lm_head=True, lm_head_bits=8)
         eng = _engine(mcfg, tree, None, {})
+        refill = _engine(mcfg, tree, None, {}, always_fwd_one=False)
         if t_star is None:
             t_star, p_star, _ = cs.cycle_temperature(eng, prompt)
-        calls = _calls(eng, prompt, nxt, t_star, False)
+            eos = int(eng.generate(prompt, NEW).tokens[len(prompt) + EOS_AT])
+        calls = _calls(eng, refill, prompt, nxt, t_star, eos, False)
         refs[config] = {"steps": step_figures(eng, prompt)}
         for kind, call in calls.items():
             call(WARM)
@@ -595,9 +712,9 @@ def references(mcfg, params, prompt, nxt, configs):
             eng.generate(r.prompt, r.max_new_tokens).tokens.tolist()
             for r in sorted(_serving_requests(nxt),
                             key=lambda r: r.request_id)]
-        del eng
+        del eng, refill
     torch.cuda.empty_cache()
-    return refs, t_star, p_star
+    return refs, t_star, p_star, eos
 
 
 def main(argv=None) -> int:

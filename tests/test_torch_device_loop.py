@@ -29,8 +29,9 @@ the port computes in float32 against the JAX package:
   seedings, loop on the device, give JAX's tokens and equal eager;
 - a loop that stops at its cap with a lane unfinished raises and is not
   run again from the host; a step that draws from a ``torch.Generator``
-  and a mesh are refused; a failing WHILE node raises and runs no host
-  loop;
+  and a mesh that does not capture are refused (meshes that capture loop
+  on the device: ``tests/test_torch_parallel.py``); a failing WHILE node
+  raises and runs no host loop;
 - streams, a call that asks for the host loop and ``graphs.eager()`` keep
   the host loop (gloo meshes: ``tests/test_torch_parallel.py``);
 - ``while_node_ref`` runs 0, 1 and n iterations;
@@ -303,7 +304,9 @@ def test_a_failing_while_node_raises_and_runs_no_host_loop(monkeypatch):
 def test_loop_graph_refuses_a_random_step_and_a_mesh():
     """A step whose warm step moved a generator of the state would draw
     the same numbers every iteration of a device loop: the capture raises
-    before recording anything. A mesh is refused when the loop is made."""
+    before recording anything. A mesh is refused when the loop is made
+    only where it does not capture (here on the CPU; on the card a gloo
+    group); a mesh that captures is taken and its loop runs."""
     x, gen = torch.zeros(1), torch.Generator().manual_seed(0)
     finished = torch.zeros(1, dtype=torch.bool)
     cap = torch.tensor([4], dtype=torch.int32)
@@ -314,10 +317,19 @@ def test_loop_graph_refuses_a_random_step_and_a_mesh():
         with pytest.raises(RuntimeError, match="drew random numbers"):
             loop.run()
         assert made == [] and loop.graph is None
-    with pytest.raises(ValueError, match="one card"):
-        graphs.LoopGraph(lambda: None, {"x": x}, finished, cap,
-                         mesh=object())
+    mesh = SimpleNamespace(groups={"tp": object()})
+    with pytest.raises(ValueError, match="mesh only when the mesh captures"):
+        graphs.LoopGraph(lambda: None, {"x": x}, finished, cap, mesh=mesh)
+    with faked_capture():
 
+        def step():
+            x.add_(1)
+            finished.copy_(x >= 3)
+        x.zero_()
+        loop = graphs.LoopGraph(step, {"x": x, "finished": finished},
+                                finished, cap, mesh=mesh)
+        loop.run()
+        assert (float(x), int(loop.iters)) == (3.0, 2)
 
 def test_loop_graph_runs_until_every_lane_finished():
     """Three lanes that finish after 2, 5 and 3 steps: the warm step, then

@@ -8,7 +8,8 @@ attention also at head_dim 256 with Gemma-2B's heads and at head_dim 32,
 step on the card against the CPU, ``load_params`` onto the card,
 ``utils.profiling.trace`` around a card ``generate``, the attention at a
 first composite row (``row0``) and two ranks decoding at tp=2 on one card
-over gloo, and a one-rank NCCL mesh engine (chip_smoke's phase 14) and
+over gloo, and a one-rank NCCL mesh engine (chip_smoke's phase 14: the
+decode loop on the device, and a WHILE node over NCCL collectives) and
 train step captured; the CUDA-graph IF node (``ops/graph_cond.py``)
 against its plain version, the pool's chain as an IF node of captured
 steps (taken and skipped, tables and branch counts equal to eager), a
@@ -1005,11 +1006,14 @@ def test_two_ranks_tp2_decode_on_one_card():
 @pytest.mark.gpu
 def test_one_rank_nccl_mesh_engine_is_captured():
     """A one-rank NCCL world (the card takes one NCCL rank): chip_smoke's
-    phase 14, whose engine on ``make_mesh(tp=1)`` replays its decode step
-    as a captured graph with the tokens, steps, pool rows and branches of
-    its eager run and of the engine without a mesh, one replay a step; and
-    the train step on that mesh, captured and bit-equal to its eager
-    steps."""
+    phase 14, whose engine on ``make_mesh(tp=1)`` runs ``generate``,
+    ``generate_baseline``, ``generate_sample`` and a two-lane
+    ``generate_batch`` on the device loop (one launch, an iteration a
+    step, one read and no host sync before it) with the tokens, steps,
+    pool rows and branches of its eager run and of the engine without a
+    mesh, and whose WHILE node over the world group's NCCL collectives
+    runs with the plain version's result; and the train step on that mesh,
+    captured and bit-equal to its eager steps."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     import sys
@@ -1616,14 +1620,16 @@ def test_device_loop_equals_eager_without_a_sync(config, monkeypatch):
 
 
 @pytest.mark.gpu
-def test_loop_graph_refuses_a_random_step_and_a_mesh_on_the_card():
+def test_loop_graph_refuses_a_random_step_and_a_mesh_on_the_card(
+        monkeypatch):
     """A step that draws from a CUDA generator of its state (a replay
     advances philox offsets on the host, so a device loop would repeat
     the noise) fails the loop's capture before anything is recorded; a
-    mesh is refused when the loop is made; neither steps from the host
-    instead."""
+    mesh that does not capture (a gloo group) is refused when the loop is
+    made; neither steps from the host instead."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    from types import SimpleNamespace
     from lookaheaddecoding_tpu_torch.core import graphs
     x = torch.zeros(4, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1637,9 +1643,10 @@ def test_loop_graph_refuses_a_random_step_and_a_mesh_on_the_card():
         loop.run()
     assert loop.graph is None
     assert graphs.stats["loops"] == before["loops"]
-    with pytest.raises(ValueError, match="one card"):
+    monkeypatch.setattr(graphs.dist, "get_backend", lambda group: "gloo")
+    with pytest.raises(ValueError, match="mesh only when the mesh captures"):
         graphs.LoopGraph(lambda: None, {"x": x}, finished, cap,
-                         mesh=object())
+                         mesh=SimpleNamespace(groups={"tp": object()}))
 
 
 @pytest.mark.gpu

@@ -30,6 +30,7 @@ the CPU (capture and replay themselves need the card:
 
 import contextlib
 import gc
+import os
 
 import jax
 import jax.numpy as jnp
@@ -498,6 +499,17 @@ def gloo_group():
         dist.destroy_process_group()
 
 
+
+def test_make_mesh_turns_nccls_graph_mixing_off(gloo_group, monkeypatch):
+    """``make_mesh`` turns NCCL's graph mixing off before it makes its
+    groups, whatever started the rank and whatever its environment said
+    (``parallel/collectives.py``)."""
+    from lookaheaddecoding_tpu_torch.parallel import collectives, make_mesh
+    name, value = collectives.GRAPH_MIXING
+    monkeypatch.setenv(name, "1")
+    make_mesh(devices="cpu")
+    assert os.environ[name] == value
+
 @pytest.mark.parametrize("op,staged", [("send", True), ("recv", True),
                                        ("all_reduce", False),
                                        ("all_gather", False),
@@ -546,6 +558,34 @@ def test_step_graph_counts_collectives_once_a_replay(fake_cuda, gloo_group):
                                       all_reduce=before["all_reduce"] + 12,
                                       all_gather=before["all_gather"] + 6)
 
+
+
+def test_a_collective_after_a_graph_launch_waits_for_the_card(
+        fake_cuda, monkeypatch):
+    """With NCCL's graph mixing off no collective may be launched outside a
+    graph while a graph launch is outstanding (``parallel/collectives.py``):
+    after a graph's launch, the next collective outside a capture waits for
+    the card first, once; one inside a capture and one on a CPU tensor do
+    not, nor does one before any launch."""
+    from types import SimpleNamespace
+    from lookaheaddecoding_tpu_torch.parallel import collectives
+    synced, capturing = [], [False]
+    monkeypatch.setattr(collectives, "_graph_pending", False)
+    monkeypatch.setattr(torch.cuda, "synchronize", synced.append)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: capturing[0])
+    on_card = SimpleNamespace(is_cuda=True, device="cuda:0")
+    collectives._after_graphs(on_card)
+    assert synced == []
+    graphs.StepGraph(lambda: None, {"x": torch.zeros(1)}).run(2)
+    collectives._after_graphs(torch.zeros(1))
+    capturing[0] = True
+    collectives._after_graphs(on_card)
+    assert synced == []
+    capturing[0] = False
+    collectives._after_graphs(on_card)
+    collectives._after_graphs(on_card)
+    assert synced == ["cuda:0"]
 
 def test_cond_body_calling_a_collective_is_refused(fake_cuda, if_nodes,
                                                    gloo_group):

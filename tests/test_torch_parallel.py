@@ -10,7 +10,10 @@ and every other rank. The models, seeds and prompts are those of JAX's
 and ``test_review_regressions.py`` (tp scaled from 8 to the world of 4).
 The shard layout is held byte for byte against the slices JAX's
 ``NamedSharding`` puts on conftest's eight CPU devices, and the attention's
-``row0`` against the same rows of the whole call.
+``row0`` against the same rows of the whole call. Through a faked capture
+every capture mesh runs each call that loops on the device where its
+step captures (an NCCL mesh on the cards) as one device loop, held
+against its host loop, its eager call and JAX's unsharded engine.
 """
 
 from __future__ import annotations
@@ -124,11 +127,63 @@ def world(tmp_path_factory):
                                quantize_lm_head=True, lm_head_bits=bits)
         refs[f"int{bits}"] = W.engine(W.small(), q, W.LC, W.EC, "cpu").generate(
             W.prompt_of("small"), 40)
+    refs["mesh_jax"] = mesh_jax_refs(trees)
     thread.join(RANK_TIMEOUT + 30)
     if "error" in box:
         raise box["error"]
     assert "ranks" in box, "the world did not finish"
     return box["ranks"], refs, trees, data
+
+
+def _jax_record(results, pools=True):
+    """tokens, steps (and the pool rows [0, R) and clock each run ended
+    with) of JAX results, as the worker records them."""
+    out = {"tokens": [np.asarray(r.tokens).tolist() for r in results],
+           "steps": [int(r.steps) for r in results]}
+    if pools:
+        out["pools"] = [[np.asarray(r.prefix.pool.values)[:-1].tolist(),
+                         np.asarray(r.prefix.pool.age)[:-1].tolist(),
+                         int(r.prefix.pool.clock)] for r in results]
+    return out
+
+
+def mesh_jax_refs(trees):
+    """{capture mesh: {kind: record}}: JAX's unsharded engine in float32 on
+    each capture mesh's model, for the greedy and AR calls of
+    ``torch_parallel_worker._mesh_calls``."""
+    n = W.MESH_NEW
+    by_model = {}
+    for model, cfg, _, _ in W.CAPTURE_MESHES.values():
+        if model in by_model:
+            continue
+        tree = jax.tree.map(jnp.asarray, trees[model])
+        lc = dict(W.LC_POOL, pool_key_len=2, pool_hash_size=97)
+
+        def eng(**kw):
+            return jlt.LookaheadEngine(
+                jcfg(cfg), tree, jlt.LookaheadConfig(**lc, **kw),
+                jlt.EngineConfig(**W.EC, dtype="float32"))
+        e = eng()
+        p, q = W.prompt_of("la"), W.prompt_of("small")[:9]
+        eos = int(np.asarray(e.generate(p, n["eos"]).tokens)[
+            len(p) + W.EOS_AT])
+        by_model[model] = {
+            "generate": _jax_record([e.generate(p, n["generate"],
+                                                return_prefix=True)]),
+            "baseline": _jax_record([e.generate_baseline(p, n["baseline"])],
+                                    False),
+            "batch": _jax_record([e.generate(x, n["batch"],
+                                             return_prefix=True)
+                                  for x in (p, q)]),
+            "eos": _jax_record([e.generate(p, n["eos"], eos_token_id=eos,
+                                           return_prefix=True)]),
+            "refill": _jax_record([eng(always_fwd_one=False).generate(
+                p, n["refill"], seed=4)], False),
+            "prefix": _jax_record([e.generate(
+                p, n["prefix"], prefix=e.precompute_prefix(p[:8]))],
+                False)}
+    return {mesh: by_model[model]
+            for mesh, (model, _, _, _) in W.CAPTURE_MESHES.items()}
 
 
 def _same(got, port, jax_res):
@@ -345,22 +400,32 @@ def test_every_rank_takes_the_same_branches(world, mesh):
         assert g == got[0]
 
 
-# decode graphs the first graphed call of each kind captures on the engine,
-# which has run the kinds before it: the streams' first resumes on the
-# first slot, whose greedy graph ``generate`` captured, and the second
-# captures on a second slot; the prefix call replays the first slot's
-# greedy graph
+# decode graphs the first graphed call of each kind captures on its engine,
+# which has run the kinds before it (each followed by its host-loop twin,
+# which captures the slot's step graph of its mode): every kind that loops
+# on the device captures its loop graph, unless an earlier kind did (the
+# EOS call and the prefix call replay the first slot's greedy loop); the
+# streams' first resumes on the first slot, whose greedy step graph
+# ``generate``'s host-loop twin captured, and the second captures on a
+# second slot; ``refill`` runs on an engine of its own
 NEW_GRAPHS = {"generate": 1, "baseline": 1, "sample": 1, "batch": 1,
-              "streams": 1, "prefix": 0}
+              "batch_sample": 1, "eos": 0, "refill": 1, "streams": 1,
+              "prefix": 0}
 # prefill graphs it captures (one a slot: ``generate`` the first slot's,
-# the second stream the second slot's), and the prefill chunks of each
-# call (chunks of 16 rows: the prompts of 12 and 9 tokens, the prefix of 8
-# and the rows past it take one each; the batch and the streams prefill
-# two prompts, the prefix call its prefix and then its prompt)
+# ``refill`` its engine's, the second stream the second slot's), and the
+# prefill chunks of each call (chunks of 16 rows: the prompts of 12 and 9
+# tokens, the prefix of 8 and the rows past it take one each; the batches
+# and the streams prefill two prompts, the prefix call its prefix and then
+# its prompt)
 NEW_PREFILL_GRAPHS = {"generate": 1, "baseline": 0, "sample": 0, "batch": 0,
-                      "streams": 1, "prefix": 0}
+                      "batch_sample": 0, "eos": 0, "refill": 1, "streams": 1,
+                      "prefix": 0}
 CHUNKS = {"generate": 1, "baseline": 1, "sample": 1, "batch": 2,
-          "streams": 2, "prefix": 2}
+          "batch_sample": 2, "eos": 1, "refill": 1, "streams": 2,
+          "prefix": 2}
+# the kinds whose host loop (and so whose eager call) may take steps past
+# the one that ends the run: an EOS id stops it before its budget
+OVERSHOOT = ("eos",)
 
 
 @pytest.mark.parametrize("mesh", CAPTURE)
@@ -368,16 +433,20 @@ def test_faked_capture_of_mesh_steps_equals_eager(world, mesh):
     """Through a faked capture (the warm step, a capture that restores the
     state, replays running the step as the graph would) greedy
     ``generate``, ``generate_baseline``, ``generate_sample``, a two-lane
-    ``generate_batch``, a stream that runs while another is suspended and
-    a call from a ``precompute_prefix`` cache equal their eager calls on
-    one engine: tokens, steps and (once captured) branches; the
-    collectives a call counts are the eager call's (a capture takes its
-    own back, each replay adds the step's once); the first call captures
-    its new decode and prefill graphs (``NEW_GRAPHS``,
-    ``NEW_PREFILL_GRAPHS``), a step is one replay and a prefill chunk one
-    replay of the prefill graph (a capture's first step or chunk is the
-    warm one). Every rank gives the same tokens, steps, branches and
-    replays (the collectives differ between pp stages)."""
+    ``generate_batch`` greedy and sampled, an EOS-ended greedy call, a
+    greedy call with ``always_fwd_one=False``, a stream that runs while
+    another is suspended and a call from a ``precompute_prefix`` cache
+    equal their eager calls on one engine: tokens, steps and (once
+    captured) branches; the collectives a call counts are the eager
+    call's (a capture takes its own back, each replay adds the step's
+    once), but for the EOS-ended call, whose device loop stops at the step
+    that ended it while the eager host loop runs its batch out; the first
+    call captures its new decode and prefill graphs (``NEW_GRAPHS``,
+    ``NEW_PREFILL_GRAPHS``), a step is one replay (a device loop's
+    iteration) and a prefill chunk one replay of the prefill graph (a
+    capture's first step or chunk is the warm one). Every rank gives the
+    same tokens, steps, branches and replays (the collectives differ
+    between pp stages)."""
     ranks, _, _, _ = world
     for r in ranks:
         got_kinds = r["fake_captured"][mesh]
@@ -391,11 +460,12 @@ def test_faked_capture_of_mesh_steps_equals_eager(world, mesh):
             assert eager["prefills"] == 0, kind
             # the warm step runs the chain's body unconditionally and
             # counts no branch, so a capturing call's branches differ
-            first_keys = ("tokens", "steps", "collectives") + (
-                () if NEW_GRAPHS[kind] else ("branches", "taken"))
+            counted = (() if kind in OVERSHOOT
+                       else ("collectives", "branches", "taken"))
+            first_keys = ("tokens", "steps") + (
+                counted[:1] if NEW_GRAPHS[kind] else counted)
             for which, keys in (("first", first_keys),
-                                ("graphed", ("tokens", "steps", "collectives",
-                                             "branches", "taken"))):
+                                ("graphed", ("tokens", "steps") + counted)):
                 for key in keys:
                     assert got[which][key] == eager[key], (r["rank"], kind,
                                                            which, key)
@@ -416,19 +486,85 @@ def test_faked_capture_of_mesh_steps_equals_eager(world, mesh):
                     assert got[which][key] == first[which][key], (kind, key)
 
 
+LOOP_KINDS = [k for k in NEW_GRAPHS if k != "streams"]
+
+
 @pytest.mark.parametrize("mesh", CAPTURE)
-def test_meshes_keep_the_host_loop(world, mesh):
+def test_meshes_loop_on_the_device_and_streams_on_the_host(world, mesh):
     """A mesh engine whose steps capture (faked here; NCCL on the cards)
-    still loops on the host, by its mode and not by an error: every call,
-    greedy ``generate``, ``generate_baseline`` and ``generate_batch``
-    included, launches no device loop (``graphs.LoopGraph``) and replays
-    its captured step once a step, on every rank."""
+    runs the decode loop of every call but a stream on the device: greedy
+    ``generate``, ``generate_baseline``, ``generate_sample``, greedy and
+    sampled ``generate_batch``, an EOS-ended call, an
+    ``always_fwd_one=False`` call and a prefix call each launch one device
+    loop (``graphs.LoopGraph``) a call, captured or replayed, whose
+    iterations are the call's steps, the same on every rank; the streams
+    launch none and replay their captured step once a step, and so does
+    each call's host-loop twin (``host_loop=True``) and its eager call."""
     ranks, _, _, _ = world
     for r in ranks:
         for kind, got in r["fake_captured"][mesh].items():
-            for which in ("eager", "first", "graphed"):
-                assert got[which]["loops"] == 0, (r["rank"], kind, which)
-            assert got["graphed"]["replays"] > 0, (r["rank"], kind)
+            loops = 0 if kind == "streams" else 1
+            for which in ("first", "graphed"):
+                assert got[which]["loops"] == loops, (r["rank"], kind, which)
+            assert got["eager"]["loops"] == 0, (r["rank"], kind)
+            assert got["graphed"]["replays"] == max(got["graphed"]["steps"]) \
+                or kind == "streams", (r["rank"], kind)
+            if kind != "streams":
+                assert got["host"]["loops"] == 0, (r["rank"], kind)
+                assert got["host"]["replays"] > 0, (r["rank"], kind)
+        iters = [{kind: got["graphed"]["replays"] for kind, got in
+                  x["fake_captured"][mesh].items()} for x in ranks]
+        assert iters == [iters[0]] * len(ranks)
+
+
+@pytest.mark.parametrize("mesh", CAPTURE)
+@pytest.mark.parametrize("kind", LOOP_KINDS)
+def test_mesh_device_loop_equals_its_host_loop(world, mesh, kind):
+    """Each device-loop call of a faked-captured mesh engine equals the
+    same call by the host loop (``host_loop=True``) and its eager call on
+    every rank: tokens, steps, the pool rows [0, R) and clock its states
+    ended with, the branches its chains took and the final draw counters
+    of the Philox streams; the host loop counts the eager call's
+    collectives and branches (both run the same batches of steps)."""
+    ranks, _, _, _ = world
+    for r in ranks:
+        got = r["fake_captured"][mesh][kind]
+        for which in ("first", "graphed", "host"):
+            for key in ("tokens", "steps", "pool", "draws"):
+                assert got[which][key] == got["eager"][key], (
+                    r["rank"], which, key)
+        # a capturing host call's warm step counts no branch
+        for key in ("collectives",) + (
+                () if got["host"]["captured"] else ("branches", "taken")):
+            assert got["host"][key] == got["eager"][key], (r["rank"], key)
+        if kind not in OVERSHOOT:
+            assert got["graphed"]["taken"] == got["eager"]["taken"]
+        if kind in ("sample", "batch_sample", "refill"):
+            # a step that draws advances its lane's counter once
+            assert got["graphed"]["draws"] == got["graphed"]["steps"], kind
+
+
+@pytest.mark.parametrize("mesh", CAPTURE)
+@pytest.mark.parametrize("kind", ["generate", "baseline", "batch", "eos",
+                                  "refill", "prefix"])
+def test_mesh_device_loop_equals_jax(world, mesh, kind):
+    """Each greedy and AR call of a faked-captured mesh engine, on the
+    device loop, gives the tokens and steps of JAX's unsharded engine in
+    float32 on every rank, and the pool rows [0, R) JAX's run ended with
+    (``generate``, the EOS-ended call, each lane of the batch): the
+    EOS-ended call stops at the step that emitted its EOS id, as JAX's
+    ``while_loop`` does. The ``always_fwd_one=False`` call gives JAX's
+    tokens (its window refill draws from the port's own stream, so its
+    steps may differ)."""
+    ranks, refs, _, _ = world
+    want = refs["mesh_jax"][mesh][kind]
+    for r in ranks:
+        got = r["fake_captured"][mesh][kind]["graphed"]
+        assert got["tokens"] == want["tokens"], (r["rank"], kind)
+        if kind != "refill":
+            assert got["steps"] == want["steps"], (r["rank"], kind)
+        if "pools" in want:
+            assert got["pool_rows"] == want["pools"], (r["rank"], kind)
 
 
 def test_faked_capture_of_the_dp_tp_train_step_equals_eager(world):

@@ -760,43 +760,119 @@ def _streams(eng, p, q):
                             steps=int(eng._slots[1].state.step_idx))]
 
 
+# new tokens of each of _mesh_calls' kinds (the streams apart); the new
+# position whose greedy token is the "eos" call's EOS id
+MESH_NEW = {"generate": 32, "baseline": 24, "sample": 32, "batch": 24,
+            "prefix": 24, "batch_sample": 16, "eos": 20, "refill": 20}
+EOS_AT = 6
+
+
+def _mesh_calls(eng, refill, p, q, eos):
+    """kind -> (the call, its host-loop twin or None) of :func:`_fake_captured`
+    on ``eng`` (``refill``: the same mesh with ``always_fwd_one=False``):
+    every entry point that loops on the device where its step captures,
+    each twin the same call by the host loop (``host_loop=True``); the
+    streams keep the host loop and have no twin."""
+    sc, n = lt.SamplingConfig(**SAMPLING), MESH_NEW
+
+    def prefixed(host_loop):
+        pc = eng.precompute_prefix(p[:8])
+        return eng._run("greedy", p, n["prefix"], None, 0, prefix=pc,
+                        host_loop=host_loop)
+
+    def batch(kind, sampled, host_loop):
+        return eng._batch([p, q], n[kind], None, 0,
+                          [5, 6] if sampled else None, None,
+                          sc if sampled else None,
+                          [0.7, 1.2] if sampled else None, None,
+                          host_loop=host_loop)
+    sampled = dict(seeds=[5, 6], sampling=sc, temperatures=[0.7, 1.2])
+    return {
+        "generate": (lambda: eng.generate(p, n["generate"],
+                                          return_prefix=True),
+                     lambda: eng._run("greedy", p, n["generate"], None, 0,
+                                      return_prefix=True, host_loop=True)),
+        "baseline": (lambda: eng.generate_baseline(p, n["baseline"]),
+                     lambda: eng._run("ar", p, n["baseline"], None, 0,
+                                      host_loop=True)),
+        "sample": (lambda: eng.generate_sample(p, n["sample"], sc, seed=3),
+                   lambda: eng._run("sample", p, n["sample"], None, 3,
+                                    sampling=sc, host_loop=True)),
+        "batch": (lambda: eng.generate_batch([p, q], n["batch"]),
+                  lambda: batch("batch", False, True)),
+        "batch_sample": (lambda: eng.generate_batch(
+                             [p, q], n["batch_sample"], **sampled),
+                         lambda: batch("batch_sample", True, True)),
+        "eos": (lambda: eng.generate(p, n["eos"], eos_token_id=eos,
+                                     return_prefix=True),
+                lambda: eng._run("greedy", p, n["eos"], eos, 0,
+                                 return_prefix=True, host_loop=True)),
+        "refill": (lambda: refill.generate(p, n["refill"], seed=4),
+                   lambda: refill._run("greedy", p, n["refill"], None, 4,
+                                       host_loop=True)),
+        "streams": (lambda: _streams(eng, p, q), None),
+        "prefix": (lambda: prefixed(False), lambda: prefixed(True)),
+    }
+
+
+def _end_state(eng, refill, kind):
+    """(the pool rows [0, R) and clock each result's state ended with, as
+    lists; the states' draw counters) after a call of ``kind``: the lanes
+    of ``generate_batch``'s two-lane slot, or the first flat slot (of
+    ``refill`` for its kind)."""
+    if kind.startswith("batch"):
+        st = eng._lane_slots[2].states
+        pools = [[st.pool.values[b, :-1].tolist(),
+                  st.pool.age[b, :-1].tolist(), int(st.pool.clock[b])]
+                 for b in range(2)]
+        return pools, st.draws.tolist()
+    st = (refill if kind == "refill" else eng)._slots[0].state
+    return ([[st.pool.values[:-1].tolist(), st.pool.age[:-1].tolist(),
+              int(st.pool.clock)]], [int(st.draws)])
+
+
 def _fake_captured(name, data, device):
-    """At mesh ``name`` on one engine made inside :func:`faked_capture`:
-    greedy ``generate``, ``generate_baseline``, ``generate_sample``, a
-    two-lane ``generate_batch``, two greedy streams of which the second
-    runs while the first is suspended (:func:`_streams`), and a greedy
-    ``generate`` from a ``precompute_prefix`` cache, each eager
-    (``graphs.eager()``), then graphed twice. Each call's tokens, steps,
-    collectives called and branch counts, and the graphed calls' captures
-    and replays of decode steps and of prefill chunks, and the device
-    loops it launched (none: a mesh loops on the host)."""
+    """At mesh ``name`` on engines made inside :func:`faked_capture`, each
+    call of :func:`_mesh_calls`: eager (``graphs.eager()``), then graphed
+    twice (the first call captures) and by the host loop. Each call's
+    tokens, steps, collectives called, branch counts, the graphed calls'
+    captures and replays of decode steps and of prefill chunks, the
+    device loops they launched, and the pool rows and draw counters its
+    states ended with (the rows themselves for the graphed call, a hash
+    otherwise)."""
+    import hashlib
+    import json
     from lookaheaddecoding_tpu_torch.core import graphs
-    sc = lt.SamplingConfig(**SAMPLING)
     p, q = prompt_of("la"), prompt_of("small")[:9]
     out = {}
     with faked_capture():
         eng = _capture_engine(name, data, device, pool_key_len=2,
                               pool_hash_size=97)
-        calls = {"generate": lambda: eng.generate(p, 32),
-                 "baseline": lambda: eng.generate_baseline(p, 24),
-                 "sample": lambda: eng.generate_sample(p, 32, sc, seed=3),
-                 "batch": lambda: eng.generate_batch([p, q], 24),
-                 "streams": lambda: _streams(eng, p, q),
-                 "prefix": lambda: eng.generate(
-                     p, 24, prefix=eng.precompute_prefix(p[:8]))}
-        for kind, fn in calls.items():
-            runs = {}
-            with graphs.eager():
-                runs["eager"] = _counted(fn)
-            runs["first"] = _counted(fn)
-            runs["graphed"] = _counted(fn)
-            out[kind] = {which: {
-                "tokens": [r.tokens.tolist() for r in res],
-                "steps": [r.steps for r in res], "collectives": calls_,
-                "branches": st["branches"], "taken": st["taken"],
-                "captured": st["captured"], "replays": st["replays"],
-                "prefills": st["prefills"], "loops": st["loops"]}
-                for which, (res, calls_, st) in runs.items()}
+        refill = _capture_engine(name, data, device, pool_key_len=2,
+                                 pool_hash_size=97, always_fwd_one=False)
+        with graphs.eager():
+            eos = int(eng.generate(p, MESH_NEW["eos"]).tokens[
+                len(p) + EOS_AT])
+        for kind, (fn, host) in _mesh_calls(eng, refill, p, q, eos).items():
+            ways = [("eager", fn), ("first", fn), ("graphed", fn)]
+            out[kind] = {}
+            for which, call in ways + ([("host", host)] if host else []):
+                with (graphs.eager() if which == "eager"
+                      else contextlib.nullcontext()):
+                    res, calls_, st = _counted(call)
+                rec = out[kind][which] = {
+                    "tokens": [r.tokens.tolist() for r in res],
+                    "steps": [r.steps for r in res],
+                    "collectives": calls_, "branches": st["branches"],
+                    "taken": st["taken"], "captured": st["captured"],
+                    "replays": st["replays"], "prefills": st["prefills"],
+                    "loops": st["loops"]}
+                if kind != "streams":
+                    pools, rec["draws"] = _end_state(eng, refill, kind)
+                    rec["pool"] = hashlib.sha256(
+                        json.dumps(pools).encode()).hexdigest()
+                    if which == "graphed":
+                        rec["pool_rows"] = pools
     return out
 
 
