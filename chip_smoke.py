@@ -160,7 +160,7 @@ target). It imports no JAX. Phases, each printed as it runs:
    from its seed and keeping its shard, on four meshes: ``tp2``, ``pp2``,
    ``la2`` (S=240, 120 rows a rank) and ``int8_weights_tp2``. On each
    rank, ``generate`` equals ``generate_baseline``, follows the cycle and
-   equals the first 64 new tokens of phase 4's run of the same
+   equals the first 48 new tokens of phase 4's run of the same
    configuration (a mismatch raises with the teacher-forced top-2
    margin); every rank's tokens and steps are equal; the attention
    kernel's tensor-core design is launched and its FMA design and the
@@ -193,14 +193,13 @@ target). It imports no JAX. Phases, each printed as it runs:
    for each flat configuration above, phase 10's dynamic-NTK engine and a
    1,536-token prompt on the headline model at M=2048 (12 chunks through
    B2), the slot after ``_prepare`` must be bit-equal eager and graphed
-   (caches, ``kv_len``, pool, window, output buffer), the graphed prefill
-   must replay the slot's captured chunk once a chunk (``graphs.stats``)
-   with the attention's launches, one a layer and chunk, counted from the
-   replays, and the way from the request's start to its first decode
-   replay must not sync the host (``set_sync_debug_mode("error")``). It
-   prints ms a prefill chunk eager and graphed, ms from the request's
-   start to its first decode step each way, and the call's wall over its
-   steps beside the step alone. Paged admission is captured the same way
+   (caches, ``kv_len``, pool, window, output buffer), the graphed
+   ``_prepare`` must be one launch of the slot's prepare graph whose
+   prefill WHILE node runs an iteration a chunk (``graphs.stats``) with
+   the attention's launches, one a layer and chunk, counted from its
+   iterations. It prints ms a chunk of the host-counted prefill (a prefix
+   call's: the captured chunk replayed) eager and graphed, and the call's
+   wall over its steps beside the step alone. Paged admission is captured the same way
    (JAX's ``_get_prepare``): for paged_bf16, paged_int8_weights_int8_kv
    and paged_bf16_head_dim_256, a 64-token and a 700-token prompt (6
    chunks across 6 pages), a request on a 200-token ``precompute_prefix``
@@ -215,7 +214,8 @@ target). It imports no JAX. Phases, each printed as it runs:
    runs on the device (JAX's ``lax.while_loop``): every greedy and AR call
    above (and in phases 4-11) launches its loop once, a WHILE node around
    the captured step; here each must run as many iterations as it takes
-   steps, launch the WHILE condition kernel once more than that, and make
+   steps, launch the WHILE condition kernel once before each of its loops
+   (the prefill's too) and once an iteration, and make
    one read back with no host sync before it (a second call under
    ``set_sync_debug_mode("error")`` until ``graphs.fetch``); a greedy
    ``generate_batch`` of four lanes is held the same way against its
@@ -232,7 +232,24 @@ target). It imports no JAX. Phases, each printed as it runs:
    pool rows and final draw counters, with one launch, an iteration a
    step, a Philox launch a step, one read and no sync before it; each
    prints the call's wall over its steps three ways and the device ms an
-   iteration beside the host loop's ms a step;
+   iteration beside the host loop's ms a step. Last, the request graph
+   (JAX's ``_make_fused``: a flat call without a prefix is one CUDA graph
+   of resets, seeding, fill, the prefill's WHILE node and the decode
+   loop's, launched once and read once): the headline bf16 ``generate``
+   of 256 tokens, its ``generate_baseline`` and ``generate_sample`` at T*,
+   the int8_weights, int4_weights and int8_weights_int8_kv ``generate``s,
+   a one-token prompt, the 1,536-token prompt at M=2048 and a call that an
+   EOS id ends, each eagerly, by today's path (``_run(...,
+   fused=False)``: the preparation op by op, the prefill's chunk graph
+   replayed a chunk, the decode loop's own graph) and as its request
+   graph, after a warm call each: tokens, steps, pool rows and the draw
+   counter bit-equal, the request graph one launch with prefill
+   iterations equal to the chunks (none for one token) and decode
+   iterations equal to the steps, no plain version, and one read with no
+   host sync before it. It prints, beside today's path, ms until the read
+   is queued, the call's wall over its steps, device ms from the start to
+   the read and of the launch alone (CUDA events), and the host's ops and
+   graph launches a call, then its own ``[seconds]`` line;
 14. the mesh step captured and the decode loop on a mesh: a world of one
    rank over NCCL (``parallel/launch.py --nproc 1 --backend nccl``; the
    card takes one NCCL rank) builds the headline model and runs an engine
@@ -390,9 +407,10 @@ CHECK_LOSS_RTOL, CHECK_SGD_ATOL = 1e-4, 1e-6
 # phase 12: two ranks on the one card over gloo (NCCL takes one rank a
 # card), each mesh of the headline model at full width and depth; new
 # tokens compared with phase 4's run of the same configuration
-# (64 new tokens: two eager ranks over gloo take hundreds of ms a step,
-# which the AR baseline pays once a token)
-PAR_RANKS, PAR_NEW, PAR_WARM, PAR_TIMEOUT_S = 2, 64, 16, 420
+# (48 new tokens: two eager ranks over gloo take hundreds of ms a step,
+# which the AR baseline pays once a token; cut from 64 to keep the run
+# inside its time limit)
+PAR_RANKS, PAR_NEW, PAR_WARM, PAR_TIMEOUT_S = 2, 48, 16, 420
 PAR_BATCH_NEW = 32    # new tokens of each mesh's two-lane generate_batch
 PAR_MESHES = (("tp2", dict(tp=2), "bf16"), ("pp2", dict(pp=2), "bf16"),
               ("la2", dict(la=2), "bf16"),     # S=240: 120 rows a rank
@@ -1451,11 +1469,13 @@ def main_path(name, eng, prompt, nxt, card, matmul_kernels, n_new=N_NEW):
             (name, path, got)
         assert got["plain"] == 0, (name, path, got)
         # the pool's chain is an IF node of every captured lookahead step;
-        # both paths loop on the device: one WHILE condition kernel before
-        # the loop and one an iteration
+        # each path is one request graph, its prefill and decode loops on
+        # the device: each WHILE condition kernel once before its loop and
+        # once an iteration
         assert (got["set_if"] > 0) == (path == "lookahead"), (name, path,
                                                               got)
-        assert got["set_while"] == runs[path].steps + 1, (name, path, got)
+        assert got["set_while"] == runs[path].steps + 2 + prefill_chunks(
+            eng, len(prompt)), (name, path, got)
         # the window's copy_from seeding draws once a request; a greedy
         # step (always_fwd_one) draws nothing
         assert got["philox"] == 1, (name, path, got)
@@ -3265,6 +3285,7 @@ CAPTURE_PROFILED = 6  # of a profiled one
 # insert unless the prompt's own n-grams share a key
 CAPTURE_FIRST = 3
 CAPTURE_BUDGET = 100_000   # max_new of those windows: no step ends them
+REQUEST_REPS = 3      # timed calls a way of each request-graph case
 PREFILL_REPS = 3      # prefills of each way's timed window of the prefill
 PREFILL_PROFILED = ("bf16",)   # configurations whose graphed prefill is
                                # profiled (each profiler run costs seconds)
@@ -3423,6 +3444,16 @@ def prefill_chunks(eng, prompt_len, start0=0):
     return -(-max(prompt_len - 1 - start0, 0) // eng.ecfg.prefill_chunk)
 
 
+def while_launches(stats):
+    """The WHILE condition kernel's launches of calls whose every loop is
+    on the device and whose every prefill a request or prepare graph's
+    (``graphs.stats`` of the calls): one before each loop and one an
+    iteration, decode (``loops``, ``replays``) and prefill (``requests``,
+    ``prefills``)."""
+    return (stats["loops"] + stats["replays"] + stats["requests"]
+            + stats["prefills"])
+
+
 def prepared_slot(eng, prompt, n_new):
     """A free slot of ``eng`` after ``_prepare`` of ``prompt``, and clones of
     every tensor of its state (caches, ``kv_len``, window, pool, output
@@ -3452,46 +3483,23 @@ def prefill_ms(eng, slot, prompt):
                         PREFILL_REPS) / prefill_chunks(eng, len(prompt)))
 
 
-def to_first_step(eng, prompt, mode, n_new, sampling, no_sync):
-    """(ms until the host has queued the first decode step, ms until the
-    card has run it) from the request's start: ``_host_args``,
-    ``_prepare``, the step's runner and one step. With ``no_sync`` the
-    host must not wait for the card on the way: the calls run under
-    ``torch.cuda.set_sync_debug_mode("error")``, so a sync raises."""
-    import torch
-    torch.cuda.synchronize()
-    if no_sync:
-        torch.cuda.set_sync_debug_mode("error")
-    try:
-        with torch.inference_mode():
-            t0 = time.perf_counter()
-            slot = eng._free_slot()
-            out_buf, n, fill = eng._host_args(prompt, n_new)
-            eng._prepare(out_buf, n, 0, fill, slot=slot)
-            eng._flat_runner(slot, mode, n_new, None, sampling).run(1)
-            queued = time.perf_counter()
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    return 1e3 * (queued - t0), 1e3 * (time.perf_counter() - t0)
-
-
-def captured_prefill(name, eng, prompt, mode, card, n_new, sampling=None):
+def captured_prefill(name, eng, prompt, card, n_new):
     """The request's preparation, eager and graphed on one engine whose
     graphs the calls before captured: the slot after ``_prepare`` bit-equal
     both ways (caches, ``kv_len``, pool, window, output buffer, counters);
-    graphed, every chunk a replay of the slot's captured chunk
-    (``stats["prefills"]``, nothing captured) whose attention launches,
-    one a layer and chunk (B1, or B2 past 1024 slots: causal), the
-    kernels' counts take from the replays, no plain version; ms a chunk
-    each way; and from the request's start to its first decode step, ms
-    each way, graphed under the sync check (``to_first_step``). Returns
-    {"chunk_ms", "first_ms", "per_replay"}."""
+    graphed, one launch of the slot's prepare graph whose prefill WHILE
+    node ran an iteration a chunk (``stats["prefills"]``, nothing
+    captured), the attention launching one a layer and chunk (B1, or B2
+    past 1024 slots: causal), no plain version; then ms a chunk of the
+    host-counted prefill (a prefix call's way: the slot's captured chunk
+    replayed, or eager chunks). The request as a whole, graphed against
+    today's path, is :func:`request_case`'s. Returns {"chunk_ms",
+    "per_replay"}."""
     import torch
     from lookaheaddecoding_tpu_torch.core import graphs
 
     k = prefill_chunks(eng, len(prompt))
-    snaps, stats, got, chunk_ms, first_ms = {}, {}, {}, {}, {}
+    snaps, stats, got, chunk_ms = {}, {}, {}, {}
     profiled, prof = name in PREFILL_PROFILED, None
     for which in ("eager", "graphed"):
         with _mode(which):
@@ -3502,20 +3510,18 @@ def captured_prefill(name, eng, prompt, mode, card, n_new, sampling=None):
             slot, snaps[which] = prepared_slot(eng, prompt, n_new)
             torch.cuda.synchronize()
             stats[which], got[which] = graphs.read_stats(), read_counts()
+            prefills(eng, slot, prompt, 1)      # captures the chunk graph
             chunk_ms[which] = prefill_ms(eng, slot, prompt)
             if which == "graphed" and profiled:
                 prof = profile_steps(
                     lambda n: prefills(eng, slot, prompt, n), 1)
-            # the step graph captured first: the calls loop on the device
-            to_first_step(eng, prompt, mode, n_new, sampling, False)
-            first_ms[which] = to_first_step(eng, prompt, mode, n_new,
-                                            sampling, which == "graphed")
     assert all(torch.equal(a, b) for a, b in zip(snaps["eager"],
                                                   snaps["graphed"])), \
         f"{name}: the slot after the graphed prefill differs from eager"
     e, g = stats["eager"], stats["graphed"]
     assert e["prefills"] == e["captured"] == 0, (name, e)
     assert g["prefills"] == k and g["captured"] == 0, (name, k, g)
+    assert g["requests"] == 1 and e["requests"] == 0, (name, e, g)
     launches = k * eng.mcfg.num_hidden_layers
     assert got["graphed"]["attention_mma"] == launches \
         == got["eager"]["attention_mma"], (name, launches, got)
@@ -3526,19 +3532,14 @@ def captured_prefill(name, eng, prompt, mode, card, n_new, sampling=None):
                       if key[0] == "prefill").launches_per_replay()
     log(f"  [{card}] {name} prefill ({len(prompt)}-token prompt, {k} "
         f"chunk{'s' if k > 1 else ''} of {eng.ecfg.prefill_chunk}): the "
-        f"slot after it bit-equal eager and graphed; graphed {g['prefills']} "
-        f"replays of the captured chunk, launches a replay {per_replay}; ms "
-        f"a chunk eager {chunk_ms['eager']:.3f}, graphed "
+        f"slot after it bit-equal eager and graphed; graphed one launch of "
+        f"the prepare graph, {g['prefills']} prefill iterations; the "
+        f"host-counted prefill's chunk graph, launches a replay "
+        f"{per_replay}; ms a chunk eager {chunk_ms['eager']:.3f}, graphed "
         f"{chunk_ms['graphed']:.3f} ({chunk_ms['eager'] / chunk_ms['graphed']:.1f}"
         f"x)" + (f"; a graphed chunk under the profiler: "
-                 f"{profile_line(prof, chunk_ms, k)}" if profiled else "")
-        + f"; from the request's start to its first decode step, ms queued "
-        f"/ run: eager {first_ms['eager'][0]:.3f} / "
-        f"{first_ms['eager'][1]:.3f}, graphed {first_ms['graphed'][0]:.3f} / "
-        f"{first_ms['graphed'][1]:.3f} (no host sync on the way, "
-        f"set_sync_debug_mode('error'))")
-    return dict(chunk_ms=chunk_ms, first_ms=first_ms, per_replay=per_replay,
-                profile=prof)
+                 f"{profile_line(prof, chunk_ms, k)}" if profiled else ""))
+    return dict(chunk_ms=chunk_ms, per_replay=per_replay, profile=prof)
 
 
 def profile_line(prof, chunk_ms, k):
@@ -3579,8 +3580,11 @@ def loop_iteration(eng, prompt, mode, n_new, sampling=None, eos=None):
     """(device ms an iteration, iterations) of one launch of the slot's
     device loop over ``prompt`` prepared for ``n_new`` tokens (seed 0): CUDA
     events around the launch, the card's time for the whole loop over its
-    iterations."""
+    iterations. A call by today's path first captures the loop's graph
+    (a request graph holds its own loop, so the calls before may not
+    have)."""
     import torch
+    eng._run(mode, prompt, n_new, eos, 0, sampling=sampling, fused=False)
     with torch.inference_mode():
         slot = eng._free_slot()
         out_buf, n, fill = eng._host_args(prompt, n_new)
@@ -3673,11 +3677,13 @@ def captured_flat(name, eng, prompt, mode, card, n_new, sampling=None,
     assert got["plain"] == 0 and got["attention_fma"] == 0, (name, got)
     # one condition kernel a replay's IF node, one IF node a branch
     assert got["set_if"] == stats["branches"], (name, got, stats)
-    # greedy, sampling and AR loop on the device: one launch, an iteration
-    # a step (no step past the one that finished), one read back
+    # greedy, sampling and AR calls are one request graph: one launch, a
+    # decode iteration a step (no step past the one that finished), a
+    # prefill iteration a chunk, one read back
     steps = runs["graphed"].steps
-    assert stats["loops"] == 1 and stats["replays"] == steps, (name, stats)
-    assert got["set_while"] == steps + 1, (name, got)
+    assert stats["loops"] == stats["requests"] == 1 and \
+        stats["replays"] == steps, (name, stats)
+    assert got["set_while"] == while_launches(stats), (name, got, stats)
     if mode == "sample":     # a draw a step, and the window's seeding
         assert got["philox"] == steps + 1 == draws["graphed"] + 1, (name,
                                                                     got)
@@ -3693,8 +3699,7 @@ def captured_flat(name, eng, prompt, mode, card, n_new, sampling=None,
     with torch.inference_mode():     # the graph that call replayed
         per_replay = eng._flat_runner(eng._free_slot(), mode, n_new, None,
                                       sampling).launches_per_replay()
-    prefill = captured_prefill(name, eng, prompt, mode, card, n_new,
-                               sampling)
+    prefill = captured_prefill(name, eng, prompt, card, n_new)
     call_ms = {w: 1e3 * runs[w].wall_time_s / runs[w].steps for w in runs}
     if not alone:
         log(f"  [{card}] {name}: tokens == eager, {runs['graphed'].steps} "
@@ -4005,7 +4010,10 @@ def captured_batch(name, eng, prompts, card, n_new):
         st["graphed"]["replays"] == steps, (name, st["graphed"])
     assert got["graphed"]["paged_attention"] == \
         got["eager"]["paged_attention"] > 0, (name, got)
-    assert got["graphed"]["set_while"] == steps + 1, (name, got)
+    # the decode loop's, and each lane's prepare graph's prefill node
+    assert got["graphed"]["set_while"] == while_launches(st["graphed"]), \
+        (name, got)
+    assert st["graphed"]["requests"] == len(prompts), (name, st)
     again, reads = one_read(lambda: eng.generate_batch(prompts, n_new))
     assert reads == 1 and all(np.array_equal(a.tokens, b.tokens)
                               for a, b in zip(again, g)), name
@@ -4112,7 +4120,7 @@ def three_ways(name, eng, call, card, lanes=0):
     assert dev["loops"] == 1 and dev["replays"] == steps, (name, dev)
     assert host["loops"] == 0 and host["replays"] >= steps, (name, host)
     assert got["device"]["philox"] == steps + len(want[1]), (name, got)
-    assert got["device"]["set_while"] == steps + 1, (name, got)
+    assert got["device"]["set_while"] == while_launches(dev), (name, got)
     again, reads = one_read(lambda: call(False))
     assert reads == 1 and all(np.array_equal(a.tokens, b) for a, b in
                               zip(again, want[0])), name
@@ -4200,6 +4208,259 @@ def sampled_loops(configs, prompt, nxt, card, t_star):
     assert_same_tokens("always_fwd_one=False", refill, got["tokens"][0],
                        bf16.generate(prompt, N_SAMPLE).tokens, 1.0)
     return {name: got["launches"] for name, got in out.items()}
+
+
+def timed_request(call, no_sync, count_ops=False):
+    """(``call()``, its account) of one request: ms from its start until
+    its first read back (``graphs.fetch``) is queued on the host; device
+    ms from its start to that read (CUDA events) and, when it launched a
+    request graph, of that launch alone; its reads back; with
+    ``count_ops``, the ops the host dispatched before the first read (each
+    launches one or more kernels or copies; graph launches apart), which
+    the counting slows. With ``no_sync`` every wait of the host for the
+    card before the first read raises
+    (``torch.cuda.set_sync_debug_mode("error")``)."""
+    import contextlib
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from lookaheaddecoding_tpu_torch.core import graphs
+
+    fetch, run, marks, ops = graphs.fetch, graphs.RequestGraph.run, {}, [0]
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+
+    class Ops(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            ops[0] += "queued" not in marks
+            return func(*args, **(kwargs or {}))
+
+    def read(tensor):
+        if "queued" not in marks:
+            marks["queued"] = time.perf_counter()
+            events[1].record()
+            torch.cuda.set_sync_debug_mode("default")
+        marks["reads"] = marks.get("reads", 0) + 1
+        return fetch(tensor)
+
+    def launch(graph):
+        events[2].record()
+        run(graph)
+        events[3].record()
+        marks["launched"] = True
+
+    torch.cuda.synchronize()
+    graphs.fetch, graphs.RequestGraph.run = read, launch
+    if no_sync:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        with Ops() if count_ops else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            events[0].record()
+            res = call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        graphs.fetch, graphs.RequestGraph.run = fetch, run
+    torch.cuda.synchronize()
+    return res, dict(
+        queued_ms=1e3 * (marks["queued"] - t0),
+        device_ms=events[0].elapsed_time(events[1]),
+        launch_ms=(events[2].elapsed_time(events[3])
+                   if "launched" in marks else None),
+        reads=marks["reads"], ops=ops[0])
+
+
+def host_stages(eng, prompt, mode, n_new, sampling=None, eos=None):
+    """Median host ms of each stage of a request-graph call of ``prompt``
+    over REQUEST_REPS calls (a collection of Python's garbage before
+    each): the host's arguments (``_host_args``: the output buffer and
+    the pool fill), packing the words, pinning them, the copy's launch,
+    the graph's lookup and its launch; then the card's run to the read
+    (the host waits)."""
+    import gc
+    import torch
+
+    rows = []
+    for _ in range(REQUEST_REPS):
+        torch.cuda.synchronize()
+        gc.collect()
+        with torch.inference_mode(), eng._slot() as slot:
+            t = [time.perf_counter()]
+            out_buf, n, fill = eng._host_args(prompt, n_new)
+            t.append(time.perf_counter())
+            words = np.concatenate([
+                eng._call_words(mode, n_new, eos, sampling),
+                eng._request_words(out_buf, n, 0, fill)])
+            t.append(time.perf_counter())
+            pinned = torch.from_numpy(words).pin_memory()
+            t.append(time.perf_counter())
+            slot.args[:len(words)].copy_(pinned, non_blocking=True)
+            t.append(time.perf_counter())
+            graph = eng._request_graph(slot, fill is not None, mode,
+                                       *eng._warpers(mode, sampling))
+            t.append(time.perf_counter())
+            graph.graph.replay()
+            t.append(time.perf_counter())
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+        rows.append([1e3 * (b - a) for a, b in zip(t, t[1:])])
+    return dict(zip(("host_args", "pack", "pin", "copy", "lookup", "launch",
+                     "run"), np.median(np.array(rows), axis=0).tolist()))
+
+
+def request_case(name, eng, prompt, mode, card, n_new, sampling=None,
+                 eos=None, stages=False):
+    """One flat call (seed 0) three ways on one engine: eagerly
+    (``graphs.eager()``, once), and after a warm call by today's path (``_run(...,
+    fused=False)``: the preparation op by op, the prefill's chunks replays
+    of the slot's captured chunk, the decode loop's own graph) and as one
+    launch of the slot's request graph (JAX's fused call), those two
+    REQUEST_REPS times in turns, a collection of Python's garbage before
+    each call (a full one takes ~100 ms in this process, and would land in
+    whichever call triggers it). Tokens, steps, the pool's rows [0, R) and
+    clock and the draw counter bit-equal; the request graph one launch (a
+    device loop), its prefill iterations the chunks, its decode
+    iterations the steps, the WHILE condition kernel once before each
+    loop and once an iteration, no plain version, and one read back with
+    no host sync before it, as today's path. Prints, beside today's path,
+    the median and the least over the calls of: ms until the read is
+    queued, the call's wall over its steps, device ms from the start to
+    the read (CUDA events) and of the launch alone; the host's dispatches
+    and graph launches a call (from one more call each: counting slows
+    the host); with ``stages``, :func:`host_stages`."""
+    import gc
+    import torch
+    from lookaheaddecoding_tpu_torch.core import graphs
+
+    def call(fused):
+        return eng._run(mode, prompt, n_new, eos, 0, sampling=sampling,
+                        fused=fused)
+
+    def outcome(res):
+        st = eng._free_slot().state
+        return (res.tokens, res.steps, [t.clone() for t in (
+            st.pool.values[:-1], st.pool.age[:-1], st.pool.clock)],
+            int(st.draws))
+
+    k = prefill_chunks(eng, len(prompt))
+    out, st, got, acc = {}, {}, {}, {"today": [], "request": []}
+    with graphs.eager():            # nothing to capture: no warm call
+        gc.collect()
+        res, _ = timed_request(lambda: call(True), False)
+        out["eager"] = outcome(res) + (res.wall_time_s,)
+    for which in ("today", "request"):
+        call(which == "request")                       # warm (captures)
+    for rep in range(REQUEST_REPS):
+        for which in (("today", "request") if rep % 2 == 0
+                      else ("request", "today")):
+            gc.collect()
+            reset_counts()
+            graphs.reset_stats()
+            res, a = timed_request(lambda: call(which == "request"), True)
+            acc[which].append(dict(a, wall_ms=1e3 * res.wall_time_s
+                                   / res.steps))
+            st[which], got[which] = graphs.read_stats(), read_counts()
+            out[which] = outcome(res) + (res.wall_time_s,)
+    want = out["eager"]
+    for which in ("today", "request"):
+        tokens, steps, pools, draws, _ = out[which]
+        assert np.array_equal(tokens, want[0]) and steps == want[1], \
+            f"{name}: {which}'s tokens or steps differ from eager"
+        assert draws == want[3], (name, which, draws, want[3])
+        assert all(torch.equal(a, b) for a, b in zip(pools, want[2])), \
+            f"{name}: {which}'s pool rows differ from eager"
+        assert all(a["reads"] == 1 for a in acc[which]), (name, which)
+        assert got[which]["plain"] == got[which]["attention_fma"] == 0, \
+            (name, which, got[which])
+    steps = want[1]
+    r, t = st["request"], st["today"]
+    assert (r["requests"], r["loops"], r["captured"]) == (1, 1, 0), (name, r)
+    assert (r["prefills"], r["replays"]) == (k, steps), (name, k, r)
+    assert (t["requests"], t["loops"], t["prefills"]) == (0, 1, k), (name, t)
+    assert got["request"]["set_while"] == while_launches(r) == \
+        steps + k + 2, (name, got["request"])
+    assert got["request"]["attention_mma"] == got["today"]["attention_mma"] \
+        > 0, (name, got)
+    if eos is not None:
+        assert want[0][-1] == eos and len(want[0]) < len(prompt) + n_new, \
+            (name, "not ended by its EOS id")
+    # the host's work a call, counted apart
+    launches = {}
+    for which in ("today", "request"):
+        graphs.reset_stats()
+        _, counted = timed_request(lambda: call(which == "request"), True,
+                                   count_ops=True)
+        c = graphs.read_stats()
+        launches[which] = (counted["ops"], c["requests"] if which ==
+                           "request" else c["prefills"] + c["loops"])
+
+    def spread(which, key):
+        vals = [a[key] for a in acc[which]]
+        return float(np.median(vals)), min(vals)
+
+    summary = {w: {key: spread(w, key) for key in ("queued_ms", "wall_ms",
+                                                   "device_ms")}
+               for w in acc}
+    summary["request"]["launch_ms"] = spread("request", "launch_ms")
+    staged = host_stages(eng, prompt, mode, n_new, sampling, eos) \
+        if stages else None
+
+    def two(pair):
+        return f"{pair[0]:.3f} ({pair[1]:.3f})"
+    rq, td = summary["request"], summary["today"]
+    log(f"  [{card}] request graph, {name} ({len(prompt)}-token prompt, "
+        f"{k} chunk{'' if k == 1 else 's'}, {steps} steps): == today's "
+        f"path == eager (tokens, steps, pool rows, draws {want[3]}); one "
+        f"launch, prefill iterations {r['prefills']} of {k} chunks, decode "
+        f"iterations {r['replays']}, 1 read back and no host sync before "
+        f"it, no plain version; median (least) of {REQUEST_REPS} calls "
+        f"each: ms until the read is queued: request graph "
+        f"{two(rq['queued_ms'])}, today's path {two(td['queued_ms'])}; the "
+        f"call's wall over its steps, ms: request graph {two(rq['wall_ms'])}"
+        f", today's path {two(td['wall_ms'])}, eager "
+        f"{1e3 * want[4] / steps:.3f}; device ms from the start to the read "
+        f"(CUDA events): request graph {two(rq['device_ms'])} (the launch "
+        f"alone {two(rq['launch_ms'])}), today's path "
+        f"{two(td['device_ms'])}; a call's host ops before the read / graph "
+        f"launches: request graph {launches['request'][0]} / "
+        f"{launches['request'][1]}, today's path {launches['today'][0]} / "
+        f"{launches['today'][1]}" + ("" if staged is None else
+        "; the request graph's host stages, median ms: " + ", ".join(
+            f"{key} {v:.3f}" for key, v in staged.items())))
+    return dict(steps=steps, chunks=k, summary=summary, launches=launches,
+                stages=staged)
+
+
+def request_phase(configs, prompt, nxt, card, t_star, headline):
+    """Phase 13's request graphs (JAX's ``_make_fused``: a flat call
+    without a prefix one launch and one read), each by
+    :func:`request_case`: the headline bf16 ``generate`` of N_NEW tokens,
+    its ``generate_baseline`` and ``generate_sample`` at T*, the
+    int8_weights, int4_weights and int8_weights_int8_kv ``generate``s, a
+    one-token prompt (its prefill runs no iteration), a LONG_PROMPT-token
+    prompt at M=LONG_SEQ (12 chunks through B2) and a call that an EOS id
+    ends. Returns {name: request_case's account}."""
+    import lookaheaddecoding_tpu_torch as lt
+
+    bf16 = configs["bf16"][0]
+    mcfg, params = headline
+    eos = int(bf16.generate(prompt, N_NEW).tokens[len(prompt) + EOS_AT])
+    cases = [
+        ("bf16 generate", bf16, prompt, "greedy", N_NEW, None, None, True),
+        ("bf16 generate_baseline", bf16, prompt, "ar", N_NEW_QUANT),
+        (f"bf16 generate_sample at T*={t_star:.4f}", bf16, prompt, "sample",
+         N_SAMPLE, lt.SamplingConfig(temperature=t_star, top_k=TOP_K)),
+        *[(f"{name} generate", configs[name][0], prompt, "greedy",
+           N_NEW_QUANT) for name in ("int8_weights", "int4_weights",
+                                     "int8_weights_int8_kv")],
+        ("bf16 one-token prompt", bf16, prompt[:1], "greedy", N_NEW_QUANT),
+        (f"bf16 {LONG_PROMPT}-token prompt, M={LONG_SEQ}",
+         build_engine(mcfg, params, max_seq=LONG_SEQ),
+         make_prompt(nxt, start=11, n=LONG_PROMPT), "greedy", LONG_NEW,
+         None, None, True),
+        (f"bf16 generate to an EOS id (token {eos})", bf16, prompt,
+         "greedy", N_NEW, None, eos),
+    ]
+    return {case[0]: request_case(case[0], case[1], case[2], case[3], card,
+                                  *case[4:]) for case in cases}
 
 
 def captured_phase(configs, prompt, paged_engines, nxt, card, t_star,
@@ -4513,6 +4774,16 @@ def main() -> int:
         nxt, card, samp_info["t_star"], learned16, (mcfg, params))
     lap("captured step")
 
+    log(f"[request graph] ({card}); a flat call without a prefix as one "
+        f"CUDA graph (resets, seeding, fill, the prefill's WHILE node, the "
+        f"decode loop's WHILE node), launched once and read once, against "
+        f"today's path (the preparation op by op, the prefill's chunk "
+        f"replayed a chunk, the decode loop's own graph) and eager, on the "
+        f"headline engines; {PROMPT_LEN}-token prompts unless named")
+    request_phase(configs, prompt, nxt, card, samp_info["t_star"],
+                  (mcfg, params))
+    lap("request graph")
+
     log(f"[mesh step captured] ({card}); a one-rank NCCL world "
         f"(parallel/launch.py --nproc 1 --backend nccl), the headline "
         f"model on make_mesh(tp=1) and without a mesh, {PAR_NEW} new "
@@ -4648,11 +4919,13 @@ def main() -> int:
              source=CSRC + "graph_cond.cu",
              replaces="lookaheaddecoding_tpu/core/step.py:520 (lax.while_loop "
              "of decode_loop; :568 baseline_loop; not a pl.pallas_call)",
-             main_path="the decode loop of greedy generate and "
+             main_path="the prefill and the decode loop of every request "
+             "graph, two nodes a call: greedy generate and "
              "generate_baseline (phase 4; phase 8's sampling calls; phase "
-             "13 adds dynamic_ntk, the learned model, greedy and sampled "
-             "generate_batch, generate_sample and always_fwd_one=False), "
-             "one launch a call",
+             "13 adds dynamic_ntk, the learned model, generate_sample, "
+             "always_fwd_one=False and the request-graph cases); the decode "
+             "loop of greedy and sampled generate_batch, one a call, beside "
+             "each lane's prepare graph's prefill node",
              **on_main_path("set_while"), **gwhile),
         dict(name="philox", route="cuda", source=CSRC + "philox.cu",
              replaces="lookaheaddecoding_tpu/core/step.py:104 (jax.random "

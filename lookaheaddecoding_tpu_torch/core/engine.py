@@ -25,23 +25,31 @@ whose groups are NCCL each rank replays its own graph, collectives
 included (JAX's ``jit`` over the mesh); the graphs live in a memory pool
 of the engine's own, so two engines on one rank never share one.
 
-The request's preparation is JAX's fused prepare call
-(``jax.jit(self._make_fused(None))``: caches, window, pool fill and the
-prefill ``fori_loop``) in three parts, none of which reads the device
-from the host: the host-to-device copies (the prompt's output buffer and
-the pool fill's rows, from pinned memory, ``graphs.upload``); the resets
-of the caches and the pool (or copies of a prefix's), the window seeding
-and the fill, launched eagerly; then the prefill, whose chunks read their
-start from device counters, replays of one captured chunk a slot. Every
-step runs eagerly on the CPU, on a mesh with a gloo group and inside
-``graphs.eager()``.
+A request is JAX's one traced call (``_make_fused``): on one card
+outside ``graphs.eager()``, ``generate``, ``generate_baseline`` and
+``generate_sample`` without a ``prefix`` are one launch of a
+``graphs.RequestGraph`` of the slot and one read. The host writes the
+request's arguments (its length, seed, output buffer, pool fill, budget,
+EOS ids and warpers) into the slot's ``args`` with one copy from pinned
+memory; the graph then resets the caches and the pool, seeds the stream
+and the window, applies the fill, runs the prefill as a WHILE node of one
+chunk under the chunk count it computes itself, and the decode loop as a
+second WHILE node. ``_prepare`` alone (streams, ``precompute_prefix``,
+``generate_batch``'s and the scheduler's lanes) is the same graph without
+the decode loop, JAX's ``_fused_prepare``. A call with a prefix, on a
+mesh, on the CPU or inside ``graphs.eager()`` runs the same functions op
+by op over the same uploaded arguments, and its prefill by the host's
+count of chunks: replays of one captured chunk a slot where steps are
+captured, each reading its start from device counters. Nothing between a
+request's start and its one read syncs the host.
 
 The decode loop is JAX's ``lax.while_loop`` on ``~finished``: on the card
 outside ``graphs.eager()``, on one card or on a mesh whose groups are all
 NCCL (each rank its own loop, the collectives inside it),
 ``generate``, ``generate_sample``, ``generate_baseline`` and
 ``generate_batch``, greedy or sampled, launch their whole loop once, a
-``graphs.LoopGraph`` (a CUDA-graph WHILE node around the captured step),
+``graphs.LoopGraph`` (a CUDA-graph WHILE node around the captured step;
+on one card a call without a prefix has that node in its request graph),
 and read the device once, in the call's final transfer, which also brings
 back the loop's iteration count. A sampling step draws from the request's
 Philox stream in the state (``ops/philox.py``), whose kernel reads the
@@ -70,7 +78,7 @@ from . import graphs
 from .layout import Layout, build_layout
 from .paged_step import PagedLaneState, build_paged_step_fns
 from .pool import (PoolState, apply_host_fill, host_prompt_fill, pool_init,
-                   pool_table_rows, upload_fill)
+                   pool_table_rows)
 from .state import DecodeState
 from .step import build_step_fns, host_batch, run_loop
 
@@ -80,6 +88,11 @@ _INT32_MAX = 2**31 - 1
 
 def _eos_vec(eos_token_id, device="cpu") -> torch.Tensor:
     """Fixed-width EOS id vector (pad -1); any listed id stops generation."""
+    return torch.from_numpy(_eos_words(eos_token_id)).to(device)
+
+
+def _eos_words(eos_token_id) -> np.ndarray:
+    """:func:`_eos_vec` on the host: [MAX_EOS_IDS] int32."""
     if eos_token_id is None:
         ids = []
     elif isinstance(eos_token_id, (int, np.integer)):
@@ -91,7 +104,7 @@ def _eos_vec(eos_token_id, device="cpu") -> torch.Tensor:
                 f"at most {MAX_EOS_IDS} eos ids supported, got {len(ids)}")
     v = np.full((MAX_EOS_IDS,), -1, np.int32)
     v[: len(ids)] = ids
-    return torch.from_numpy(v).to(device)
+    return v
 
 
 @dataclasses.dataclass
@@ -183,19 +196,42 @@ def _clear_cache(cache) -> None:
 class FlatSlot:
     """A flat decode state and every other tensor the step reads, at fixed
     addresses: a request is written into it in place (``_prepare``), and
-    the engine's captured steps and prefill chunk (``graphs``) run over it.
-    ``max_new`` is a 0-d int32 tensor, ``eos`` [MAX_EOS_IDS] int32,
-    ``temperature`` and ``top_p`` [1] float32; ``start0`` (the prefill's
-    first row: 0, or a prefix's length) and ``chunk`` (the prefill chunk
-    under way) 0-d int32."""
+    the engine's captured steps, prefill chunk and request graphs
+    (``graphs``) run over it.
+
+    A request's arguments lie in ``args``, one int32 buffer on the device
+    that the host writes with one copy a call (``graphs.upload_into``) and
+    of which the argument fields are views. The call's part comes first:
+    ``max_new`` (0-d), ``eos`` [MAX_EOS_IDS], ``temperature`` and ``top_p``
+    ([1] float32, their bits); ``split`` is where the request's part
+    begins: ``prompt_len`` (0-d), ``seed`` (the Philox key's two words),
+    ``clock`` (the fill's, 0-d), ``prompt`` (the output buffer [M + GS]
+    the request starts from) and, on an engine that fills its pool from
+    the prompt, ``fill`` (keys [M], rows [M, G, GS] and ages [M, G],
+    ``host_prompt_fill`` at ``pad_to=M``; else None). ``start0`` (the
+    prefill's first row: 0, or a prefix's length), ``chunk`` (the prefill
+    chunk under way), ``chunks`` (the prefill's chunk count, computed on
+    the device) and ``prefills`` (the chunks the prefill ran) are 0-d
+    int32; ``never`` is a 0-d bool that stays False, the prefill loop's
+    flag."""
 
     state: DecodeState
+    args: torch.Tensor
+    split: int
     max_new: torch.Tensor
     eos: torch.Tensor
     temperature: torch.Tensor
     top_p: torch.Tensor
+    prompt_len: torch.Tensor
+    seed: torch.Tensor
+    clock: torch.Tensor
+    prompt: torch.Tensor
+    fill: Optional[tuple]
     start0: torch.Tensor
     chunk: torch.Tensor
+    chunks: torch.Tensor
+    prefills: torch.Tensor
+    never: torch.Tensor
     graphs: dict = dataclasses.field(default_factory=dict)
     busy: bool = False
 
@@ -267,13 +303,24 @@ def write_lane(slot: LaneSlot, lane: int, state: DecodeState) -> None:
         getattr(st.pool, name)[lane] = getattr(state.pool, name)
 
 
-def _loop_done(loop: graphs.LoopGraph, finished: bool, iters: int,
-               max_new: int) -> None:
+def _loop_done(loop, finished: bool, iters: int, max_new: int,
+               prefills: Optional[int] = None,
+               chunks: Optional[int] = None) -> None:
     """Count a device loop's ``iters`` iterations, read in the call's final
     transfer, and refuse a loop that stopped at its cap (``max_new``
     iterations: every live step confirms a token) with a lane unfinished;
-    it is never run again from the host."""
-    loop.account(iters)
+    it is never run again from the host. After a request graph (a
+    ``graphs.RequestGraph``) the read also holds its prefill's
+    ``prefills`` iterations, which must be the ``chunks`` the host counts
+    from the prompt."""
+    if prefills is None:
+        loop.account(iters)
+    else:
+        loop.account(prefill=prefills, decode=iters)
+        if prefills != chunks:
+            raise RuntimeError(
+                f"the request graph's prefill ran {prefills} chunks where "
+                f"the prompt has {chunks}")
     if not finished:
         raise RuntimeError(
             f"the device decode loop stopped at its cap of "
@@ -463,11 +510,28 @@ class LookaheadEngine:
             init_len=zeros(), step_idx=zeros(),
             finished=torch.ones((), dtype=torch.bool, device=dev),
             key=zeros(2), draws=zeros(dtype=torch.int64))
-        return FlatSlot(state=state, max_new=zeros(),
-                        eos=zeros(MAX_EOS_IDS) - 1,
-                        temperature=zeros(1, dtype=torch.float32) + 1,
-                        top_p=zeros(1, dtype=torch.float32) + 1,
-                        start0=zeros(), chunk=zeros())
+        G, GS = lay.guess_set_size, lay.guess_size
+        shapes = [("max_new", ()), ("eos", (MAX_EOS_IDS,)),
+                  ("temperature", (1,)), ("top_p", (1,)),
+                  ("prompt_len", ()), ("seed", (2,)), ("clock", ()),
+                  ("prompt", (M + GS,))]
+        if self.lcfg.pool_from_prompt:
+            shapes += [("keys", (M,)), ("rows", (M, G, GS)), ("ages", (M, G))]
+        sizes = [int(np.prod(shape)) for _, shape in shapes]
+        args, views, at = zeros(sum(sizes)), {}, 0
+        for (name, shape), n in zip(shapes, sizes):
+            views[name] = args[at:at + n].view(shape)
+            at += n
+        for name in ("temperature", "top_p"):
+            views[name] = views[name].view(torch.float32).fill_(1.0)
+        views["eos"].fill_(-1)
+        fill = (tuple(views.pop(name) for name in ("keys", "rows", "ages"))
+                if self.lcfg.pool_from_prompt else None)
+        return FlatSlot(state=state, args=args, split=sum(sizes[:4]),
+                        fill=fill, start0=zeros(), chunk=zeros(),
+                        chunks=zeros(), prefills=zeros(),
+                        never=torch.zeros((), dtype=torch.bool, device=dev),
+                        **views)
 
     def _free_slot(self) -> FlatSlot:
         """A FlatSlot no call holds, made at first use (a second one only
@@ -488,22 +552,87 @@ class LookaheadEngine:
         finally:
             slot.busy = False
 
+    def _call_words(self, mode: str, max_new: int, eos_token_id,
+                    sampling: Optional[SamplingConfig] = None) -> np.ndarray:
+        """The call's part of a slot's ``args`` as host words: its budget
+        (the device loop's cap), EOS ids, and the sampling mode's
+        temperature and top_p (their float32 bits; 1.0 in the other
+        modes)."""
+        temp, top_p = ((sampling.temperature, sampling.top_p)
+                       if mode == "sample" else (1.0, 1.0))
+        return np.concatenate([np.int32([min(max_new, _INT32_MAX)]),
+                               _eos_words(eos_token_id),
+                               np.float32([temp, top_p]).view(np.int32)])
+
+    def _request_words(self, out_buf: np.ndarray, prompt_len: int, seed,
+                       fill) -> np.ndarray:
+        """The request's part of a slot's ``args`` as host words: the
+        prompt's length, the seed's Philox key words, the fill's clock, the
+        output buffer and the fill's keys, rows and ages (none without a
+        fill: nothing then reads them)."""
+        words = [np.int32([prompt_len]), np.int32(philox.seed_key(seed)),
+                 np.int32([0 if fill is None else fill[3]]), out_buf]
+        if fill is not None:
+            words += [np.ravel(a) for a in fill[:3]]
+        return np.concatenate(words).astype(np.int32, copy=False)
+
+    @staticmethod
+    def _write(slot: FlatSlot, words: np.ndarray, start: int = 0) -> None:
+        """Host words into ``slot.args`` from ``start``: one copy, from
+        pinned memory without a wait on the card."""
+        graphs.upload_into(slot.args[start:start + len(words)], words)
+
+    def _chunks(self, prompt_len: int, start0: int = 0) -> int:
+        """The prefill's chunks of a prompt past ``start0``, by the host."""
+        return -(-max(prompt_len - 1 - start0, 0) // self.ecfg.prefill_chunk)
+
+    @staticmethod
+    def _warpers(mode: str, sampling: Optional[SamplingConfig]):
+        """(top_p on, top_k) of a ``mode`` call's step: what its graph is
+        keyed by (the values are in the slot's args)."""
+        if mode != "sample":
+            return False, 0
+        return sampling.top_p < 1.0, sampling.top_k
+
     def _prepare(self, out_buf: np.ndarray, prompt_len: int, seed: int,
                  fill, prefix: Optional[PrefixCache] = None,
-                 slot: Optional[FlatSlot] = None) -> DecodeState:
+                 slot: Optional[FlatSlot] = None,
+                 fused: bool = True) -> DecodeState:
         """Caches, pool, window seeding, prompt fill and prefill, written in
         place into ``slot``'s state (by default a free slot's), which is
-        returned: JAX's fused prepare call. The caches and the pool start as
-        new ones would, or as copies of a prefix's (the prefill's last chunk
-        may rewrite some of its rows, and the fill merges into its pool's
-        rows); the stream's key is ``seed`` and its counter 0. The host's
-        arrays go to the device first, without a wait; the prefill replays
-        the slot's captured chunk (:meth:`_prefill`)."""
+        returned: JAX's fused prepare call. The request's arguments go to
+        the slot's ``args`` first, one copy without a wait, and everything
+        after reads them there. Without a prefix, where the engine fuses
+        (:meth:`_fuses`) and ``fused`` holds, that is one launch of the
+        slot's prepare graph (:meth:`_request_graph`): JAX's
+        ``_fused_prepare``. Otherwise the same functions run op by op
+        (:meth:`_start`: the caches and the pool reset, or copied from a
+        prefix's, whose rows the prefill's last chunk may rewrite and into
+        whose pool the fill merges) and the prefill runs the host's count
+        of chunks (:meth:`_prefill`)."""
         slot = slot or self._free_slot()
-        state, dev = slot.state, self.device
-        out_buf = graphs.upload(out_buf, dev)
-        if fill is not None:
-            fill = upload_fill(*fill, dev)
+        self._write(slot, self._request_words(out_buf, prompt_len, seed,
+                                              fill), slot.split)
+        if fused and prefix is None and self._fuses():
+            graph = self._request_graph(slot, fill is not None)
+            graph.run()
+            # the host's count: a whole request's one read checks the
+            # device's against it (_finalize)
+            graph.account(prefill=self._chunks(prompt_len))
+            return slot.state
+        self._start(slot, fill is not None, prefix)
+        return self._prefill(slot, prompt_len,
+                             0 if prefix is None else prefix.length)
+
+    def _start(self, slot: FlatSlot, fill: bool,
+               prefix: Optional[PrefixCache] = None) -> None:
+        """A request's state from the slot's arguments, in place: the caches
+        and the pool as new ones would be (or copies of ``prefix``'s), the
+        stream at the request's seed, the output buffer, window and
+        counters (``init_state``), and with ``fill`` the pool fill (merged
+        into a prefix's warm pool). It reads device data only, so the
+        request graph captures it as it stands."""
+        state = slot.state
         if prefix is None:
             _clear_cache(state.k_cache)
             _clear_cache(state.v_cache)
@@ -519,27 +648,82 @@ class LookaheadEngine:
             pool.values.zero_()
             pool.age.zero_()
             pool.clock.fill_(1)
-        philox.start(state.key, state.draws, seed)
-        self._fns.init_state(state, out_buf, prompt_len)
-        if fill is not None:
-            apply_host_fill(pool, *fill, merge=prefix is not None)
-        return self._prefill(slot, prompt_len,
-                             0 if prefix is None else prefix.length)
+        philox.start(state.key, state.draws, slot.seed)
+        self._fns.init_state(state, slot.prompt, slot.prompt_len)
+        if fill:
+            apply_host_fill(pool, *slot.fill, slot.clock,
+                            merge=prefix is not None)
 
-    def _prefill(self, slot: FlatSlot, prompt_len: int,
-                 start0: int) -> DecodeState:
-        """prompt[start0:-1] into ``slot``'s caches: on the card the slot's
-        captured prefill chunk (captured by the first chunk that needs it,
-        which is its warm step) replayed once a chunk, over the slot's
-        ``start0`` and ``chunk`` counters; a prompt of one token has no
-        chunk and captures nothing."""
+    @staticmethod
+    def _counters(slot: FlatSlot):
+        return slot.start0, slot.chunk, slot.chunks
+
+    def _chunk(self, slot: FlatSlot):
+        """One prefill chunk of ``slot``, its start from the slot's
+        counters."""
         fns, params, st = self._fns, self.params, slot.state
 
         def chunk():
             fns.prefill_chunk(params, st, slot.start0, slot.chunk)
-        steps = self._runner(slot.graphs, "prefill", chunk, slot, "prefills")
-        return fns.prefill_from(params, st, prompt_len, start0,
-                                (slot.start0, slot.chunk), steps.run)
+        return chunk
+
+    def _prefill(self, slot: FlatSlot, prompt_len: int,
+                 start0: int) -> DecodeState:
+        """prompt[start0:-1] into ``slot``'s caches by the host's count of
+        chunks (a prefix call, a mesh, ``graphs.eager()``, the CPU): on the
+        card replays of the slot's captured prefill chunk (captured by the
+        first chunk that needs it, which is its warm step), each reading
+        its start from the slot's ``start0`` and ``chunk`` counters, else
+        the chunk called once a chunk; ``prefills`` takes the count, as the
+        request graph's WHILE node counts it. A prompt of one token has no
+        chunk and captures nothing."""
+        steps = self._runner(slot.graphs, "prefill", self._chunk(slot), slot,
+                             "prefills")
+        k = self._chunks(prompt_len, start0)
+
+        def run():
+            steps.run(k)
+            slot.prefills.fill_(k)
+        slot.start0.fill_(start0)
+        return self._fns.prefill_from(self.params, slot.state,
+                                      self._counters(slot), run)
+
+    def _fuses(self) -> bool:
+        """Whether a request without a prefix runs as one graph
+        (:meth:`_request_graph`): on one card where steps are captured (no
+        mesh), outside ``graphs.eager()``."""
+        return (self._graphed and not graphs.eager_depth()
+                and self.mesh is None)
+
+    def _request_graph(self, slot: FlatSlot, fill: bool,
+                       mode: Optional[str] = None, top_p_on: bool = False,
+                       top_k: int = 0) -> graphs.RequestGraph:
+        """The slot's :class:`graphs.RequestGraph`: the preparation
+        (:meth:`_start` without a prefix, with the fill if ``fill``; then
+        the prefill, a WHILE node of the chunk under the chunk count the
+        device computed) and, with a ``mode``, that mode's decode loop
+        after it, a WHILE node of the step (``top_p_on`` and ``top_k`` its
+        warpers). Without a mode it is JAX's ``_fused_prepare``, with one
+        ``_fused_greedy``, ``_fused_baseline`` or the fused sampling loop.
+        Keyed by all of these; its bodies allocate in the engine's
+        MemPool."""
+        fns, params, st = self._fns, self.params, slot.state
+        step, key = ((None, None) if mode is None
+                     else self._flat_step(slot, mode, top_p_on, top_k))
+        chunk = self._chunk(slot)
+
+        def record(graph):
+            self._start(slot, fill)
+            slot.start0.zero_()
+            fns.prefill_from(params, st, self._counters(slot), lambda: (
+                graph.loop("prefill", "prefills", slot.never, slot.chunks,
+                           slot.prefills, chunk)))
+            if step is not None:
+                graph.loop("decode", "replays", st.finished, slot.max_new,
+                           graph.iters, step)
+        self._pools()
+        return graphs.request_runner(slot.graphs, (key, fill), record, slot,
+                                     self._graph_pool, self._loop_pool)
 
     def _runner(self, cache: dict, key, step, state, counter="replays"):
         if self._graphed and self._graph_pool is None:
@@ -558,13 +742,18 @@ class LookaheadEngine:
         return (mode in ("greedy", "sample", "ar") and self._graphed
                 and not graphs.eager_depth())
 
-    def _loop(self, cache: dict, key, step, state, finished, cap):
-        """The :class:`graphs.LoopGraph` of ``key`` in ``cache``; its body
-        allocates in the engine's MemPool (made at first use)."""
+    def _pools(self) -> None:
+        """The graphs' memory pool and the loop bodies' MemPool, made at
+        first use."""
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
         if self._loop_pool is None and self.device.type == "cuda":
             self._loop_pool = torch.cuda.MemPool()
+
+    def _loop(self, cache: dict, key, step, state, finished, cap):
+        """The :class:`graphs.LoopGraph` of ``key`` in ``cache``; its body
+        allocates in the engine's MemPool."""
+        self._pools()
         return graphs.loop_runner(cache, key, step, state, finished, cap,
                                   self._graph_pool, self._loop_pool,
                                   self.mesh)
@@ -573,9 +762,11 @@ class LookaheadEngine:
                      eos_token_id, sampling: Optional[SamplingConfig] = None):
         """The step runner of ``mode`` ("greedy", "sample" or "ar") over
         ``slot``, with the call's ``max_new``, EOS ids and warpers written
-        into the slot's buffers."""
-        step, key = self._flat_step(slot, mode, max_new, eos_token_id,
-                                    sampling)
+        into the slot's args."""
+        self._write(slot, self._call_words(mode, max_new, eos_token_id,
+                                           sampling))
+        step, key = self._flat_step(slot, mode,
+                                    *self._warpers(mode, sampling))
         return self._runner(slot.graphs, key, step, slot)
 
     def _flat_loop(self, slot: FlatSlot, mode: str, max_new: int,
@@ -584,25 +775,20 @@ class LookaheadEngine:
         """The decode loop of ``mode`` ("greedy", "sample" or "ar") over
         ``slot`` on the device, with the call's ``max_new`` (the loop's
         cap: every live step confirms a token), EOS ids and warpers written
-        into the slot's buffers."""
-        step, key = self._flat_step(slot, mode, max_new, eos_token_id,
-                                    sampling)
+        into the slot's args."""
+        self._write(slot, self._call_words(mode, max_new, eos_token_id,
+                                           sampling))
+        step, key = self._flat_step(slot, mode,
+                                    *self._warpers(mode, sampling))
         return self._loop(slot.graphs, key, step, slot, slot.state.finished,
                           slot.max_new)
 
-    def _flat_step(self, slot: FlatSlot, mode: str, max_new: int,
-                   eos_token_id, sampling: Optional[SamplingConfig] = None):
-        """(one step of ``mode`` over ``slot``, its graph key), with the
-        call's buffers written."""
+    def _flat_step(self, slot: FlatSlot, mode: str, top_p_on: bool,
+                   top_k: int):
+        """(one step of ``mode`` over ``slot``, reading the call's budget,
+        EOS ids and warpers from the slot's args, its graph key)."""
         fns, params, st = self._fns, self.params, slot.state
-        slot.max_new.fill_(min(max_new, _INT32_MAX))
-        slot.eos.copy_(graphs.upload(_eos_vec(eos_token_id), self.device))
-        top_p, top_k = None, 0
-        if mode == "sample":
-            temps, top_p, top_k = self._warp(sampling)
-            slot.temperature.copy_(temps)
-            if top_p is not None:
-                top_p = slot.top_p.copy_(top_p)
+        top_p = slot.top_p if top_p_on else None
         if mode == "greedy":
             def step():
                 fns.decode_step(params, st, slot.max_new, slot.eos)
@@ -613,7 +799,7 @@ class LookaheadEngine:
             def step():
                 fns.sample_step(params, st, slot.max_new, slot.eos,
                                 slot.temperature, top_p, top_k)
-        return step, (mode, top_p is not None, top_k)
+        return step, (mode, top_p_on, top_k)
 
     def _lane_runner(self, slot: LaneSlot, sampled: bool, top_p_on: bool,
                      top_k: int):
@@ -649,18 +835,24 @@ class LookaheadEngine:
         return step, (sampled, top_p_on, top_k)
 
     def _finalize(self, state: DecodeState, max_new: int, t0: float,
-                  return_prefix: bool = False,
-                  loop: Optional[graphs.LoopGraph] = None) -> GenerationResult:
+                  return_prefix: bool = False, loop=None,
+                  chunks: Optional[int] = None) -> GenerationResult:
         # one device-to-host transfer for the scalars and the tokens (and,
-        # after a device loop, ``finished`` and its iterations)
+        # after a device loop, ``finished`` and its iterations; after a
+        # request graph, ``loop``, its prefill's too, against the
+        # ``chunks`` the host counts)
         scalars = [state.n_confirmed, state.init_len, state.step_idx,
                    state.kv_len]
+        request = isinstance(loop, graphs.RequestGraph)
         if loop is not None:
             scalars += [state.finished.int(), loop.iters[0]]
+        if request:
+            scalars.append(loop.counters["prefill"])
         host = graphs.fetch(torch.cat([torch.stack(scalars), state.out_buf]))
         n_confirmed, init_len, steps, kv_len = (int(x) for x in host[:4])
         if loop is not None:
-            _loop_done(loop, bool(host[4]), int(host[5]), max_new)
+            _loop_done(loop, bool(host[4]), int(host[5]), max_new,
+                       *((int(host[6]), chunks) if request else ()))
         host = host[len(scalars):]
         total = min(n_confirmed, init_len + max_new)   # trim overshoot
         res = GenerationResult(tokens=host[:total].copy(),
@@ -703,17 +895,33 @@ class LookaheadEngine:
 
     def _run(self, mode, prompt_ids, max_new_tokens, eos_token_id, seed,
              prefix=None, return_prefix=False, sampling=None,
-             host_loop=False):
-        """One call of ``mode``. ``host_loop`` decodes the call by the host
-        loop even where it would loop on the device: a profiler records no
-        kernel inside a CUDA-graph WHILE body (``chip_smoke.py``'s
-        profiles), and the host loop is the device loop's comparison."""
+             host_loop=False, fused=True):
+        """One call of ``mode``. Without a prefix, where the engine fuses
+        (:meth:`_fuses`), it is one launch of the slot's request graph
+        after one upload of its arguments, and one read. ``host_loop``
+        prepares the call op by op and decodes it by the host loop even
+        where it would loop on the device: a profiler records no kernel
+        inside a CUDA-graph WHILE body (``chip_smoke.py``'s profiles), and
+        the host loop is the device loop's comparison. ``fused=False``
+        keeps the request graph out: the preparation op by op, then the
+        decode loop's own graph (the comparison of a fused call)."""
         t0 = time.perf_counter()
         if return_prefix:
             self._reject_dynamic_prefix()
         out_buf, P, fill = self._host_args(prompt_ids, max_new_tokens, prefix)
         with torch.inference_mode(), self._slot() as slot:
-            state = self._prepare(out_buf, P, seed, fill, prefix, slot=slot)
+            if fused and not host_loop and prefix is None and self._fuses():
+                self._write(slot, np.concatenate([
+                    self._call_words(mode, max_new_tokens, eos_token_id,
+                                     sampling),
+                    self._request_words(out_buf, P, seed, fill)]))
+                graph = self._request_graph(slot, fill is not None, mode,
+                                            *self._warpers(mode, sampling))
+                graph.run()
+                return self._finalize(slot.state, max_new_tokens, t0,
+                                      return_prefix, graph, self._chunks(P))
+            state = self._prepare(out_buf, P, seed, fill, prefix, slot=slot,
+                                  fused=fused and not host_loop)
             if self._loops(mode) and not host_loop:
                 loop = self._flat_loop(slot, mode, max_new_tokens,
                                        eos_token_id, sampling)

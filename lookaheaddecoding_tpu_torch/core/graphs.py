@@ -45,10 +45,10 @@ every replay adds them again, so the counts stay the number launched.
 The prefill is captured too (the counterpart of JAX's fused prepare call,
 ``jax.jit(self._make_fused(None))``, whose prefill is a ``fori_loop``): one
 chunk reads its start from device counters and advances them, so the
-prompt's chunks are replays of one graph. :func:`upload` is the
-host-to-device copy that a request's preparation makes before them: from
-pinned memory and without a wait, so nothing between a request's start
-and its first decode replay stops the host.
+prompt's chunks are iterations of one captured chunk. :func:`upload` and
+:func:`upload_into` are the host-to-device copies that a request makes
+before its graphs run: from pinned memory and without a wait, so nothing
+between a request's start and its one read stops the host.
 
 :class:`LoopGraph` is the counterpart of the JAX decode loop's
 ``lax.while_loop`` on ``~finished``: the whole loop of greedy, sampling
@@ -63,6 +63,19 @@ its own); the step's IF nodes nest in the body, captured on a second
 body stream. On a mesh that captures, each rank captures its own loop,
 the step's collectives inside the body (the counterpart of JAX's
 ``while_loop`` under ``jit`` over the mesh), and launches it once a call.
+
+:class:`RequestGraph` is the counterpart of the JAX engine's one traced
+call a request (``_make_fused``: ``_fused_prepare``, ``_fused_greedy``,
+``_fused_baseline`` and the fused sampling loop): on one card a flat
+request without a prefix is one graph, launched once and read once. It
+holds the resets, the stream's seeding, the window seeding, the pool fill,
+the prefill as a WHILE node whose cap, the chunk count, the device
+computes from the prompt's length, and, in a whole call, the decode loop's
+WHILE node after it. Every argument of the request (its length, seed,
+output buffer, fill, budget, EOS ids and warpers) is in the slot on the
+device, uploaded before the launch, so one graph serves every request of
+its key; its loops' iterations stay on the device until the call's read
+(:meth:`RequestGraph.account`).
 
 :func:`cond` is the counterpart of ``lax.cond``: inside a capture it records
 its body as a CUDA-graph IF node (``ops/graph_cond.py``), which the device
@@ -88,12 +101,14 @@ from ..ops import (graph_cond, int4_micro, lookahead_attention, philox,
 from ..parallel import collectives
 
 # Captures made, replays run (decode steps, a device loop's iterations
-# included; prefill chunks apart), device loops launched (LoopGraph
-# replays), cond branches evaluated (eagerly, or by a replay's IF nodes)
-# and their bodies run. Read with read_stats() and reset with
-# reset_stats(), which fold in the bodies that replays ran.
+# included), prefill chunks run (replays of a chunk graph and a request
+# graph's prefill iterations), device loops launched (LoopGraph replays
+# and the decode loops of RequestGraph launches), RequestGraph launches,
+# cond branches evaluated (eagerly, or by a replay's IF nodes) and their
+# bodies run. Read with read_stats() and reset with reset_stats(), which
+# fold in the bodies that replays ran.
 stats = {"captured": 0, "replays": 0, "prefills": 0, "loops": 0,
-         "branches": 0, "taken": 0}
+         "requests": 0, "branches": 0, "taken": 0}
 
 # every launch counter of the port's kernels, and the collectives' calls
 _TALLIES = (lookahead_attention.counts, lookahead_attention.paged_counts,
@@ -437,17 +452,7 @@ class LoopGraph(StepGraph):
         graph_cond.counts["set_while"] += 1
 
     def _warm(self) -> None:
-        gens = state_generators(self.state)
-        before = [g.get_state() for g in gens]
-        self.step()
-        if any(not torch.equal(g.get_state(), b)
-               for g, b in zip(gens, before)):
-            raise RuntimeError(
-                "the step drew random numbers from a torch.Generator: a "
-                "device loop would draw the same ones every iteration (a "
-                "replay advances its philox offsets on the host); draw "
-                "from the state's stream (ops/philox.py) or step it from "
-                "the host")
+        _without_generators(self.state, self.step)
 
     def _record(self) -> None:
         graph_cond.while_node(self.finished, self.cap, self.iters, self.step,
@@ -461,6 +466,141 @@ class LoopGraph(StepGraph):
         self.launches = [(tally, key, k - (tally is graph_cond.counts
                                            and key == "set_while"))
                          for tally, key, k in self.launches]
+
+
+def _without_generators(state, run: Callable[[], object]) -> None:
+    """``run()``, refused where it moved a ``torch.Generator`` of
+    ``state``: a loop on the device would draw the same numbers every
+    iteration."""
+    gens = state_generators(state)
+    before = [g.get_state() for g in gens]
+    run()
+    if any(not torch.equal(g.get_state(), b) for g, b in zip(gens, before)):
+        raise RuntimeError(
+            "the step drew random numbers from a torch.Generator: a "
+            "device loop would draw the same ones every iteration (a "
+            "replay advances its philox offsets on the host); draw "
+            "from the state's stream (ops/philox.py) or step it from "
+            "the host")
+
+
+def _since(before) -> list:
+    """(tally, key, launches) of every count that moved since ``before``
+    (``[dict(t) for t in _TALLIES]``)."""
+    return [(tally, key, tally[key] - old.get(key, 0))
+            for tally, old in zip(_TALLIES, before)
+            for key in tally if tally[key] != old.get(key, 0)]
+
+
+class RequestGraph(StepGraph):
+    """A whole flat request captured as one graph: the counterpart of the
+    JAX engine's fused call (``_make_fused``: ``_fused_prepare``,
+    ``_fused_greedy``, ``_fused_baseline``, the fused sampling loop).
+
+    ``record(graph)`` enqueues the request over ``state`` (a ``FlatSlot``):
+    the preparation as it stands, and each loop through :meth:`loop`, a
+    WHILE node (``ops/graph_cond.py``) whose body is captured straight into
+    the node, its allocations in ``body_pool`` (a ``torch.cuda.MemPool``),
+    its IF nodes nested on a second body stream: the prefill's chunks under
+    a cap the device computed, then, in a whole call, the decode loop on
+    ``~finished``. The request's arguments are in ``state`` on the device
+    (the engine uploads them before the launch), so one graph serves every
+    request of its key.
+
+    The warm run before the capture runs the preparation and one pass of
+    each loop's body, which does every first-use piece of work (builds,
+    ``dlopen``, lazy tables) and is refused where it moved a
+    ``torch.Generator``; the launch that follows starts over from the
+    resets. ``run()`` launches the graph once and reads nothing back; the
+    loops' iterations stay in their counters on the device until the
+    caller's read hands them to :meth:`account`, which counts the
+    preparation's launches once and each loop's per iteration (a prefill
+    iteration as ``stats["prefills"]``, a decode one as ``replays``), each
+    loop's condition kernel once before it and once an iteration."""
+
+    if_depth = 1
+
+    def __init__(self, record: Callable[["RequestGraph"], None], state,
+                 pool=None, body_pool=None):
+        super().__init__(lambda: record(self), state, pool)
+        self.body_pool = body_pool
+        device = state_tensors(state)[0].device
+        self.iters = torch.zeros(1, dtype=torch.int32, device=device)
+        # name -> (stats entry, launches an iteration, IF nodes an
+        # iteration), recorded by the capture; then the launches once a
+        # launch, and each loop's counter
+        self.loops: dict = {}
+        self.fixed: list = []
+        self.counters: dict = {}
+
+    def loop(self, name: str, counter: str, finished: torch.Tensor,
+             cap: torch.Tensor, iters: torch.Tensor,
+             body: Callable[[], object]) -> None:
+        """The request's WHILE node ``name``: ``body`` while any of
+        ``finished`` is clear and fewer than ``cap`` iterations have run,
+        counted in ``iters`` on the device (``graph_cond.while_node``);
+        ``counter`` is the ``stats`` entry its iterations count in. In the
+        warm run, one pass of ``body``."""
+        if _active is not None and not _active[1]:
+            body()
+            return
+        self.counters[name] = iters
+
+        def counted():
+            before, conds = [dict(t) for t in _TALLIES], self.conds
+            body()
+            if self.graph is None:            # the capture's own pass
+                self.loops[name] = (counter, _since(before) + [
+                    (graph_cond.counts, "set_while", 1)], self.conds - conds)
+        graph_cond.while_node(finished, cap, iters, counted,
+                              graph_cond.body_stream(iters.device),
+                              self.body_pool)
+
+    def run(self) -> None:
+        """Launch the request once (the first call: after the warm run and
+        the capture). Reads nothing back."""
+        if self.graph is None:
+            self._capture()
+        self.graph.replay()
+        collectives.graph_launched()
+        stats["requests"] += 1
+        stats["loops"] += any(c == "replays" for c, _, _ in
+                              self.loops.values())
+
+    def account(self, **iters: int) -> None:
+        """Count the last launch: its launches outside the loops once, and
+        ``iters[name]`` iterations of each loop, read by the caller from
+        ``counters[name]``: their launches, ``stats`` entries and
+        branches."""
+        for tally, key, k in self.fixed:
+            tally[key] += k
+        for name, n in iters.items():
+            counter, launches, conds = self.loops[name]
+            stats[counter] += n
+            stats["branches"] += conds * n
+            for tally, key, k in launches:
+                tally[key] += k * n
+
+    def per_iteration(self, name: str) -> dict:
+        """{kernel counter key: launches an iteration of loop ``name``}."""
+        out: dict = {}
+        for _, key, k in self.loops[name][1]:
+            out[key] = out.get(key, 0) + k
+        return out
+
+    def _warm(self) -> None:
+        _without_generators(self.state, self.step)
+
+    def _capture(self) -> None:
+        super()._capture()
+        # the capture ran each body once and counted both of its WHILE
+        # node's condition kernels; a launch runs the one before the loop
+        # once and the rest an iteration
+        fixed = {(id(t), key): [t, key, k] for t, key, k in self.launches}
+        for _, launches, _ in self.loops.values():
+            for tally, key, k in launches:
+                fixed[(id(tally), key)][2] -= k
+        self.fixed = [tuple(x) for x in fixed.values() if x[2]]
 
 
 def capturable(device, mesh=None) -> bool:
@@ -507,6 +647,19 @@ def loop_runner(cache: dict, key, step: Callable[[], object], state,
     return got
 
 
+def request_runner(cache: dict, key, record, state, pool=None,
+                   body_pool=None) -> RequestGraph:
+    """The :class:`RequestGraph` of ``key`` in ``cache`` (made at first use;
+    keyed with ``ops.quant.INT4_PIPELINE`` as :func:`runner`). Only on one
+    card outside :func:`eager`: the caller chooses it by the call's
+    kind."""
+    key = ("request", key, quant.INT4_PIPELINE)
+    got = cache.get(key)
+    if got is None:
+        got = cache[key] = RequestGraph(record, state, pool, body_pool)
+    return got
+
+
 def fetch(tensor: torch.Tensor):
     """``tensor`` as a numpy array on the host: a call's read back from the
     device (a copy, which waits for the work queued before it)."""
@@ -525,3 +678,14 @@ def upload(array, device, dtype=None) -> torch.Tensor:
     if torch.device(device).type != "cuda":
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)
+
+
+def upload_into(dst: torch.Tensor, array) -> None:
+    """A host array written into ``dst`` (a contiguous tensor of the same
+    dtype and size) in place, as :func:`upload` copies: to the card from
+    pinned memory without a wait (the caching host allocator keeps the
+    pinned block until the copy has run)."""
+    t = torch.as_tensor(array).view(dst.shape)
+    if dst.device.type == "cuda":
+        t = t.pin_memory()
+    dst.copy_(t, non_blocking=True)

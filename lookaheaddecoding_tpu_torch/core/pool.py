@@ -279,11 +279,13 @@ def apply_host_fill(pool: PoolState, keys, rows, ages, clock,
     refreshes its slot, else the first empty or oldest slot is taken), so a
     carried warm pool keeps every entry the fill does not displace. On
     empty rows both forms give the same content; paged admission always
-    merges. ``keys``, ``rows`` and ``ages`` are on the pool's device:
-    :func:`upload_fill` puts a host fill there."""
+    merges. ``keys`` (any integer dtype), ``rows`` and ``ages`` are on the
+    pool's device: :func:`upload_fill` puts a host fill there, or a flat
+    slot holds them among a request's arguments. ``clock`` is an integer
+    or a 0-d int32 tensor on that device, which a captured fill reads."""
     dev = pool.values.device
     trash = pool.values.shape[0] - 1
-    keys = torch.where(keys < 0, trash, keys)
+    keys = torch.where(keys < 0, trash, keys.long())
     if merge:
         new_rows, new_ages = pool.values[keys], pool.age[keys]
         slot_id = torch.arange(new_ages.shape[1], device=dev)
@@ -300,5 +302,5 @@ def apply_host_fill(pool: PoolState, keys, rows, ages, clock,
         new_rows, new_ages = rows, torch.where(ages > 0, ages + pool.clock, 0)
     pool.values.index_put_((keys,), new_rows)
     pool.age.index_put_((keys,), new_ages)
-    pool.clock.add_(int(clock))
+    pool.clock.add_(clock if isinstance(clock, torch.Tensor) else int(clock))
     return pool

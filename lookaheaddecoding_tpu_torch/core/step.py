@@ -7,9 +7,10 @@ output append. Every tensor it makes has a shape fixed when the engine is
 built, and it reads nothing back to the host, so the host can queue many
 steps ahead of the device, and the engines capture the step in a CUDA
 graph. On one card a greedy, sampling or AR generation runs its whole
-loop on the device (``graphs.LoopGraph``); the other loops read
-``finished`` from the device once per batch of steps (:func:`run_loop`),
-never on every step.
+loop on the device (``graphs.LoopGraph``, or the decode node of a
+``graphs.RequestGraph``, which holds the whole request); the other loops
+read ``finished`` from the device once per batch of steps
+(:func:`run_loop`), never on every step.
 
 A step taken after ``finished`` leaves the state as it was (the JAX
 package's ``lax.cond(state.finished, ...)``): scalars and the window are
@@ -272,18 +273,22 @@ def _as_lanes(state: DecodeState) -> SimpleNamespace:
 
 def seed_window(lcfg: LookaheadConfig, vocab: int, n_window: int,
                 out_buf: torch.Tensor, key: torch.Tensor, draws: torch.Tensor,
-                prompt_len: int) -> torch.Tensor:
+                prompt_len) -> torch.Tensor:
     """A request's window [n_window] by ``lcfg.window_init``, from its
     output buffer (the prompt first) and, for ``copy_from`` (random copies
     of prompt tokens) and ``random_set`` (random ids), the lane's stream
-    (``key`` [2], ``draws`` 0-d) under the window's own tag. Eager and
-    without a host read; ``prompt_len`` is host data, as JAX's bound of
-    its ``randint``."""
+    (``key`` [2], ``draws`` 0-d) under the window's own tag. Without a
+    host read. ``prompt_len``, the bound of ``copy_from``'s draws as of
+    JAX's ``randint`` and of the ``order_copy_from`` and
+    ``copy_from_last`` indices, is an integer or a 0-d integer tensor on
+    the buffer's device, which a captured seeding reads: the same ops
+    either way, so both give the same bits."""
     device = out_buf.device
-    if lcfg.window_init == "order_copy_from":
-        return out_buf[torch.arange(n_window, device=device) % prompt_len]
-    if lcfg.window_init == "copy_from_last":
-        return out_buf[prompt_len - 1].expand(n_window)
+    if lcfg.window_init in ("order_copy_from", "copy_from_last"):
+        idx = torch.arange(n_window, device=device)
+        idx = (idx % prompt_len if lcfg.window_init == "order_copy_from"
+               else idx * 0 + (prompt_len - 1))
+        return out_buf.index_select(0, idx.long())
     u = lane_uniforms(key.view(1, 2), draws.view(1), n_window,
                       philox.WINDOW)[0]
     bound = vocab if lcfg.window_init == "random_set" else prompt_len
@@ -339,7 +344,8 @@ def run_loop(run: Callable[[int], None], state: DecodeState, max_new: int,
     when EOS ends the run; the overshooting steps change nothing that is
     read. Where its step is captured (one card, or a mesh whose groups are
     all NCCL) a greedy, sampling or AR call loops on the device instead
-    (``graphs.LoopGraph``, JAX's ``lax.while_loop``), with no overshoot
+    (``graphs.LoopGraph`` or a request graph's decode node, JAX's
+    ``lax.while_loop``), with no overshoot
     and no read until the call's last; this loop serves streams, the paged
     engine and the scheduler's lanes, meshes with a gloo group, the CPU
     and ``graphs.eager()``."""
@@ -398,22 +404,27 @@ def build_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
              for mode in ("greedy", "sample")}
 
     # ------------------------------------------------------------------
-    def init_state(state: DecodeState, out_buf, prompt_len: int) -> DecodeState:
+    def init_state(state: DecodeState, out_buf, prompt_len) -> DecodeState:
         """A request's output buffer (``out_buf`` [M + GS], the prompt and
-        zeros: best already on the device, see ``graphs.upload``), its
-        window seeded at steady-state level sizes by ``window_init`` from
-        the state's stream (:func:`seed_window`; the caller has written
-        ``key`` and zeroed ``draws``), and its counters, written into
-        ``state`` in place; the caches and the pool are the caller's. It
-        stays eager: the seeding's bound, the prompt's length, is host
-        data that a capture would fix."""
+        zeros, on the device: a flat slot's uploaded arguments, see
+        ``graphs.upload_into``), its window seeded at steady-state level
+        sizes by ``window_init`` from the state's stream
+        (:func:`seed_window`; the caller has written ``key`` and zeroed
+        ``draws``), and its counters, written into ``state`` in place; the
+        caches and the pool are the caller's. ``prompt_len`` is a 0-d
+        int32 tensor on the device (a flat slot's: so the request graph
+        reads each request's own, and nothing of it is host data) or an
+        integer."""
         out_buf = state.out_buf.copy_(out_buf)
         state.window.copy_(seed_window(lcfg, mcfg.vocab_size, n_window,
                                        out_buf, state.key, state.draws,
                                        prompt_len))
         state.kv_len.fill_(0)
-        state.n_confirmed.fill_(prompt_len)
-        state.init_len.fill_(prompt_len)
+        for counter in (state.n_confirmed, state.init_len):
+            if isinstance(prompt_len, torch.Tensor):
+                counter.copy_(prompt_len)
+            else:
+                counter.fill_(prompt_len)
         state.step_idx.fill_(0)
         state.finished.fill_(False)
         return state
@@ -443,25 +454,30 @@ def build_step_fns(mcfg: llama.LlamaConfig, lcfg: LookaheadConfig,
         chunk.add_(1)
         return state
 
-    def prefill_from(params, state: DecodeState, prompt_len: int,
-                     start0: int, counters, run) -> DecodeState:
+    def prefill_from(params, state: DecodeState, counters,
+                     run) -> DecodeState:
         """prompt[start0:-1] in C-sized chunks (JAX's ``prefill_from``);
         ``start0 > 0`` is the prefix path, whose rows [0, start0) are
         already in the caches. The last chunk is aligned to end at the
         prompt (start = n - C) and may rewrite a few prefix rows (K/V depend
         on the position alone, so the rewrite changes nothing), and a
         prompt shorter than C pads within [0, C), whose tail slots stay
-        masked until overwritten. The prompt length is host data, as in
-        JAX's caller, so the host knows the number of chunks; each chunk
-        finds its start on the device (:func:`prefill_chunk`).
-        ``counters`` are the (start0, chunk) tensors the chunks read, which
-        this call sets; ``run(k)`` runs k chunks over them (the engine's
-        runner: the captured chunk replayed, or the chunk called k times).
-        ``kv_len`` ends at ``max(n, 0)``."""
-        first, chunk = counters
-        first.fill_(start0)
+        masked until overwritten. ``counters`` are the (start0, chunk,
+        chunks) int32 tensors on the device: ``start0``, the caller's, and
+        ``chunk``, which this call zeroes, are what each chunk reads its
+        start from (:func:`prefill_chunk`); ``chunks`` takes the chunk
+        count, ``max(ceil((init_len - 1 - start0) / C), 0)``, computed on
+        the device from the prompt's length in the state, as JAX's
+        ``fori_loop`` computes its trip count from the traced length.
+        ``run()`` then runs that many chunks: a WHILE node whose cap is
+        ``chunks`` (the engine's request graph), or the host's own count of
+        chunks, replays of the captured chunk or eager calls. ``kv_len``
+        ends at ``max(n, 0)``."""
+        first, chunk, chunks = counters
         chunk.zero_()
-        run(-(-max(prompt_len - 1 - start0, 0) // C))
+        chunks.copy_(((state.init_len - 1 - first).clamp(min=0) + (C - 1))
+                     // C)
+        run()
         state.kv_len.copy_((state.init_len - 1).clamp(min=0))
         return state
 

@@ -58,13 +58,18 @@ def seed_key(seed: int):
                  for w in (s & _MASK, s >> 32))
 
 
-def start(key: torch.Tensor, draws: torch.Tensor, seed: int) -> None:
+def start(key: torch.Tensor, draws: torch.Tensor, seed) -> None:
     """A lane's stream set to ``seed`` before its first draw, in place
-    (``key`` [2] int32, ``draws`` 0-d): the words by ``fill_``, since an
-    item assignment of a Python number copies it to the card from
-    pageable memory, a sync."""
-    for word, value in zip(key, seed_key(seed)):
-        word.fill_(value)
+    (``key`` [2] int32, ``draws`` 0-d). ``seed`` is an integer, whose
+    words go in by ``fill_`` (an item assignment of a Python number copies
+    it to the card from pageable memory, a sync), or its two words already
+    on the device (an int32 [2] tensor holding :func:`seed_key`'s), copied
+    on the device: a captured start then reads each request's seed."""
+    if isinstance(seed, torch.Tensor):
+        key.copy_(seed)
+    else:
+        for word, value in zip(key, seed_key(seed)):
+            word.fill_(value)
     draws.zero_()
 
 

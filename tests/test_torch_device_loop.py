@@ -3,9 +3,11 @@ decode loop's ``lax.while_loop`` on ``~finished``
 (``lookaheaddecoding_tpu/core/step.py:520-529`` and ``:568-575``;
 ``core/engine.py:625`` for ``generate_batch``). On one card greedy
 ``generate``, ``generate_baseline`` and greedy ``generate_batch`` launch
-their whole loop once, a ``graphs.LoopGraph`` (a CUDA-graph WHILE node
-around the captured step, ``ops/graph_cond.py``), and read the device once,
-in the call's final transfer. Here the capture is
+their whole loop once, a CUDA-graph WHILE node around the captured step
+(``ops/graph_cond.py``): a ``graphs.LoopGraph``, or, in a call without a
+prefix, the decode node of its ``graphs.RequestGraph``, the whole request
+as one graph; and they read the device once, in the call's final
+transfer. Here the capture is
 ``torch_parallel_worker.faked_capture``'s, whose WHILE node runs its body
 while a lane is unfinished and fewer than ``cap`` iterations have run, and
 the port computes in float32 against the JAX package:
@@ -18,7 +20,8 @@ the port computes in float32 against the JAX package:
   capturing call and on the next;
 - a call reads the device once after its preparation (``HostReads``);
 - the replays, branches and each kernel's launches a call counts are its
-  steps times those of an iteration, beside the prefill's;
+  steps times those of a decode iteration, beside its chunks times a
+  prefill iteration's and the preparation's;
 - sampled ``generate_sample`` (top-k, top-p, EOS-ended, on a prefix) and
   a sampled two-lane ``generate_batch`` loop on the device too, their
   noise from the state's Philox stream (``ops/philox.py``), and equal the
@@ -221,12 +224,13 @@ def test_a_call_reads_the_device_once(kind):
 
 @pytest.mark.parametrize("mode", ["greedy", "ar"])
 def test_replays_and_launches_are_steps_times_an_iteration(mode):
-    """A replaying call counts, from the iterations its final transfer
-    read: a replay and the loop's branches a step, each kernel's launches
-    a step times an iteration's (the attention's plain version here, the
-    IF nodes' and the WHILE node's condition kernels), beside a prefill
-    replay's launches a chunk and the WHILE node's one launch before the
-    loop."""
+    """A replaying call, one launch of its request graph, counts from the
+    iterations its final transfer read: a replay and the decode loop's
+    branches a step, a prefill iteration a chunk, and each kernel's
+    launches (the attention's plain version here, the IF nodes' and the
+    WHILE nodes' condition kernels) a step times a decode iteration's
+    plus a chunk times a prefill iteration's plus the preparation's once,
+    each WHILE node's condition kernel once before its loop."""
     def call(e):
         return (e.generate(P1, 40) if mode == "greedy"
                 else e.generate_baseline(P1, 30))
@@ -237,24 +241,28 @@ def test_replays_and_launches_are_steps_times_an_iteration(mode):
         res, st = counted(lambda: call(eng))
         after = [dict(t) for t in graphs._TALLIES]
     slot_graphs = eng._slots[0].graphs
-    loop = next(g for k, g in slot_graphs.items() if k[0] == "loop")
-    prefill = slot_graphs[("prefill", False)]
+    graph = next(g for k, g in slot_graphs.items() if k[0] == "request")
     chunks = -(-(len(P1) - 1) // C)
-    assert isinstance(loop, graphs.LoopGraph)
-    assert (st["loops"], st["replays"], st["prefills"]) == (1, res.steps,
-                                                            chunks)
-    assert st["branches"] == res.steps * loop.conds
-    assert loop.conds == (1 if mode == "greedy" else 0)
+    assert isinstance(graph, graphs.RequestGraph)
+    assert (st["loops"], st["replays"], st["prefills"], st["requests"]) == \
+        (1, res.steps, chunks, 1)
+    conds = graph.loops["decode"][2]
+    assert st["branches"] == res.steps * conds
+    assert conds == (1 if mode == "greedy" else 0)
+    index = [id(t) for t in graphs._TALLIES]
     want = [dict.fromkeys(t, 0) for t in graphs._TALLIES]
-    for graph, n in ((loop, res.steps), (prefill, chunks)):
-        for tally, key, k in graph.launches:
-            want[[id(t) for t in graphs._TALLIES].index(id(tally))][key] += \
-                k * n
-    want[graphs._TALLIES.index(graph_cond.counts)]["set_while"] += 1
+    for launches, n in ((graph.fixed, 1),
+                        (graph.loops["decode"][1], res.steps),
+                        (graph.loops["prefill"][1], chunks)):
+        for tally, key, k in launches:
+            want[index.index(id(tally))][key] += k * n
     got = [{k: a[k] - b[k] for k in a} for a, b in zip(after, before)]
     assert got == want
-    assert loop.launches_per_replay()["set_while"] == 1
-    assert loop.launches_per_replay()["plain"] >= ARCH["num_hidden_layers"]
+    assert got[index.index(id(graph_cond.counts))]["set_while"] == \
+        2 + res.steps + chunks
+    for name in ("decode", "prefill"):
+        assert graph.per_iteration(name)["set_while"] == 1
+        assert graph.per_iteration(name)["plain"] >= ARCH["num_hidden_layers"]
 
 
 def test_a_loop_stopped_at_its_cap_raises(monkeypatch):

@@ -15,8 +15,12 @@ against its plain version, the pool's chain as an IF node of captured
 steps (taken and skipped, tables and branch counts equal to eager), a
 capture whose IF node fails raising, the captured train step
 bit-equal to the eager one, and the captured prefill (the slot after a
-request's preparation bit-equal to eager, a replay a chunk, no host sync
-up to the first decode replay); the CUDA-graph WHILE node (n, 0 and 1
+request's preparation bit-equal to eager, a prefill iteration a chunk, no
+host sync up to the first decode replay); the request graph (a flat call
+without a prefix one launch: greedy at six prompt lengths, AR, sampled
+and EOS-ended calls bit-equal to today's path and eager, prefill
+iterations the chunks, one read and no sync before it); the CUDA-graph
+WHILE node (n, 0 and 1
 iterations, flags set by the body, a forbidden body node refused) and the
 decode loop on the device (greedy, AR, prefix and batch calls bit-equal
 to eager, one loop launch and one read a call, no sync before it); the
@@ -921,7 +925,11 @@ def test_load_params_onto_the_card_round_trips(tmp_path):
 @pytest.mark.gpu
 def test_profiling_trace_records_the_attention_kernel(tmp_path):
     """utils.profiling.trace around a generate on the card writes one
-    Chrome trace that names the bf16 attention kernel."""
+    Chrome trace that names the bf16 attention kernel. The call is decoded
+    by the host loop (``_run(..., host_loop=True)``, as chip_smoke's
+    profiles): CUPTI records no kernel inside a CUDA-graph WHILE body, and
+    a ``generate`` without a prefix runs its prefill and decode loop in
+    two."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     import json
@@ -936,10 +944,10 @@ def test_profiling_trace_records_the_attention_kernel(tmp_path):
         lt.LookaheadConfig(level=4, window_size=5, guess_set_size=4),
         lt.EngineConfig(max_seq_len=256, prefill_chunk=16))
     prompt = list(np.random.RandomState(0).randint(0, 256, size=20))
-    eng.generate(prompt, 8)
+    eng._run("greedy", prompt, 8, None, 0, host_loop=True)
     timer = profiling.StepTimer()
     with profiling.trace(str(tmp_path)), timer:
-        eng.generate(prompt, 16)
+        eng._run("greedy", prompt, 16, None, 0, host_loop=True)
     files = list(tmp_path.glob("*.pt.trace.json"))
     assert len(files) == 1
     names = {e.get("name", "") for e in json.loads(files[0].read_text())[
@@ -1128,9 +1136,11 @@ def test_captured_prefill_equals_eager_without_a_sync(config):
     within a slot of the capacity), and past a 40-token prefix, the slot
     after ``_prepare`` is bit-equal to the eager one (caches, ``kv_len``,
     pool, window, output buffer); a warm engine's graphed preparation
-    replays the slot's captured chunk once a chunk and captures nothing;
-    and from its start to the first decode replay nothing waits for the
-    card (``torch.cuda.set_sync_debug_mode("error")`` raises on a sync)."""
+    captures nothing and runs a prefill iteration a chunk (without a
+    prefix, its prepare graph's WHILE node; past one, replays of the
+    slot's captured chunk); and from its start to the first decode replay
+    nothing waits for the card (``torch.cuda.set_sync_debug_mode("error")``
+    raises on a sync)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from lookaheaddecoding_tpu_torch.core import graphs
@@ -1617,6 +1627,93 @@ def test_device_loop_equals_eager_without_a_sync(config, monkeypatch):
                                                  eager_st["taken"]), name
         assert graphed_counts == eager_counts, (name, graphed_counts,
                                                 eager_counts)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("config", ["bf16", "f32", "int8_kv",
+                                    "int8_weights"])
+def test_request_graph_equals_today_and_eager_without_a_sync(config,
+                                                             monkeypatch):
+    """A flat call without a prefix on the card is one launch of its slot's
+    request graph (JAX's ``_make_fused``: resets, seeding, fill, the
+    prefill's WHILE node, the decode loop's): greedy ``generate`` at
+    prompt lengths 1 (no chunk), 15, 16, 17, 53 and 203 (one composite
+    step short of the capacity), ``generate_baseline``, ``generate_sample``
+    with top-k and top-p, and a greedy call that an EOS id ends, each
+    bit-equal to the same call by today's path (``_run(...,
+    fused=False)``: the preparation op by op, the prefill's chunk graph
+    replayed a chunk, the decode loop's own graph) and eagerly: tokens,
+    steps, pool rows [0, R) and clock, the draw counter and the kernels'
+    launches (the EOS-ended call's today's path's: the eager host loop
+    runs on past the EOS id); one launch whose prefill ran the host's
+    chunk count and
+    whose decode loop an iteration a step; one read back and no host
+    sync before it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import lookaheaddecoding_tpu_torch as lt
+    from lookaheaddecoding_tpu_torch.core import graphs
+    eng = _graph_engine(
+        dtype=torch.float32 if config == "f32" else torch.bfloat16,
+        kv_quant="int8" if config == "int8_kv" else None,
+        bits=8 if config == "int8_weights" else None)
+    base = list(np.random.RandomState(4).randint(0, 256, size=203))
+    sc = lt.SamplingConfig(temperature=0.8, top_k=30, top_p=0.9)
+    with graphs.eager():
+        eos = int(eng.generate(base[:20], 48).tokens[20 + 6])
+    calls = {f"generate_{n}": ("greedy", base[:n], 48, None, None)
+             for n in (1, 15, 16, 17, 53, 203)}
+    calls.update(baseline=("ar", base[:20], 32, None, None),
+                 sample=("sample", base[:37], 40, None, sc),
+                 eos=("greedy", base[:20], 48, eos, None))
+
+    def run(name, fused):
+        mode, p, n_new, e, sampling = calls[name]
+        res = eng._run(mode, p, n_new, e, 3, sampling=sampling, fused=fused)
+        st = eng._free_slot().state
+        return res, [st.pool.values[:-1].clone(), st.pool.age[:-1].clone(),
+                     st.pool.clock.clone(), st.draws.clone()]
+
+    fetches, fetch = [], graphs.fetch
+
+    def first_read(tensor):
+        fetches.append(1)
+        torch.cuda.set_sync_debug_mode("default")   # the call's one read
+        return fetch(tensor)
+    monkeypatch.setattr(graphs, "fetch", first_read)
+    for name, (mode, p, n_new, e, sampling) in calls.items():
+        with graphs.eager():
+            (want, want_state), eager_counts = _counted(
+                lambda: run(name, True))
+        got = {}
+        for fused in (False, True):
+            run(name, fused)              # the first graphed call captures
+            torch.cuda.synchronize()
+            graphs.reset_stats()
+            fetches.clear()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                (res, state), counts = _counted(lambda: run(name, fused))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            got[fused] = (res, state, counts, graphs.read_stats())
+            assert fetches == [1], (name, fused)
+        for res, state, counts, st in got.values():
+            np.testing.assert_array_equal(res.tokens, want.tokens, name)
+            assert res.steps == want.steps, name
+            assert all(torch.equal(a, b) for a, b in zip(state, want_state))
+            # the eager host loop's last batch runs on past an EOS id
+            assert counts == (got[False][2] if name == "eos"
+                              else eager_counts), (name, counts)
+        st = got[True][3]
+        chunks = -(-max(len(p) - 1, 0) // 16)
+        assert (st["requests"], st["loops"], st["captured"]) == (1, 1, 0), \
+            (name, st)
+        assert (st["prefills"], st["replays"]) == (chunks, want.steps), \
+            (name, st)
+        assert got[False][3]["requests"] == 0, name
+        if name == "eos":
+            assert want.tokens[-1] == eos and len(want.tokens) < 20 + 48
 
 
 @pytest.mark.gpu

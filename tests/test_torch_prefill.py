@@ -1,19 +1,23 @@
 """The captured prefill on the CPU: the counterpart of the JAX engine's fused
 prepare call (``jax.jit(self._make_fused(None))``: caches, window, pool
-fill and the prefill ``fori_loop`` in one dispatch). On the card each flat
-slot replays one captured prefill chunk a chunk, its start read from device
-counters (``core/step.py:prefill_chunk``, ``core/engine.py:_prefill``).
-Here the capture is ``torch_parallel_worker.faked_capture``'s (the warm
-chunk runs, the capture runs a chunk and restores the slot, a replay runs
-the chunk), and every graphed call is held against the same call inside
-``graphs.eager()`` on the same engine, bit for bit:
+fill and the prefill ``fori_loop`` in one dispatch). On the card a flat
+``_prepare`` without a prefix is one launch of the slot's prepare graph
+(``core/engine.py:_request_graph``: the prefill a WHILE node of one chunk,
+its start read from device counters, ``core/step.py:prefill_chunk``); a
+prefix call replays one captured prefill chunk a chunk
+(``core/engine.py:_prefill``). Here the capture is
+``torch_parallel_worker.faked_capture``'s (the warm run, a capture that
+restores the slot, a replay that runs what the graph would), and every
+graphed call is held against the same call inside ``graphs.eager()`` on
+the same engine, bit for bit:
 
-- ``_prepare`` at prompt lengths 1 (no chunk: nothing captured), below the
-  chunk C, C, C + 1 rows, a multiple of C and within a slot of the
-  capacity: every tensor of the slot (caches, ``kv_len``, pool tables,
-  window, output buffer, counters) and its generator, then the tokens and
-  steps of a ``generate``; the first graphed call captures the chunk and
-  replays the rest, the next replays every chunk;
+- ``_prepare`` at prompt lengths 1 (no chunk: the prefill loop runs no
+  iteration), below the chunk C, C, C + 1 rows, a multiple of C and within
+  a slot of the capacity: every tensor of the slot (caches, ``kv_len``,
+  pool tables, window, output buffer, counters, the request's arguments)
+  and its generator, then the tokens and steps of a ``generate``; the
+  first graphed call captures the prepare graph, and every graphed call
+  runs a prefill iteration a chunk;
 - ``_prepare`` and the decode step's runner (its buffers written) read
   nothing back to the host, with a prompt, with a prefix carrying a warm
   pool (the fill merges into its rows), and on engines with an int8 KV
@@ -121,8 +125,10 @@ def counted(fn):
                               "three_C_rows", "near_M", "at_M"])
 def test_graphed_prepare_equals_eager(prompt_len):
     """The first slot after ``_prepare``, eager and graphed (the capturing
-    call, then a replaying one), bit for bit; a prompt of one token has no
-    chunk and captures nothing; then ``generate``'s tokens and steps."""
+    call, then a replaying one), bit for bit; the first graphed call
+    captures the slot's prepare graph, and each graphed call runs a
+    prefill iteration a chunk (none for a prompt of one token); then
+    ``generate``'s tokens and steps."""
     p = prompt(prompt_len, prompt_len)
     k = chunks(prompt_len)
     with faked_capture():
@@ -136,9 +142,10 @@ def test_graphed_prepare_equals_eager(prompt_len):
             eager = eng.generate(p, N_NEW)
         graphed = eng.generate(p, N_NEW)
     assert bit_equal(first, want) and bit_equal(again, want)
-    assert (st1["captured"], st1["prefills"]) == (int(k > 0), max(k - 1, 0))
+    assert (st1["captured"], st1["prefills"]) == (1, k)
     assert (st2["captured"], st2["prefills"]) == (0, k)
     assert st1["replays"] == st2["replays"] == 0        # no decode step
+    assert st1["requests"] == st2["requests"] == 1
     np.testing.assert_array_equal(graphed.tokens, eager.tokens)
     # near the capacity the capacity stop ends the run early
     assert graphed.steps == eager.steps
@@ -235,8 +242,9 @@ def test_graphed_entry_points_equal_eager(kind):
     """Each entry point eager, then graphed twice on one engine: tokens,
     steps, every slot's tensors after the call (the flat slots and the
     batch's lanes) and the prefix caches it returns, bit for bit; the
-    graphed calls replay the prefill chunk once a chunk (the first call's
-    first chunk on a new slot is its graph's warm step)."""
+    graphed calls count a prefill iteration or replay a chunk (but the
+    first call's first chunk of a prefix on a new slot: the warm step of
+    the slot's chunk graph)."""
     kv_quant, model, call = ENTRY[kind]
     runs = {}
     with faked_capture():
@@ -255,8 +263,9 @@ def test_graphed_entry_points_equal_eager(kind):
         got = runs[which]
         assert got[0] == eager[0], (kind, which)
         assert bit_equal(got[1], eager[1]), (kind, which)
-    # one prefill graph a slot: the streams hold two slots
-    slots = 2 if kind == "streams" else 1
-    assert runs["first"][2]["prefills"] == k - slots
+    # a prefix call's chunk graph warms on its first chunk; a call without
+    # a prefix counts every chunk of its request graph
+    warm = 1 if kind in ("prefix", "second_turn") else 0
+    assert runs["first"][2]["prefills"] == k - warm
     assert runs["graphed"][2]["prefills"] == k
     assert runs["graphed"][2]["captured"] == 0
