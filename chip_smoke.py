@@ -3286,6 +3286,10 @@ CAPTURE_PROFILED = 6  # of a profiled one
 CAPTURE_FIRST = 3
 CAPTURE_BUDGET = 100_000   # max_new of those windows: no step ends them
 REQUEST_REPS = 3      # timed calls a way of each request-graph case
+# phase 13's prefix and batch request graphs: the precomputed prefix's
+# length, the new tokens of all but the headline prefix call, and the new
+# message of the second conversation turn
+PREFIX_LEN, N_PREFIX_NEW, TURN_LEN = 48, 64, 24
 PREFILL_REPS = 3      # prefills of each way's timed window of the prefill
 PREFILL_PROFILED = ("bf16",)   # configurations whose graphed prefill is
                                # profiled (each profiler run costs seconds)
@@ -3444,14 +3448,16 @@ def prefill_chunks(eng, prompt_len, start0=0):
     return -(-max(prompt_len - 1 - start0, 0) // eng.ecfg.prefill_chunk)
 
 
-def while_launches(stats):
+def while_launches(stats, lanes=0):
     """The WHILE condition kernel's launches of calls whose every loop is
     on the device and whose every prefill a request or prepare graph's
     (``graphs.stats`` of the calls): one before each loop and one an
     iteration, decode (``loops``, ``replays``) and prefill (``requests``,
-    ``prefills``)."""
+    ``prefills``); a batch request graph's lane loop over ``lanes`` lanes
+    adds one before it and one a lane, and its prefill node's one before
+    it runs once a lane."""
     return (stats["loops"] + stats["replays"] + stats["requests"]
-            + stats["prefills"])
+            + stats["prefills"] + 2 * lanes)
 
 
 def prepared_slot(eng, prompt, n_new):
@@ -3491,8 +3497,8 @@ def captured_prefill(name, eng, prompt, card, n_new):
     node ran an iteration a chunk (``stats["prefills"]``, nothing
     captured), the attention launching one a layer and chunk (B1, or B2
     past 1024 slots: causal), no plain version; then ms a chunk of the
-    host-counted prefill (a prefix call's way: the slot's captured chunk
-    replayed, or eager chunks). The request as a whole, graphed against
+    host-counted prefill (``fused=False``'s, a mesh's and eager calls'
+    way: the slot's captured chunk replayed, or eager chunks). The request as a whole, graphed against
     today's path, is :func:`request_case`'s. Returns {"chunk_ms",
     "per_replay"}."""
     import torch
@@ -3975,10 +3981,11 @@ def captured_batch(name, eng, prompts, card, n_new):
     """A greedy ``generate_batch`` of len(prompts) lanes eager and graphed
     on one engine (each way after a warm call): every lane's tokens and
     steps, the lanes' pool rows [0, R) and clocks, the branches evaluated
-    and chains taken equal; graphed, one device loop whose iterations are
-    the slowest lane's steps, the kernels' launches counted from them, and
-    a call's one read back with no host sync before it. Prints the call's
-    wall over its steps and peak memory each way."""
+    and chains taken equal; graphed, one launch of the batch request graph
+    (each lane's preparation, then one device loop whose iterations are
+    the slowest lane's steps), the kernels' launches counted from them,
+    and a call's one read back with no host sync before it. Prints the
+    call's wall over its steps and peak memory each way."""
     import torch
     from lookaheaddecoding_tpu_torch.core import graphs
 
@@ -4010,10 +4017,11 @@ def captured_batch(name, eng, prompts, card, n_new):
         st["graphed"]["replays"] == steps, (name, st["graphed"])
     assert got["graphed"]["paged_attention"] == \
         got["eager"]["paged_attention"] > 0, (name, got)
-    # the decode loop's, and each lane's prepare graph's prefill node
-    assert got["graphed"]["set_while"] == while_launches(st["graphed"]), \
-        (name, got)
-    assert st["graphed"]["requests"] == len(prompts), (name, st)
+    # one batch request graph: its lane loop, each lane's prefill node and
+    # the decode loop
+    assert got["graphed"]["set_while"] == while_launches(
+        st["graphed"], len(prompts)), (name, got)
+    assert st["graphed"]["requests"] == 1, (name, st)
     again, reads = one_read(lambda: eng.generate_batch(prompts, n_new))
     assert reads == 1 and all(np.array_equal(a.tokens, b.tokens)
                               for a, b in zip(again, g)), name
@@ -4120,7 +4128,8 @@ def three_ways(name, eng, call, card, lanes=0):
     assert dev["loops"] == 1 and dev["replays"] == steps, (name, dev)
     assert host["loops"] == 0 and host["replays"] >= steps, (name, host)
     assert got["device"]["philox"] == steps + len(want[1]), (name, got)
-    assert got["device"]["set_while"] == while_launches(dev), (name, got)
+    assert got["device"]["set_while"] == while_launches(dev, lanes), \
+        (name, got)
     again, reads = one_read(lambda: call(False))
     assert reads == 1 and all(np.array_equal(a.tokens, b) for a, b in
                               zip(again, want[0])), name
@@ -4307,47 +4316,73 @@ def host_stages(eng, prompt, mode, n_new, sampling=None, eos=None):
 
 
 def request_case(name, eng, prompt, mode, card, n_new, sampling=None,
-                 eos=None, stages=False):
-    """One flat call (seed 0) three ways on one engine: eagerly
-    (``graphs.eager()``, once), and after a warm call by today's path (``_run(...,
-    fused=False)``: the preparation op by op, the prefill's chunks replays
-    of the slot's captured chunk, the decode loop's own graph) and as one
-    launch of the slot's request graph (JAX's fused call), those two
+                 eos=None, stages=False, prefix=None, lanes=None,
+                 temps=None):
+    """One flat call (seed 0; past ``prefix`` when given) or, with
+    ``lanes`` (prompts), one whole ``generate_batch`` of them (seeds 0..B-1,
+    greedy, or ``sampling`` at the lanes' ``temps``; past ``prefix``)
+    three ways on one engine: eagerly (``graphs.eager()``, once), and
+    after a warm call by today's path (``fused=False``: a flat call's
+    preparation op by op, the prefill's chunks replays of the slot's
+    captured chunk, the decode loop's own graph; a batch's lanes each by
+    its prepare graph, or op by op past a prefix, and copied to its page,
+    then the lane loop's graph)
+    and as one launch of the request graph (JAX's fused call,
+    ``_make_fused_prefix``, or ``bcall`` / ``bcall_px``), those two
     REQUEST_REPS times in turns, a collection of Python's garbage before
     each call (a full one takes ~100 ms in this process, and would land in
     whichever call triggers it). Tokens, steps, the pool's rows [0, R) and
-    clock and the draw counter bit-equal; the request graph one launch (a
-    device loop), its prefill iterations the chunks, its decode
-    iterations the steps, the WHILE condition kernel once before each
+    clocks and the draw counters bit-equal; the request graph one launch
+    (a device loop), its prefill iterations the chunks past the prefix
+    (each lane's: the batch's ``prefills``), its decode iterations the
+    (slowest lane's) steps, the WHILE condition kernel once before each
     loop and once an iteration, no plain version, and one read back with
-    no host sync before it, as today's path. Prints, beside today's path,
-    the median and the least over the calls of: ms until the read is
-    queued, the call's wall over its steps, device ms from the start to
-    the read (CUDA events) and of the launch alone; the host's dispatches
-    and graph launches a call (from one more call each: counting slows
-    the host); with ``stages``, :func:`host_stages`."""
+    no host sync before it, as today's path; a batch's lanes each equal
+    to its lone call. Prints, beside today's path, the median and the
+    least over the calls of: ms until the read is queued, the call's wall
+    over its steps, device ms from the start to the read (CUDA events)
+    and of the launch alone; the host's dispatches and graph launches a
+    call (from one more call each: counting slows the host); with
+    ``stages``, :func:`host_stages`."""
+    import dataclasses
     import gc
     import torch
     from lookaheaddecoding_tpu_torch.core import graphs
 
+    prompts = [prompt] if lanes is None else lanes
+    B = 0 if lanes is None else len(lanes)
+    start0 = 0 if prefix is None else prefix.length
+
     def call(fused):
-        return eng._run(mode, prompt, n_new, eos, 0, sampling=sampling,
-                        fused=fused)
+        if B:
+            return eng._batch(lanes, n_new, eos, 0, None, prefix, sampling,
+                              temps, None, fused=fused)
+        return [eng._run(mode, prompt, n_new, eos, 0, prefix=prefix,
+                         sampling=sampling, fused=fused)]
 
     def outcome(res):
-        st = eng._free_slot().state
-        return (res.tokens, res.steps, [t.clone() for t in (
-            st.pool.values[:-1], st.pool.age[:-1], st.pool.clock)],
-            int(st.draws))
+        st = eng._lane_slots[B].states if B else eng._free_slot().state
+        pool = st.pool
+        tabs = ([pool.values[:, :-1], pool.age[:, :-1], pool.clock] if B
+                else [pool.values[:-1], pool.age[:-1], pool.clock])
+        return ([r.tokens for r in res], [r.steps for r in res],
+                [t.clone() for t in tabs], st.draws.cpu().view(-1).tolist())
 
-    k = prefill_chunks(eng, len(prompt))
+    k = [prefill_chunks(eng, len(p), start0) for p in prompts]
     out, st, got, acc = {}, {}, {}, {"today": [], "request": []}
     with graphs.eager():            # nothing to capture: no warm call
         gc.collect()
         res, _ = timed_request(lambda: call(True), False)
-        out["eager"] = outcome(res) + (res.wall_time_s,)
+        out["eager"] = outcome(res) + (res[0].wall_time_s,)
+    warm = {}
     for which in ("today", "request"):
+        torch.cuda.synchronize()
+        graphs.reset_stats()
+        t0 = time.perf_counter()
         call(which == "request")                       # warm (captures)
+        torch.cuda.synchronize()
+        warm[which] = (time.perf_counter() - t0,
+                       graphs.read_stats()["captured"])
     for rep in range(REQUEST_REPS):
         for which in (("today", "request") if rep % 2 == 0
                       else ("request", "today")):
@@ -4355,14 +4390,15 @@ def request_case(name, eng, prompt, mode, card, n_new, sampling=None,
             reset_counts()
             graphs.reset_stats()
             res, a = timed_request(lambda: call(which == "request"), True)
-            acc[which].append(dict(a, wall_ms=1e3 * res.wall_time_s
-                                   / res.steps))
+            acc[which].append(dict(a, wall_ms=1e3 * res[0].wall_time_s
+                                   / max(r.steps for r in res)))
             st[which], got[which] = graphs.read_stats(), read_counts()
-            out[which] = outcome(res) + (res.wall_time_s,)
+            out[which] = outcome(res) + (res[0].wall_time_s,)
     want = out["eager"]
     for which in ("today", "request"):
         tokens, steps, pools, draws, _ = out[which]
-        assert np.array_equal(tokens, want[0]) and steps == want[1], \
+        assert all(np.array_equal(a, b) for a, b in zip(tokens, want[0])) \
+            and steps == want[1], \
             f"{name}: {which}'s tokens or steps differ from eager"
         assert draws == want[3], (name, which, draws, want[3])
         assert all(torch.equal(a, b) for a, b in zip(pools, want[2])), \
@@ -4370,17 +4406,33 @@ def request_case(name, eng, prompt, mode, card, n_new, sampling=None,
         assert all(a["reads"] == 1 for a in acc[which]), (name, which)
         assert got[which]["plain"] == got[which]["attention_fma"] == 0, \
             (name, which, got[which])
-    steps = want[1]
+    steps = max(want[1])
     r, t = st["request"], st["today"]
     assert (r["requests"], r["loops"], r["captured"]) == (1, 1, 0), (name, r)
-    assert (r["prefills"], r["replays"]) == (k, steps), (name, k, r)
-    assert (t["requests"], t["loops"], t["prefills"]) == (0, 1, k), (name, t)
-    assert got["request"]["set_while"] == while_launches(r) == \
-        steps + k + 2, (name, got["request"])
-    assert got["request"]["attention_mma"] == got["today"]["attention_mma"] \
-        > 0, (name, got)
+    assert (r["prefills"], r["replays"]) == (sum(k), steps), (name, k, r)
+    # today's path: a batch without a prefix prepares each lane by its
+    # prepare graph; past a prefix, and a flat call, by replays of the
+    # captured chunk
+    lane_graphs = B if prefix is None else 0
+    assert (t["requests"], t["loops"], t["prefills"]) == \
+        (lane_graphs, 1, sum(k)), (name, t)
+    assert got["request"]["set_while"] == while_launches(r, B) == \
+        steps + sum(k) + 2 + 2 * B, (name, got["request"])
+    kernel = "paged_attention" if B else "attention_mma"
+    assert got["request"][kernel] == got["today"][kernel] > 0, (name, got)
+    if B:
+        assert eng._lane_slots[B].prefills.tolist() == k, (name, k)
+        for i, (p, tokens, n) in enumerate(zip(lanes, want[0], want[1])):
+            lone = (eng.generate(p, n_new, eos, seed=i, prefix=prefix)
+                    if sampling is None else eng.generate_sample(
+                        p, n_new, dataclasses.replace(
+                            sampling, temperature=temps[i]), eos, seed=i,
+                        prefix=prefix))
+            assert np.array_equal(lone.tokens, tokens) and \
+                lone.steps == n, f"{name}: lane {i} differs from its call"
     if eos is not None:
-        assert want[0][-1] == eos and len(want[0]) < len(prompt) + n_new, \
+        assert want[0][0][-1] == eos and \
+            len(want[0][0]) < len(prompt) + n_new, \
             (name, "not ended by its EOS id")
     # the host's work a call, counted apart
     launches = {}
@@ -4390,7 +4442,9 @@ def request_case(name, eng, prompt, mode, card, n_new, sampling=None,
                                    count_ops=True)
         c = graphs.read_stats()
         launches[which] = (counted["ops"], c["requests"] if which ==
-                           "request" else c["prefills"] + c["loops"])
+                           "request" else c["loops"] + (
+                               c["requests"] if lane_graphs else
+                               c["prefills"]))
 
     def spread(which, key):
         vals = [a[key] for a in acc[which]]
@@ -4406,27 +4460,59 @@ def request_case(name, eng, prompt, mode, card, n_new, sampling=None,
     def two(pair):
         return f"{pair[0]:.3f} ({pair[1]:.3f})"
     rq, td = summary["request"], summary["today"]
-    log(f"  [{card}] request graph, {name} ({len(prompt)}-token prompt, "
-        f"{k} chunk{'' if k == 1 else 's'}, {steps} steps): == today's "
-        f"path == eager (tokens, steps, pool rows, draws {want[3]}); one "
-        f"launch, prefill iterations {r['prefills']} of {k} chunks, decode "
-        f"iterations {r['replays']}, 1 read back and no host sync before "
-        f"it, no plain version; median (least) of {REQUEST_REPS} calls "
-        f"each: ms until the read is queued: request graph "
-        f"{two(rq['queued_ms'])}, today's path {two(td['queued_ms'])}; the "
-        f"call's wall over its steps, ms: request graph {two(rq['wall_ms'])}"
-        f", today's path {two(td['wall_ms'])}, eager "
+    what = (f"{B} lanes of {[len(p) for p in lanes]} tokens" if B
+            else f"{len(prompt)}-token prompt")
+    if prefix is not None:
+        what += f" past a {prefix.length}-token prefix"
+    log(f"  [{card}] request graph, {name} ({what}, chunks {k}, steps "
+        f"{want[1]}): == today's path == eager (tokens, steps, pool rows, "
+        f"draws {want[3]})" + (", each lane == its lone call" if B else "")
+        + f"; one launch, prefill iterations {r['prefills']} of {sum(k)} "
+        f"chunks, decode iterations {r['replays']}, 1 read back and no "
+        f"host sync before it, no plain version; median (least) of "
+        f"{REQUEST_REPS} calls each: ms until the read is queued: request "
+        f"graph {two(rq['queued_ms'])}, today's path {two(td['queued_ms'])}"
+        f"; the call's wall over its steps, ms: request graph "
+        f"{two(rq['wall_ms'])}, today's path {two(td['wall_ms'])}, eager "
         f"{1e3 * want[4] / steps:.3f}; device ms from the start to the read "
         f"(CUDA events): request graph {two(rq['device_ms'])} (the launch "
         f"alone {two(rq['launch_ms'])}), today's path "
         f"{two(td['device_ms'])}; a call's host ops before the read / graph "
         f"launches: request graph {launches['request'][0]} / "
         f"{launches['request'][1]}, today's path {launches['today'][0]} / "
-        f"{launches['today'][1]}" + ("" if staged is None else
-        "; the request graph's host stages, median ms: " + ", ".join(
-            f"{key} {v:.3f}" for key, v in staged.items())))
+        f"{launches['today'][1]}; the request graph's kernel launches a "
+        f"call: " + ", ".join(f"{key} {got['request'][key]}" for key in (
+            "attention_mma", "paged_attention", "set_while", "philox"))
+        + f"; the first call of each way (its "
+        f"captures included): request graph {warm['request'][0]:.3f} s, "
+        f"{warm['request'][1]} captured, today's path "
+        f"{warm['today'][0]:.3f} s, {warm['today'][1]} captured"
+        + ("" if staged is None else
+           "; the request graph's host stages, median ms: " + ", ".join(
+               f"{key} {v:.3f}" for key, v in staged.items())))
     return dict(steps=steps, chunks=k, summary=summary, launches=launches,
-                stages=staged)
+                stages=staged, warm=warm)
+
+
+def prefix_copy(eng, prefix, reps=5):
+    """(the median device ms of ``reps`` copies of ``prefix`` into
+    ``eng``'s prefix source, by CUDA events: the copy a prefix call queues
+    before its launch; MiB the source holds, its pool included)."""
+    import torch
+    from lookaheaddecoding_tpu_torch.core import graphs
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        with torch.inference_mode():    # the source is an inference tensor
+            a.record()
+            eng._load_prefix(prefix)
+            b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    mib = sum(t.numel() * t.element_size()
+              for t in graphs.state_tensors(eng._prefix_src)) / 2**20
+    return float(np.median(times)), mib
 
 
 def request_phase(configs, prompt, nxt, card, t_star, headline):
@@ -4461,6 +4547,78 @@ def request_phase(configs, prompt, nxt, card, t_star, headline):
     ]
     return {case[0]: request_case(case[0], case[1], case[2], case[3], card,
                                   *case[4:]) for case in cases}
+
+
+def batch_lanes(prompt, nxt):
+    """BATCH_LANES prompts that start with the prompt's PREFIX_LEN-token
+    prefix and run different prefill chunk counts: 400 tokens (4 chunks, 3
+    past the prefix), the prompt (1, 1), the prefix and one token (1, 0),
+    200 tokens (2, 2)."""
+    def longer(n):
+        return prompt + make_prompt(nxt, start=prompt[-1],
+                                    n=n - len(prompt))
+    return [longer(400), prompt, prompt[:PREFIX_LEN + 1], longer(200)]
+
+
+def prefix_batch_phase(configs, prompt, nxt, card, t_star):
+    """Phase 13's prefix and batch request graphs (JAX's
+    ``_make_fused_prefix`` and ``bcall`` / ``bcall_px``: a flat call past a
+    prefix, and a whole ``generate_batch``, one launch and one read), each
+    by :func:`request_case`: the headline bf16 ``generate`` of
+    N_NEW_QUANT tokens past a PREFIX_LEN-token ``precompute_prefix`` of
+    the prompt; a second conversation turn on the first turn's
+    ``return_prefix`` with its warm pool; ``generate_sample`` at T* past
+    the prefix; a prompt of the prefix's length plus one (its prefill runs
+    no iteration); int8_weights_int8_kv's ``generate`` past its own
+    prefix (an int8 ``{"q", "s"}`` source); greedy and sampled
+    ``generate_batch`` of BATCH_LANES lanes (:func:`batch_lanes`: 4, 1,
+    1 and 2 chunks, and 3, 1, 0 and 2 past the prefix) without and with
+    the prefix; ``generate_baseline`` past the prefix. Also the prefix
+    source's copy (device ms) and memory. Returns {name: request_case's
+    account}."""
+    import lookaheaddecoding_tpu_torch as lt
+
+    bf16 = configs["bf16"][0]
+    q8 = configs["int8_weights_int8_kv"][0]
+    sampling = lt.SamplingConfig(temperature=t_star, top_k=TOP_K)
+    pc = bf16.precompute_prefix(prompt[:PREFIX_LEN])
+    pc8 = q8.precompute_prefix(prompt[:PREFIX_LEN])
+    first = bf16.generate(prompt, N_PREFIX_NEW, return_prefix=True)
+    turn = list(first.tokens) + make_prompt(nxt, start=int(first.tokens[-1]),
+                                            n=TURN_LEN)
+    lanes = batch_lanes(prompt, nxt)
+    temps = [t_star, 0.8 * t_star, 1.25 * t_star, t_star]
+    cases = [
+        ("bf16 generate past a prefix", bf16, prompt, "greedy",
+         N_NEW_QUANT, None, None, False, pc),
+        ("bf16 generate, a second turn on return_prefix (warm pool)", bf16,
+         turn, "greedy", N_PREFIX_NEW, None, None, False, first.prefix),
+        (f"bf16 generate_sample at T*={t_star:.4f} past a prefix", bf16,
+         prompt, "sample", N_PREFIX_NEW, sampling, None, False, pc),
+        ("bf16 generate, a prompt one token past its prefix", bf16,
+         prompt[:PREFIX_LEN + 1], "greedy", N_PREFIX_NEW, None, None, False,
+         pc),
+        ("int8_weights_int8_kv generate past a prefix", q8, prompt,
+         "greedy", N_PREFIX_NEW, None, None, False, pc8),
+        ("bf16 generate_baseline past a prefix", bf16, prompt, "ar",
+         N_PREFIX_NEW, None, None, False, pc),
+        *[(f"bf16 {'sampled' if s else 'greedy'} generate_batch"
+           + (" past a prefix" if px else ""), bf16, None,
+           "sample" if s else "greedy", N_PREFIX_NEW, sampling if s else None,
+           None, False, px, lanes, temps if s else None)
+          for s in (False, True) for px in (None, pc)],
+    ]
+    out = {case[0]: request_case(case[0], case[1], case[2], case[3], card,
+                                 *case[4:]) for case in cases}
+    for name, eng, prefix in (("bf16", bf16, pc),
+                              ("bf16, warm pool", bf16, first.prefix),
+                              ("int8_weights_int8_kv", q8, pc8)):
+        ms, mib = prefix_copy(eng, prefix)
+        log(f"  [{card}] the prefix source, {name}: {mib:.1f} MiB, a "
+            f"prefix's copy into it {ms:.4f} device ms (median of 5, CUDA "
+            f"events)")
+        out[f"prefix copy {name}"] = dict(ms=ms, mib=mib)
+    return out
 
 
 def captured_phase(configs, prompt, paged_engines, nxt, card, t_star,
@@ -4783,6 +4941,15 @@ def main() -> int:
     request_phase(configs, prompt, nxt, card, samp_info["t_star"],
                   (mcfg, params))
     lap("request graph")
+
+    log(f"[prefix and batch request graphs] ({card}); a flat call past a "
+        f"{PREFIX_LEN}-token prefix and a whole {BATCH_LANES}-lane "
+        f"generate_batch as one CUDA graph (the prefix copied from the "
+        f"engine's prefix source; the lanes prepared by a WHILE node over "
+        f"them, each lane's prefill a WHILE node nested in it), launched "
+        f"once and read once, against today's path and eager")
+    prefix_batch_phase(configs, prompt, nxt, card, samp_info["t_star"])
+    lap("prefix and batch request graphs")
 
     log(f"[mesh step captured] ({card}); a one-rank NCCL world "
         f"(parallel/launch.py --nproc 1 --backend nccl), the headline "

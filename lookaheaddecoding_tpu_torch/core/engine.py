@@ -25,23 +25,29 @@ whose groups are NCCL each rank replays its own graph, collectives
 included (JAX's ``jit`` over the mesh); the graphs live in a memory pool
 of the engine's own, so two engines on one rank never share one.
 
-A request is JAX's one traced call (``_make_fused``): on one card
-outside ``graphs.eager()``, ``generate``, ``generate_baseline`` and
-``generate_sample`` without a ``prefix`` are one launch of a
+A request is JAX's one traced call (``_make_fused``, and
+``_make_fused_prefix`` past a prefix): on one card outside
+``graphs.eager()``, ``generate``, ``generate_baseline`` and
+``generate_sample``, with or without a ``prefix``, are one launch of a
 ``graphs.RequestGraph`` of the slot and one read. The host writes the
-request's arguments (its length, seed, output buffer, pool fill, budget,
-EOS ids and warpers) into the slot's ``args`` with one copy from pinned
-memory; the graph then resets the caches and the pool, seeds the stream
-and the window, applies the fill, runs the prefill as a WHILE node of one
-chunk under the chunk count it computes itself, and the decode loop as a
-second WHILE node. ``_prepare`` alone (streams, ``precompute_prefix``,
-``generate_batch``'s and the scheduler's lanes) is the same graph without
-the decode loop, JAX's ``_fused_prepare``. A call with a prefix, on a
-mesh, on the CPU or inside ``graphs.eager()`` runs the same functions op
-by op over the same uploaded arguments, and its prefill by the host's
-count of chunks: replays of one captured chunk a slot where steps are
-captured, each reading its start from device counters. Nothing between a
-request's start and its one read syncs the host.
+request's arguments (its length, the prefix's length, seed, output
+buffer, pool fill, budget, EOS ids and warpers) into the slot's ``args``
+with one copy from pinned memory, and a prefix's caches (and warm pool)
+into the engine's prefix source, device to device; the graph then resets
+the caches and the pool (or copies them from the source), seeds the
+stream and the window, applies the fill, runs the prefill as a WHILE node
+of one chunk under the chunk count it computes itself, and the decode
+loop as a second WHILE node. ``_prepare`` alone (streams,
+``precompute_prefix``, the scheduler's lanes) is the same graph without
+the decode loop, JAX's ``_fused_prepare``. A whole ``generate_batch``
+(JAX's ``bcall`` / ``bcall_px``) is one launch too: a WHILE node over the
+lanes prepares each lane in a flat slot (its prefill's WHILE node nested)
+and copies it into its page, then the lanes' decode loop runs. On a mesh,
+on the CPU, inside ``graphs.eager()`` or with ``fused=False`` the same
+functions run op by op over the same uploaded arguments, and the prefill
+by the host's count of chunks: replays of one captured chunk a slot where
+steps are captured, each reading its start from device counters. Nothing
+between a request's start and its one read syncs the host.
 
 The decode loop is JAX's ``lax.while_loop`` on ``~finished``: on the card
 outside ``graphs.eager()``, on one card or on a mesh whose groups are all
@@ -49,7 +55,7 @@ NCCL (each rank its own loop, the collectives inside it),
 ``generate``, ``generate_sample``, ``generate_baseline`` and
 ``generate_batch``, greedy or sampled, launch their whole loop once, a
 ``graphs.LoopGraph`` (a CUDA-graph WHILE node around the captured step;
-on one card a call without a prefix has that node in its request graph),
+on one card that node is in the call's request graph),
 and read the device once, in the call's final transfer, which also brings
 back the loop's iteration count. A sampling step draws from the request's
 Philox stream in the state (``ops/philox.py``), whose kernel reads the
@@ -204,16 +210,16 @@ class FlatSlot:
     of which the argument fields are views. The call's part comes first:
     ``max_new`` (0-d), ``eos`` [MAX_EOS_IDS], ``temperature`` and ``top_p``
     ([1] float32, their bits); ``split`` is where the request's part
-    begins: ``prompt_len`` (0-d), ``seed`` (the Philox key's two words),
+    begins: ``prompt_len`` (0-d), ``start0`` (0-d: the prefill's first
+    row, 0 or a prefix's length), ``seed`` (the Philox key's two words),
     ``clock`` (the fill's, 0-d), ``prompt`` (the output buffer [M + GS]
     the request starts from) and, on an engine that fills its pool from
     the prompt, ``fill`` (keys [M], rows [M, G, GS] and ages [M, G],
-    ``host_prompt_fill`` at ``pad_to=M``; else None). ``start0`` (the
-    prefill's first row: 0, or a prefix's length), ``chunk`` (the prefill
-    chunk under way), ``chunks`` (the prefill's chunk count, computed on
-    the device) and ``prefills`` (the chunks the prefill ran) are 0-d
-    int32; ``never`` is a 0-d bool that stays False, the prefill loop's
-    flag."""
+    ``host_prompt_fill`` at ``pad_to=M``; else None). ``chunk`` (the
+    prefill chunk under way), ``chunks`` (the prefill's chunk count,
+    computed on the device) and ``prefills`` (the chunks the prefill ran)
+    are 0-d int32; ``never`` is a 0-d bool that stays False, the prefill
+    loop's flag."""
 
     state: DecodeState
     args: torch.Tensor
@@ -223,11 +229,11 @@ class FlatSlot:
     temperature: torch.Tensor
     top_p: torch.Tensor
     prompt_len: torch.Tensor
+    start0: torch.Tensor
     seed: torch.Tensor
     clock: torch.Tensor
     prompt: torch.Tensor
     fill: Optional[tuple]
-    start0: torch.Tensor
     chunk: torch.Tensor
     chunks: torch.Tensor
     prefills: torch.Tensor
@@ -243,15 +249,31 @@ class LaneSlot:
     ``[L, Hkv, (B+1)*M, D]``, lane b on page b of M slots and one trash page
     after them; their bookkeeping, each lane's ``max_new``, EOS ids,
     temperature and top_p, and the captured batched steps (``graphs``), at
-    fixed addresses."""
+    fixed addresses.
+
+    ``args`` is one int32 buffer that a whole ``generate_batch`` uploads
+    in one copy: the lanes' ``max_new``, ``eos``, ``temperature`` and
+    ``top_p`` (float32 views of their bits) are views of it, and so is
+    ``words`` [B, W], each lane's request words as a flat slot's ``args``
+    holds them from its ``split``. The batch request graph prepares lane
+    ``lane`` (a [1] int32 counter, the WHILE node's over ``count``, [1]
+    holding B) and keeps the chunks its prefill ran in ``prefills`` [B].
+    ``index`` is ``arange(B)`` as int64, whose [1] slices name a lane to
+    ``write_lane``."""
 
     k_pool: object
     v_pool: object
     states: PagedLaneState
+    args: torch.Tensor
     max_new: torch.Tensor       # [B] int32
     eos: torch.Tensor           # [B, MAX_EOS_IDS] int32
     temperature: torch.Tensor   # [B] float32
     top_p: torch.Tensor         # [B] float32
+    words: torch.Tensor         # [B, W] int32
+    lane: torch.Tensor          # [1] int32
+    count: torch.Tensor         # [1] int32
+    prefills: torch.Tensor      # [B] int32
+    index: torch.Tensor         # [B] int64
     graphs: dict = dataclasses.field(default_factory=dict)
 
 
@@ -281,46 +303,76 @@ def lane_slot(eng: "LookaheadEngine", lanes: int) -> LaneSlot:
         n_confirmed=zeros(B) + 1, init_len=zeros(B) + 1, step_idx=zeros(B),
         finished=torch.ones(B, dtype=torch.bool, device=dev),
         key=zeros(B, 2), draws=torch.zeros(B, dtype=torch.int64, device=dev))
-    return LaneSlot(k_pool=k_pool, v_pool=v_pool, states=states,
-                    max_new=zeros(B), eos=zeros(B, MAX_EOS_IDS) - 1,
-                    temperature=torch.ones(B, dtype=torch.float32, device=dev),
-                    top_p=torch.ones(B, dtype=torch.float32, device=dev))
+    W = sum(int(np.prod(shape)) for _, shape in eng._arg_shapes()[1])
+    args = zeros(B * (3 + MAX_EOS_IDS + W))
+    views = _split(args, [("max_new", (B,)), ("eos", (B, MAX_EOS_IDS)),
+                          ("temperature", (B,)), ("top_p", (B,)),
+                          ("words", (B, W))])
+    views["eos"].fill_(-1)
+    return LaneSlot(k_pool=k_pool, v_pool=v_pool, states=states, args=args,
+                    lane=zeros(1), count=zeros(1) + B, prefills=zeros(B),
+                    index=torch.arange(B, device=dev), **views)
 
 
-def write_lane(slot: LaneSlot, lane: int, state: DecodeState) -> None:
+def _split(args: torch.Tensor, shapes) -> dict:
+    """Views of ``args`` in order, by (name, shape); ``temperature`` and
+    ``top_p`` as float32 views of their words, set to 1.0."""
+    views, at = {}, 0
+    for name, shape in shapes:
+        n = int(np.prod(shape))
+        views[name] = args[at:at + n].view(shape)
+        at += n
+    for name in ("temperature", "top_p"):
+        if name in views:
+            views[name] = views[name].view(torch.float32).fill_(1.0)
+    return views
+
+
+def write_lane(slot: LaneSlot, lane: torch.Tensor,
+               state: DecodeState) -> None:
     """A prepared flat state (caches, bookkeeping, pool, stream) copied
-    into lane ``lane`` of ``slot``, in place."""
+    into lane ``lane`` of ``slot``, in place: ``lane`` a [1] int64 tensor
+    on the device (a slice of ``slot.index``, or the batch request graph's
+    lane counter), read there."""
     M = _leaf_pairs(state.k_cache, state.k_cache)[0][0].shape[2]
     for pool, cache in ((slot.k_pool, state.k_cache),
                         (slot.v_pool, state.v_cache)):
         for dst, src in _leaf_pairs(pool, cache):
-            dst[:, :, lane * M:(lane + 1) * M] = src
+            pages = dst.view(dst.shape[:2] + (-1, M) + dst.shape[3:])
+            pages.index_copy_(2, lane, src[:, :, None])
     st = slot.states
-    for name in ("kv_len", "window", "out_buf", "n_confirmed", "init_len",
-                 "step_idx", "finished", "key", "draws"):
-        getattr(st, name)[lane] = getattr(state, name)
-    for name in ("values", "age", "clock"):
-        getattr(st.pool, name)[lane] = getattr(state.pool, name)
+    for dst, src in ([(getattr(st, name), getattr(state, name))
+                      for name in ("kv_len", "window", "out_buf",
+                                   "n_confirmed", "init_len", "step_idx",
+                                   "finished", "key", "draws")]
+                     + [(getattr(st.pool, name), getattr(state.pool, name))
+                        for name in ("values", "age", "clock")]):
+        if dst.dtype == torch.bool:
+            dst, src = dst.view(torch.uint8), src.view(torch.uint8)
+        dst.index_copy_(0, lane, src[None])
 
 
 def _loop_done(loop, finished: bool, iters: int, max_new: int,
-               prefills: Optional[int] = None,
-               chunks: Optional[int] = None) -> None:
+               prefills: Optional[list] = None,
+               chunks: Optional[list] = None) -> None:
     """Count a device loop's ``iters`` iterations, read in the call's final
     transfer, and refuse a loop that stopped at its cap (``max_new``
     iterations: every live step confirms a token) with a lane unfinished;
     it is never run again from the host. After a request graph (a
-    ``graphs.RequestGraph``) the read also holds its prefill's
-    ``prefills`` iterations, which must be the ``chunks`` the host counts
-    from the prompt."""
+    ``graphs.RequestGraph``) the read also holds each prepared lane's
+    prefill iterations, ``prefills`` (one for a flat call, B for a batch,
+    whose lane loop ran B iterations), which must be the ``chunks`` the
+    host counts from each prompt."""
     if prefills is None:
         loop.account(iters)
     else:
-        loop.account(prefill=prefills, decode=iters)
-        if prefills != chunks:
-            raise RuntimeError(
-                f"the request graph's prefill ran {prefills} chunks where "
-                f"the prompt has {chunks}")
+        lanes = {"lanes": len(prefills)} if "lanes" in loop.loops else {}
+        loop.account(prefill=sum(prefills), decode=iters, **lanes)
+        for got, want in zip(prefills, chunks):
+            if got != want:
+                raise RuntimeError(
+                    f"the request graph's prefill ran {got} chunks where "
+                    f"the prompt has {want}")
     if not finished:
         raise RuntimeError(
             f"the device decode loop stopped at its cap of "
@@ -418,6 +470,7 @@ class LookaheadEngine:
         self._loop_pool = None      # the loop bodies' MemPool, at first use
         self._slots = []            # FlatSlot: one, or one a live stream
         self._lane_slots = {}       # generate_batch's LaneSlot, by lanes
+        self._prefix_src = None     # the prefix graphs' source, at first use
 
     def _check_shards(self, mesh):
         """The tree must be this rank's shard of the mesh: the layer count
@@ -510,28 +563,31 @@ class LookaheadEngine:
             init_len=zeros(), step_idx=zeros(),
             finished=torch.ones((), dtype=torch.bool, device=dev),
             key=zeros(2), draws=zeros(dtype=torch.int64))
-        G, GS = lay.guess_set_size, lay.guess_size
-        shapes = [("max_new", ()), ("eos", (MAX_EOS_IDS,)),
-                  ("temperature", (1,)), ("top_p", (1,)),
-                  ("prompt_len", ()), ("seed", (2,)), ("clock", ()),
-                  ("prompt", (M + GS,))]
-        if self.lcfg.pool_from_prompt:
-            shapes += [("keys", (M,)), ("rows", (M, G, GS)), ("ages", (M, G))]
-        sizes = [int(np.prod(shape)) for _, shape in shapes]
-        args, views, at = zeros(sum(sizes)), {}, 0
-        for (name, shape), n in zip(shapes, sizes):
-            views[name] = args[at:at + n].view(shape)
-            at += n
-        for name in ("temperature", "top_p"):
-            views[name] = views[name].view(torch.float32).fill_(1.0)
+        call, request = self._arg_shapes()
+        sizes = [int(np.prod(shape)) for _, shape in call + request]
+        args = zeros(sum(sizes))
+        views = _split(args, call + request)
         views["eos"].fill_(-1)
         fill = (tuple(views.pop(name) for name in ("keys", "rows", "ages"))
                 if self.lcfg.pool_from_prompt else None)
-        return FlatSlot(state=state, args=args, split=sum(sizes[:4]),
-                        fill=fill, start0=zeros(), chunk=zeros(),
-                        chunks=zeros(), prefills=zeros(),
+        return FlatSlot(state=state, args=args, split=sum(sizes[:len(call)]),
+                        fill=fill, chunk=zeros(), chunks=zeros(),
+                        prefills=zeros(),
                         never=torch.zeros((), dtype=torch.bool, device=dev),
                         **views)
+
+    def _arg_shapes(self):
+        """(the call's, the request's) (name, shape) fields of a
+        :class:`FlatSlot`'s ``args``, in order."""
+        M, G, GS = (self.ecfg.max_seq_len, self.layout.guess_set_size,
+                    self.layout.guess_size)
+        request = [("prompt_len", ()), ("start0", ()), ("seed", (2,)),
+                   ("clock", ()), ("prompt", (M + GS,))]
+        if self.lcfg.pool_from_prompt:
+            request += [("keys", (M,)), ("rows", (M, G, GS)),
+                        ("ages", (M, G))]
+        return ([("max_new", ()), ("eos", (MAX_EOS_IDS,)),
+                 ("temperature", (1,)), ("top_p", (1,))], request)
 
     def _free_slot(self) -> FlatSlot:
         """A FlatSlot no call holds, made at first use (a second one only
@@ -565,12 +621,14 @@ class LookaheadEngine:
                                np.float32([temp, top_p]).view(np.int32)])
 
     def _request_words(self, out_buf: np.ndarray, prompt_len: int, seed,
-                       fill) -> np.ndarray:
+                       fill, start0: int = 0) -> np.ndarray:
         """The request's part of a slot's ``args`` as host words: the
-        prompt's length, the seed's Philox key words, the fill's clock, the
-        output buffer and the fill's keys, rows and ages (none without a
-        fill: nothing then reads them)."""
-        words = [np.int32([prompt_len]), np.int32(philox.seed_key(seed)),
+        prompt's length, the prefill's first row (a prefix's length), the
+        seed's Philox key words, the fill's clock, the output buffer and
+        the fill's keys, rows and ages (none without a fill: nothing then
+        reads them)."""
+        words = [np.int32([prompt_len, start0]),
+                 np.int32(philox.seed_key(seed)),
                  np.int32([0 if fill is None else fill[3]]), out_buf]
         if fill is not None:
             words += [np.ravel(a) for a in fill[:3]]
@@ -602,27 +660,71 @@ class LookaheadEngine:
         place into ``slot``'s state (by default a free slot's), which is
         returned: JAX's fused prepare call. The request's arguments go to
         the slot's ``args`` first, one copy without a wait, and everything
-        after reads them there. Without a prefix, where the engine fuses
-        (:meth:`_fuses`) and ``fused`` holds, that is one launch of the
-        slot's prepare graph (:meth:`_request_graph`): JAX's
-        ``_fused_prepare``. Otherwise the same functions run op by op
-        (:meth:`_start`: the caches and the pool reset, or copied from a
-        prefix's, whose rows the prefill's last chunk may rewrite and into
-        whose pool the fill merges) and the prefill runs the host's count
-        of chunks (:meth:`_prefill`)."""
+        after reads them there. Where the engine fuses (:meth:`_fuses`)
+        and ``fused`` holds, that is one launch of the slot's prepare graph
+        (:meth:`_request_graph`; a prefix's caches and pool copied into the
+        engine's prefix source first): JAX's ``_fused_prepare``, or its
+        prefix variant (``_make_fused_prefix``). Otherwise the same
+        functions run op by op (:meth:`_start`: the caches and the pool
+        reset, or copied from a prefix's, whose rows the prefill's last
+        chunk may rewrite and into whose pool the fill merges) and the
+        prefill runs the host's count of chunks (:meth:`_prefill`)."""
         slot = slot or self._free_slot()
+        start0 = 0 if prefix is None else prefix.length
         self._write(slot, self._request_words(out_buf, prompt_len, seed,
-                                              fill), slot.split)
-        if fused and prefix is None and self._fuses():
-            graph = self._request_graph(slot, fill is not None)
+                                              fill, start0), slot.split)
+        if fused and self._fuses():
+            self._load_prefix(prefix)
+            graph = self._request_graph(slot, fill is not None,
+                                        **self._prefix_kind(prefix))
             graph.run()
             # the host's count: a whole request's one read checks the
             # device's against it (_finalize)
-            graph.account(prefill=self._chunks(prompt_len))
+            graph.account(prefill=self._chunks(prompt_len, start0))
             return slot.state
         self._start(slot, fill is not None, prefix)
-        return self._prefill(slot, prompt_len,
-                             0 if prefix is None else prefix.length)
+        return self._prefill(slot, prompt_len, start0)
+
+    @staticmethod
+    def _prefix_kind(prefix: Optional[PrefixCache]) -> dict:
+        """The request graph's prefix key of a call: none, or a prefix
+        with or without a warm pool."""
+        return dict(prefix=prefix is not None,
+                    warm_pool=prefix is not None and prefix.pool is not None)
+
+    def _prefix_source(self, warm_pool: bool) -> PrefixCache:
+        """The engine's prefix source: caches and a pool of a slot's
+        shapes, made at the first prefix call that runs as a request
+        graph, at fixed addresses that the graphs copy a prefix from. Its
+        pool only when ``warm_pool``."""
+        if self._prefix_src is None:
+            k_cache, v_cache = llama.make_kv_cache(
+                self.mcfg, self.ecfg.max_seq_len, self.device,
+                quant=self.ecfg.kv_quant, params=self.params)
+            lay = self.layout
+            self._prefix_src = PrefixCache(
+                tokens=np.zeros(0, np.int32), k_cache=k_cache,
+                v_cache=v_cache, length=0,
+                pool=pool_init(self._pool_rows(), lay.guess_set_size,
+                               lay.guess_size, self.device))
+        src = self._prefix_src
+        return src if warm_pool else dataclasses.replace(src, pool=None)
+
+    def _load_prefix(self, prefix: Optional[PrefixCache]) -> None:
+        """``prefix``'s caches (whole tensors: rows past its length too)
+        and, with a warm pool, its pool copied into the prefix source,
+        device to device and queued without a wait; the call's graph
+        copies them on into its slot. One stream orders a later call's
+        copies after this call's launch."""
+        if prefix is None:
+            return
+        src = self._prefix_source(prefix.pool is not None)
+        for dst, got in (_leaf_pairs(src.k_cache, prefix.k_cache)
+                         + _leaf_pairs(src.v_cache, prefix.v_cache)):
+            dst.copy_(got)
+        if prefix.pool is not None:
+            for name in ("values", "age", "clock"):
+                getattr(src.pool, name).copy_(getattr(prefix.pool, name))
 
     def _start(self, slot: FlatSlot, fill: bool,
                prefix: Optional[PrefixCache] = None) -> None:
@@ -689,41 +791,54 @@ class LookaheadEngine:
                                       self._counters(slot), run)
 
     def _fuses(self) -> bool:
-        """Whether a request without a prefix runs as one graph
-        (:meth:`_request_graph`): on one card where steps are captured (no
-        mesh), outside ``graphs.eager()``."""
+        """Whether a request (a flat call or ``_prepare``, with or without
+        a prefix, or a whole ``generate_batch``) runs as one graph
+        (:meth:`_request_graph`, :meth:`_batch_graph`): on one card where
+        steps are captured (no mesh), outside ``graphs.eager()``."""
         return (self._graphed and not graphs.eager_depth()
                 and self.mesh is None)
 
     def _request_graph(self, slot: FlatSlot, fill: bool,
                        mode: Optional[str] = None, top_p_on: bool = False,
-                       top_k: int = 0) -> graphs.RequestGraph:
+                       top_k: int = 0, prefix: bool = False,
+                       warm_pool: bool = False) -> graphs.RequestGraph:
         """The slot's :class:`graphs.RequestGraph`: the preparation
-        (:meth:`_start` without a prefix, with the fill if ``fill``; then
-        the prefill, a WHILE node of the chunk under the chunk count the
-        device computed) and, with a ``mode``, that mode's decode loop
-        after it, a WHILE node of the step (``top_p_on`` and ``top_k`` its
-        warpers). Without a mode it is JAX's ``_fused_prepare``, with one
-        ``_fused_greedy``, ``_fused_baseline`` or the fused sampling loop.
-        Keyed by all of these; its bodies allocate in the engine's
-        MemPool."""
-        fns, params, st = self._fns, self.params, slot.state
+        (:meth:`_start`, with the fill if ``fill``; with ``prefix`` the
+        caches copied from the engine's prefix source, and its pool too
+        if ``warm_pool``, else a zeroed one; then the prefill from the
+        ``start0`` of the slot's args, a WHILE node of the chunk under the
+        chunk count the device computed) and, with a ``mode``, that mode's
+        decode loop after it, a WHILE node of the step (``top_p_on`` and
+        ``top_k`` its warpers). Without a mode it is JAX's
+        ``_fused_prepare``, with one ``_fused_greedy``,
+        ``_fused_baseline`` or the fused sampling loop; with a prefix,
+        their ``_make_fused_prefix`` variants. Keyed by all of these; its
+        bodies allocate in the engine's MemPool."""
         step, key = ((None, None) if mode is None
                      else self._flat_step(slot, mode, top_p_on, top_k))
-        chunk = self._chunk(slot)
+        source = self._prefix_source(warm_pool) if prefix else None
 
         def record(graph):
-            self._start(slot, fill)
-            slot.start0.zero_()
-            fns.prefill_from(params, st, self._counters(slot), lambda: (
-                graph.loop("prefill", "prefills", slot.never, slot.chunks,
-                           slot.prefills, chunk)))
+            self._prepare_body(graph, slot, fill, source)
             if step is not None:
-                graph.loop("decode", "replays", st.finished, slot.max_new,
-                           graph.iters, step)
+                graph.loop("decode", "replays", slot.state.finished,
+                           slot.max_new, graph.iters, step)
         self._pools()
-        return graphs.request_runner(slot.graphs, (key, fill), record, slot,
-                                     self._graph_pool, self._loop_pool)
+        return graphs.request_runner(
+            slot.graphs, (key, fill, prefix, warm_pool), record, slot,
+            self._graph_pool, self._loop_pool)
+
+    def _prepare_body(self, graph: graphs.RequestGraph, slot: FlatSlot,
+                      fill: bool, source: Optional[PrefixCache]) -> None:
+        """What a request graph records of a preparation: :meth:`_start`
+        from the slot's args (and ``source``), then the prefill as a WHILE
+        node of the slot's chunk."""
+        chunk = self._chunk(slot)
+        self._start(slot, fill, source)
+        self._fns.prefill_from(self.params, slot.state, self._counters(slot),
+                               lambda: graph.loop(
+                                   "prefill", "prefills", slot.never,
+                                   slot.chunks, slot.prefills, chunk))
 
     def _runner(self, cache: dict, key, step, state, counter="replays"):
         if self._graphed and self._graph_pool is None:
@@ -852,7 +967,7 @@ class LookaheadEngine:
         n_confirmed, init_len, steps, kv_len = (int(x) for x in host[:4])
         if loop is not None:
             _loop_done(loop, bool(host[4]), int(host[5]), max_new,
-                       *((int(host[6]), chunks) if request else ()))
+                       *(([int(host[6])], [chunks]) if request else ()))
         host = host[len(scalars):]
         total = min(n_confirmed, init_len + max_new)   # trim overshoot
         res = GenerationResult(tokens=host[:total].copy(),
@@ -886,9 +1001,8 @@ class LookaheadEngine:
         sampling step: the config's values, or one a lane. ``top_p`` is
         None when no lane asks for it (host data), which skips the sort;
         any lane below 1 applies to that lane."""
-        temps = ([sampling.temperature] * lanes if temperatures is None
-                 else list(temperatures))
-        tops = [sampling.top_p] * lanes if top_ps is None else list(top_ps)
+        temps, tops = self._lane_warpers(lanes, sampling, temperatures,
+                                         top_ps)
         temps, top_p = (graphs.upload(np.asarray(v, np.float32), self.device)
                         for v in (temps, tops))
         return temps, top_p if min(tops) < 1.0 else None, sampling.top_k
@@ -896,9 +1010,10 @@ class LookaheadEngine:
     def _run(self, mode, prompt_ids, max_new_tokens, eos_token_id, seed,
              prefix=None, return_prefix=False, sampling=None,
              host_loop=False, fused=True):
-        """One call of ``mode``. Without a prefix, where the engine fuses
-        (:meth:`_fuses`), it is one launch of the slot's request graph
-        after one upload of its arguments, and one read. ``host_loop``
+        """One call of ``mode``. Where the engine fuses (:meth:`_fuses`),
+        it is one launch of the slot's request graph after one upload of
+        its arguments (and, with a prefix, its copy into the engine's
+        prefix source), and one read. ``host_loop``
         prepares the call op by op and decodes it by the host loop even
         where it would loop on the device: a profiler records no kernel
         inside a CUDA-graph WHILE body (``chip_smoke.py``'s profiles), and
@@ -910,16 +1025,20 @@ class LookaheadEngine:
             self._reject_dynamic_prefix()
         out_buf, P, fill = self._host_args(prompt_ids, max_new_tokens, prefix)
         with torch.inference_mode(), self._slot() as slot:
-            if fused and not host_loop and prefix is None and self._fuses():
+            if fused and not host_loop and self._fuses():
+                start0 = 0 if prefix is None else prefix.length
                 self._write(slot, np.concatenate([
                     self._call_words(mode, max_new_tokens, eos_token_id,
                                      sampling),
-                    self._request_words(out_buf, P, seed, fill)]))
+                    self._request_words(out_buf, P, seed, fill, start0)]))
+                self._load_prefix(prefix)
                 graph = self._request_graph(slot, fill is not None, mode,
-                                            *self._warpers(mode, sampling))
+                                            *self._warpers(mode, sampling),
+                                            **self._prefix_kind(prefix))
                 graph.run()
                 return self._finalize(slot.state, max_new_tokens, t0,
-                                      return_prefix, graph, self._chunks(P))
+                                      return_prefix, graph,
+                                      self._chunks(P, start0))
             state = self._prepare(out_buf, P, seed, fill, prefix, slot=slot,
                                   fused=fused and not host_loop)
             if self._loops(mode) and not host_loop:
@@ -1102,8 +1221,16 @@ class LookaheadEngine:
                            seeds, prefix, sampling, temperatures, top_ps)
 
     def _batch(self, prompts, max_new_tokens, eos_token_id, seed, seeds,
-               prefix, sampling, temperatures, top_ps, host_loop=False):
-        """:meth:`generate_batch`; ``host_loop`` as in :meth:`_run`."""
+               prefix, sampling, temperatures, top_ps, host_loop=False,
+               fused=True):
+        """:meth:`generate_batch`. Where the engine fuses (:meth:`_fuses`)
+        it is one upload of every lane's arguments, one launch of the
+        batch request graph (:meth:`_batch_graph`: JAX's ``bcall`` /
+        ``bcall_px``) and one read. ``fused=False`` keeps that graph out:
+        each lane's own ``_prepare`` (its prepare graph, or op by op past a
+        prefix) copied into its page (``write_lane``), then the lane loop's
+        own graph; ``host_loop`` as in :meth:`_run`, the host stepping the
+        lanes."""
         t0 = time.perf_counter()
         if not prompts:
             raise ValueError("generate_batch needs at least one prompt")
@@ -1129,54 +1256,40 @@ class LookaheadEngine:
                                  else temperatures[i]),
                     top_p=sampling.top_p if top_ps is None else top_ps[i])
         args = [self._host_args(p, max_new_tokens, prefix) for p in prompts]
+        start0 = 0 if prefix is None else prefix.length
         with torch.inference_mode():
             lanes = self._lane_slots.get(B)
             if lanes is None:
                 lanes = self._lane_slots[B] = lane_slot(self, B)
-            # each lane prepared as its lone call, then copied to its page
-            with self._slot() as flat:
-                for b, ((buf, n, fill), s) in enumerate(zip(args, seeds)):
-                    write_lane(lanes, b, self._prepare(buf, n, s, fill,
-                                                       prefix, slot=flat))
-            lanes.max_new.fill_(min(max_new_tokens, _INT32_MAX))
-            lanes.eos.copy_(graphs.upload(_eos_vec(eos_token_id),
-                                          self.device).expand(B, -1))
-            top_p, top_k = None, 0
-            if sampling is not None:
-                temps, top_p, top_k = self._warp(sampling, B, temperatures,
-                                                 top_ps)
-                lanes.temperature.copy_(temps)
-                if top_p is not None:
-                    lanes.top_p.copy_(top_p)
             states = lanes.states
             columns = [states.n_confirmed, states.init_len, states.step_idx]
             loop = None
-            if (self._loops("greedy" if sampling is None else "sample")
-                    and not host_loop):
-                loop = self._lane_loop(lanes, sampling is not None,
-                                       top_p is not None, top_k)
-                loop.run()
-                columns += [states.finished.int(), loop.iters.expand(B)]
+            if fused and not host_loop and self._fuses():
+                loop = self._batch_call(lanes, args, seeds, start0,
+                                        max_new_tokens, eos_token_id,
+                                        prefix, sampling, temperatures,
+                                        top_ps)
+                columns += [states.finished.int(), loop.iters.expand(B),
+                            lanes.prefills]
             else:
-                steps = self._lane_runner(lanes, sampling is not None,
-                                          top_p is not None, top_k)
-                # as run_loop, over the slowest unfinished lane
-                generated = 0
-                while True:
-                    steps.run(max(1, -(-(max_new_tokens - generated)
-                                       // self.layout.guess_size)))
-                    host = graphs.fetch(torch.stack([
-                        states.finished.int(),
-                        states.n_confirmed - states.init_len]))
-                    if host[0].all():
-                        break
-                    generated = int(host[1][host[0] == 0].min())
+                loop = self._batch_today(lanes, args, seeds, prefix,
+                                         max_new_tokens, eos_token_id,
+                                         sampling, temperatures, top_ps,
+                                         host_loop)
+                if loop is not None:
+                    columns += [states.finished.int(), loop.iters.expand(B)]
             host = graphs.fetch(torch.cat([torch.stack(columns, dim=1),
                                            states.out_buf], dim=1))
             if loop is not None:
+                request = isinstance(loop, graphs.RequestGraph)
                 _loop_done(loop, bool(host[:, 3].all()), int(host[0, 4]),
-                           max_new_tokens)
-                host = np.concatenate([host[:, :3], host[:, 5:]], axis=1)
+                           max_new_tokens, *((
+                               [int(x) for x in host[:, 5]],
+                               [self._chunks(n, start0) for _, n, _ in args])
+                               if request else ()))
+                host = np.concatenate([host[:, :3],
+                                       host[:, 6 if request else 5:]],
+                                      axis=1)
         wall = time.perf_counter() - t0
         out = []
         for row in host:
@@ -1187,3 +1300,124 @@ class LookaheadEngine:
             if self.log is not None:
                 self.log.append(out[-1])
         return out
+
+    def _lane_warpers(self, B: int, sampling, temperatures, top_ps):
+        """(temperatures, top_ps) of B lanes on the host: the config's
+        values or the lanes' own (1.0 each without sampling)."""
+        if sampling is None:
+            return [1.0] * B, [1.0] * B
+        return ([sampling.temperature] * B if temperatures is None
+                else list(temperatures),
+                [sampling.top_p] * B if top_ps is None else list(top_ps))
+
+    def _batch_call(self, lanes: LaneSlot, args, seeds, start0: int,
+                    max_new: int, eos_token_id, prefix, sampling,
+                    temperatures, top_ps) -> graphs.RequestGraph:
+        """A whole ``generate_batch`` on the device: every lane's words
+        into ``lanes.args`` in one upload (the call's ``max_new``, EOS ids,
+        temperatures and top_ps, then each lane's request words), the
+        prefix into the prefix source, and one launch of the batch request
+        graph, which is returned unread."""
+        B = len(args)
+        temps, tops = self._lane_warpers(B, sampling, temperatures, top_ps)
+        graphs.upload_into(lanes.args, np.concatenate(
+            [np.full(B, min(max_new, _INT32_MAX), np.int32),
+             np.tile(_eos_words(eos_token_id), B),
+             np.float32(temps).view(np.int32),
+             np.float32(tops).view(np.int32)]
+            + [self._request_words(buf, n, s, fill, start0)
+               for (buf, n, fill), s in zip(args, seeds)]))
+        self._load_prefix(prefix)
+        with self._slot() as flat:
+            graph = self._batch_graph(
+                lanes, flat, args[0][2] is not None, sampling is not None,
+                sampling is not None and min(tops) < 1.0,
+                0 if sampling is None else sampling.top_k,
+                **self._prefix_kind(prefix))
+            graph.run()
+        return graph
+
+    def _batch_graph(self, lanes: LaneSlot, flat: FlatSlot, fill: bool,
+                     sampled: bool, top_p_on: bool, top_k: int,
+                     prefix: bool = False,
+                     warm_pool: bool = False) -> graphs.RequestGraph:
+        """The :class:`graphs.RequestGraph` of a whole ``generate_batch``
+        over ``lanes`` (JAX's ``bcall`` / ``bcall_px``: a vmapped prepare,
+        then the vmapped loop, in one ``jit``): a WHILE node over the
+        lanes, whose body, for lane ``lanes.lane`` (the node's own
+        counter, read on the device), copies the lane's words into
+        ``flat``'s args, records the preparation (:meth:`_prepare_body`,
+        its prefill's WHILE node nested, with ``prefix`` and ``warm_pool``
+        as :meth:`_request_graph`), copies the flat state into the lane's
+        page and bookkeeping (``write_lane``) and the prefill's iterations
+        into ``lanes.prefills``; then the lanes' decode loop, a WHILE node
+        of the batched step (greedy, or sampled with ``top_p_on`` and
+        ``top_k``). One graph for each lane count (``lanes``), slot,
+        fill, prefix kind and step; its bodies allocate in the engine's
+        MemPool."""
+        step, key = self._lane_step(lanes, sampled, top_p_on, top_k)
+        source = self._prefix_source(warm_pool) if prefix else None
+        words = flat.args[flat.split:].view(1, -1)
+
+        def record(graph):
+            def lane():
+                b = lanes.lane.long()
+                torch.index_select(lanes.words, 0, b, out=words)
+                self._prepare_body(graph, flat, fill, source)
+                write_lane(lanes, b, flat.state)
+                lanes.prefills.index_copy_(0, b, flat.prefills.view(1))
+            graph.loop("lanes", None, flat.never, lanes.count, lanes.lane,
+                       lane)
+            graph.loop("decode", "replays", lanes.states.finished,
+                       lanes.max_new, graph.iters, step)
+        self._pools()
+        return graphs.request_runner(
+            lanes.graphs, ("batch", self._slots.index(flat), key, fill,
+                           prefix, warm_pool), record, (flat, lanes),
+            self._graph_pool, self._loop_pool)
+
+    def _batch_today(self, lanes: LaneSlot, args, seeds, prefix, max_new,
+                     eos_token_id, sampling, temperatures, top_ps,
+                     host_loop: bool):
+        """``generate_batch`` lane by lane: each lane prepared by
+        ``_prepare`` (its prepare graph where the engine fuses; past a
+        prefix op by op, the prefill by the host's count of chunks, as
+        ``fused=False``'s flat call) and copied to its page, the call's
+        values written op by op, then the lane loop's own graph, launched and
+        returned unread, or (``host_loop``, or where steps do not loop on
+        the device) the host stepping the lanes to their end (None)."""
+        B = len(args)
+        with self._slot() as flat:
+            for b, ((buf, n, fill), s) in enumerate(zip(args, seeds)):
+                write_lane(lanes, lanes.index[b:b + 1],
+                           self._prepare(buf, n, s, fill, prefix, slot=flat,
+                                         fused=prefix is None))
+        lanes.max_new.fill_(min(max_new, _INT32_MAX))
+        lanes.eos.copy_(graphs.upload(_eos_vec(eos_token_id),
+                                      self.device).expand(B, -1))
+        top_p, top_k = None, 0
+        if sampling is not None:
+            temps, top_p, top_k = self._warp(sampling, B, temperatures,
+                                             top_ps)
+            lanes.temperature.copy_(temps)
+            if top_p is not None:
+                lanes.top_p.copy_(top_p)
+        if (self._loops("greedy" if sampling is None else "sample")
+                and not host_loop):
+            loop = self._lane_loop(lanes, sampling is not None,
+                                   top_p is not None, top_k)
+            loop.run()
+            return loop
+        steps = self._lane_runner(lanes, sampling is not None,
+                                  top_p is not None, top_k)
+        states = lanes.states
+        # as run_loop, over the slowest unfinished lane
+        generated = 0
+        while True:
+            steps.run(max(1, -(-(max_new - generated)
+                               // self.layout.guess_size)))
+            host = graphs.fetch(torch.stack([
+                states.finished.int(), states.n_confirmed - states.init_len]))
+            if host[0].all():
+                return None
+            generated = int(host[1][host[0] == 0].min())

@@ -66,16 +66,20 @@ the step's collectives inside the body (the counterpart of JAX's
 
 :class:`RequestGraph` is the counterpart of the JAX engine's one traced
 call a request (``_make_fused``: ``_fused_prepare``, ``_fused_greedy``,
-``_fused_baseline`` and the fused sampling loop): on one card a flat
-request without a prefix is one graph, launched once and read once. It
-holds the resets, the stream's seeding, the window seeding, the pool fill,
-the prefill as a WHILE node whose cap, the chunk count, the device
-computes from the prompt's length, and, in a whole call, the decode loop's
-WHILE node after it. Every argument of the request (its length, seed,
-output buffer, fill, budget, EOS ids and warpers) is in the slot on the
-device, uploaded before the launch, so one graph serves every request of
-its key; its loops' iterations stay on the device until the call's read
-(:meth:`RequestGraph.account`).
+``_fused_baseline`` and the fused sampling loop; ``_make_fused_prefix``;
+``generate_batch``'s ``bcall`` / ``bcall_px``): on one card a flat
+request, with or without a prefix, and a whole batch are each one graph,
+launched once and read once. It holds the resets (or the copy of a
+prefix from the engine's prefix source), the stream's seeding, the window
+seeding, the pool fill, the prefill as a WHILE node whose cap, the chunk
+count, the device computes from the prompt's and the prefix's lengths,
+and, in a whole call, the decode loop's WHILE node after it; a batch
+prepares its lanes in a WHILE node over them, each lane's prefill a WHILE
+node nested in its body. Every argument of the request (its length, the
+prefix's, seed, output buffer, fill, budget, EOS ids and warpers) is on
+the device, uploaded before the launch, so one graph serves every request
+of its key; its loops' iterations stay on the device until the call's
+read (:meth:`RequestGraph.account`).
 
 :func:`cond` is the counterpart of ``lax.cond``: inside a capture it records
 its body as a CUDA-graph IF node (``ops/graph_cond.py``), which the device
@@ -484,6 +488,15 @@ def _without_generators(state, run: Callable[[], object]) -> None:
             "the host")
 
 
+def _minus(launches: list, less: list) -> list:
+    """(tally, key, launches) of ``launches`` less those of ``less``, none
+    at zero."""
+    out = {(id(t), key): [t, key, k] for t, key, k in launches}
+    for t, key, k in less:
+        out[(id(t), key)][2] -= k
+    return [tuple(x) for x in out.values() if x[2]]
+
+
 def _since(before) -> list:
     """(tally, key, launches) of every count that moved since ``before``
     (``[dict(t) for t in _TALLIES]``)."""
@@ -493,18 +506,22 @@ def _since(before) -> list:
 
 
 class RequestGraph(StepGraph):
-    """A whole flat request captured as one graph: the counterpart of the
-    JAX engine's fused call (``_make_fused``: ``_fused_prepare``,
-    ``_fused_greedy``, ``_fused_baseline``, the fused sampling loop).
+    """A whole request captured as one graph: the counterpart of the JAX
+    engine's fused call (``_make_fused``: ``_fused_prepare``,
+    ``_fused_greedy``, ``_fused_baseline``, the fused sampling loop; their
+    ``_make_fused_prefix`` variants; ``generate_batch``'s ``bcall`` /
+    ``bcall_px``).
 
-    ``record(graph)`` enqueues the request over ``state`` (a ``FlatSlot``):
-    the preparation as it stands, and each loop through :meth:`loop`, a
-    WHILE node (``ops/graph_cond.py``) whose body is captured straight into
-    the node, its allocations in ``body_pool`` (a ``torch.cuda.MemPool``),
-    its IF nodes nested on a second body stream: the prefill's chunks under
-    a cap the device computed, then, in a whole call, the decode loop on
-    ``~finished``. The request's arguments are in ``state`` on the device
-    (the engine uploads them before the launch), so one graph serves every
+    ``record(graph)`` enqueues the request over ``state`` (a ``FlatSlot``,
+    or a batch's flat slot and ``LaneSlot``): the preparation as it stands,
+    and each loop through :meth:`loop`, a WHILE node (``ops/graph_cond.py``)
+    whose body is captured straight into the node, its allocations in
+    ``body_pool`` (a ``torch.cuda.MemPool``), its IF nodes nested on a
+    deeper body stream: the prefill's chunks under a cap the device
+    computed, then, in a whole call, the decode loop on ``~finished``; a
+    batch's lanes in a loop whose body holds each lane's prefill loop,
+    nested. The request's arguments are in ``state`` on the device (the
+    engine uploads them before the launch), so one graph serves every
     request of its key.
 
     The warm run before the capture runs the preparation and one pass of
@@ -515,8 +532,10 @@ class RequestGraph(StepGraph):
     loops' iterations stay in their counters on the device until the
     caller's read hands them to :meth:`account`, which counts the
     preparation's launches once and each loop's per iteration (a prefill
-    iteration as ``stats["prefills"]``, a decode one as ``replays``), each
-    loop's condition kernel once before it and once an iteration."""
+    iteration as ``stats["prefills"]``, a decode one as ``replays``, a
+    lane's in no entry), each loop's condition kernel once before it (a
+    nested loop's once an iteration of its parent) and once an
+    iteration."""
 
     if_depth = 1
 
@@ -526,34 +545,58 @@ class RequestGraph(StepGraph):
         self.body_pool = body_pool
         device = state_tensors(state)[0].device
         self.iters = torch.zeros(1, dtype=torch.int32, device=device)
-        # name -> (stats entry, launches an iteration, IF nodes an
+        # name -> (stats entry or None, launches an iteration, IF nodes an
         # iteration), recorded by the capture; then the launches once a
         # launch, and each loop's counter
         self.loops: dict = {}
         self.fixed: list = []
         self.counters: dict = {}
+        # while capturing: the loops open around the capture's position,
+        # each with the launches and IF nodes of the loops nested in it
+        self._open: list = []
 
-    def loop(self, name: str, counter: str, finished: torch.Tensor,
+    def loop(self, name: str, counter, finished: torch.Tensor,
              cap: torch.Tensor, iters: torch.Tensor,
              body: Callable[[], object]) -> None:
         """The request's WHILE node ``name``: ``body`` while any of
         ``finished`` is clear and fewer than ``cap`` iterations have run,
         counted in ``iters`` on the device (``graph_cond.while_node``);
-        ``counter`` is the ``stats`` entry its iterations count in. In the
-        warm run, one pass of ``body``."""
+        ``counter`` is the ``stats`` entry its iterations count in (None:
+        none). Inside another loop's body it nests: its body captures one
+        stream deeper (``graph_cond.body_stream``), its IF nodes one
+        deeper still, and its launches count by its own iterations, not
+        by the outer loop's. The body may read ``iters``, the iteration
+        under way. In the warm run, one pass of ``body``, ``iters``
+        zeroed."""
         if _active is not None and not _active[1]:
+            iters.zero_()
             body()
             return
         self.counters[name] = iters
+        device, depth = iters.device, len(self._open)
 
         def counted():
             before, conds = [dict(t) for t in _TALLIES], self.conds
-            body()
+            inner = {"launches": [], "conds": 0}
+            self._open.append(inner)
+            outer, self.body_stream = (self.body_stream,
+                                       graph_cond.body_stream(device,
+                                                              depth + 1))
+            try:
+                body()
+            finally:
+                self._open.pop()
+                self.body_stream = outer
             if self.graph is None:            # the capture's own pass
-                self.loops[name] = (counter, _since(before) + [
-                    (graph_cond.counts, "set_while", 1)], self.conds - conds)
+                launches = _minus(_since(before), inner["launches"]) + [
+                    (graph_cond.counts, "set_while", 1)]
+                own = self.conds - conds - inner["conds"]
+                self.loops[name] = (counter, launches, own)
+                if self._open:                # nested: its parent's share
+                    self._open[-1]["launches"] += launches
+                    self._open[-1]["conds"] += own
         graph_cond.while_node(finished, cap, iters, counted,
-                              graph_cond.body_stream(iters.device),
+                              graph_cond.body_stream(device, depth),
                               self.body_pool)
 
     def run(self) -> None:
@@ -570,13 +613,14 @@ class RequestGraph(StepGraph):
     def account(self, **iters: int) -> None:
         """Count the last launch: its launches outside the loops once, and
         ``iters[name]`` iterations of each loop, read by the caller from
-        ``counters[name]``: their launches, ``stats`` entries and
-        branches."""
+        ``counters[name]`` (a nested loop's: summed over the outer loop's
+        iterations): their launches, ``stats`` entries and branches."""
         for tally, key, k in self.fixed:
             tally[key] += k
         for name, n in iters.items():
             counter, launches, conds = self.loops[name]
-            stats[counter] += n
+            if counter is not None:
+                stats[counter] += n
             stats["branches"] += conds * n
             for tally, key, k in launches:
                 tally[key] += k * n
@@ -595,12 +639,10 @@ class RequestGraph(StepGraph):
         super()._capture()
         # the capture ran each body once and counted both of its WHILE
         # node's condition kernels; a launch runs the one before the loop
-        # once and the rest an iteration
-        fixed = {(id(t), key): [t, key, k] for t, key, k in self.launches}
-        for _, launches, _ in self.loops.values():
-            for tally, key, k in launches:
-                fixed[(id(tally), key)][2] -= k
-        self.fixed = [tuple(x) for x in fixed.values() if x[2]]
+        # once (a nested loop's: once an outer iteration) and the rest an
+        # iteration
+        self.fixed = _minus(self.launches, [
+            x for _, launches, _ in self.loops.values() for x in launches])
 
 
 def capturable(device, mesh=None) -> bool:

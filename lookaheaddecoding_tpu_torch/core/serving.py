@@ -194,9 +194,9 @@ class ContinuousBatchingEngine:
                 continue
             # the lone call's own prepare, copied into the lane in place
             with eng._slot() as flat:
-                write_lane(slot, lane, eng._prepare(out_buf, P, req.seed,
-                                                    fill, req.prefix,
-                                                    slot=flat))
+                write_lane(slot, slot.index[lane:lane + 1],
+                           eng._prepare(out_buf, P, req.seed, fill,
+                                        req.prefix, slot=flat))
             slot.max_new[lane] = min(req.max_new_tokens, _INT32_MAX)
             slot.eos[lane] = eos
             slot.temperature[lane] = temp

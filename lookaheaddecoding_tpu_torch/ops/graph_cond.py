@@ -26,7 +26,9 @@ runs no iteration; one that stops at ``cap`` with a lane unfinished is the
 caller's to refuse (``core/engine.py`` raises). The body may allocate when
 ``pool`` (a ``torch.cuda.MemPool``) is given: its allocations go there
 (``torch.cuda.use_mem_pool``), which keeps them, at the addresses the body
-captured, as long as the pool lives. On a CPU tensor the wrapper runs the
+captured, as long as the pool lives. A WHILE node may sit in another's
+body (``body_stream`` one depth deeper); given the same pool, it
+allocates there under its parent's routing. On a CPU tensor the wrapper runs the
 plain version, ``while_node_ref``: ``while pred(): body()``.
 
 A body is checked when its capture ends: a node that a conditional body
@@ -41,7 +43,9 @@ and one an iteration; a replay of a captured step counts them again,
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 from typing import Callable
 
 import torch
@@ -49,6 +53,9 @@ import torch
 counts = {"set_if": 0, "set_while": 0, "plain": 0}
 
 _streams: dict = {}    # (CUDA device index, depth) -> the bodies' stream
+
+# the MemPools this thread's open WHILE bodies route their allocations to
+_routed = threading.local()
 
 _FORBIDDEN = 100000    # csrc/graph_cond.cu's kForbiddenNode
 # cudaGraphNodeType values, for the message naming a forbidden body node
@@ -106,6 +113,24 @@ def body_stream(device, depth: int = 0):
         got = _streams[(index, depth)] = torch.cuda.ExternalStream(
             handle.value, device=torch.device("cuda", index))
     return got
+
+
+@contextlib.contextmanager
+def _allocating_in(pool, device):
+    """This thread's allocations routed to ``pool`` (a
+    ``torch.cuda.MemPool``), unless an enclosing WHILE body already routes
+    them there: a nested body allocates in its parent's pool, which
+    PyTorch refuses to route twice."""
+    pools = _routed.__dict__.setdefault("pools", [])
+    if any(p is pool for p in pools):
+        yield
+        return
+    pools.append(pool)
+    try:
+        with torch.cuda.use_mem_pool(pool, device):
+            yield
+    finally:
+        pools.pop()
 
 
 def _device_type(t: torch.Tensor) -> str:
@@ -224,7 +249,7 @@ def while_node(finished: torch.Tensor, cap: torch.Tensor,
             if pool is None:
                 body()
             else:
-                with torch.cuda.use_mem_pool(pool, finished.device):
+                with _allocating_in(pool, finished.device):
                     body()
     finally:
         _end_body(4, "WHILE", body_stream, loop, ctypes.addressof(handle))

@@ -4,8 +4,8 @@ decode loop's ``lax.while_loop`` on ``~finished``
 ``core/engine.py:625`` for ``generate_batch``). On one card greedy
 ``generate``, ``generate_baseline`` and greedy ``generate_batch`` launch
 their whole loop once, a CUDA-graph WHILE node around the captured step
-(``ops/graph_cond.py``): a ``graphs.LoopGraph``, or, in a call without a
-prefix, the decode node of its ``graphs.RequestGraph``, the whole request
+(``ops/graph_cond.py``): a ``graphs.LoopGraph`` (``fused=False``), or
+the decode node of the call's ``graphs.RequestGraph``, the whole request
 as one graph; and they read the device once, in the call's final
 transfer. Here the capture is
 ``torch_parallel_worker.faked_capture``'s, whose WHILE node runs its body

@@ -19,9 +19,13 @@ request's preparation bit-equal to eager, a prefill iteration a chunk, no
 host sync up to the first decode replay); the request graph (a flat call
 without a prefix one launch: greedy at six prompt lengths, AR, sampled
 and EOS-ended calls bit-equal to today's path and eager, prefill
-iterations the chunks, one read and no sync before it); the CUDA-graph
+iterations the chunks, one read and no sync before it), and its prefix
+and batch kinds (calls past a precomputed or a warm-pool prefix, whole
+greedy and sampled ``generate_batch`` calls with and without a prefix,
+the same way, each lane's prefill iterations its chunks); the CUDA-graph
 WHILE node (n, 0 and 1
-iterations, flags set by the body, a forbidden body node refused) and the
+iterations, flags set by the body, a forbidden body node refused, one
+nested in another's body) and the
 decode loop on the device (greedy, AR, prefix and batch calls bit-equal
 to eager, one loop launch and one read a call, no sync before it); the
 Philox kernel of the decode state's random stream bit-equal to its plain
@@ -1136,9 +1140,9 @@ def test_captured_prefill_equals_eager_without_a_sync(config):
     within a slot of the capacity), and past a 40-token prefix, the slot
     after ``_prepare`` is bit-equal to the eager one (caches, ``kv_len``,
     pool, window, output buffer); a warm engine's graphed preparation
-    captures nothing and runs a prefill iteration a chunk (without a
-    prefix, its prepare graph's WHILE node; past one, replays of the
-    slot's captured chunk); and from its start to the first decode replay
+    captures nothing and runs a prefill iteration a chunk (its prepare
+    graph's WHILE node, past a prefix too); and from its start to the
+    first decode replay
     nothing waits for the card (``torch.cuda.set_sync_debug_mode("error")``
     raises on a sync)."""
     if not torch.cuda.is_available():
@@ -1714,6 +1718,170 @@ def test_request_graph_equals_today_and_eager_without_a_sync(config,
         assert got[False][3]["requests"] == 0, name
         if name == "eos":
             assert want.tokens[-1] == eos and len(want.tokens) < 20 + 48
+
+
+@pytest.mark.gpu
+def test_while_node_nested_in_a_while_body_runs_as_its_plain_version():
+    """A WHILE node inside a WHILE body (the batch request graph's prefill
+    inside its lane loop): the outer loop over 3 lanes reads its own
+    counter on the device as the lane, the inner one runs that lane's
+    count of iterations (2, 0 and 5: a lane with none runs no inner
+    iteration) on a stream one deeper, each inner pass adding to its
+    lane's row and the outer body writing the inner counter to its lane;
+    bit-equal to the plain versions nested the same way, and so on a
+    second replay after the counts change."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from lookaheaddecoding_tpu_torch.ops import graph_cond
+
+    def make(device):
+        return dict(
+            acc=torch.zeros(3, 4, dtype=torch.int32, device=device),
+            seen=torch.zeros(3, dtype=torch.int32, device=device),
+            want=torch.tensor([2, 0, 5], dtype=torch.int32, device=device),
+            never=torch.zeros((), dtype=torch.bool, device=device),
+            lanes=torch.tensor([3], dtype=torch.int32, device=device),
+            lane=torch.zeros(1, dtype=torch.int32, device=device),
+            cap=torch.zeros(1, dtype=torch.int32, device=device),
+            inner=torch.zeros(1, dtype=torch.int32, device=device))
+
+    def record(t, streams, pool):
+        def inner_body():
+            b = t["lane"].long()
+            t["acc"].index_add_(0, b, (t["inner"] + 1).view(1, 1).expand(
+                1, 4).contiguous())
+
+        def outer_body():
+            b = t["lane"].long()
+            t["cap"].copy_(t["want"].index_select(0, b))
+            graph_cond.while_node(t["never"], t["cap"], t["inner"],
+                                  inner_body, streams[1], pool)
+            t["seen"].index_copy_(0, b, t["inner"])
+        graph_cond.while_node(t["never"], t["lanes"], t["lane"], outer_body,
+                              streams[0], pool)
+
+    card = make("cuda")
+    pool = torch.cuda.MemPool()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        record(card, [graph_cond.body_stream("cuda", d) for d in (0, 1)],
+               pool)
+    for want in ([2, 0, 5], [1, 3, 0]):
+        card["want"].copy_(torch.tensor(want, dtype=torch.int32))
+        card["acc"].zero_()
+        graph.replay()
+        plain = make("cpu")
+        plain["want"].copy_(torch.tensor(want, dtype=torch.int32))
+        record(plain, [None, None], None)
+        for name in ("acc", "seen", "lane", "inner"):
+            assert torch.equal(card[name].cpu(), plain[name]), (name, want)
+        assert card["seen"].tolist() == want and int(card["lane"]) == 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("config", ["bf16", "int8_kv"])
+def test_prefix_and_batch_graphs_equal_today_and_eager_without_a_sync(
+        config, monkeypatch):
+    """Calls with a prefix (``precompute_prefix``, and a second turn on a
+    ``return_prefix`` with its warm pool; ``generate``,
+    ``generate_baseline``, ``generate_sample``; a suffix of one token, whose
+    prefill runs no iteration) and whole ``generate_batch`` calls (three
+    lanes of different lengths, greedy and sampled with per-lane
+    temperatures, with and without the prefix) on the card: each one
+    launch of its request graph, bit-equal to today's path
+    (``fused=False``) and to the eager call (tokens, steps, pool rows [0,
+    R) and clocks, draw counters, the kernels' launches); its prefill's
+    iterations the chunks past the prefix (each lane's, for a batch), its
+    decode iterations the (slowest lane's) steps; one read back and no
+    host sync before it; nothing captured on the second call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import lookaheaddecoding_tpu_torch as lt
+    from lookaheaddecoding_tpu_torch.core import graphs
+    eng = _graph_engine(kv_quant="int8" if config == "int8_kv" else None)
+    base = list(np.random.RandomState(6).randint(0, 256, size=120))
+    sc = lt.SamplingConfig(temperature=0.8, top_k=30, top_p=0.9)
+    pc = eng.precompute_prefix(base[:40])
+    with graphs.eager():
+        warm = eng.generate(base[:30], 32, return_prefix=True).prefix
+    second = list(warm.tokens) + base[60:83]
+    flat = {"greedy": ("greedy", base[:77], pc, None),
+            "zero_chunks": ("greedy", base[:41], pc, None),
+            "baseline": ("ar", base[:60], pc, None),
+            "sample": ("sample", base[:90], pc, sc),
+            "warm_pool": ("greedy", second, warm, None)}
+    lanes = [base[:77], base[:52], base[:66]]
+    batches = {f"batch_{kind}_{'prefix' if p else 'none'}": (kind, p)
+               for kind in ("greedy", "sampled") for p in (None, pc)}
+
+    def run(name, fused):
+        if name in flat:
+            mode, p, prefix, sampling = flat[name]
+            res = [eng._run(mode, p, 40, None, 3, prefix=prefix,
+                            sampling=sampling, fused=fused)]
+            st = eng._free_slot().state
+            tabs = [st.pool.values[:-1], st.pool.age[:-1], st.pool.clock,
+                    st.draws]
+        else:
+            kind, prefix = batches[name]
+            res = eng._batch(lanes, 40, None, 0, [4, 5, 6], prefix,
+                             sc if kind == "sampled" else None,
+                             [0.7, 1.0, 1.2] if kind == "sampled" else None,
+                             None, fused=fused)
+            st = eng._lane_slots[3].states
+            tabs = [st.pool.values[:, :-1], st.pool.age[:, :-1],
+                    st.pool.clock, st.draws]
+        return res, [t.clone() for t in tabs]
+
+    fetches, fetch = [], graphs.fetch
+
+    def first_read(tensor):
+        fetches.append(1)
+        torch.cuda.set_sync_debug_mode("default")   # the call's one read
+        return fetch(tensor)
+    monkeypatch.setattr(graphs, "fetch", first_read)
+    for name in list(flat) + list(batches):
+        with graphs.eager():
+            (want, want_state), eager_counts = _counted(
+                lambda: run(name, True))
+        got = {}
+        for fused in (False, True):
+            run(name, fused)              # the first graphed call captures
+            torch.cuda.synchronize()
+            graphs.reset_stats()
+            fetches.clear()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                (res, state), counts = _counted(lambda: run(name, fused))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            got[fused] = (res, state, counts, graphs.read_stats())
+            assert fetches == [1], (name, fused)
+        for res, state, counts, st in got.values():
+            for a, b in zip(res, want):
+                np.testing.assert_array_equal(a.tokens, b.tokens, name)
+                assert a.steps == b.steps, name
+            assert all(torch.equal(a, b) for a, b in zip(state, want_state))
+            assert counts == eager_counts, (name, counts)
+        st = got[True][3]
+        if name in flat:
+            p, prefix = flat[name][1], flat[name][2]
+            chunks = [-(-max(len(p) - 1 - prefix.length, 0) // 16)]
+        else:
+            prefix = batches[name][1]
+            start0 = 0 if prefix is None else prefix.length
+            chunks = [-(-max(len(p) - 1 - start0, 0) // 16) for p in lanes]
+            assert eng._lane_slots[3].prefills.tolist() == chunks, name
+        assert (st["requests"], st["loops"], st["captured"]) == (1, 1, 0), \
+            (name, st)
+        assert (st["prefills"], st["replays"]) == (
+            sum(chunks), max(r.steps for r in got[True][0])), (name, st)
+        # today's path: a flat call and a prefixed batch's lanes prepare
+        # op by op, an unprefixed batch's lanes each by its prepare graph
+        lane_graphs = 3 if name in batches and prefix is None else 0
+        assert got[False][3]["requests"] == lane_graphs, name
+        if name == "zero_chunks":
+            assert chunks == [0]
 
 
 @pytest.mark.gpu

@@ -111,7 +111,8 @@ def batch_slot(eng, seeds=(3, 4)):
     lanes = lane_slot(eng, len(seeds))
     for b, s in enumerate(seeds):
         out_buf, n, fill = eng._host_args(prompt(b, 12 + 5 * b), 40)
-        write_lane(lanes, b, eng._prepare(out_buf, n, s, fill))
+        write_lane(lanes, lanes.index[b:b + 1],
+                   eng._prepare(out_buf, n, s, fill))
     lanes.max_new.fill_(40)
     return lanes
 

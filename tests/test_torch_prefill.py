@@ -1,11 +1,13 @@
 """The captured prefill on the CPU: the counterpart of the JAX engine's fused
 prepare call (``jax.jit(self._make_fused(None))``: caches, window, pool
 fill and the prefill ``fori_loop`` in one dispatch). On the card a flat
-``_prepare`` without a prefix is one launch of the slot's prepare graph
-(``core/engine.py:_request_graph``: the prefill a WHILE node of one chunk,
-its start read from device counters, ``core/step.py:prefill_chunk``); a
-prefix call replays one captured prefill chunk a chunk
-(``core/engine.py:_prefill``). Here the capture is
+``_prepare``, with or without a prefix, is one launch of the slot's
+prepare graph (``core/engine.py:_request_graph``: the prefill a WHILE
+node of one chunk, its start read from device counters,
+``core/step.py:prefill_chunk``); ``fused=False`` replays one captured
+prefill chunk a chunk (``core/engine.py:_prefill``), and a whole
+``generate_batch`` prepares its lanes inside its batch request graph.
+Here the capture is
 ``torch_parallel_worker.faked_capture``'s (the warm run, a capture that
 restores the slot, a replay that runs what the graph would), and every
 graphed call is held against the same call inside ``graphs.eager()`` on
@@ -100,10 +102,15 @@ def caches_and_slots(eng, caches):
     """``caches`` and every tensor of the engine's flat slots and lane
     slots, the pools' write-only trash rows apart (the warm step of a
     captured lookahead step runs the chain's body whatever its predicate,
-    which writes them: ``test_torch_graphs.py``'s rule)."""
+    which writes them: ``test_torch_graphs.py``'s rule), and the batch
+    request graph's own inputs and counters (a lane slot's uploaded
+    ``args`` with its lanes' ``words``, its ``lane`` and ``prefills``),
+    which only that graph writes."""
     pools = ([(s.state.pool, 0) for s in eng._slots]
              + [(s.states.pool, 1) for s in eng._lane_slots.values()])
     tables = {id(t) for pool, _ in pools for t in (pool.values, pool.age)}
+    tables |= {id(t) for s in eng._lane_slots.values()
+               for t in (s.args, s.words, s.lane, s.prefills)}
     out = [t for t in graphs.state_tensors((caches, eng._slots,
                                             eng._lane_slots))
            if id(t) not in tables]
@@ -242,9 +249,7 @@ def test_graphed_entry_points_equal_eager(kind):
     """Each entry point eager, then graphed twice on one engine: tokens,
     steps, every slot's tensors after the call (the flat slots and the
     batch's lanes) and the prefix caches it returns, bit for bit; the
-    graphed calls count a prefill iteration or replay a chunk (but the
-    first call's first chunk of a prefix on a new slot: the warm step of
-    the slot's chunk graph)."""
+    graphed calls count a prefill iteration a chunk."""
     kv_quant, model, call = ENTRY[kind]
     runs = {}
     with faked_capture():
@@ -263,9 +268,8 @@ def test_graphed_entry_points_equal_eager(kind):
         got = runs[which]
         assert got[0] == eager[0], (kind, which)
         assert bit_equal(got[1], eager[1]), (kind, which)
-    # a prefix call's chunk graph warms on its first chunk; a call without
-    # a prefix counts every chunk of its request graph
-    warm = 1 if kind in ("prefix", "second_turn") else 0
-    assert runs["first"][2]["prefills"] == k - warm
+    # every call, past a prefix too, counts every chunk of its request
+    # graph's prefill, the capturing call's included
+    assert runs["first"][2]["prefills"] == k
     assert runs["graphed"][2]["prefills"] == k
     assert runs["graphed"][2]["captured"] == 0

@@ -440,10 +440,11 @@ def test_a_prefill_count_that_disagrees_with_the_host_raises():
 
 
 def test_calls_with_a_prefix_or_the_host_loop_keep_their_path():
-    """A prefix call and a host-loop call (``host_loop=True``) launch no
-    request graph: the prefix call replays the slot's captured chunk and
-    its decode loop graph, the host-loop call prepares op by op; each
-    equals the request graph's tokens."""
+    """A prefix call is one launch of its request graph (the prefix copied
+    in from the engine's prefix source, the prefill from the prefix's
+    length: the chunks past it), and a host-loop call
+    (``host_loop=True``) still prepares op by op and launches none; each
+    equals the request graph's tokens without the prefix."""
     p = prompt(4, 40)
     with faked_capture():
         eng = port_engine()
@@ -454,5 +455,6 @@ def test_calls_with_a_prefix_or_the_host_loop_keep_their_path():
                                                host_loop=True))
     for res in (with_prefix, host):
         np.testing.assert_array_equal(res.tokens, fused.tokens)
-    assert st1["requests"] == 0 and st1["loops"] == 1
+    assert (st1["requests"], st1["loops"], st1["prefills"]) == \
+        (1, 1, chunks(len(p) - 20))
     assert st2["requests"] == st2["loops"] == 0

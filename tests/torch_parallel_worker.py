@@ -447,7 +447,8 @@ def _step_kinds(eng, n_new=24):
         lanes = lane_slot(eng, 2)
         for b, p in enumerate((prompt_of("small"), prompt_of("la"))):
             out_buf, n, fill = eng._host_args(p[:10 + b], n_new)
-            write_lane(lanes, b, eng._prepare(out_buf, n, 3 + b, fill))
+            write_lane(lanes, lanes.index[b:b + 1],
+                       eng._prepare(out_buf, n, 3 + b, fill))
         lanes.max_new.fill_(n_new)
         args = (params, lanes.k_pool, lanes.v_pool, lanes.states,
                 lanes.max_new, lanes.eos)
